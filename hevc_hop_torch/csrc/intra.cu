@@ -1,0 +1,325 @@
+// Kernel C2: intra prediction of a batch of blocks, with the 35-mode SATD
+// decision (RMD), or one given mode, or one given mode plus the decoder's
+// add-residual epilogue.
+//
+// Replaces hevc_hop_tpu/ops/intra.py substitute_refs, filter_refs,
+// predict_all_modes, predict_mode and satd, together with the chain gather
+// and block scatter of hevc_hop_tpu/models/wavefront_scan.py
+// (_gather_chains, _enc_plane_ys's RMD, scan_decode's dec_plane).
+//
+// One CTA per block. The CTA gathers the block's 4N+1 reference chain from
+// the recon plane (coordinates clamped to the plane), substitutes the
+// unavailable samples (H.265 8.4.4.2.2), builds the 1-2-1 filtered chain and
+// the 32x32 strong-smoothed one, and predicts from the per-mode gather
+// tables of ops/intra.py static_tables. RMD predicts the 35 modes one after
+// another into shared memory and scores each with the 8x8 (4x4 at N = 4)
+// Hadamard SATD against the original; the lowest cost wins and ties go to
+// the lowest mode, as jnp.argmin does.
+//
+// Every block handed to one launch is independent of the others (one
+// wavefront level): a block's chain only reads samples of earlier levels,
+// or samples that substitution replaces. The schedule packs the real slots
+// of a level first and the wrapper launches only those, so no two CTAs
+// ever write the same samples.
+//
+// Bound: integer operations. RMD does about 35 x (N^2 prediction + 2 x N^2 x
+// 8 Hadamard multiply-adds) per block and moves only the block's samples, so
+// it sits far above the card's bytes-per-operation line. The design keeps
+// the chain, the candidate prediction, the original and the Hadamard
+// intermediate in shared memory, so device memory sees each input once and
+// each output once; the threads of the CTA share the per-pixel work of every
+// mode. The blocks of one level are few (a wavefront level of 1080p holds
+// some tens), so the card is far from full; the level loop on the host is
+// the cost to attack next (a persistent kernel or a CUDA graph).
+#include "common.cuh"
+
+namespace {
+
+struct Tables {
+  const int32_t *ext_idx;   // [33, 3N+1]
+  const int32_t *pred_idx;  // [33, N, N]
+  const int32_t *fact;      // [33, N]
+  const int32_t *is_hor;    // [33]
+  const int32_t *filt;      // [33]
+  const int32_t *had;       // [k, k]
+};
+
+struct Refs {
+  const int32_t *cu;  // substituted chain
+  const int32_t *cf;  // filtered chain (== cu when no filtering)
+  int n, log2, c_idx, use_filter, maxv, dc;
+};
+
+__device__ __forceinline__ int left_of(const int32_t *c, int n, int y) {
+  return c[2 * n - 1 - y];
+}
+__device__ __forceinline__ int top_of(const int32_t *c, int n, int x) {
+  return c[2 * n + 1 + x];
+}
+
+// Prediction of mode m at column x, row y (H.265 8.4.4.2.4-6, following
+// the reference's predict_all_modes / predict_mode exactly).
+__device__ int predict_px(const Refs &r, const Tables &t, int m, int x,
+                          int y) {
+  const int n = r.n;
+  int v;
+  if (m == 0) {
+    const int32_t *c = r.use_filter ? r.cf : r.cu;
+    v = ((n - 1 - x) * left_of(c, n, y) + (x + 1) * top_of(c, n, n) +
+         (n - 1 - y) * top_of(c, n, x) + (y + 1) * left_of(c, n, n) + n) >>
+        (r.log2 + 1);
+  } else if (m == 1) {
+    v = r.dc;
+    if (r.c_idx == 0 && n < 32) {
+      if (x == 0 && y == 0)
+        v = (left_of(r.cu, n, 0) + 2 * r.dc + top_of(r.cu, n, 0) + 2) >> 2;
+      else if (y == 0)
+        v = (top_of(r.cu, n, x) + 3 * r.dc + 2) >> 2;
+      else if (x == 0)
+        v = (left_of(r.cu, n, y) + 3 * r.dc + 2) >> 2;
+    }
+  } else {
+    const int mi = m - 2;
+    const int32_t *c = (t.filt[mi] && r.use_filter) ? r.cf : r.cu;
+    const int hor = t.is_hor[mi];
+    const int row = hor ? x : y, col = hor ? y : x;  // vertical form
+    const int32_t *ext = t.ext_idx + mi * (3 * n + 1);
+    const int p = t.pred_idx[(mi * n + row) * n + col];
+    const int f = t.fact[mi * n + row];
+    const int g0 = c[ext[p]];
+    const int g1 = f ? c[ext[p + 1]] : 0;
+    v = ((32 - f) * g0 + f * g1 + 16) >> 5;
+    if (r.c_idx == 0 && n < 32) {
+      const int corner = r.cu[2 * n];
+      if (m == 26 && x == 0)
+        v = clip3(0, r.maxv,
+                  top_of(r.cu, n, 0) + ((left_of(r.cu, n, y) - corner) >> 1));
+      if (m == 10 && y == 0)
+        v = clip3(0, r.maxv,
+                  left_of(r.cu, n, 0) + ((top_of(r.cu, n, x) - corner) >> 1));
+    }
+  }
+  return clip3(0, r.maxv, v);
+}
+
+__global__ void intra_kernel(int32_t *plane, int ph, int pw, int stride,
+                             const int32_t *org, int org_stride,
+                             const int32_t *resi, int resi_stride,
+                             const int32_t *pos, const uint8_t *avail,
+                             const int32_t *modes, int aper, int mper, int n,
+                             int c_idx, int bit_depth, int strong, Tables t,
+                             int32_t *pred_out, int32_t *best_out) {
+  extern __shared__ int32_t sm[];
+  const int L = 4 * n + 1, nn = n * n;
+  int32_t *cu = sm;            // [L]
+  int32_t *cf = cu + L;        // [L]
+  int32_t *P = cf + L;         // [nn] candidate prediction
+  int32_t *B = P + nn;         // [nn] best prediction so far
+  int32_t *O = B + nn;         // [nn] original minus candidate
+  int32_t *A = O + nn;         // [nn] Hadamard first stage
+  int32_t *H = A + nn;         // [64]
+  int32_t *tsum = H + 64;      // [16] per-tile sums
+  int32_t *flag = tsum + 16;   // [2] improved, best mode
+
+  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
+  const int px = pos[2 * b], py = pos[2 * b + 1];
+  const int log2 = 31 - __clz(n);
+  const int maxv = (1 << bit_depth) - 1;
+
+  // gather the chain (the reference's chain_coords, clamped to the plane)
+  for (int i = tid; i < L; i += nt) {
+    int x, y;
+    if (i < 2 * n) {
+      x = px - 1;
+      y = py + 2 * n - 1 - i;
+    } else if (i == 2 * n) {
+      x = px - 1;
+      y = py - 1;
+    } else {
+      x = px + i - 2 * n - 1;
+      y = py - 1;
+    }
+    x = clip3(0, pw - 1, x);
+    y = clip3(0, ph - 1, y);
+    cu[i] = plane[(long long)y * stride + x];
+  }
+  __syncthreads();
+
+  // substitution: last available sample at or before i, else the first
+  if (tid == 0) {
+    const uint8_t *av = avail + (long long)(b % aper) * L;
+    int first = -1;
+    for (int i = 0; i < L && first < 0; ++i)
+      if (av[i]) first = i;
+    if (first < 0) {
+      for (int i = 0; i < L; ++i) cu[i] = 1 << (bit_depth - 1);
+    } else {
+      int prev = -1;
+      for (int i = 0; i < L; ++i) {
+        if (av[i]) prev = i;
+        cu[i] = cu[prev >= 0 ? prev : first];
+      }
+    }
+  }
+  __syncthreads();
+
+  const int use_filter = (c_idx == 0 && n > 4);
+  if (use_filter) {
+    for (int i = tid; i < L; i += nt)
+      cf[i] = (i == 0 || i == L - 1)
+                  ? cu[i]
+                  : (cu[i - 1] + 2 * cu[i] + cu[i + 1] + 2) >> 2;
+    __syncthreads();
+    if (strong && n == 32) {
+      const int thr = 1 << (bit_depth - 5);
+      const int corner = cu[2 * n], top_last = cu[4 * n], left_last = cu[0];
+      const bool cond = iabs(corner + top_last - 2 * cu[3 * n]) < thr &&
+                        iabs(corner + left_last - 2 * cu[n]) < thr;
+      if (cond) {
+        for (int i = tid; i < L; i += nt) {
+          int v;
+          if (i == 0) v = left_last;
+          else if (i < 64) {
+            const int k = 63 - i;
+            v = ((63 - k) * corner + (k + 1) * left_last + 32) >> 6;
+          } else if (i == 64) v = corner;
+          else if (i < 128) {
+            const int k = i - 65;
+            v = ((63 - k) * corner + (k + 1) * top_last + 32) >> 6;
+          } else v = top_last;
+          cf[i] = v;
+        }
+      }
+      __syncthreads();
+    }
+  }
+
+  Refs r;
+  r.cu = cu;
+  r.cf = use_filter ? cf : cu;
+  r.n = n;
+  r.log2 = log2;
+  r.c_idx = c_idx;
+  r.use_filter = use_filter;
+  r.maxv = maxv;
+  {
+    int s = 0;
+    for (int i = 0; i < n; ++i) s += top_of(cu, n, i) + left_of(cu, n, i);
+    r.dc = (s + n) >> (log2 + 1);
+  }
+
+  const int mode = modes[b % mper];
+  const long long ob = (long long)b * nn;
+
+  if (org == nullptr || mode >= 0) {
+    // one given mode: prediction, or the decode epilogue
+    for (int i = tid; i < nn; i += nt) {
+      const int x = i % n, y = i / n;
+      const int v = predict_px(r, t, mode, x, y);
+      if (resi != nullptr) {
+        const long long row = py + y;
+        plane[row * stride + px + x] =
+            clip3(0, maxv, v + resi[row * resi_stride + px + x]);
+      } else {
+        pred_out[ob + i] = v;
+      }
+    }
+    if (best_out != nullptr && tid == 0) best_out[b] = mode;
+    return;
+  }
+
+  // RMD: 35 candidates, Hadamard SATD against the original
+  const int k = n >= 8 ? 8 : 4;
+  const int kl = k == 8 ? 3 : 2;
+  const int tiles_w = n / k;
+  for (int i = tid; i < k * k; i += nt) H[i] = t.had[i];
+  if (tid < 16) tsum[tid] = 0;
+  if (tid == 0) {
+    flag[0] = 0;
+    flag[1] = 0;
+  }
+  int best_cost = 0x7fffffff;  // kept by thread 0
+  __syncthreads();
+
+  for (int m = 0; m < 35; ++m) {
+    for (int i = tid; i < nn; i += nt) {
+      const int x = i % n, y = i / n;
+      const int v = predict_px(r, t, m, x, y);
+      P[i] = v;
+      O[i] = org[(long long)(py + y) * org_stride + px + x] - v;
+    }
+    __syncthreads();
+    // stage 1: A = H . D within each k x k tile (rows mix)
+    for (int i = tid; i < nn; i += nt) {
+      const int x = i % n, y = i / n;
+      const int ty = y & ~(k - 1), ly = y & (k - 1);
+      int s = 0;
+      for (int j = 0; j < k; ++j) s += H[ly * k + j] * O[(ty + j) * n + x];
+      A[i] = s;
+    }
+    __syncthreads();
+    // stage 2: (H . D) . H (columns mix), absolute sum per tile
+    for (int i = tid; i < nn; i += nt) {
+      const int x = i % n, y = i / n;
+      const int tx = x & ~(k - 1), lx = x & (k - 1);
+      int s = 0;
+      for (int j = 0; j < k; ++j) s += A[y * n + tx + j] * H[j * k + lx];
+      atomicAdd(&tsum[(y >> kl) * tiles_w + (x >> kl)], iabs(s));
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int cost = 0;
+      for (int ti = 0; ti < tiles_w * tiles_w; ++ti) {
+        const int s = tsum[ti];
+        cost += k == 8 ? (s + 2) >> 2 : (s + 1) >> 1;
+        tsum[ti] = 0;
+      }
+      flag[0] = cost < best_cost;
+      if (flag[0]) {
+        best_cost = cost;
+        flag[1] = m;
+      }
+    }
+    __syncthreads();
+    if (flag[0])
+      for (int i = tid; i < nn; i += nt) B[i] = P[i];
+    __syncthreads();
+  }
+  for (int i = tid; i < nn; i += nt) pred_out[ob + i] = B[i];
+  if (tid == 0) best_out[b] = flag[1];
+}
+
+}  // namespace
+
+// plane [ph, pw] int32 (row stride `stride`): chains are read from it; the
+// decode epilogue (resi != null) writes the recon into it. org != null
+// selects RMD for blocks whose mode is -1. avail [aper, 4n+1] uint8 and
+// modes [mper] int32 are read at row b % aper and b % mper.
+HH_EXPORT int hh_intra(void *plane, int ph, int pw, int stride,
+                       const void *org, int org_stride, const void *resi,
+                       int resi_stride, const void *pos, const void *avail,
+                       const void *modes, int aper, int mper, int nblocks,
+                       int n, int c_idx, int bit_depth, int strong,
+                       const void *ext_idx, const void *pred_idx,
+                       const void *fact, const void *is_hor,
+                       const void *filt, const void *had, void *pred_out,
+                       void *best_out, void *stream) {
+  Tables t{static_cast<const int32_t *>(ext_idx),
+           static_cast<const int32_t *>(pred_idx),
+           static_cast<const int32_t *>(fact),
+           static_cast<const int32_t *>(is_hor),
+           static_cast<const int32_t *>(filt),
+           static_cast<const int32_t *>(had)};
+  const int nn = n * n;
+  int threads = nn < 32 ? 32 : (nn > 256 ? 256 : nn);
+  const size_t smem = sizeof(int32_t) * (2 * (4 * n + 1) + 4 * nn + 64 + 18);
+  intra_kernel<<<nblocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t *>(plane), ph, pw, stride,
+      static_cast<const int32_t *>(org), org_stride,
+      static_cast<const int32_t *>(resi), resi_stride,
+      static_cast<const int32_t *>(pos), static_cast<const uint8_t *>(avail),
+      static_cast<const int32_t *>(modes), aper, mper, n, c_idx, bit_depth,
+      strong, t, static_cast<int32_t *>(pred_out),
+      static_cast<int32_t *>(best_out));
+  return (int)cudaGetLastError();
+}

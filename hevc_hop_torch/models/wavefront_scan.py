@@ -1,0 +1,329 @@
+"""Whole-frame intra wavefront: a level loop over kernels C2 and C3.
+
+Counterpart of hevc_hop_tpu/models/wavefront_scan.py. The schedule is the
+reference's (:func:`build_schedule`, numpy, copied): topological levels of
+transform blocks, each level's blocks mutually independent. The reference
+runs the levels as one ``lax.scan``; here a Python loop launches, per level
+and block size, C2 then C3 for luma and C2 then C3 for the stacked cb/cr
+plane (encode), or C2 with its add-residual epilogue for each plane
+(decode). On the CPU the same loop runs the kernels' plain versions.
+
+:func:`pack_schedule` keeps only the real slots of each level, packed in
+level order, so no launch ever sees a dummy slot: the reference's dummies
+all write one scratch block, which CTAs running side by side may not do.
+The stacked chroma plane keeps the reference's layout: cb rows
+[0, h/2), cr rows [hc_off, hc_off + h/2).
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from hevc_hop_torch.models import wavefront
+from hevc_hop_torch.ops.intra import intra_blocks
+from hevc_hop_torch.ops.tq import tq_encode
+
+
+def build_schedule(blocks, w: int, h: int, ctb_log2: int,
+                   pad_steps: int = 64, pad_slots: int = 16,
+                   force_sizes: tuple | None = None):
+    """Schedule tensors for an arbitrary TU-leaf structure (z-order list).
+
+    Returns (sizes, data, nsteps): sizes is a sorted tuple of block log2s
+    and data[log2] = dict(pos [S,B,2], avail [S,B,L], availc [S,B,Lc],
+    valid [S,B]) with S = number of levels (shared across sizes; dummies
+    point at the (0, h) scratch row). The real slots of a level come first.
+    """
+    from hevc_hop_torch.entropy import native as _native
+    arr = np.array(blocks, np.int32)
+    # NxN CUs: the 4th 4x4 PU carries the CU's 4x4 CHROMA TU, whose
+    # reference chain spans the whole 8x8 CU neighborhood — wider than the
+    # carrier's own luma chain, so its dependency rect is added explicitly
+    rects = None
+    if (arr[:, 2] == 2).any():
+        rects = np.zeros((len(arr), 4), np.int32)
+        car = ((arr[:, 2] == 2) & (arr[:, 0] % 8 == 4)
+               & (arr[:, 1] % 8 == 4))
+        rects[car] = np.stack(
+            [arr[car, 0] - 6, arr[car, 1] - 6,
+             np.full(car.sum(), 18), np.full(car.sum(), 18)], -1)
+    levels = _native.wavefront_levels(arr[:, 0], arr[:, 1], arr[:, 2],
+                                      w, h, ctb_log2, mv_rect=rects)
+    nsteps = int(levels.max()) if len(levels) else 0
+    if pad_steps > 1:
+        nsteps = max(pad_steps, -(-nsteps // pad_steps) * pad_steps)
+    zplane = wavefront.zaddr4_plane(w, h, ctb_log2)
+    czplane = zplane[::2, ::2]
+    sizes = (tuple(force_sizes) if force_sizes is not None
+             else tuple(sorted({int(l) for l in arr[:, 2]})))
+    data = {}
+    for log2 in sizes:
+        n = 1 << log2
+        sel = arr[:, 2] == log2
+        lv = levels[sel] - 1
+        pts = arr[sel][:, :2]
+        counts = np.bincount(lv, minlength=nsteps)
+        bmax = max(1, int(counts.max()) if len(lv) else 0)
+        slot_q = max(2, pad_slots >> max(log2 - 3, 0))
+        if pad_slots > 1:
+            bmax = max(slot_q, -(-bmax // slot_q) * slot_q)
+        pos = np.zeros((nsteps, bmax, 2), np.int32)
+        pos[:, :, 1] = h
+        valid = np.zeros((nsteps, bmax), bool)
+        slot = np.zeros(nsteps, np.int32)
+        order = np.argsort(lv, kind="stable")
+        for i in order:
+            s = lv[i]
+            pos[s, slot[s]] = pts[i]
+            valid[s, slot[s]] = True
+            slot[s] += 1
+        flat = pos.reshape(-1, 2)
+        vmf = valid.reshape(-1)
+        fv = flat[vmf]
+        avail = np.zeros((flat.shape[0], 4 * n + 1), bool)
+        avail[vmf] = wavefront.avail_mask(fv, n, zplane, w, h)
+        if log2 == 2:
+            # chroma is a CU-level 4x4 TU carried by the 4th PU: chain of
+            # the 4x4 chroma block at the CU origin (others unused)
+            availc = np.zeros((flat.shape[0], 17), bool)
+            availc[vmf] = wavefront.avail_mask(
+                np.maximum(fv - 4, 0) // 2, 4, czplane, w // 2, h // 2)
+            clen = 17
+        else:
+            availc = np.zeros((flat.shape[0], 2 * n + 1), bool)
+            availc[vmf] = wavefront.avail_mask(fv // 2, n // 2, czplane,
+                                               w // 2, h // 2)
+            clen = 2 * n + 1
+        data[log2] = dict(
+            pos=pos, valid=valid,
+            avail=avail.reshape(nsteps, bmax, 4 * n + 1),
+            availc=availc.reshape(nsteps, bmax, clen))
+    return sizes, data, nsteps
+
+
+@dataclasses.dataclass
+class SizePlan:
+    """The real blocks of one size, packed in level order.
+
+    Luma block j of level s is row off[s] + j of pos/avail (cnt[s] rows).
+    Its chroma blocks are rows coff[s] + j (cb) and coff[s] + ccnt[s] + j
+    (cr) of cpos, and row cidx[...] of the luma arrays gives their
+    availability and mode (all blocks, or only the NxN carriers at 4x4).
+    """
+    n: int
+    cnt: np.ndarray        # [S] luma blocks per level
+    off: np.ndarray        # [S]
+    ccnt: np.ndarray       # [S] chroma blocks (per plane) per level
+    coff: np.ndarray       # [S] offset of the level's cb rows in cpos
+    pos: torch.Tensor      # [T, 2] int32 (x, y)
+    avail: torch.Tensor    # [T, 4n+1] bool
+    cpos: torch.Tensor     # [2Tc, 2] int32, stacked-plane coordinates
+    cavail: torch.Tensor   # [Tc, Lc] bool
+    cidx: np.ndarray       # [Tc] luma row of each chroma block
+    vpos: np.ndarray       # [T, 2] host copy of pos
+    cb_rows: np.ndarray    # [Tc] rows of the cb blocks in cpos order
+    cr_rows: np.ndarray    # [Tc]
+
+
+def pack_schedule(sizes, data, h: int, hc_off: int, device) -> dict:
+    """Real slots of :func:`build_schedule`'s output, packed per size into
+    :class:`SizePlan` tensors on ``device``."""
+    plans = {}
+    for log2 in sizes:
+        d = data[log2]
+        valid = d["valid"]
+        cnt = valid.sum(1).astype(np.int64)
+        off = np.concatenate([[0], np.cumsum(cnt)[:-1]]).astype(np.int64)
+        vm = valid.reshape(-1)
+        pos = d["pos"].reshape(-1, 2)[vm]
+        avail = d["avail"].reshape(-1, d["avail"].shape[-1])[vm]
+        availc = d["availc"].reshape(-1, d["availc"].shape[-1])[vm]
+        lvl = np.repeat(np.arange(len(cnt)), cnt)
+        if log2 == 2:
+            car = (pos[:, 0] % 8 == 4) & (pos[:, 1] % 8 == 4)
+            cidx = np.nonzero(car)[0]
+            pc = (pos[car] - 4) // 2
+            ccnt = np.bincount(lvl[car], minlength=len(cnt)).astype(np.int64)
+        else:
+            cidx = np.arange(len(pos))
+            pc = pos // 2
+            ccnt = cnt
+        coff = 2 * np.concatenate([[0], np.cumsum(ccnt)[:-1]]).astype(
+            np.int64)
+        clvl = lvl[cidx]
+        j = np.arange(len(cidx)) - (coff[clvl] // 2)
+        cb_rows = coff[clvl] + j
+        cr_rows = cb_rows + ccnt[clvl]
+        cpos = np.zeros((2 * len(cidx), 2), np.int32)
+        cpos[cb_rows] = pc
+        cpos[cr_rows] = pc + np.array([0, hc_off], np.int32)
+        t = lambda a, dt: torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
+                                          device=device)
+        plans[log2] = SizePlan(
+            n=1 << log2, cnt=cnt, off=off, ccnt=ccnt, coff=coff,
+            pos=t(pos, torch.int32), avail=t(avail, torch.bool),
+            cpos=t(cpos, torch.int32), cavail=t(availc[cidx], torch.bool),
+            cidx=cidx, vpos=pos, cb_rows=cb_rows, cr_rows=cr_rows)
+    return plans
+
+
+@dataclasses.dataclass
+class Schedule:
+    """The packed wavefront schedule of one frame geometry, with what the
+    encoder and the decoder derive from its transform blocks."""
+    leaves: np.ndarray     # [L, 3] int32 luma TUs (x, y, log2), z order
+    plans: dict            # log2 -> SizePlan
+    nsteps: int
+    tu4: np.ndarray        # [h/4, w/4] uint8 TU log2 per 4x4 unit
+    tu4_dev: torch.Tensor
+
+    @functools.cached_property
+    def map_index(self) -> dict:
+        """log2 -> (iy4, ix4, iy8, ix8): each packed block's 4x4 and 8x8
+        units in the dense maps, broadcast [T, u, u]."""
+        out = {}
+        for log2, p in self.plans.items():
+            px, py = p.vpos[:, 0], p.vpos[:, 1]
+            u4, u8 = p.n // 4, p.n // 8
+            out[log2] = (
+                py[:, None, None] // 4 + np.arange(u4)[None, :, None],
+                px[:, None, None] // 4 + np.arange(u4)[None, None, :],
+                py[:, None, None] // 8 + np.arange(u8)[None, :, None],
+                px[:, None, None] // 8 + np.arange(u8)[None, None, :])
+        return out
+
+    @functools.cached_property
+    def tu_pos(self) -> tuple:
+        """(luma, chroma): log2 -> [B, 2] int32 positions of the TUs of
+        that size in their own plane. Chroma TUs follow the CU tree only
+        down to 8x8 luma: an NxN CU's chroma is one 4x4 TU at the CU
+        origin, not four 2x2s."""
+        lv = self.leaves
+        nxn = lv[lv[:, 2] == 2]
+        cu = np.concatenate([lv[lv[:, 2] >= 3], np.unique(
+            np.stack([nxn[:, 0] // 8 * 8, nxn[:, 1] // 8 * 8,
+                      np.full(len(nxn), 3, np.int32)], -1), axis=0)])
+        dev = self.tu4_dev.device
+        group = lambda a, sh: {
+            int(lg): torch.as_tensor(
+                np.ascontiguousarray(a[a[:, 2] == lg, :2] >> sh),
+                dtype=torch.int32, device=dev)
+            for lg in np.unique(a[:, 2])}
+        luma = group(lv, 0)
+        chroma = {lg - 1: p for lg, p in group(cu, 1).items()}
+        return luma, chroma
+
+
+_SCHEDULES: collections.OrderedDict = collections.OrderedDict()
+_SCHEDULES_MAX = 8
+
+
+def schedule(depth8: np.ndarray, tu4: np.ndarray, w: int, h: int,
+             ctb_log2: int, device) -> Schedule:
+    """The :class:`Schedule` of the transform blocks that the CU depth map
+    and the TU-size map give (TUs no larger than their CU), built once per
+    device and geometry and cached (bounded, least recently used out)."""
+    key = (str(device), w, h, ctb_log2, depth8.tobytes(), tu4.tobytes())
+    hit = _SCHEDULES.get(key)
+    if hit is not None:
+        _SCHEDULES.move_to_end(key)
+        return hit
+    leaves = np.array(wavefront.tu_blocks_from_maps(depth8, tu4, w, h,
+                                                    ctb_log2),
+                      np.int32).reshape(-1, 3)
+    sizes, data, nsteps = build_schedule(leaves, w, h, ctb_log2)
+    plans = pack_schedule(sizes, data, h, h // 2 + (1 << ctb_log2), device)
+    tu4_real = np.zeros((h // 4, w // 4), np.uint8)
+    for log2, p in plans.items():
+        u = p.n // 4
+        tu4_real[p.vpos[:, 1, None, None] // 4 + np.arange(u)[None, :, None],
+                 p.vpos[:, 0, None, None] // 4
+                 + np.arange(u)[None, None, :]] = log2
+    val = Schedule(leaves=leaves, plans=plans, nsteps=nsteps, tu4=tu4_real,
+                   tu4_dev=torch.as_tensor(tu4_real, device=device))
+    _SCHEDULES[key] = val
+    while len(_SCHEDULES) > _SCHEDULES_MAX:
+        _SCHEDULES.popitem(last=False)
+    return val
+
+
+def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
+                bit_depth: int, strong: bool, sbh: bool):
+    """Intra encode of every block, level by level, with in-loop 35-mode
+    SATD mode decision.
+
+    org_y [h+pad, w] and org_c (stacked cb/cr) int32 on the target device.
+    Returns (ry, rc, coef_y, coef_c, outs): recon and int16 level planes
+    shaped like the originals, and outs[log2] = (best [T], cbf_y [T],
+    cbf_c [2Tc]) in the packed order of ``plans``.
+    """
+    dev = org_y.device
+    ry = torch.zeros_like(org_y)
+    rc = torch.zeros_like(org_c)
+    coef_y = torch.zeros(org_y.shape, dtype=torch.int16, device=dev)
+    coef_c = torch.zeros(org_c.shape, dtype=torch.int16, device=dev)
+    widest = max((int(p.cnt.max(initial=0)) for p in plans.values()),
+                 default=0)
+    rmd = torch.full((max(widest, 1),), -1, dtype=torch.int32, device=dev)
+    acc = {log2: ([], [], []) for log2 in plans}
+    for s in range(nsteps):
+        for log2, p in plans.items():
+            c = int(p.cnt[s])
+            if c == 0:
+                continue
+            o = int(p.off[s])
+            n = p.n
+            pos = p.pos[o:o + c]
+            pred, best = intra_blocks(ry, pos, p.avail[o:o + c], rmd[:c], n,
+                                      0, bit_depth, strong, org=org_y)
+            cbf = tq_encode(org_y, pred, pos, best, n, 0, qp, bit_depth,
+                            sbh, 0.0, ry, coef_y)
+            co = int(p.coff[s])
+            cpos = p.cpos[co:co + 2 * c]
+            predc, _ = intra_blocks(rc, cpos, p.cavail[o:o + c], best,
+                                    n // 2, 1, bit_depth, strong)
+            cbf_c = tq_encode(org_c, predc, cpos, best, n // 2, 1, qp_c,
+                              bit_depth, sbh, 0.0, rc, coef_c)
+            for lst, v in zip(acc[log2], (best, cbf, cbf_c)):
+                lst.append(v)
+    outs = {}
+    for log2, lists in acc.items():
+        outs[log2] = tuple(torch.cat(v) if v else torch.zeros(
+            0, dtype=torch.int32, device=dev) for v in lists)
+    return ry, rc, coef_y, coef_c, outs
+
+
+def scan_decode(resi_y, resi_c, plans: dict, nsteps: int, modes: dict,
+                cmodes: dict, bit_depth: int, strong: bool):
+    """Intra decode of every block, level by level: prediction plus the
+    dense residual, written in place into fresh recon planes.
+
+    resi_y [h+pad, w] and resi_c (stacked cb/cr) int32; modes[log2] [T]
+    and cmodes[log2] [Tc] int32 in the packed order of ``plans``.
+    Returns (ry, rc).
+    """
+    ry = torch.zeros_like(resi_y)
+    rc = torch.zeros_like(resi_c)
+    for s in range(nsteps):
+        for log2, p in plans.items():
+            c = int(p.cnt[s])
+            if c == 0:
+                continue
+            o = int(p.off[s])
+            intra_blocks(ry, p.pos[o:o + c], p.avail[o:o + c],
+                         modes[log2][o:o + c], p.n, 0, bit_depth, strong,
+                         resi=resi_y)
+            cc = int(p.ccnt[s])
+            if cc == 0:
+                continue
+            co = int(p.coff[s])
+            intra_blocks(rc, p.cpos[co:co + 2 * cc],
+                         p.cavail[co // 2:co // 2 + cc],
+                         cmodes[log2][co // 2:co // 2 + cc],
+                         4 if log2 == 2 else p.n // 2, 1, bit_depth, strong,
+                         resi=resi_c)
+    return ry, rc

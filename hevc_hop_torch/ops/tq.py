@@ -1,0 +1,172 @@
+"""Transform-quant pipelines of the wavefront step and the decoder; kernel C3.
+
+:func:`tq_encode` takes a batch of predicted blocks through residual ->
+forward DCT/DST -> quant -> sign-bit hiding -> dequant -> inverse
+transform -> clipped recon, and writes the recon and the int16 levels
+straight into their planes at each block's position (the reference runs
+these as separate XLA ops in ``_enc_plane_ys`` and scatters the levels
+after its scan). :func:`tq_decode` is the decoder's dequant plus inverse
+transform into a dense residual plane (the reference's
+``_residual_uniform`` / ``_residual_mixed``).
+
+On a CUDA tensor each launches kernel C3 (``csrc/tq.cu``); on a CPU tensor
+it runs the ``*_plain`` version, composed of ops/transform.py and
+ops/quant.py, which run on any device.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hevc_hop_torch import _cuda
+from hevc_hop_torch.ops import quant, transform
+from hevc_hop_torch.ops.intra import block_index, _period
+
+# one count per kernel of csrc/tq.cu
+ENCODE_LAUNCHES = 0
+DECODE_LAUNCHES = 0
+
+
+def mdcs_scan_id(modes: torch.Tensor, n: int, c_idx: int) -> torch.Tensor:
+    """Mode-dependent coefficient scan (H.265 7.4.9.11): 4x4 any plane and
+    8x8 luma scan horizontally for near-vertical modes, vertically for
+    near-horizontal ones; diagonal otherwise."""
+    if not (n == 4 or (n == 8 and c_idx == 0)):
+        return torch.zeros(modes.shape, dtype=torch.int32,
+                           device=modes.device)
+    one = torch.ones_like(modes, dtype=torch.int32)
+    return torch.where((modes >= 22) & (modes <= 30), one,
+                       torch.where((modes >= 6) & (modes <= 14), 2 * one,
+                                   0 * one))
+
+
+def tq_encode_plain(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
+                    lam, recon, coefp):
+    b = pos.shape[0]
+    modes = _period(modes, b)
+    log2 = n.bit_length() - 1
+    rows, cols = block_index(pos, n)
+    use_dst = n == 4 and c_idx == 0
+    resi = org[rows, cols].to(torch.int32) - pred
+    coef = transform.fwd_transform(resi, bit_depth, use_dst)
+    lev = quant.quant(coef, qp, log2, bit_depth, True)
+    if sbh:
+        lev = quant.sbh_adjust(lev, mdcs_scan_id(modes, n, c_idx), c_idx,
+                               coef, qp, bit_depth, lam)
+    rq = transform.inv_transform(quant.dequant(lev, qp, log2, bit_depth),
+                                 bit_depth, use_dst)
+    recon[rows, cols] = torch.clamp(pred + rq, 0, (1 << bit_depth) - 1)
+    coefp[rows, cols] = lev.to(torch.int16)
+    return (lev != 0).flatten(1).any(1).to(torch.int32)
+
+
+def tq_encode(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh, lam,
+              recon, coefp):
+    """Kernel C3, encode entry, over B blocks of size n.
+
+    org/recon [H, W] int32 planes; pred [B, n, n] int32; pos [B, 2] int32
+    (x, y); modes [P] int32 with P dividing B (block i's intra mode is
+    modes[i % P]; it picks the MDCS scan for SBH); c_idx 0 luma, 1 chroma.
+    Writes recon and the int16 levels into coefp [H, W] at each block, and
+    returns cbf [B] int32.
+    """
+    if not pred.is_cuda:
+        return tq_encode_plain(org, pred, pos, modes, n, c_idx, qp,
+                               bit_depth, sbh, lam, recon, coefp)
+    return _tq_encode_cuda(org, pred, pos, modes, n, c_idx, qp, bit_depth,
+                           sbh, lam, recon, coefp)
+
+
+def tq_decode_plain(coefp, pos, n, qp, bit_depth, use_dst, out):
+    log2 = n.bit_length() - 1
+    rows, cols = block_index(pos, n)
+    deq = quant.dequant(coefp[rows, cols].to(torch.int32), qp, log2,
+                        bit_depth)
+    out[rows, cols] = transform.inv_transform(deq, bit_depth, use_dst)
+    return out
+
+
+def tq_decode(coefp, pos, n, qp, bit_depth, use_dst, out):
+    """Kernel C3, decode entry: dequant + inverse transform of the blocks
+    at pos [B, 2] of the int16 level plane coefp into the int32 residual
+    plane out (both [H, W])."""
+    if not coefp.is_cuda:
+        return tq_decode_plain(coefp, pos, n, qp, bit_depth, use_dst, out)
+    return _tq_decode_cuda(coefp, pos, n, qp, bit_depth, use_dst, out)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches.
+# ---------------------------------------------------------------------------
+
+def _check(t, dtype, name, dense_rows=False):
+    ok = t.is_cuda and t.dtype == dtype
+    ok = ok and (t.stride(-1) == 1 if dense_rows else t.is_contiguous())
+    if not ok:
+        raise ValueError(f"tq: {name} must be a CUDA {dtype} tensor with "
+                         "dense rows")
+
+
+def _tables(dev, n, use_dst):
+    """(transform matrix, all tables) on dev."""
+    from hevc_hop_torch.convert import device_tables
+    tab = device_tables(dev)
+    return tab["dst4" if use_dst else f"dct{n}"], tab
+
+
+def _tq_encode_cuda(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
+                    lam, recon, coefp):
+    global ENCODE_LAUNCHES
+    b = pos.shape[0]
+    _check(pred, torch.int32, "pred")
+    _check(pos, torch.int32, "pos")
+    _check(modes, torch.int32, "modes")
+    _check(org, torch.int32, "org", True)
+    _check(recon, torch.int32, "recon", True)
+    _check(coefp, torch.int16, "coefp", True)
+    if b % max(modes.shape[0], 1):
+        raise ValueError("tq_encode: modes rows must divide B")
+    cbf = torch.empty(b, dtype=torch.int32, device=pred.device)
+    if b == 0:
+        return cbf
+    log2 = n.bit_length() - 1
+    mat, tab = _tables(pred.device, n, n == 4 and c_idx == 0)
+    qs, qbits, qoff = quant.quant_params(qp, log2, bit_depth)
+    dqs, dqsh = quant.dequant_params(qp, log2, bit_depth)
+    tr_shift = 15 - bit_depth - log2
+    lamc = float(np.float32(lam * (4.0 ** tr_shift)))
+    fn = _cuda.bind("tq", "hh_tq_encode",
+                    "pi" "p" "pp" "i" "iiiii" "iii" "ii" "iif" "pp"
+                    "pi" "pi" "p" "p")
+    err = fn(org.data_ptr(), org.stride(0), pred.data_ptr(),
+             pos.data_ptr(), modes.data_ptr(), modes.shape[0],
+             b, n, c_idx, bit_depth, (1 << bit_depth) - 1,
+             qs, qbits, qoff, dqs, dqsh,
+             int(sbh), 1, lamc,
+             mat.data_ptr(), tab[f"scan{log2}"].data_ptr(),
+             recon.data_ptr(), recon.stride(0),
+             coefp.data_ptr(), coefp.stride(0),
+             cbf.data_ptr(), _cuda.stream(pred))
+    _cuda.check("tq", err)
+    ENCODE_LAUNCHES += 1
+    return cbf
+
+
+def _tq_decode_cuda(coefp, pos, n, qp, bit_depth, use_dst, out):
+    global DECODE_LAUNCHES
+    _check(coefp, torch.int16, "coefp", True)
+    _check(out, torch.int32, "out", True)
+    _check(pos, torch.int32, "pos")
+    b = pos.shape[0]
+    if b == 0:
+        return out
+    log2 = n.bit_length() - 1
+    mat, _ = _tables(coefp.device, n, use_dst)
+    dqs, dqsh = quant.dequant_params(qp, log2, bit_depth)
+    fn = _cuda.bind("tq", "hh_tq_decode", "pippiiiiipip")
+    err = fn(coefp.data_ptr(), coefp.stride(0), pos.data_ptr(),
+             mat.data_ptr(), b, n, bit_depth, dqs, dqsh, out.data_ptr(),
+             out.stride(0), _cuda.stream(out))
+    _cuda.check("tq", err)
+    DECODE_LAUNCHES += 1
+    return out

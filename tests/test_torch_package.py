@@ -1,0 +1,108 @@
+"""hevc_hop_torch as a package: it loads neither JAX nor the JAX package,
+its entry points default to the card, its constant tables equal the
+reference's, and what it does not port yet raises."""
+import dataclasses
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from hevc_hop_tpu.common import rom as jrom
+from hevc_hop_tpu.models.encoder import EncoderConfig as JaxConfig
+from hevc_hop_tpu.ops import deblock as jdb
+from hevc_hop_tpu.ops import intra as jintra
+from hevc_hop_torch import convert
+from hevc_hop_torch.bitstream import nal, params
+from hevc_hop_torch.common.types import NalUnitType
+from hevc_hop_torch.models.decoder import Decoder
+from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    mods = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in (ROOT / "hevc_hop_torch").rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m.removesuffix('.__init__'))\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib',"
+            " 'hevc_hop_tpu'))\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+    assert len(mods) > 20
+
+
+def _supported(**kw):
+    return EncoderConfig(width=64, height=64, cu_log2=4, rdoq=False, **kw)
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        IntraEncoder(_supported())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Decoder()
+
+
+def test_device_tables_equal_reference_tables():
+    tabs = convert.device_tables("cpu")
+    want = {f"dct{n}": jrom.dct_matrix(n) for n in (4, 8, 16, 32)}
+    want.update(dst4=jrom.DST4, quant_scales=jrom.QUANT_SCALES,
+                inv_quant_scales=jrom.INV_QUANT_SCALES,
+                hadamard4=jintra._hadamard(4), hadamard8=jintra._hadamard(8),
+                tc_table=jdb.TC_TABLE, beta_table=jdb.BETA_TABLE)
+    for n in (4, 8, 16, 32):
+        for k, v in jintra._static_tables(n).items():
+            want[f"intra{n}_{k}"] = v
+    for log2 in (2, 3, 4, 5):
+        want[f"scan{log2}"] = np.stack(
+            [jrom.scan_raster_index(log2, s) for s in (0, 1, 2)])
+    assert set(tabs) == set(want)
+    for k, v in want.items():
+        assert tabs[k].dtype == torch.int32
+        np.testing.assert_array_equal(tabs[k].numpy(), v, err_msg=k)
+
+
+def test_config_from_reference():
+    ref = JaxConfig(width=416, height=240, qp=27, cu_log2=3, rdoq=False)
+    cfg = convert.config_from_reference(dataclasses.asdict(ref))
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    with pytest.raises(ValueError):
+        convert.config_from_reference({"width": 64, "rate_control": True})
+
+
+@pytest.mark.parametrize("kw", [dict(rdoq=True), dict(sao=True),
+                                dict(cu_log2=None),
+                                dict(cu_log2=None, mode_decision="rmd",
+                                     rdoq=True)])
+def test_unported_encoder_configurations_raise(kw):
+    cfg = dataclasses.replace(_supported(), **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        IntraEncoder(cfg, device="cpu")
+
+
+def test_sao_stream_raises_in_the_decoder():
+    enc = IntraEncoder(_supported(), device="cpu")
+    y = np.full((64, 64), 100, np.int32)
+    c = np.full((32, 32), 128, np.int32)
+    stream = enc.encode_frame(y, c, c)
+    sps = dataclasses.replace(enc.sps, sao_enabled=True)
+    nals = [(t, r) for t, r in nal.annexb_split(stream)]
+    out = []
+    for t, r in nals:
+        if t == NalUnitType.SPS_NUT:
+            r = params.write_sps(sps)
+        out.append(nal.make_nal(t, r))
+    with pytest.raises(NotImplementedError, match="SAO"):
+        Decoder(device="cpu").decode_stream(nal.annexb_wrap(out))

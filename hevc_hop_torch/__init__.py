@@ -1,8 +1,8 @@
 """hevc_hop_torch — the PyTorch and CUDA port of hevc_hop_tpu.
 
-An HEVC Main encoder and decoder whose device work runs as CUDA kernels
-written by hand for Hopper (``csrc/``, built by ``nvcc`` for sm_90a at first
-use into ``build/``). The JAX package ``hevc_hop_tpu`` beside it is the
+An HEVC Main and Main10 encoder and decoder whose device work runs as CUDA
+kernels written by hand for Hopper (``csrc/``, built by ``nvcc`` for sm_90a
+at first use into ``build/``). The JAX package ``hevc_hop_tpu`` beside it is the
 reference every part of this package is tested against; nothing here
 imports it or JAX.
 
@@ -17,7 +17,9 @@ Layout (mirrors hevc_hop_tpu):
                intra.py   C2 intra.cu     (prediction, RMD, decode recon)
                tq.py      C3 tq.cu        (transform, quant, SBH)
                deblock.py C4 deblock.cu   (all-intra deblocking)
-  models/    wavefront level loop, IntraEncoder, Decoder
+               sao.py     C6 sao.cu       (SAO statistics and apply)
+  models/    wavefront level loop, IntraEncoder, Decoder, and
+               partition.py C5 partition.cu (RD pre-pass and decision)
   convert.py configuration and constant tables from the reference
 
 Entry points run on the card unless the caller passes ``device="cpu"``,

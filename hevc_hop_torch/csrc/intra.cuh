@@ -1,0 +1,175 @@
+// Device functions of intra prediction shared by kernel C2 (intra.cu) and
+// kernel C5 (partition.cu): the per-mode prediction of one sample from a
+// reference chain, the chain's smoothing, its DC value, and the Hadamard
+// SATD of a difference block. All int32, bit-exact with H.265 8.4.4.2.
+//
+// Chain layout (ops/intra.py): ref[4N+1], index 0..2N-1 the left column
+// bottom-to-top, 2N the corner, 2N+1..4N the top row left-to-right.
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+struct Tables {
+  const int32_t *ext_idx;   // [33, 3N+1]
+  const int32_t *pred_idx;  // [33, N, N]
+  const int32_t *fact;      // [33, N]
+  const int32_t *is_hor;    // [33]
+  const int32_t *filt;      // [33]
+  const int32_t *had;       // [k, k]
+};
+
+struct Refs {
+  const int32_t *cu;  // substituted chain
+  const int32_t *cf;  // filtered chain (== cu when no filtering)
+  int n, log2, c_idx, use_filter, maxv, dc;
+};
+
+__device__ __forceinline__ int left_of(const int32_t *c, int n, int y) {
+  return c[2 * n - 1 - y];
+}
+__device__ __forceinline__ int top_of(const int32_t *c, int n, int x) {
+  return c[2 * n + 1 + x];
+}
+
+// Prediction of mode m at column x, row y (H.265 8.4.4.2.4-6, following
+// the reference's predict_all_modes / predict_mode exactly).
+__device__ int predict_px(const Refs &r, const Tables &t, int m, int x,
+                          int y) {
+  const int n = r.n;
+  int v;
+  if (m == 0) {
+    const int32_t *c = r.use_filter ? r.cf : r.cu;
+    v = ((n - 1 - x) * left_of(c, n, y) + (x + 1) * top_of(c, n, n) +
+         (n - 1 - y) * top_of(c, n, x) + (y + 1) * left_of(c, n, n) + n) >>
+        (r.log2 + 1);
+  } else if (m == 1) {
+    v = r.dc;
+    if (r.c_idx == 0 && n < 32) {
+      if (x == 0 && y == 0)
+        v = (left_of(r.cu, n, 0) + 2 * r.dc + top_of(r.cu, n, 0) + 2) >> 2;
+      else if (y == 0)
+        v = (top_of(r.cu, n, x) + 3 * r.dc + 2) >> 2;
+      else if (x == 0)
+        v = (left_of(r.cu, n, y) + 3 * r.dc + 2) >> 2;
+    }
+  } else {
+    const int mi = m - 2;
+    const int32_t *c = (t.filt[mi] && r.use_filter) ? r.cf : r.cu;
+    const int hor = t.is_hor[mi];
+    const int row = hor ? x : y, col = hor ? y : x;  // vertical form
+    const int32_t *ext = t.ext_idx + mi * (3 * n + 1);
+    const int p = t.pred_idx[(mi * n + row) * n + col];
+    const int f = t.fact[mi * n + row];
+    const int g0 = c[ext[p]];
+    const int g1 = f ? c[ext[p + 1]] : 0;
+    v = ((32 - f) * g0 + f * g1 + 16) >> 5;
+    if (r.c_idx == 0 && n < 32) {
+      const int corner = r.cu[2 * n];
+      if (m == 26 && x == 0)
+        v = clip3(0, r.maxv,
+                  top_of(r.cu, n, 0) + ((left_of(r.cu, n, y) - corner) >> 1));
+      if (m == 10 && y == 0)
+        v = clip3(0, r.maxv,
+                  left_of(r.cu, n, 0) + ((top_of(r.cu, n, x) - corner) >> 1));
+    }
+  }
+  return clip3(0, r.maxv, v);
+}
+
+// The 1-2-1 smoothed chain cf of the chain cu (both [4n+1], shared memory),
+// and the 32x32 strong bilinear smoothing where `strong` asks for it and
+// the chain is flat enough. Called by every thread of the CTA, with cu
+// complete; cf is complete on return.
+__device__ void filter_chain(const int32_t *cu, int32_t *cf, int n,
+                             int bit_depth, int strong) {
+  const int L = 4 * n + 1, tid = threadIdx.x, nt = blockDim.x;
+  for (int i = tid; i < L; i += nt)
+    cf[i] = (i == 0 || i == L - 1)
+                ? cu[i]
+                : (cu[i - 1] + 2 * cu[i] + cu[i + 1] + 2) >> 2;
+  __syncthreads();
+  if (strong && n == 32) {
+    const int thr = 1 << (bit_depth - 5);
+    const int corner = cu[2 * n], top_last = cu[4 * n], left_last = cu[0];
+    const bool cond = iabs(corner + top_last - 2 * cu[3 * n]) < thr &&
+                      iabs(corner + left_last - 2 * cu[n]) < thr;
+    if (cond) {
+      for (int i = tid; i < L; i += nt) {
+        int v;
+        if (i == 0) v = left_last;
+        else if (i < 64) {
+          const int k = 63 - i;
+          v = ((63 - k) * corner + (k + 1) * left_last + 32) >> 6;
+        } else if (i == 64) v = corner;
+        else if (i < 128) {
+          const int k = i - 65;
+          v = ((63 - k) * corner + (k + 1) * top_last + 32) >> 6;
+        } else v = top_last;
+        cf[i] = v;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The references of a block: chain cu, filtered chain cf (null: no
+// filtering), and the DC value.
+__device__ Refs make_refs(const int32_t *cu, const int32_t *cf, int n,
+                          int c_idx, int bit_depth) {
+  Refs r;
+  r.cu = cu;
+  r.cf = cf != nullptr ? cf : cu;
+  r.n = n;
+  r.log2 = 31 - __clz(n);
+  r.c_idx = c_idx;
+  r.use_filter = cf != nullptr;
+  r.maxv = (1 << bit_depth) - 1;
+  int s = 0;
+  for (int i = 0; i < n; ++i) s += top_of(cu, n, i) + left_of(cu, n, i);
+  r.dc = (s + n) >> (r.log2 + 1);
+  return r;
+}
+
+// Hadamard SATD of the n x n difference block O (8x8 tiles, 4x4 at n = 4),
+// the reference's intra.satd. A [n*n] is scratch, H the k x k Hadamard
+// matrix, tsum [16] per-tile sums that are zero on entry and on return.
+// Called by every thread of the CTA with O complete; the cost is valid in
+// thread 0 only, and the caller synchronises before O or A change.
+__device__ int satd_cost(const int32_t *O, int32_t *A, const int32_t *H,
+                         int32_t *tsum, int n) {
+  const int nn = n * n, tid = threadIdx.x, nt = blockDim.x;
+  const int k = n >= 8 ? 8 : 4;
+  const int kl = k == 8 ? 3 : 2;
+  const int tiles_w = n / k;
+  // stage 1: A = H . D within each k x k tile (rows mix)
+  for (int i = tid; i < nn; i += nt) {
+    const int x = i % n, y = i / n;
+    const int ty = y & ~(k - 1), ly = y & (k - 1);
+    int s = 0;
+    for (int j = 0; j < k; ++j) s += H[ly * k + j] * O[(ty + j) * n + x];
+    A[i] = s;
+  }
+  __syncthreads();
+  // stage 2: (H . D) . H (columns mix), absolute sum per tile
+  for (int i = tid; i < nn; i += nt) {
+    const int x = i % n, y = i / n;
+    const int tx = x & ~(k - 1), lx = x & (k - 1);
+    int s = 0;
+    for (int j = 0; j < k; ++j) s += A[y * n + tx + j] * H[j * k + lx];
+    atomicAdd(&tsum[(y >> kl) * tiles_w + (x >> kl)], iabs(s));
+  }
+  __syncthreads();
+  int cost = 0;
+  if (tid == 0) {
+    for (int ti = 0; ti < tiles_w * tiles_w; ++ti) {
+      const int s = tsum[ti];
+      cost += k == 8 ? (s + 2) >> 2 : (s + 1) >> 1;
+      tsum[ti] = 0;
+    }
+  }
+  return cost;
+}
+
+}  // namespace

@@ -30,27 +30,9 @@
 // N >= 8. The design keeps the block and every intermediate in shared
 // memory, so device memory sees each input once and each output once; a
 // CTA's threads share the N^2 outputs of each stage.
-#include "common.cuh"
+#include "tq.cuh"
 
 namespace {
-
-__device__ __forceinline__ int rshift_round(int x, int shift) {
-  return (x + (1 << (shift - 1))) >> shift;
-}
-
-__device__ __forceinline__ int clip16(int v) { return clip3(-32768, 32767, v); }
-
-// int32 products that wrap like the reference's
-__device__ __forceinline__ int wmul(int a, int b) {
-  return (int)((unsigned)a * (unsigned)b);
-}
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-
-__device__ __forceinline__ int dequant1(int level, int dqs, int dqsh) {
-  return clip16(wadd(wmul(level, dqs), 1 << (dqsh - 1)) >> dqsh);
-}
 
 __device__ __forceinline__ int floor_log2_ref(int v) {
   return 31 - __clz(v) - ((v == 8192 || v == 32768) ? 1 : 0);
@@ -126,32 +108,6 @@ __device__ void sbh_group(int32_t *Q, const int32_t *C, const int32_t *perm,
   Q[p[tgt]] = c[tgt] + delta;
 }
 
-// out[k][x] = round(sum_j M[k][j] * X[j][x]) (transpose_m: M[j][k])
-__device__ void stage_rows(const int32_t *M, const int32_t *X, int32_t *Y,
-                           int n, int transpose_m, int shift, int clamp) {
-  for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
-    const int kk = i / n, x = i % n;
-    int s = 0;
-    for (int j = 0; j < n; ++j)
-      s += (transpose_m ? M[j * n + kk] : M[kk * n + j]) * X[j * n + x];
-    s = rshift_round(s, shift);
-    Y[i] = clamp ? clip16(s) : s;
-  }
-}
-
-// out[y][k] = round(sum_j X[y][j] * M[k][j]) (transpose_m: M[j][k])
-__device__ void stage_cols(const int32_t *M, const int32_t *X, int32_t *Y,
-                           int n, int transpose_m, int shift, int clamp) {
-  for (int i = threadIdx.x; i < n * n; i += blockDim.x) {
-    const int y = i / n, kk = i % n;
-    int s = 0;
-    for (int j = 0; j < n; ++j)
-      s += X[y * n + j] * (transpose_m ? M[j * n + kk] : M[kk * n + j]);
-    s = rshift_round(s, shift);
-    Y[i] = clamp ? clip16(s) : s;
-  }
-}
-
 __device__ __forceinline__ int mdcs_scan_id(int mode, int n, int c_idx) {
   if (!(n == 4 || (n == 8 && c_idx == 0))) return 0;
   if (mode >= 22 && mode <= 30) return 1;
@@ -197,10 +153,7 @@ __global__ void tq_encode_kernel(EncArgs a) {
   stage_rows(M, T, C, n, 0, log2 + 6, 0);
   __syncthreads();
   for (int i = tid; i < nn; i += nt) {
-    const int c = C[i];
-    const int lev =
-        wadd(wmul(iabs(c), a.qs), a.qoff) >> a.qbits;
-    Q[i] = clip16(wmul(isign(c), lev));
+    Q[i] = quant1(C[i], a.qs, a.qoff, a.qbits);
   }
   __syncthreads();
   if (a.sbh) {

@@ -5,8 +5,9 @@ parses the slice into dense maps; the residuals are dequantized and
 inverse-transformed by kernel C3's decode entry (one launch per TU size and
 plane); prediction runs as the wavefront level loop over kernel C2 with its
 add-residual epilogue (models/wavefront_scan.py); deblocking is kernel C4
-and the checksum SEI is verified by kernel C1. Quadtree, NxN, RQT and DST
-streams decode fully. SAO and the ISS/PSS slices of the lenslet tools are
+SAO's apply is kernel C6, and the checksum SEI is verified by kernel C1.
+Quadtree, NxN, RQT, DST and SAO streams decode fully: every I-slice stream
+the reference encoder writes. The ISS/PSS slices of the lenslet tools are
 not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ from hevc_hop_torch.device import resolve
 from hevc_hop_torch.entropy import ctx_layout, native
 from hevc_hop_torch.io import yuv as yuvio
 from hevc_hop_torch.models import wavefront_scan
-from hevc_hop_torch.ops import deblock, hashes
+from hevc_hop_torch.ops import deblock, hashes, sao
 from hevc_hop_torch.ops.tq import tq_decode
 
 
@@ -120,8 +121,6 @@ class Decoder:
 
     def _decode_slice(self, rbsp: bytes, nal_type: int) -> None:
         sps, pps = self.sps, self.pps
-        if sps.sao_enabled:
-            raise _not_ported("SAO (sps.sao_enabled)")
         holo = bool(self.vps and self.vps.holo)
         sh = params.parse_slice_header(rbsp, sps, pps, nal_type, holo)
         if sh.slice_type in (SliceType.ISS, SliceType.PSS):
@@ -141,12 +140,12 @@ class Decoder:
             maps = native.decode_slice_data_wpp(
                 states, data, subs, w, h, sps.ctb_log2,
                 max_hier_depth=sps.max_transform_hierarchy_depth_intra,
-                sao_on=0, sbh=int(pps.sign_data_hiding))
+                sao_on=int(sps.sao_enabled), sbh=int(pps.sign_data_hiding))
         else:
             maps = native.decode_slice_data(
                 states, rbsp[sh.data_offset:], w, h, sps.ctb_log2,
                 max_hier_depth=sps.max_transform_hierarchy_depth_intra,
-                sao_on=0, sbh=int(pps.sign_data_hiding))
+                sao_on=int(sps.sao_enabled), sbh=int(pps.sign_data_hiding))
 
         # reconstruction structure = TRANSFORM blocks (prediction is per-TU)
         sched = wavefront_scan.schedule(maps.depth8, maps.tu4, w, h,
@@ -197,6 +196,10 @@ class Decoder:
                 qp=qp, qp_c=qp_c, bit_depth=bd,
                 beta_off=self.pps.beta_offset_div2,
                 tc_off=self.pps.tc_offset_div2)
+        if sps.sao_enabled:
+            ry, rcb, rcr = sao.apply_sao_frame(
+                ry, rcb, rcr, maps.sao_type, maps.sao_off, maps.sao_band,
+                sps.ctb_log2, bd)
         self._pics_dev.append((ry, rcb, rcr))
 
     def picture_md5(self, idx: int = -1) -> bytes:

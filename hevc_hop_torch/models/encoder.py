@@ -1,19 +1,22 @@
-"""All-intra HEVC encoder (I slices, Main 8-bit), on the card.
+"""All-intra HEVC encoder (I slices, Main and Main10), on the card.
 
-Counterpart of hevc_hop_tpu/models/encoder.py for its uniform-CU path
-(``cu_log2`` set, or ``mode_decision="rmd"``): every CU has one size, its
-TU is the CU, and the intra mode is chosen inside the wavefront by 35-mode
-SATD against the reconstructed references. The stages:
+Counterpart of hevc_hop_tpu/models/encoder.py. The stages:
 
-  1. the wavefront schedule of the fixed CU grid (host, cached);
-  2. the level loop over kernels C2 (prediction, RMD) and C3 (transform,
-     quant, SBH, recon) for luma and the stacked cb/cr plane
+  1. partition and mode decision: the RD pre-pass over every block of every
+     CU size and the quadtree / NxN / residual-quadtree choice, kernel C5
+     (models/partition.py); or, with ``cu_log2`` set or
+     ``mode_decision="rmd"``, a uniform CU grid whose modes are chosen
+     inside the wavefront by 35-mode SATD. Then the wavefront schedule of
+     the chosen transform blocks (host, cached per structure);
+  2. the level loop over kernels C2 (prediction) and C3 (transform, quant,
+     SBH, recon) for luma and the stacked cb/cr plane
      (models/wavefront_scan.py);
-  3. deblocking, kernel C4, and the checksum SEI, kernel C1;
+  3. deblocking, kernel C4; SAO statistics, host RDO and apply, kernel C6
+     (ops/sao.py); the checksum SEI, kernel C1;
   4. dense maps -> native C++ slice-data serializer -> NAL/AnnexB.
 
-The reference's quadtree RD pre-pass, RDOQ and SAO are not ported yet and
-raise NotImplementedError (ROADMAP.md queue 1).
+The reference's RDOQ is not ported yet and raises NotImplementedError
+(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ from hevc_hop_torch.common.types import NalUnitType, SliceType
 from hevc_hop_torch.device import resolve
 from hevc_hop_torch.entropy import ctx_layout, native
 from hevc_hop_torch.io import yuv as yuvio
-from hevc_hop_torch.models import wavefront_scan
-from hevc_hop_torch.ops import deblock, hashes
+from hevc_hop_torch.models import partition, wavefront_scan
+from hevc_hop_torch.ops import deblock, hashes, sao
 
 
 @dataclasses.dataclass
@@ -70,13 +73,8 @@ def _not_ported(what: str):
 
 class IntraEncoder:
     def __init__(self, cfg: EncoderConfig, device=None) -> None:
-        if cfg.cu_log2 is None and cfg.mode_decision != "rmd":
-            raise _not_ported("the quadtree RD pre-pass (cu_log2=None with "
-                              "mode_decision='analysis')")
         if cfg.rdoq:
             raise _not_ported("RDOQ (rdoq=True)")
-        if cfg.sao:
-            raise _not_ported("SAO (sao=True)")
         if cfg.cu_log2 is not None and not 3 <= cfg.cu_log2 <= cfg.ctb_log2:
             raise ValueError("cu_log2 must lie in [3, ctb_log2]")
         if cfg.width % 2 or cfg.height % 2:
@@ -91,10 +89,22 @@ class IntraEncoder:
             cfg = dataclasses.replace(cfg, width=cfg.width + pw,
                                       height=cfg.height + ph)
         self.cfg = cfg
+        ctb = 1 << cfg.ctb_log2
+        if cfg.sao and (cfg.width % ctb or cfg.height % ctb):
+            raise ValueError("SAO statistics need CTU-aligned dimensions "
+                             "(pad the input)")
+        # the RD pre-pass decides partition and modes; its quadtree is the
+        # 32/16/8 one of a 32x32 CTU
+        self._analysis = (cfg.cu_log2 is None
+                          and cfg.mode_decision == "analysis")
+        if self._analysis and cfg.ctb_log2 != 5:
+            raise ValueError("the quadtree RD pre-pass needs ctb_log2 = 5")
+        self._use_rqt = cfg.rqt and self._analysis
         self.sps = params.SPS(
             pic_width=cfg.width, pic_height=cfg.height,
             bit_depth=cfg.bit_depth, ctb_log2=cfg.ctb_log2,
-            max_transform_hierarchy_depth_intra=0, sao_enabled=False,
+            max_transform_hierarchy_depth_intra=1 if self._use_rqt else 0,
+            sao_enabled=cfg.sao,
             conf_win_right=pw, conf_win_bottom=ph,
             strong_intra_smoothing=cfg.strong_intra_smoothing)
         self.pps = params.PPS(init_qp=26, sign_data_hiding=cfg.sbh,
@@ -112,20 +122,68 @@ class IntraEncoder:
             nal.make_nal(NalUnitType.PPS_NUT, params.write_pps(self.pps)),
         ]
 
-    def _decide(self) -> np.ndarray:
-        """depth8 [h/8, w/8] of the uniform CU grid."""
+    def _decide(self, y_dev: torch.Tensor, decisions=None):
+        """Partition and shared mode decision of the luma plane y_dev
+        [h, w] int32 on the device. Returns (depth8 [h/8, w/8] uint8
+        (ctb_log2 - 2 = NxN), mode4 [h/4, w/4] int32 or None for in-loop
+        RMD, tulog8 [h/8, w/8] uint8 TU log2 per cell or None where every
+        TU is its CU). ``decisions`` = (depth8, mode4, tulog8) given from
+        outside replaces the pre-pass."""
         cfg = self.cfg
-        cu = cfg.cu_log2 if cfg.cu_log2 is not None else 3
-        return np.full((cfg.height // 8, cfg.width // 8), cfg.ctb_log2 - cu,
-                       np.uint8)
+        w, h = cfg.width, cfg.height
+        if not self._analysis:
+            cu = cfg.cu_log2 if cfg.cu_log2 is not None else 3
+            return (np.full((h // 8, w // 8), cfg.ctb_log2 - cu, np.uint8),
+                    None, None)
+        if decisions is not None:
+            depth, mode4, tulog8 = decisions
+            return (np.asarray(depth, np.uint8), np.asarray(mode4, np.int32),
+                    None if tulog8 is None else np.asarray(tulog8, np.uint8))
+        # true-RD analysis at every CU size on a 32-aligned padded copy
+        pw, ph = -w % 32, -h % 32
+        if pw or ph:    # edge padding
+            rows = torch.arange(h + ph, device=y_dev.device).clamp(max=h - 1)
+            cols = torch.arange(w + pw, device=y_dev.device).clamp(max=w - 1)
+            y_dev = y_dev[rows][:, cols].contiguous()
+        qp, bd = cfg.qp, cfg.bit_depth
+        rd8, m8 = partition.rd_costs(y_dev, 8, qp, bd)
+        rd16, m16 = partition.rd_costs(y_dev, 16, qp, bd)
+        rd32, m32 = partition.rd_costs(y_dev, 32, qp, bd)
+        tulog8 = None
+        if self._use_rqt:
+            rd4, m4 = partition.rd_costs(y_dev, 4, qp, bd)
+            if not cfg.nxn:
+                rd4 = rd4 + 1e18   # the NxN arm never wins
+            up2 = lambda a: a.repeat_interleave(2, 0).repeat_interleave(
+                2, 1).contiguous()
+            rd8f16 = partition.rd_costs_forced(y_dev, up2(m16), 8, qp, bd)
+            rd16f32 = partition.rd_costs_forced(y_dev, up2(m32), 16, qp, bd)
+            depth, mode4, tulog8 = partition.decide_rqt(
+                rd4, rd8, rd16, rd32, rd8f16, rd16f32, m4, m8, m16, m32, qp)
+            tulog8 = tulog8[:h // 8, :w // 8].cpu().numpy().astype(np.uint8)
+        elif cfg.nxn:
+            rd4, m4 = partition.rd_costs(y_dev, 4, qp, bd)
+            depth, mode4 = partition.decide_nxn(
+                rd4, rd8, rd16, rd32, m4, m8, m16, m32, qp)
+        else:
+            depth, mode8 = partition.decide(rd8, rd16, rd32, m8, m16, m32,
+                                            qp)
+            mode4 = mode8.repeat_interleave(2, 0).repeat_interleave(2, 1)
+        return (depth[:h // 8, :w // 8].cpu().numpy().astype(np.uint8),
+                mode4[:h // 4, :w // 4].cpu().numpy().astype(np.int32),
+                tulog8)
 
-    def _schedule(self, depth8: np.ndarray) -> wavefront_scan.Schedule:
-        """The wavefront schedule of the CU grid (its TUs are its CUs),
-        cached per device and geometry."""
+    def _schedule(self, depth8: np.ndarray,
+                  tulog8=None) -> wavefront_scan.Schedule:
+        """The wavefront schedule of the transform blocks of the CU
+        structure depth8 (ctb_log2 - 2 = NxN: four 4x4 TUs), split once
+        more where tulog8 says so; cached per device and structure."""
         cfg = self.cfg
-        cu = cfg.cu_log2 if cfg.cu_log2 is not None else 3
+        if tulog8 is None:
+            tulog8 = (cfg.ctb_log2 - depth8.astype(np.int32)).astype(np.uint8)
         return wavefront_scan.schedule(
-            depth8, np.full((cfg.height // 4, cfg.width // 4), cu, np.uint8),
+            np.minimum(depth8, cfg.ctb_log2 - 3),
+            np.repeat(np.repeat(tulog8, 2, 0), 2, 1),
             cfg.width, cfg.height, cfg.ctb_log2, self.device)
 
     @staticmethod
@@ -137,6 +195,23 @@ class IntraEncoder:
             maps.cbf4_y[iy4, ix4] = cbf_y[:, None, None]
             maps.cbf8_cb[iy8, ix8] = cbf_c[p.cb_rows][:, None, None]
             maps.cbf8_cr[iy8, ix8] = cbf_c[p.cr_rows][:, None, None]
+
+    def _given_modes(self, sched, mode4: np.ndarray) -> dict:
+        """log2 -> (luma modes [T], chroma modes [Tc] or None) on the
+        device, in the packed order of the schedule's plans. An NxN CU's
+        chroma TU, carried by its fourth PU, takes PU0's luma mode (the DM
+        slot); elsewhere chroma follows its block's luma mode."""
+        up = lambda a: torch.as_tensor(np.ascontiguousarray(a),
+                                       dtype=torch.int32, device=self.device)
+        out = {}
+        for log2, p in sched.plans.items():
+            px, py = p.vpos[:, 0], p.vpos[:, 1]
+            cm = None
+            if log2 == 2:
+                cx, cy = px[p.cidx], py[p.cidx]
+                cm = up(mode4[(cy // 8) * 2, (cx // 8) * 2])
+            out[log2] = (up(mode4[py // 4, px // 4]), cm)
+        return out
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -154,7 +229,10 @@ class IntraEncoder:
         """[(y, cb, cr), ...] -> [stream, ...], one frame after another."""
         return [self.encode_frame(*f) for f in frames]
 
-    def _stage1(self, y, cb, cr) -> dict:
+    def _stage1(self, y, cb, cr, decisions=None) -> dict:
+        """Upload, decision, level loop and loop filter. ``decisions`` =
+        (depth8, mode4, tulog8), as :meth:`_decide` returns them, replaces
+        the RD pre-pass."""
         stats = {}
         t0 = time.perf_counter()
         cfg = self.cfg
@@ -166,16 +244,6 @@ class IntraEncoder:
                         mode="edge")
             cr = np.pad(np.asarray(cr), ((0, ph // 2), (0, pw // 2)),
                         mode="edge")
-        depth8 = self._decide()
-        sched = self._schedule(depth8)
-        stats["decide_s"] = time.perf_counter() - t0
-
-        maps = native.SliceMaps(w, h, cfg.ctb_log2, max_hier_depth=0)
-        maps.sbh = int(cfg.sbh)
-        maps.depth8[:] = depth8
-        maps.part8[:] = 0
-        maps.tu4[:] = sched.tu4
-
         pad = 1 << cfg.ctb_log2
         hc = h // 2
         hc_off = hc + pad
@@ -187,13 +255,31 @@ class IntraEncoder:
         org_c[hc_off:hc_off + hc] = cr
         qp = cfg.qp
         qp_c = rom.chroma_qp_from_luma(qp)
-
-        t1 = time.perf_counter()
         up = lambda a: torch.as_tensor(a.astype(np.int32)).to(self.device)
         org_y_dev, org_c_dev = up(org_y), up(org_c)
+        self._sync()
+        stats["upload_s"] = time.perf_counter() - t0
+
+        t1 = time.perf_counter()
+        depth8, mode4, tulog8 = self._decide(org_y_dev[:h], decisions)
+        sched = self._schedule(depth8, tulog8)
+        modes = None if mode4 is None else self._given_modes(sched, mode4)
+        self._sync()
+        stats["decide_s"] = time.perf_counter() - t1
+
+        maps = native.SliceMaps(
+            w, h, cfg.ctb_log2,
+            max_hier_depth=self.sps.max_transform_hierarchy_depth_intra)
+        maps.sbh = int(cfg.sbh)
+        # depth ctb_log2 - 2 = NxN: the CU is the min CU, part_mode = NxN
+        maps.depth8[:] = np.minimum(depth8, cfg.ctb_log2 - 3)
+        maps.part8[:] = np.where(depth8 == cfg.ctb_log2 - 2, 3, 0)
+        maps.tu4[:] = sched.tu4
+
+        t1 = time.perf_counter()
         ry, rc, coef_y, coef_c, outs = wavefront_scan.scan_encode(
             org_y_dev, org_c_dev, sched.plans, sched.nsteps, qp, qp_c,
-            cfg.bit_depth, cfg.strong_intra_smoothing, cfg.sbh)
+            cfg.bit_depth, cfg.strong_intra_smoothing, cfg.sbh, modes)
         self._sync()
         stats["scan_s"] = time.perf_counter() - t1
 
@@ -203,11 +289,19 @@ class IntraEncoder:
             ry, rcb, rcr = deblock.deblock_frame(
                 ry, rcb, rcr, sched.tu4_dev, qp=qp, qp_c=qp_c,
                 bit_depth=cfg.bit_depth)
+        sao_stats = None
+        if cfg.sao:
+            # the originals are the planes already on the device
+            sao_stats = sao.stats_dispatch(
+                (org_y_dev[:h], org_c_dev[:hc],
+                 org_c_dev[hc_off:hc_off + hc]), (ry, rcb, rcr),
+                cfg.ctb_log2, cfg.bit_depth)
         self._sync()
         stats["loopfilter_s"] = time.perf_counter() - t1
         stats["_t0"] = t0
         return dict(maps=maps, sched=sched, stats=stats,
-                    recon=(ry, rcb, rcr), coef=(coef_y, coef_c), outs=outs,
+                    recon=(ry, rcb, rcr), sao_stats=sao_stats,
+                    coef=(coef_y, coef_c), outs=outs,
                     hc=hc, hc_off=hc_off, qp=qp)
 
     def _stage2(self, st: dict) -> bytes:
@@ -224,11 +318,22 @@ class IntraEncoder:
         maps.coef_cr[:] = cc[hc_off:hc_off + hc]
         outs = {k: tuple(v.cpu().numpy() for v in o)
                 for k, o in st["outs"].items()}
+        sao_np = None
+        if st["sao_stats"] is not None:
+            sao_np = tuple(tuple(a.cpu().numpy() for a in s_)
+                           for s_ in st["sao_stats"])
         stats["fetch_s"] = time.perf_counter() - t1
 
-        stats["sao_s"] = 0.0
-        self._recon_dev = st["recon"]
+        t1 = time.perf_counter()
+        recon = st["recon"]
+        if sao_np is not None:
+            recon = sao.choose_apply(sao_np, recon, maps, cfg.ctb_log2,
+                                     partition.full_lambda(qp),
+                                     cfg.bit_depth)
+            self._sync()
+        self._recon_dev = recon
         self._recon_np = None
+        stats["sao_s"] = time.perf_counter() - t1
 
         t1 = time.perf_counter()
         self._scatter_outputs(maps, st["sched"], outs)

@@ -183,17 +183,20 @@ class Schedule:
 
     @functools.cached_property
     def map_index(self) -> dict:
-        """log2 -> (iy4, ix4, iy8, ix8): each packed block's 4x4 and 8x8
-        units in the dense maps, broadcast [T, u, u]."""
+        """log2 -> (iy4, ix4, iy8, ix8): each packed luma block's 4x4 units
+        [T, u, u] and each chroma block's 8x8 units [Tc, v, v] in the dense
+        maps. At 4x4 the chroma blocks are the NxN carriers' and land at
+        their CU's cell."""
         out = {}
         for log2, p in self.plans.items():
             px, py = p.vpos[:, 0], p.vpos[:, 1]
-            u4, u8 = p.n // 4, p.n // 8
+            cx, cy = px[p.cidx], py[p.cidx]
+            u4, u8 = p.n // 4, max(p.n // 8, 1)
             out[log2] = (
                 py[:, None, None] // 4 + np.arange(u4)[None, :, None],
                 px[:, None, None] // 4 + np.arange(u4)[None, None, :],
-                py[:, None, None] // 8 + np.arange(u8)[None, :, None],
-                px[:, None, None] // 8 + np.arange(u8)[None, None, :])
+                cy[:, None, None] // 8 + np.arange(u8)[None, :, None],
+                cx[:, None, None] // 8 + np.arange(u8)[None, None, :])
         return out
 
     @functools.cached_property
@@ -252,11 +255,16 @@ def schedule(depth8: np.ndarray, tu4: np.ndarray, w: int, h: int,
 
 
 def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
-                bit_depth: int, strong: bool, sbh: bool):
-    """Intra encode of every block, level by level, with in-loop 35-mode
-    SATD mode decision.
+                bit_depth: int, strong: bool, sbh: bool, modes=None):
+    """Intra encode of every block, level by level.
 
     org_y [h+pad, w] and org_c (stacked cb/cr) int32 on the target device.
+    ``modes`` None: every block's mode is chosen in the loop by 35-mode
+    SATD against the reconstructed references, and chroma follows it.
+    Otherwise modes[log2] = (luma modes [T], chroma modes [Tc] or None for
+    "as luma") in the packed order of ``plans``, and C2 predicts the one
+    given mode. A 4x4 block is luma only, through the DST; the chroma of
+    its NxN CU is one 4x4 TU that the CU's fourth block carries.
     Returns (ry, rc, coef_y, coef_c, outs): recon and int16 level planes
     shaped like the originals, and outs[log2] = (best [T], cbf_y [T],
     cbf_c [2Tc]) in the packed order of ``plans``.
@@ -278,18 +286,31 @@ def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
             o = int(p.off[s])
             n = p.n
             pos = p.pos[o:o + c]
-            pred, best = intra_blocks(ry, pos, p.avail[o:o + c], rmd[:c], n,
-                                      0, bit_depth, strong, org=org_y)
+            if modes is None:
+                pred, best = intra_blocks(ry, pos, p.avail[o:o + c], rmd[:c],
+                                          n, 0, bit_depth, strong, org=org_y)
+            else:
+                best = modes[log2][0][o:o + c]
+                pred, _ = intra_blocks(ry, pos, p.avail[o:o + c], best, n, 0,
+                                       bit_depth, strong)
             cbf = tq_encode(org_y, pred, pos, best, n, 0, qp, bit_depth,
                             sbh, 0.0, ry, coef_y)
+            acc[log2][0].append(best)
+            acc[log2][1].append(cbf)
+            cc = int(p.ccnt[s])
+            if cc == 0:
+                continue
             co = int(p.coff[s])
-            cpos = p.cpos[co:co + 2 * c]
-            predc, _ = intra_blocks(rc, cpos, p.cavail[o:o + c], best,
-                                    n // 2, 1, bit_depth, strong)
-            cbf_c = tq_encode(org_c, predc, cpos, best, n // 2, 1, qp_c,
-                              bit_depth, sbh, 0.0, rc, coef_c)
-            for lst, v in zip(acc[log2], (best, cbf, cbf_c)):
-                lst.append(v)
+            cmode = best
+            if modes is not None and modes[log2][1] is not None:
+                cmode = modes[log2][1][co // 2:co // 2 + cc]
+            nc = 4 if log2 == 2 else n // 2
+            cpos = p.cpos[co:co + 2 * cc]
+            predc, _ = intra_blocks(rc, cpos, p.cavail[co // 2:co // 2 + cc],
+                                    cmode, nc, 1, bit_depth, strong)
+            acc[log2][2].append(tq_encode(org_c, predc, cpos, cmode, nc, 1,
+                                          qp_c, bit_depth, sbh, 0.0, rc,
+                                          coef_c))
     outs = {}
     for log2, lists in acc.items():
         outs[log2] = tuple(torch.cat(v) if v else torch.zeros(

@@ -1,6 +1,6 @@
 """hevc_hop_torch as a package: it loads neither JAX nor the JAX package,
 its entry points default to the card, its constant tables equal the
-reference's, and what it does not port yet raises."""
+reference's, and what it does not port yet (RDOQ) raises."""
 import dataclasses
 import os
 import pathlib
@@ -16,8 +16,6 @@ from hevc_hop_tpu.models.encoder import EncoderConfig as JaxConfig
 from hevc_hop_tpu.ops import deblock as jdb
 from hevc_hop_tpu.ops import intra as jintra
 from hevc_hop_torch import convert
-from hevc_hop_torch.bitstream import nal, params
-from hevc_hop_torch.common.types import NalUnitType
 from hevc_hop_torch.models.decoder import Decoder
 from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
 
@@ -75,34 +73,41 @@ def test_device_tables_equal_reference_tables():
 
 
 def test_config_from_reference():
-    ref = JaxConfig(width=416, height=240, qp=27, cu_log2=3, rdoq=False)
-    cfg = convert.config_from_reference(dataclasses.asdict(ref))
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+    for ref in (JaxConfig(width=416, height=240, qp=27, cu_log2=3,
+                          rdoq=False),
+                JaxConfig(width=1920, height=1088, qp=32, sao=True,
+                          rdoq=False)):
+        cfg = convert.config_from_reference(dataclasses.asdict(ref))
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
+        IntraEncoder(cfg, device="cpu")
     with pytest.raises(ValueError):
         convert.config_from_reference({"width": 64, "rate_control": True})
 
 
-@pytest.mark.parametrize("kw", [dict(rdoq=True), dict(sao=True),
-                                dict(cu_log2=None),
+@pytest.mark.parametrize("kw", [dict(rdoq=True),
                                 dict(cu_log2=None, mode_decision="rmd",
-                                     rdoq=True)])
+                                     rdoq=True)], ids=["kw0", "kw3"])
 def test_unported_encoder_configurations_raise(kw):
     cfg = dataclasses.replace(_supported(), **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         IntraEncoder(cfg, device="cpu")
 
 
-def test_sao_stream_raises_in_the_decoder():
-    enc = IntraEncoder(_supported(), device="cpu")
-    y = np.full((64, 64), 100, np.int32)
-    c = np.full((32, 32), 128, np.int32)
-    stream = enc.encode_frame(y, c, c)
-    sps = dataclasses.replace(enc.sps, sao_enabled=True)
-    nals = [(t, r) for t, r in nal.annexb_split(stream)]
-    out = []
-    for t, r in nals:
-        if t == NalUnitType.SPS_NUT:
-            r = params.write_sps(sps)
-        out.append(nal.make_nal(t, r))
-    with pytest.raises(NotImplementedError, match="SAO"):
-        Decoder(device="cpu").decode_stream(nal.annexb_wrap(out))
+@pytest.mark.parametrize("kw", [
+    dict(sao=True), dict(cu_log2=None), dict(cu_log2=None, sao=True),
+    dict(cu_log2=None, rqt=False), dict(cu_log2=None, nxn=False),
+    dict(cu_log2=None, rqt=False, nxn=False, sao=True, bit_depth=10)])
+def test_ported_encoder_configurations_construct(kw):
+    """Only rdoq=True still raises: the quadtree pre-pass, NxN, the
+    residual quadtree and SAO are ported."""
+    enc = IntraEncoder(dataclasses.replace(_supported(), **kw), device="cpu")
+    quadtree = kw.get("cu_log2", 4) is None
+    assert enc.sps.sao_enabled == bool(kw.get("sao"))
+    assert enc.sps.max_transform_hierarchy_depth_intra == int(
+        quadtree and kw.get("rqt", True))
+
+
+def test_quadtree_prepass_needs_a_32x32_ctu():
+    with pytest.raises(ValueError, match="ctb_log2"):
+        IntraEncoder(EncoderConfig(width=64, height=64, rdoq=False,
+                                   ctb_log2=4), device="cpu")

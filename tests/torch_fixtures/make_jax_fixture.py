@@ -1,10 +1,18 @@
-"""Write jax_intra_416x240_qp32.bin and its .json with the reference package.
+"""Write the committed reference streams and their .json with the reference
+package (hevc_hop_tpu, JAX on the CPU), on bench.py's synthetic class-B
+content:
 
-The stream is the JAX encoder's default configuration (quadtree RD
-pre-pass, NxN, RQT, RDOQ, SBH, deblocking, checksum SEI; SAO off) on
-bench.py's synthetic class-B content at 416x240, seed 0. The .json records
-the generator, seed, configuration and the per-plane MD5 of the JAX
-decoder's output. Run from the repository root:
+- jax_intra_416x240_qp32: the JAX encoder's default configuration (quadtree
+  RD pre-pass, NxN, RQT, RDOQ, SBH, deblocking, checksum SEI; SAO off) at
+  416x240, seed 0; a stream for the decoder.
+- jax_intra_sao_256x192_qp32: the default configuration with SAO on (RDOQ
+  on) at the CTU-aligned 256x192, seed 1; a stream for the decoder.
+- jax_intra_sao_nordoq_256x192_qp32: SAO on and RDOQ off, 256x192, seed 2.
+  Its .json names the seed, so that an encoder fed the same frame can be
+  held byte for byte against the stream.
+
+Each .json records the generator, seed, configuration and the per-plane MD5
+of the JAX decoder's output. Run from the repository root:
 
     JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_fixture.py
 """
@@ -24,32 +32,42 @@ from bench import synth_class_b  # noqa: E402
 from hevc_hop_tpu.models.decoder import Decoder  # noqa: E402
 from hevc_hop_tpu.models.encoder import EncoderConfig, IntraEncoder  # noqa: E402
 
-NAME = "jax_intra_416x240_qp32"
+# name -> (width, height, seed, configuration beyond width, height and qp)
+FIXTURES = {
+    "jax_intra_416x240_qp32": (416, 240, 0, {}),
+    "jax_intra_sao_256x192_qp32": (256, 192, 1, dict(sao=True)),
+    "jax_intra_sao_nordoq_256x192_qp32": (256, 192, 2,
+                                          dict(sao=True, rdoq=False)),
+}
 
 
 def plane_md5(p) -> str:
     return hashlib.md5(np.asarray(p).astype(np.uint8).tobytes()).hexdigest()
 
 
-def main() -> None:
-    w, h, seed = 416, 240, 0
-    cfg = EncoderConfig(width=w, height=h, qp=32)
+def write(name: str, w: int, h: int, seed: int, extra: dict) -> None:
+    cfg = EncoderConfig(width=w, height=h, qp=32, **extra)
     stream = IntraEncoder(cfg).encode_frame(*synth_class_b(w, h, seed=seed))
     dec = Decoder()
     (y, cb, cr), = dec.decode_stream(stream)
     assert dec.hash_ok == [True]
     here = os.path.dirname(os.path.abspath(__file__))
-    with open(os.path.join(here, NAME + ".bin"), "wb") as f:
+    with open(os.path.join(here, name + ".bin"), "wb") as f:
         f.write(stream)
     meta = dict(
         generator="tests/torch_fixtures/make_jax_fixture.py "
                   "(hevc_hop_tpu IntraEncoder, JAX on the CPU)",
-        content="bench.py synth_class_b(416, 240, seed=0)",
+        content=f"bench.py synth_class_b({w}, {h}, seed={seed})",
         seed=seed, config=dataclasses.asdict(cfg), bytes=len(stream),
         md5={"y": plane_md5(y), "cb": plane_md5(cb), "cr": plane_md5(cr)})
-    with open(os.path.join(here, NAME + ".json"), "w") as f:
+    with open(os.path.join(here, name + ".json"), "w") as f:
         json.dump(meta, f, indent=1)
         f.write("\n")
+
+
+def main() -> None:
+    for name, (w, h, seed, extra) in FIXTURES.items():
+        write(name, w, h, seed, extra)
 
 
 if __name__ == "__main__":

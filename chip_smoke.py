@@ -9,48 +9,62 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    all started together, sm_90a) and the native CABAC library;
 2. kernels: each kernel C1-C4 against its plain PyTorch version on the
    card, same seeded inputs, at every TU size 4-32 (DST4 included):
-   0 mismatching elements. Kernels C5 (partition RD pre-pass and decision)
-   and C6 (SAO statistics and apply) at the main path's shapes, a
-   1920x1088 luma plane and its chroma, 8 and 10 bit: integers equal,
-   float32 costs within COST_RTOL, and a decision that differs only where
-   the two costs behind it agree within COST_RTOL (each count printed);
-3. main paths, both on the card, each with every launch count set to 0
+   0 mismatching elements. Kernel C7 (RDOQ) against its plain body for
+   every TU class (4x4 to 32x32, luma and chroma), every MDCS scan the
+   class has, 8 and 10 bit, QP 22/27/32/37 and init types 2 and 3, on
+   seeded blocks with all-zero and clamped ones: 0 mismatching levels.
+   Kernels C5 (partition RD pre-pass and decision) and C6 (SAO statistics
+   and apply) at the main path's shapes, a 1920x1088 luma plane and its
+   chroma, 8 and 10 bit: integers equal, float32 costs within COST_RTOL,
+   and a decision that differs only where the two costs behind it agree
+   within COST_RTOL (each count printed);
+3. main paths, all on the card, each with every launch count set to 0
    just before it and read just after:
-   - quadtree: the all-intra encode of 1920x1088 frames with the RD
-     pre-pass, NxN, the residual quadtree, SBH, deblocking, SAO and the
-     checksum SEI (bench.py's production configuration with RDOQ off) and
-     the decode of that stream; recon == decoded picture, hash_ok, every
-     kernel of the path launched. Then TIMED_FRAMES more encodes and
-     decodes, timed one by one (median and maximum) with two fixed
-     pieces of host work timed beside each (host_probes: the paths are
-     bound by the host, whose speed moves), and four distinct frames, so
-     that building a frame's schedule is timed too;
-   - uniform: the same with uniform 16x16 CUs, in-loop RMD and SAO off,
+   - production: bench.py's production configuration, the all-intra
+     encode of 1920x1088 frames with the RD pre-pass, NxN, the residual
+     quadtree, RDOQ (C7's device code in C3's RDOQ arm), SBH, deblocking,
+     SAO and the checksum SEI, and the decode of that stream; recon ==
+     decoded picture, hash_ok, every kernel of the path launched. Then
+     TIMED_FRAMES more encodes and decodes, timed one by one (median and
+     maximum) with two fixed pieces of host work timed beside each
+     (host_probes: the paths are bound by the host, whose speed moves),
+     and four distinct frames (the last with five times the noise, whose
+     partition goes down to 4x4), so that building a frame's schedule is
+     timed too;
+   - quadtree: the same with RDOQ off, QUADTREE_TIMED_FRAMES timed frames;
+   - uniform: uniform 16x16 CUs, in-loop RMD, SAO and RDOQ off,
      UNIFORM_TIMED_FRAMES timed frames;
 4. cpu: small frames on the card and on the CPU (the path the CPU tests
    hold against the JAX reference), uniform CUs at cu_log2 3, 4 and 5 and
-   the quadtree path at 8 and 10 bit and without RQT and NxN: the streams
-   must be byte-identical;
+   the quadtree path at 8 and 10 bit and without RQT and NxN, RDOQ off,
+   and the production configuration at 8 and 10 bit and on a noisy frame:
+   the streams must be byte-identical;
 5. fixtures: the committed JAX streams under tests/torch_fixtures/ decode
    on the card with hash_ok and the stored per-plane MD5s, and the card's
-   encoder writes the committed SAO, RDOQ-off stream byte for byte from
-   the same seeded frame;
-6. timing: every launch form of both paths held against its plain version
-   on the 1920x1088 frames' own schedules, 0 mismatching elements: the
-   uniform path's RMD, chroma and decode-epilogue launches; on the
-   quadtree path, for a frame whose partition goes down to 4x4, C2 with
-   given modes and C3's encode at every TU size (the DST at 4x4), the NxN
-   carriers' 4x4 chroma with their CU's first mode, chroma at 4x4 to
-   16x16, C2's decode epilogue for each, and the decoder's C3 launch per
-   size and plane on the frame's own levels; the run fails if a form was
-   never held. Then each kernel at the largest launch a path gives it
-   (C2 and C3 once per path): its device time (torch.profiler, from a
-   trace that holds every launch's record) beside the least time the card
-   could take for the work its function needs (bytes, or operations by
-   the fast algorithms HM uses), and the wrapper's and the plain
-   version's time per call (CUDA events);
-   then torch.profiler over one more encode and one more decode of each
-   path for each kernel's device time per frame and the card's idle share.
+   encoder writes each one (RDOQ on and off) byte for byte from the same
+   seeded frame;
+6. cli: two 1920x1088 frames through ``python -m hevc_hop_torch.utils.cli``
+   encode (cfg/encoder_intra_main.cfg), decode and bytecount on the card:
+   rc 0, the checksum SEI verified ([OK]), the decoded frames equal to the
+   recon (see phase_cli for the recon file's fault R1);
+7. timing: every launch form of the three paths held against its plain
+   version on the 1920x1088 frames' own schedules, 0 mismatching
+   elements: the uniform path's RMD, chroma and decode-epilogue launches;
+   on the production and quadtree paths, for the noisy frame and the main
+   one, C2 with given modes and C3's encode (in its RDOQ arm on the
+   production path) at every TU size (the DST at 4x4), the NxN carriers'
+   4x4 chroma with their CU's first mode, chroma at 4x4 to 16x16, C2's
+   decode epilogue for each, and the decoder's C3 launch per size and
+   plane on the frame's own levels; the run fails if a form was never
+   held. Then each kernel at the largest launch a path gives it (C2 and
+   C3 once per path; C7 alone on the production path's fullest level's
+   coefficients): its device time (torch.profiler, from a trace that
+   holds every launch's record) beside the least time the card could
+   take for the work its function needs (bytes, or int32 and float32
+   operations by the algorithms HM uses), and the wrapper's and the
+   plain version's time per call (CUDA events); then torch.profiler over
+   one more encode and one more decode of each path for each kernel's
+   device time per frame and the card's idle share.
 
 It prints the card's name and power limit, one JSON line for the kernels,
 one for the main paths, and as its last line
@@ -76,10 +90,17 @@ sys.path.insert(0, ROOT)
 # counts an FMA on its 128 FP32 lanes)
 PEAK_BYTES = 3.35e12
 PEAK_INT32_OPS = 33.5e12
+# float32 on the CUDA cores (NVIDIA data sheet, 67 TFLOP/s, an FMA counted
+# as two operations)
+PEAK_FP32_OPS = 67e12
 
 W, H, QP = 1920, 1088, 32
 TIMED_FRAMES = 10
-UNIFORM_TIMED_FRAMES = 5
+QUADTREE_TIMED_FRAMES = 5
+UNIFORM_TIMED_FRAMES = 3
+# the frame whose partition goes down to 4x4: bench.py's content with five
+# times its luma noise
+NOISY = dict(seed=4, noise=25)
 # kernel C5's float32 costs against the plain version's: the same formulas
 # and the same order of sums, so a few units in the last place at most
 COST_RTOL = 1e-5
@@ -216,7 +237,7 @@ def phase_kernels(checks):
             for fn in (tq.tq_encode, tq.tq_encode_plain):
                 rec = torch.zeros_like(plane)
                 cp = torch.zeros((h, w), dtype=torch.int16, device=dev)
-                cbf = fn(org, pred, pos, modes, n, c_idx, 22, 8, True, 0.0,
+                cbf = fn(org, pred, pos, modes, n, c_idx, 22, 8, True, None,
                          rec, cp)
                 outs.append((rec, cp, cbf))
             for i, what in enumerate(("recon", "levels", "cbf")):
@@ -248,6 +269,58 @@ def phase_kernels(checks):
     log("kernels: " + ", ".join(
         f"{k} {checks[k].cases} cases {checks[k].mism} mismatches"
         for k in ("C1", "C2", "C3", "C4")))
+
+
+def rdoq_coefs(rng, b, n):
+    """Seeded coefficient blocks for RDOQ: Laplacian magnitudes decaying
+    toward high frequencies over three decades of scale, a twentieth of
+    the blocks all zero and a twentieth at the +-32768 clamps."""
+    scale = np.exp(rng.uniform(np.log(2), np.log(3000), (b, 1, 1)))
+    yy, xx = np.mgrid[0:n, 0:n]
+    dec = np.exp(-(xx + yy) * rng.uniform(0, 0.5, (b, 1, 1)))
+    c = np.round(rng.laplace(0, 1, (b, n, n)) * scale * dec)
+    c[:b // 20] = 0
+    c[b // 20:b // 10] = rng.choice([-32768, 32767, 0, 5],
+                                    (b // 10 - b // 20, n, n))
+    return np.clip(c, -32768, 32767).astype(np.int32)
+
+
+def phase_rdoq(checks):
+    """Kernel C7 against its plain body on the card: every TU class (log2
+    2..5, luma and chroma), every MDCS scan the class has, 8 and 10 bit,
+    QP 22/27/32/37, init types 2 and 3; 0 mismatching levels."""
+    import torch
+    from hevc_hop_torch.models.partition import full_lambda
+    from hevc_hop_torch.ops import rdoq
+    dev = torch.device("cuda")
+    c7 = checks["C7"]
+    tus = 0
+    for log2 in (2, 3, 4, 5):
+        n = 1 << log2
+        b = {2: 2048, 3: 1024, 4: 256, 5: 96}[log2]
+        for c_idx in (0, 1):
+            scans = (0, 1, 2) if not rdoq.single_scan(log2, c_idx) else (0,)
+            for bd in (8, 10):
+                for qp in (22, 27, 32, 37):
+                    for init_type in (2, 3):
+                        rng = np.random.default_rng(
+                            [log2, c_idx, bd, qp, init_type])
+                        coef = torch.as_tensor(rdoq_coefs(rng, b, n),
+                                               device=dev)
+                        sid = torch.as_tensor(
+                            np.resize(np.array(scans, np.int32), b),
+                            device=dev)
+                        lam = full_lambda(qp) * (2.0 ** (-1.0 / 3.0)
+                                                 if c_idx else 1.0)
+                        kw = dict(qp=qp, log2_size=log2, bit_depth=bd,
+                                  c_idx=c_idx, init_type=init_type, lam=lam)
+                        c7.add(rdoq.rdoq_quant(coef, sid, **kw),
+                               rdoq.rdoq_quant_plain(coef, sid, **kw),
+                               f"C7 log2={log2} c={c_idx} bd={bd} qp={qp} "
+                               f"init_type={init_type}")
+                        tus += b
+    torch.cuda.synchronize()
+    log(f"C7: {c7.cases} cases, {tus} TUs, {c7.mism} mismatching levels")
 
 
 def _scaled(frame, bit_depth, dev):
@@ -404,13 +477,16 @@ def phase_partition_sao(checks):
 
 
 def _counters():
-    """(name, module, attribute) of every kernel's launch count; the two
-    kernels of csrc/tq.cu, csrc/partition.cu and csrc/sao.cu count apart."""
+    """(name, module, attribute) of every kernel's launch count; the
+    kernels of csrc/tq.cu (encode, its RDOQ arm, decode), csrc/partition.cu
+    and csrc/sao.cu count apart."""
     from hevc_hop_torch.models import partition
-    from hevc_hop_torch.ops import deblock, hashes, intra, sao, tq
+    from hevc_hop_torch.ops import deblock, hashes, intra, rdoq, sao, tq
     return [("C1", hashes, "LAUNCHES"), ("C2", intra, "LAUNCHES"),
             ("C3 encode", tq, "ENCODE_LAUNCHES"),
+            ("C3 encode (RDOQ)", tq, "ENCODE_RDOQ_LAUNCHES"),
             ("C3 decode", tq, "DECODE_LAUNCHES"),
+            ("C7", rdoq, "LAUNCHES"),
             ("C4", deblock, "LAUNCHES"),
             ("C5 rd", partition, "RD_LAUNCHES"),
             ("C5 decide", partition, "DECIDE_LAUNCHES"),
@@ -419,8 +495,13 @@ def _counters():
 
 
 PATHS = {
-    # bench.py's production configuration with RDOQ off
-    "quadtree": (dict(sao=True, rdoq=False), TIMED_FRAMES,
+    # bench.py's production configuration: RDOQ (C7's device code in C3's
+    # RDOQ arm) on every TU
+    "production": (dict(sao=True), TIMED_FRAMES,
+                   ("C1", "C2", "C3 encode (RDOQ)", "C3 decode", "C4",
+                    "C5 rd", "C5 decide", "C6 stats", "C6 apply")),
+    # the same with RDOQ off
+    "quadtree": (dict(sao=True, rdoq=False), QUADTREE_TIMED_FRAMES,
                  ("C1", "C2", "C3 encode", "C3 decode", "C4", "C5 rd",
                   "C5 decide", "C6 stats", "C6 apply")),
     "uniform": (dict(cu_log2=4, rdoq=False), UNIFORM_TIMED_FRAMES,
@@ -536,14 +617,15 @@ def phase_main_path(name):
            "python_probe_ms": float(np.median([p[0] for p in probes])),
            "launch_probe_ms": float(np.median([p[1] for p in probes])),
            "last_stats": stats, "launches": launches}
-    if name == "quadtree":
+    if name == "production":
         # distinct frames: each has its own partition, so its schedule is
         # built anew (the cache holds the frame above only)
         # bench.py's content at this QP codes nearly all of the frame as
         # 32x32 CUs; the last frame, with five times the noise, goes down
         # to NxN and split TUs
         fresh = []
-        for seed, noise in ((1, 5), (2, 5), (3, 5), (4, 25)):
+        for seed, noise in ((1, 5), (2, 5), (3, 5),
+                            (NOISY["seed"], NOISY["noise"])):
             other = synth_class_b(W, H, seed=seed, noise=noise)
             st, e1, d1 = _roundtrip(enc, other, f"{name} seed {seed}")
             sc = next(reversed(wavefront_scan._SCHEDULES.values()))
@@ -555,12 +637,10 @@ def phase_main_path(name):
                 "wavefront_levels": int(sum(np.any(
                     [p.cnt > 0 for p in sc.plans.values()], 0))),
                 "last_stats": dict(enc.last_stats)})
-        ctx_noisy = other
         out["distinct_frames"] = fresh
         log(f"{name} distinct frames: {json.dumps(fresh)}")
         enc.encode_frame(*frame)    # the profiled frame's recon and cache
-    return out, dict(enc=enc, frame=frame, sched=sched,
-                     noisy=ctx_noisy if name == "quadtree" else None)
+    return out, dict(enc=enc, frame=frame, sched=sched)
 
 
 def phase_cpu_parity():
@@ -570,16 +650,25 @@ def phase_cpu_parity():
     frame = synth_class_b(416, 240, seed=3)
     cases = [(frame, dict(width=416, height=240, cu_log2=cu))
              for cu in (3, 4, 5)]
-    # the quadtree path at a small CTU-aligned size
+    cases = [(fr, dict(kw, rdoq=False)) for fr, kw in cases]
+    # the quadtree path at a small CTU-aligned size, RDOQ off and on (the
+    # production configuration), and the production configuration on a
+    # frame whose partition goes down to 4x4
     small = synth_class_b(256, 192, seed=4)
-    for extra in (dict(sao=True), dict(sao=True, bit_depth=10),
-                  dict(sao=True, rqt=False), dict(sao=True, nxn=False)):
+    for extra in (dict(sao=True, rdoq=False),
+                  dict(sao=True, bit_depth=10, rdoq=False),
+                  dict(sao=True, rqt=False, rdoq=False),
+                  dict(sao=True, nxn=False, rdoq=False),
+                  dict(sao=True), dict(sao=True, bit_depth=10),
+                  dict(sao=True, noisy=True)):
         fr = small
+        if extra.pop("noisy", False):
+            fr = synth_class_b(256, 192, **NOISY)
         if extra.get("bit_depth") == 10:
             fr = tuple(p * 4 + 1 for p in small)
         cases.append((fr, dict(width=256, height=192, **extra)))
     for fr, kw in cases:
-        cfg = EncoderConfig(qp=QP, rdoq=False, **kw)
+        cfg = EncoderConfig(qp=QP, **kw)
         g = IntraEncoder(cfg).encode_frame(*fr)
         c = IntraEncoder(cfg, device="cpu").encode_frame(*fr)
         require(g == c, f"card and CPU streams differ for {kw}")
@@ -607,7 +696,7 @@ def phase_fixture():
                for k, p in zip(("y", "cb", "cr"), planes)}
         require(md5 == meta["md5"], f"{name}: MD5s {md5}")
         log(f"fixture {name}: decoded with hash_ok and the stored MD5s")
-        if not meta["config"]["rdoq"]:
+        if "sao" in name or meta["config"]["rdoq"]:
             # the reference encoder's stream, from the same seeded frame
             cfg = convert.config_from_reference(meta["config"])
             frame = synth_class_b(cfg.width, cfg.height, seed=meta["seed"])
@@ -617,6 +706,62 @@ def phase_fixture():
                     f"{len(stream)}")
             log(f"fixture {name}: the card's encoder writes the "
                 "reference's stream byte for byte")
+
+
+def phase_cli():
+    """The user's entry point: two bench.py frames at 1920x1088 through
+    ``python -m hevc_hop_torch.utils.cli`` encode (cfg/encoder_intra_main.cfg,
+    on the card), decode and bytecount. Each must exit 0 and the decode
+    must verify the checksum SEI ([OK]). The recon file holds the last
+    frame for every frame (fault R1, kept as the reference has it), so the
+    decoded file's last frame must equal the recon file's, and its first
+    the encoder's first frame as the library encodes it."""
+    import tempfile
+    from hevc_hop_torch.io import yuv as yuvio
+    from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+    frames = [synth_class_b(W, H, seed=s) for s in (5, 6)]
+    fsize = W * H * 3 // 2
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        src, bs, rec, dec = (os.path.join(tmp, f) for f in (
+            "in.yuv", "out.bin", "rec.yuv", "dec.yuv"))
+        yuvio.write_yuv420(src, frames)
+        cli = [sys.executable, "-m", "hevc_hop_torch.utils.cli"]
+        runs = {}
+        for cmd in (["encode", "-c", os.path.join(ROOT, "cfg",
+                                                 "encoder_intra_main.cfg"),
+                     "-i", src, "-b", bs, "-o", rec, "-wdt", str(W),
+                     "-hgt", str(H), "-f", "2"],
+                    ["decode", "-b", bs, "-o", dec],
+                    ["bytecount", "-b", bs]):
+            t0 = time.perf_counter()
+            out = subprocess.run(cli + cmd, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=600)
+            runs[cmd[0]] = time.perf_counter() - t0
+            require(out.returncode == 0, f"cli {cmd[0]}: rc {out.returncode}"
+                    f"\n{out.stdout[-2000:]}\n{out.stderr[-2000:]}")
+            if cmd[0] == "decode":
+                require("[OK]" in out.stdout, f"cli decode: {out.stdout}")
+            log(f"cli {cmd[0]}: " + " | ".join(
+                out.stdout.strip().splitlines()[-2:]))
+        with open(rec, "rb") as f:
+            recon = f.read()
+        with open(dec, "rb") as f:
+            decoded = f.read()
+        require(len(decoded) == len(recon) == 2 * fsize, "cli file sizes")
+        require(recon[:fsize] == recon[fsize:], "cli recon: R1 no longer "
+                "holds; compare the whole files")
+        require(decoded[fsize:] == recon[fsize:],
+                "cli: decoded last frame != recon")
+        lib = IntraEncoder(EncoderConfig(width=W, height=H, qp=32, sao=True,
+                                         hash_type=2))
+        lib.encode_frame(*frames[0])
+        first = b"".join(np.ascontiguousarray(p, np.uint8).tobytes()
+                         for p in lib.recon_yuv)
+        require(decoded[:fsize] == first, "cli: decoded first frame != the "
+                "library's recon of it")
+    log(f"cli: encode, decode and bytecount of 2 frames at {W}x{H}, "
+        f"seconds per process {json.dumps(runs)}")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -733,8 +878,29 @@ def partition_rd_ops(n, top):
                              + 2 * nn + 3)
 
 
+def rdoq_ops(n):
+    """(int32, float32) operations of RDOQ on one n x n block, by the
+    reference's algorithm, per coefficient: int32 ones for the scan gather
+    and round-half level (5), last_pos (1), the c1/c2 counts, four Rice
+    passes and context indices (24), the two candidates' rate terms (16),
+    the level choice (4) and the signed scatter (2); float32 ones for the
+    uncoded cost (3), the two candidates' costs (11 each, a fused
+    multiply-add counted twice), the zero cost and the sig costs (4), the
+    comparisons and the kept cost (5), the group sums (3) and the
+    tournament's scans and total (17)."""
+    nn = n * n
+    return 52 * nn, 54 * nn
+
+
 def bound(nbytes, ops):
-    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_INT32_OPS * 1e3
+    """Least time (ms) of the work and what bounds it. ``ops`` is int32
+    operations, or (int32, float32) operations: the CUDA cores run the two
+    at 33.5 and 67 T/s, and the floor is the larger of the two times."""
+    if isinstance(ops, tuple):
+        to = max(ops[0] / PEAK_INT32_OPS, ops[1] / PEAK_FP32_OPS) * 1e3
+    else:
+        to = ops / PEAK_INT32_OPS * 1e3
+    tb = nbytes / PEAK_BYTES * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -757,18 +923,33 @@ def _padded_planes(enc, frame, recon):
     return plane, rc, org, org_c
 
 
+def rdoq_configs(use_rdoq):
+    """(luma, chroma) RDOQ configurations of tq_encode at QP, as the level
+    loop builds them (models/wavefront_scan.py scan_encode), or Nones."""
+    from hevc_hop_torch.common import rom
+    from hevc_hop_torch.models.partition import full_lambda
+    if not use_rdoq:
+        return None, None
+    qpc = rom.chroma_qp_from_luma(QP)
+    lam = full_lambda(QP)
+    return (2, lam), (2, lam * 2.0 ** ((qpc - QP) / 3.0))
+
+
 def _hold_block_launches(planes, p, s, sc, luma_modes, chroma_modes, rmd,
-                         checks, what, seen):
+                         checks, what, seen, use_rdoq=False):
     """The launches of one level of the scan for the blocks of plan ``p``,
     kernel against plain version on the same inputs: C2's luma prediction
     (35-mode RMD where ``rmd``, else the given modes) at level ``s``, C3's
     luma encode, C2's chroma prediction and C3's chroma encode on the
     stacked cb/cr plane at level ``sc`` (cb and cr blocks share one row of
     availability and mode; at 4x4 only the NxN carriers code chroma, with
-    their CU's first mode), and C2's decode epilogue for both."""
+    their CU's first mode), and C2's decode epilogue for both. With
+    ``use_rdoq``, C3's encode runs its RDOQ arm (C7's device code)."""
     import torch
     from hevc_hop_torch.common import rom
     from hevc_hop_torch.ops import intra, tq
+    rcfg = rdoq_configs(use_rdoq)
+    enc_form = "C3 encode (RDOQ)" if use_rdoq else "C3 encode"
     plane, rc, org, org_c = planes
     dev = plane.device
     c2, c3 = checks["C2"], checks["C3"]
@@ -788,7 +969,7 @@ def _hold_block_launches(planes, p, s, sc, luma_modes, chroma_modes, rmd,
         want = intra.intra_blocks_plain(plane, pos, avail, best, n, 0)
     c2.add(got[0], want[0], f"C2 {what} luma {n}x{n} prediction")
     seen.add(("C2 luma", n))
-    cases = [("luma", plane, org, pos, avail, best, n, 0, QP)]
+    cases = [("luma", plane, org, pos, avail, best, n, 0, QP, rcfg[0])]
     cc = int(p.ccnt[sc])
     if cc:
         co = int(p.coff[sc])
@@ -800,9 +981,9 @@ def _hold_block_launches(planes, p, s, sc, luma_modes, chroma_modes, rmd,
             require(sc == s, "chroma follows its own block's luma mode")
         cases.append(("carrier chroma" if n == 4 else "chroma", rc, org_c,
                       p.cpos[co:co + 2 * cc], p.cavail[co // 2:co // 2 + cc],
-                      cmode, nc, 1, rom.chroma_qp_from_luma(QP)))
+                      cmode, nc, 1, rom.chroma_qp_from_luma(QP), rcfg[1]))
     g = torch.Generator(device="cpu").manual_seed(5)
-    for nm, pl, og, bp, av, md, sz, c_idx, qp in cases:
+    for nm, pl, og, bp, av, md, sz, c_idx, qp, rq in cases:
         if c_idx:
             got = intra.intra_blocks(pl, bp, av, md, sz, 1)[0]
             want = intra.intra_blocks_plain(pl, bp, av, md, sz, 1)
@@ -813,12 +994,13 @@ def _hold_block_launches(planes, p, s, sc, luma_modes, chroma_modes, rmd,
         for fn in (tq.tq_encode, tq.tq_encode_plain):
             rec = torch.zeros_like(pl)
             cp = torch.zeros(pl.shape, dtype=torch.int16, device=dev)
-            cbf = fn(og, pred, bp, md, sz, c_idx, qp, 8, True, 0.0, rec, cp)
+            cbf = fn(og, pred, bp, md, sz, c_idx, qp, 8, True, rq, rec, cp)
             outs.append((rec, cp, cbf))
         for i, part in enumerate(("recon", "levels", "cbf")):
-            c3.add(outs[0][i], outs[1][i],
-                   f"C3 {what} {nm} {sz}x{sz} encode {part}")
-        seen.add((f"C3 encode {nm}", sz))
+            (checks["C7"] if rq else c3).add(
+                outs[0][i], outs[1][i],
+                f"{enc_form} {what} {nm} {sz}x{sz} encode {part}")
+        seen.add((f"{enc_form} {nm}", sz))
         resi = torch.randint(-60, 61, pl.shape, generator=g,
                              dtype=torch.int32).to(dev)
         pk, pp = pl.clone(), pl.clone()
@@ -839,11 +1021,12 @@ def _replay_uniform(ctx, checks):
 
 
 def _replay_quadtree(enc, frame, checks, what):
-    """Every launch form of the quadtree path on ``frame``'s own schedule:
-    per TU size, the fullest level of the given-modes scan (luma, and the
-    level with the most chroma blocks), and the decoder's dequantize and
-    inverse transform of all TUs of each size of each plane, on the
-    frame's own levels. Returns the set of (form, size) held."""
+    """Every launch form of the quadtree path (or, where ``enc`` has RDOQ
+    on, the production path) on ``frame``'s own schedule: per TU size, the
+    fullest level of the given-modes scan (luma, and the level with the
+    most chroma blocks), and the decoder's dequantize and inverse transform
+    of all TUs of each size of each plane, on the frame's own levels.
+    Returns the set of (form, size) held."""
     import torch
     from hevc_hop_torch.common import rom
     from hevc_hop_torch.ops import tq
@@ -858,7 +1041,8 @@ def _replay_quadtree(enc, frame, checks, what):
             continue
         _hold_block_launches(planes, p, int(np.argmax(p.cnt)),
                              int(np.argmax(p.ccnt)), modes[log2][0],
-                             modes[log2][1], False, checks, what, seen)
+                             modes[log2][1], False, checks, what, seen,
+                             enc.cfg.rdoq)
     dev = torch.device("cuda")
     luma_pos, chroma_pos = sched.tu_pos
     c3 = checks["C3"]
@@ -880,7 +1064,8 @@ def _replay_quadtree(enc, frame, checks, what):
 
 
 # every launch form the quadtree path has: luma at the four TU sizes (the
-# DST at 4x4), the NxN carriers' 4x4 chroma, chroma at 4x4 to 16x16
+# DST at 4x4), the NxN carriers' 4x4 chroma, chroma at 4x4 to 16x16; the
+# production path has the same with C3's RDOQ arm
 QUADTREE_FORMS = {(f, n) for fs, ns in (
     (("C2 luma", "C3 encode luma", "C2 decode luma", "C3 decode luma"),
      (4, 8, 16, 32)),
@@ -888,6 +1073,8 @@ QUADTREE_FORMS = {(f, n) for fs, ns in (
       "C2 decode carrier chroma"), (4,)),
     (("C2 chroma", "C3 encode chroma", "C2 decode chroma", "C3 decode cb",
       "C3 decode cr"), (4, 8, 16))) for f in fs for n in ns}
+PRODUCTION_FORMS = {(f.replace("C3 encode", "C3 encode (RDOQ)"), n)
+                    for f, n in QUADTREE_FORMS}
 
 
 def phase_timing(ctxs, ps, checks, launches):
@@ -903,15 +1090,21 @@ def phase_timing(ctxs, ps, checks, launches):
     from hevc_hop_torch.ops import deblock, hashes, intra, sao, tq
     dev = torch.device("cuda")
     _replay_uniform(ctxs["uniform"], checks)
+    noisy = synth_class_b(W, H, **NOISY)
+    replays = {}
+    for name, forms in (("production", PRODUCTION_FORMS),
+                        ("quadtree", QUADTREE_FORMS)):
+        enc = ctxs[name]["enc"]
+        seen, _ = _replay_quadtree(enc, noisy, checks,
+                                   f"{name} path, noisy frame")
+        more, replays[name] = _replay_quadtree(enc, ctxs[name]["frame"],
+                                               checks, f"{name} path")
+        missing = sorted(forms - (seen | more))
+        log(f"launch forms of the {name} path held at {W}x{H}: "
+            f"{len(seen | more)} (form, size) pairs, missing {missing}")
+        require(not missing, f"{name}: launch forms never held: {missing}")
     qt = ctxs["quadtree"]
-    seen, _ = _replay_quadtree(qt["enc"], qt["noisy"], checks,
-                               "quadtree path, noisy frame")
-    more, st = _replay_quadtree(qt["enc"], qt["frame"], checks,
-                                "quadtree path")
-    missing = sorted(QUADTREE_FORMS - (seen | more))
-    log(f"launch forms of the quadtree path held at {W}x{H}: "
-        f"{len(seen | more)} (form, size) pairs, missing {missing}")
-    require(not missing, f"launch forms never held: {missing}")
+    st = replays["quadtree"]
 
     enc = ctxs["uniform"]["enc"]
     sched = ctxs["uniform"]["sched"]
@@ -932,8 +1125,10 @@ def phase_timing(ctxs, ps, checks, launches):
                           replaces=replaces, fn=fn, plain=plain,
                           nbytes=nbytes, ops=ops))
 
-    def scan_level(path, p, luma_modes, pl):
-        """Rows of C2 and C3 encode at the fullest level of plan ``p``."""
+    def scan_level(path, p, luma_modes, pl, use_rdoq=False):
+        """Rows of C2 and C3 encode at the fullest level of plan ``p``;
+        with ``use_rdoq``, of C3's RDOQ arm and of C7 alone on the same
+        blocks' coefficients instead."""
         n = p.n
         s = int(np.argmax(p.cnt))
         o, c = int(p.off[s]), int(p.cnt[s])
@@ -949,6 +1144,9 @@ def phase_timing(ctxs, ps, checks, launches):
             c2bytes = 4 * n * n + 4 * (4 * n + 1) + 4 * n + 1 + 12
         pred, best = intra.intra_blocks(pl, pos, avail, ask, n, 0, **kw)
         best = ask if best is None else best
+        if use_rdoq:
+            rdoq_rows(path, n, c, pos, pred, best)
+            return
         spec(f"C2 intra ({'RMD' if luma_modes is None else 'given mode'})",
              "C2", path, "intra_kernel",
              f"{c} luma blocks of {n}x{n}, {form}",
@@ -960,7 +1158,7 @@ def phase_timing(ctxs, ps, checks, launches):
 
         def tq_enc(fn, k):
             rec, cp, _ = bufs[k]
-            return fn(org, pred, pos, best, n, 0, QP, 8, True, 0.0, rec,
+            return fn(org, pred, pos, best, n, 0, QP, 8, True, None, rec,
                       cp), rec, cp
 
         spec(f"C3 tq (encode, {n}x{n})", "C3 encode", path,
@@ -969,6 +1167,39 @@ def phase_timing(ctxs, ps, checks, launches):
              lambda: tq_enc(tq.tq_encode, "kernel"),
              lambda: tq_enc(tq.tq_encode_plain, "plain"),
              c * (n * n * (4 + 4 + 4 + 2) + 16), c * tq_encode_ops(n))
+
+    def rdoq_rows(path, n, c, pos, pred, best):
+        """C3's encode entry in its RDOQ arm, and C7 alone on the forward
+        transform of the same blocks' residuals."""
+        from hevc_hop_torch.ops import rdoq, transform
+        rcfg = rdoq_configs(True)[0]
+
+        def tq_enc(fn, k):
+            rec, cp, _ = bufs[k]
+            return fn(org, pred, pos, best, n, 0, QP, 8, True, rcfg, rec,
+                      cp), rec, cp
+
+        ri, rf = rdoq_ops(n)
+        spec(f"C3 tq (encode, RDOQ, {n}x{n})", "C3 encode (RDOQ)", path,
+             "tq_encode_rdoq_kernel",
+             f"{c} luma blocks of {n}x{n}, encode entry, RDOQ arm",
+             "hevc_hop_torch/csrc/tq.cu", "hevc_hop_tpu/ops/rdoq.py:214",
+             lambda: tq_enc(tq.tq_encode, "kernel"),
+             lambda: tq_enc(tq.tq_encode_plain, "plain"),
+             c * (n * n * (4 + 4 + 4 + 2) + 16),
+             (c * (tq_encode_ops(n) - 7 * n * n + ri), c * rf))
+        rows_, cols_ = intra.block_index(pos, n)
+        coef = transform.fwd_transform(org[rows_, cols_] - pred, 8,
+                                       False).contiguous()
+        sid = torch.zeros(c, dtype=torch.int32, device=dev)
+        kw = dict(qp=QP, log2_size=n.bit_length() - 1, bit_depth=8,
+                  c_idx=0, init_type=2, lam=rcfg[1])
+        spec(f"C7 rdoq ({n}x{n})", "C7", path, "rdoq_quant_kernel",
+             f"{c} luma blocks of {n}x{n}, standalone entry",
+             "hevc_hop_torch/csrc/rdoq.cu", "hevc_hop_tpu/ops/rdoq.py:214",
+             lambda: rdoq.rdoq_quant(coef, sid, **kw),
+             lambda: rdoq.rdoq_quant_plain(coef, sid, **kw),
+             c * (n * n * (4 + 4) + 4), (c * ri, c * rf))
 
     def decode_all(path, pos, n, levels):
         nb = pos.shape[0]
@@ -993,13 +1224,19 @@ def phase_timing(ctxs, ps, checks, launches):
     coef = torch.zeros(org.shape, dtype=torch.int16, device=dev)
     tq.tq_encode(org, fpred, grid, torch.zeros(1, dtype=torch.int32,
                                                device=dev), n, 0, QP, 8,
-                 True, 0.0, torch.zeros_like(org), coef)
+                 True, None, torch.zeros_like(org), coef)
     decode_all("uniform", grid, n, coef[:H].contiguous())
     # the quadtree path's own frame: its 32x32 TUs, modes and levels
     qsched, qmaps = st["sched"], st["maps"]
     qplane = _padded_planes(qt["enc"], qt["frame"], st["recon"])[0]
     qmodes = qt["enc"]._given_modes(qsched, qmaps.mode4.astype(np.int32))
     scan_level("quadtree", qsched.plans[5], qmodes[5][0], qplane)
+    # the production path's own frame: its 32x32 TUs and modes
+    pe, pst = ctxs["production"]["enc"], replays["production"]
+    pmodes = pe._given_modes(pst["sched"], pst["maps"].mode4.astype(np.int32))
+    scan_level("production", pst["sched"].plans[5], pmodes[5][0],
+               _padded_planes(pe, ctxs["production"]["frame"],
+                              pst["recon"])[0], use_rdoq=True)
     decode_all("quadtree", qsched.tu_pos[0][5], 32,
                torch.as_tensor(qmaps.coef_y).to(dev))
 
@@ -1087,22 +1324,33 @@ def phase_timing(ctxs, ps, checks, launches):
         require(ms is not None and ms > 0,
                 f"no complete trace of {sp['kernel']} in {traces} tries")
         b_ms, by = bound(sp["nbytes"], sp["ops"])
+        launched, fused = counter, {}
+        if counter == "C7":
+            # on the main paths C7's device code (rdoq_block) runs inside
+            # C3's RDOQ arm, so its launches there are that arm's; only
+            # this comparison launches the standalone entry
+            launched = "C3 encode (RDOQ)"
+            fused = {"launched_in": launched,
+                     "frame_kernel": "tq_encode_rdoq_kernel",
+                     "standalone_launches_by_path": {
+                         k: v[counter] for k, v in launches.items()}}
         rows.append({"name": name, "route": "cuda", "source": sp["source"],
                      "replaces": sp["replaces"], "path": sp["path"],
                      "kernel": sp["kernel"],
-                     "launches": launches[sp["path"]][counter],
-                     "launches_by_path": {k: v[counter]
+                     "launches": launches[sp["path"]][launched],
+                     "launches_by_path": {k: v[launched]
                                           for k, v in launches.items()},
                      "max_abs_err": check.err, "mismatches": check.mism,
                      "ms": ms, "kernel_ms": ms, "call_ms": call_ms,
                      "profile_traces": traces,
                      "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
-                     "library_ms": None, "shape": sp["shape"]})
+                     "library_ms": None, "shape": sp["shape"], **fused})
     return rows
 
 
 KERNELS = ("checksum_kernel", "intra_kernel", "tq_encode_kernel",
-           "tq_decode_kernel", "deblock_kernel", "partition_rd_kernel",
+           "tq_encode_rdoq_kernel", "tq_decode_kernel", "rdoq_quant_kernel",
+           "deblock_kernel", "partition_rd_kernel",
            "partition_decide_kernel", "sao_stats_kernel", "sao_apply_kernel")
 
 
@@ -1171,8 +1419,10 @@ def main() -> int:
     log_host("start")
     phase_build()
     log_host("built")
-    checks = {k: Check() for k in ("C1", "C2", "C3", "C4", "C5", "C6")}
+    checks = {k: Check() for k in ("C1", "C2", "C3", "C4", "C5", "C6",
+                                   "C7")}
     phase_kernels(checks)
+    phase_rdoq(checks)
     ps = phase_partition_sao(checks)
     log_host("kernels held")
     paths, ctxs = {}, {}
@@ -1181,13 +1431,15 @@ def main() -> int:
         log_host(f"{name} path timed")
     phase_cpu_parity()
     phase_fixture()
-    log_host("parity and fixtures done")
+    cli_s = phase_cli()
+    log_host("parity, fixtures and CLI done")
     rows = phase_timing(ctxs, ps, checks,
                         {k: v["launches"] for k, v in paths.items()})
     for name in PATHS:
         paths[name]["profile"] = phase_profile(name, ctxs[name])
     for r in rows:
-        k = r["kernel"]
+        # C7's frame time is that of the arm it runs in, transforms included
+        k = r.get("frame_kernel", r["kernel"])
         r["frame_ms"] = {
             name: {side: prof[side]["kernel_ms"][k]
                    if prof[side]["device_busy_ms"] else None
@@ -1195,7 +1447,7 @@ def main() -> int:
             for name, prof in ((n, paths[n]["profile"]) for n in PATHS)}
     log_host("end")
     log(card)
-    log(json.dumps({"main_paths": paths, "card": card}))
+    log(json.dumps({"main_paths": paths, "cli_s": cli_s, "card": card}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

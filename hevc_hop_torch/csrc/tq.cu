@@ -7,9 +7,11 @@
 // _residual_uniform and _residual_mixed.
 //
 // Encode entry, one CTA per block: resi = org - pred, forward DCT (DST at
-// 4x4 luma) with HM's shifts, dead-zone quant, sign-bit hiding with its RD
-// +-1 move, dequant, inverse transform with both 16-bit clamps, and the
-// clipped recon. The recon and the int16 levels are written straight into
+// 4x4 luma) with HM's shifts, dead-zone quant or, in its RDOQ arm
+// (tq_encode_rdoq_kernel), kernel C7's rdoq_block (rdoq.cuh) on the
+// coefficients in shared memory, sign-bit hiding with its RD +-1 move,
+// dequant, inverse transform with both 16-bit clamps, and the clipped
+// recon. The recon and the int16 levels are written straight into
 // their planes at the block's position, and the block's cbf into cbf[b].
 // Decode entry, one CTA per block: dequant and inverse transform of the
 // levels at the block's position into the residual plane.
@@ -18,11 +20,11 @@
 // cores. The first inverse stage reaches about 9.4e7 > 2^24, so fp32 or
 // TF32 tensor cores would round; no integer MMA of the right width exists.
 // The quantizer products wrap mod 2^32 exactly as the reference's int32 ones
-// do (computed unsigned). SBH's float costs round after every product and
-// sum, as the reference's do: they are written with __fmul_rn, __fsub_rn and
-// __fadd_rn, so that nvcc cannot contract them into fused multiply-adds.
-// The rate proxy's floor(log2(v)) is the reference's float32 one, one low
-// at v = 8192 and 32768.
+// do (computed unsigned). SBH's float cost is rounded as the reference's
+// compiled scan rounds it: fma(r_new - r_cur, lamc, fma(d_new, d_new,
+// -d_cur*d_cur)), with d_cur*d_cur rounded on its own (__fmul_rn). The rate
+// proxy's floor(log2(v)) is the reference's float32 one, one low at
+// v = 8192 and 32768.
 //
 // Bound: integer operations. An N x N block does 4 N^3 multiply-adds for
 // the four transform stages against 2 N^2 samples in and 2 N^2 out (plus
@@ -30,6 +32,7 @@
 // N >= 8. The design keeps the block and every intermediate in shared
 // memory, so device memory sees each input once and each output once; a
 // CTA's threads share the N^2 outputs of each stage.
+#include "rdoq.cuh"
 #include "tq.cuh"
 
 namespace {
@@ -44,8 +47,7 @@ __device__ __forceinline__ float rate(int v) {
 
 __device__ __forceinline__ float sbh_cost(float dn, float dc, float lamc,
                                           float rn, float rc) {
-  const float dd = __fsub_rn(__fmul_rn(dn, dn), __fmul_rn(dc, dc));
-  return __fadd_rn(dd, __fmul_rn(lamc, __fsub_rn(rn, rc)));
+  return fmaf(__fsub_rn(rn, rc), lamc, fmaf(dn, dn, -__fmul_rn(dc, dc)));
 }
 
 // Sign-bit hiding of one 4x4 group g (the reference's sbh_adjust, one
@@ -129,9 +131,11 @@ struct EncArgs {
   int16_t *coefp;
   int coef_stride;
   int32_t *cbf;
+  RdoqArgs r;
 };
 
-__global__ void tq_encode_kernel(EncArgs a) {
+template <bool kRdoq>
+__device__ void tq_encode_body(const EncArgs &a) {
   extern __shared__ int32_t sm[];
   const int n = a.n, nn = n * n;
   int32_t *M = sm, *R = M + nn, *T = R + nn, *C = T + nn, *Q = C + nn;
@@ -152,14 +156,16 @@ __global__ void tq_encode_kernel(EncArgs a) {
   __syncthreads();
   stage_rows(M, T, C, n, 0, log2 + 6, 0);
   __syncthreads();
-  for (int i = tid; i < nn; i += nt) {
-    Q[i] = quant1(C[i], a.qs, a.qoff, a.qbits);
+  const int single = !(log2 == 2 || (log2 == 3 && a.c_idx == 0));
+  const int sid = single ? 0 : mdcs_scan_id(a.modes[b % a.mper], n, a.c_idx);
+  if constexpr (kRdoq) {
+    rdoq_block(C, Q, n, a.c_idx, sid, a.r, reinterpret_cast<char *>(any + 1));
+  } else {
+    for (int i = tid; i < nn; i += nt) Q[i] = quant1(C[i], a.qs, a.qoff,
+                                                     a.qbits);
+    __syncthreads();
   }
-  __syncthreads();
   if (a.sbh) {
-    const int single = !(log2 == 2 || (log2 == 3 && a.c_idx == 0));
-    const int sid =
-        single ? 0 : mdcs_scan_id(a.modes[b % a.mper], n, a.c_idx);
     const int32_t *perm = a.scan + sid * nn;
     for (int g = tid; g < nn / 16; g += nt)
       sbh_group(Q, C, perm, g, a.rd, a.lamc, a.dqs, a.dqsh);
@@ -183,6 +189,10 @@ __global__ void tq_encode_kernel(EncArgs a) {
         clip3(0, a.maxv, pred[i] + T[i]);
   if (tid == 0) a.cbf[b] = *any;
 }
+
+__global__ void tq_encode_kernel(EncArgs a) { tq_encode_body<false>(a); }
+
+__global__ void tq_encode_rdoq_kernel(EncArgs a) { tq_encode_body<true>(a); }
 
 __global__ void tq_decode_kernel(const int16_t *coefp, int coef_stride,
                                  const int32_t *pos, const int32_t *mat,
@@ -218,6 +228,8 @@ int threads_for(int n) {
 // Encode entry. org/recon int32 and coefp int16 planes with row strides;
 // pred [B, n, n]; pos [B, 2] (x, y); modes [mper], block b reads
 // modes[b % mper]; mat [n, n] DCT or DST; scan [3, n*n] scan_raster_index.
+// rdoq_args: null for the dead-zone quantizer, else the RDOQ class's
+// tables and scalars (launches tq_encode_rdoq_kernel).
 HH_EXPORT int hh_tq_encode(const void *org, int org_stride, const void *pred,
                            const void *pos, const void *modes, int mper,
                            int nblocks, int n, int c_idx, int bit_depth,
@@ -225,7 +237,7 @@ HH_EXPORT int hh_tq_encode(const void *org, int org_stride, const void *pred,
                            int dqsh, int sbh, int rd, float lamc,
                            const void *mat, const void *scan, void *recon,
                            int recon_stride, void *coefp, int coef_stride,
-                           void *cbf, void *stream) {
+                           void *cbf, const void *rdoq_args, void *stream) {
   EncArgs a;
   a.org = static_cast<const int32_t *>(org);
   a.org_stride = org_stride;
@@ -252,9 +264,21 @@ HH_EXPORT int hh_tq_encode(const void *org, int org_stride, const void *pred,
   a.coefp = static_cast<int16_t *>(coefp);
   a.coef_stride = coef_stride;
   a.cbf = static_cast<int32_t *>(cbf);
-  const size_t smem = sizeof(int32_t) * (5 * n * n + 1);
-  tq_encode_kernel<<<nblocks, threads_for(n), smem,
-                     static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  size_t smem = sizeof(int32_t) * (5 * n * n + 1);
+  if (!rdoq_args) {
+    tq_encode_kernel<<<nblocks, threads_for(n), smem, st>>>(a);
+    return (int)cudaGetLastError();
+  }
+  a.r = *static_cast<const RdoqArgs *>(rdoq_args);
+  smem += rdoq_scratch_bytes(n);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        tq_encode_rdoq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  tq_encode_rdoq_kernel<<<nblocks, threads_for(n), smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

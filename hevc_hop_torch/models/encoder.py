@@ -8,15 +8,12 @@ Counterpart of hevc_hop_tpu/models/encoder.py. The stages:
      ``mode_decision="rmd"``, a uniform CU grid whose modes are chosen
      inside the wavefront by 35-mode SATD. Then the wavefront schedule of
      the chosen transform blocks (host, cached per structure);
-  2. the level loop over kernels C2 (prediction) and C3 (transform, quant,
-     SBH, recon) for luma and the stacked cb/cr plane
-     (models/wavefront_scan.py);
+  2. the level loop over kernels C2 (prediction) and C3 (transform, RDOQ
+     or the dead-zone quantizer, SBH, recon) for luma and the stacked
+     cb/cr plane (models/wavefront_scan.py);
   3. deblocking, kernel C4; SAO statistics, host RDO and apply, kernel C6
      (ops/sao.py); the checksum SEI, kernel C1;
   4. dense maps -> native C++ slice-data serializer -> NAL/AnnexB.
-
-The reference's RDOQ is not ported yet and raises NotImplementedError
-(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -65,16 +62,8 @@ class EncoderConfig:
     wpp: bool = False
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to hevc_hop_torch yet: see ROADMAP.md "
-        "queue 1")
-
-
 class IntraEncoder:
     def __init__(self, cfg: EncoderConfig, device=None) -> None:
-        if cfg.rdoq:
-            raise _not_ported("RDOQ (rdoq=True)")
         if cfg.cu_log2 is not None and not 3 <= cfg.cu_log2 <= cfg.ctb_log2:
             raise ValueError("cu_log2 must lie in [3, ctb_log2]")
         if cfg.width % 2 or cfg.height % 2:
@@ -279,7 +268,8 @@ class IntraEncoder:
         t1 = time.perf_counter()
         ry, rc, coef_y, coef_c, outs = wavefront_scan.scan_encode(
             org_y_dev, org_c_dev, sched.plans, sched.nsteps, qp, qp_c,
-            cfg.bit_depth, cfg.strong_intra_smoothing, cfg.sbh, modes)
+            cfg.bit_depth, cfg.strong_intra_smoothing, cfg.sbh, modes,
+            use_rdoq=cfg.rdoq, init_type=int(SliceType.I))
         self._sync()
         stats["scan_s"] = time.perf_counter() - t1
 

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from hevc_hop_torch.models import wavefront
+from hevc_hop_torch.models.partition import full_lambda
 from hevc_hop_torch.ops.intra import intra_blocks
 from hevc_hop_torch.ops.tq import tq_encode
 
@@ -255,7 +256,8 @@ def schedule(depth8: np.ndarray, tu4: np.ndarray, w: int, h: int,
 
 
 def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
-                bit_depth: int, strong: bool, sbh: bool, modes=None):
+                bit_depth: int, strong: bool, sbh: bool, modes=None,
+                use_rdoq: bool = False, init_type: int = 2):
     """Intra encode of every block, level by level.
 
     org_y [h+pad, w] and org_c (stacked cb/cr) int32 on the target device.
@@ -265,11 +267,18 @@ def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
     "as luma") in the packed order of ``plans``, and C2 predicts the one
     given mode. A 4x4 block is luma only, through the DST; the chroma of
     its NxN CU is one 4x4 TU that the CU's fourth block carries.
+    ``use_rdoq`` quantizes every block with RDOQ (slice class
+    ``init_type``) at the reference's lambdas: full_lambda(qp) for luma,
+    weighted by 2^((qp_c - qp) / 3) in float64 for chroma.
     Returns (ry, rc, coef_y, coef_c, outs): recon and int16 level planes
     shaped like the originals, and outs[log2] = (best [T], cbf_y [T],
     cbf_c [2Tc]) in the packed order of ``plans``.
     """
     dev = org_y.device
+    lam = full_lambda(qp)
+    rcfg_y = (init_type, lam) if use_rdoq else None
+    rcfg_c = ((init_type, lam * 2.0 ** ((qp_c - qp) / 3.0)) if use_rdoq
+              else None)
     ry = torch.zeros_like(org_y)
     rc = torch.zeros_like(org_c)
     coef_y = torch.zeros(org_y.shape, dtype=torch.int16, device=dev)
@@ -294,7 +303,7 @@ def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
                 pred, _ = intra_blocks(ry, pos, p.avail[o:o + c], best, n, 0,
                                        bit_depth, strong)
             cbf = tq_encode(org_y, pred, pos, best, n, 0, qp, bit_depth,
-                            sbh, 0.0, ry, coef_y)
+                            sbh, rcfg_y, ry, coef_y)
             acc[log2][0].append(best)
             acc[log2][1].append(cbf)
             cc = int(p.ccnt[s])
@@ -309,7 +318,7 @@ def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
             predc, _ = intra_blocks(rc, cpos, p.cavail[co // 2:co // 2 + cc],
                                     cmode, nc, 1, bit_depth, strong)
             acc[log2][2].append(tq_encode(org_c, predc, cpos, cmode, nc, 1,
-                                          qp_c, bit_depth, sbh, 0.0, rc,
+                                          qp_c, bit_depth, sbh, rcfg_c, rc,
                                           coef_c))
     outs = {}
     for log2, lists in acc.items():

@@ -11,11 +11,13 @@ RD choice depends on them bit for bit:
 - ``floor(log2(v))`` of the rate proxy is computed by the reference in
   float32, and on the CPU it comes out one low at v = 8192 and v = 32768
   (:func:`floor_log2_ref`);
-- the cost ``d_dec*d_dec - d_cur*d_cur + lamc*(r_dec - r_cur)`` is three
-  float32 products and two sums, each rounded on its own (the reference's
-  XLA:CPU program does not contract them into fused multiply-adds here);
-  the kernel uses ``__fmul_rn`` / ``__fsub_rn`` / ``__fadd_rn`` so that
-  nvcc cannot contract them either.
+- the cost ``d_new*d_new - d_cur*d_cur + lamc*(r_new - r_cur)`` is what the
+  reference's compiled scan (XLA on the CPU) makes of it: two fused
+  multiply-adds, ``fma(r_new - r_cur, lamc, fma(d_new, d_new,
+  -(d_cur*d_cur)))``, with ``d_cur*d_cur`` rounded on its own because both
+  candidates read it (:func:`fma`); the kernel spells the same with
+  ``fmaf`` and ``__fmul_rn``. (Run op by op, the reference rounds every
+  product and sum; its jitted scan is what writes the streams.)
 """
 from __future__ import annotations
 
@@ -67,15 +69,21 @@ def dequant(level: torch.Tensor, qp: int, log2_size: int,
     return torch.clamp(d, COEF_MIN, COEF_MAX)
 
 
-def floor_log2_ref(v: torch.Tensor) -> torch.Tensor:
-    """``floor(log2(float32(v)))`` as the reference computes it on the CPU,
-    for integer v >= 1: the bit length less one, and one less again at
-    v = 8192 and v = 32768, where its float32 log2 falls just short."""
+def bit_length(v: torch.Tensor) -> torch.Tensor:
+    """Bit length of each int32 v >= 0 (0 for 0)."""
     v = v.to(torch.int32)
     bl = torch.zeros_like(v)
     for b in range(31):
         bl = bl + (v >= (1 << b)).to(torch.int32)
-    return bl - 1 - ((v == 8192) | (v == 32768)).to(torch.int32)
+    return bl
+
+
+def floor_log2_ref(v: torch.Tensor) -> torch.Tensor:
+    """``floor(log2(float32(v)))`` as the reference computes it on the CPU,
+    for integer v >= 1: the bit length less one, and one less again at
+    v = 8192 and v = 32768, where its float32 log2 falls just short."""
+    return (bit_length(v) - 1
+            - ((v == 8192) | (v == 32768)).to(torch.int32))
 
 
 def _rate(v: torch.Tensor) -> torch.Tensor:
@@ -86,10 +94,29 @@ def _rate(v: torch.Tensor) -> torch.Tensor:
                                     device=v.device))
 
 
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a*b + c rounded once. The float64 product is exact; the
+    float64 sum is rounded to odd (its exact error from TwoSum), which makes
+    the final rounding to float32 correct."""
+    a = a.double()
+    b = b.double() if torch.is_tensor(b) else float(b)
+    c = c.double() if torch.is_tensor(c) else float(c)
+    p = a * b
+    s = p + c
+    bp = s - c
+    e = (p - bp) + (c - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    inf = torch.full_like(s, float("inf"))
+    toward = torch.where(e > 0, inf, -inf)
+    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def _sbh_cost(d_new, d_cur, lamc: np.float32, r_new, r_cur):
-    """(d_new*d_new - d_cur*d_cur) + lamc*(r_new - r_cur) in float32, one
-    rounding per operation."""
-    return (d_new * d_new - d_cur * d_cur) + float(lamc) * (r_new - r_cur)
+    """d_new*d_new - d_cur*d_cur + lamc*(r_new - r_cur) as the reference's
+    compiled scan rounds it (see the module docstring)."""
+    return fma(r_new - r_cur, float(lamc), fma(d_new, d_new,
+                                               -(d_cur * d_cur)))
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,9 +1,10 @@
 """Transform-quant pipelines of the wavefront step and the decoder; kernel C3.
 
 :func:`tq_encode` takes a batch of predicted blocks through residual ->
-forward DCT/DST -> quant -> sign-bit hiding -> dequant -> inverse
-transform -> clipped recon, and writes the recon and the int16 levels
-straight into their planes at each block's position (the reference runs
+forward DCT/DST -> quant (the dead-zone quantizer, or RDOQ, ops/rdoq.py)
+-> sign-bit hiding -> dequant -> inverse transform -> clipped recon, and
+writes the recon and the int16 levels straight into their planes at each
+block's position (the reference runs
 these as separate XLA ops in ``_enc_plane_ys`` and scatters the levels
 after its scan). :func:`tq_decode` is the decoder's dequant plus inverse
 transform into a dense residual plane (the reference's
@@ -15,15 +16,19 @@ ops/quant.py, which run on any device.
 """
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
 from hevc_hop_torch import _cuda
-from hevc_hop_torch.ops import quant, transform
+from hevc_hop_torch.ops import quant, rdoq as _rdoq, transform
 from hevc_hop_torch.ops.intra import block_index, _period
 
-# one count per kernel of csrc/tq.cu
+# one count per kernel of csrc/tq.cu; the encode entry counts its two arms
+# apart: the dead-zone quantizer, and RDOQ
 ENCODE_LAUNCHES = 0
+ENCODE_RDOQ_LAUNCHES = 0
 DECODE_LAUNCHES = 0
 
 
@@ -41,7 +46,7 @@ def mdcs_scan_id(modes: torch.Tensor, n: int, c_idx: int) -> torch.Tensor:
 
 
 def tq_encode_plain(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
-                    lam, recon, coefp):
+                    rdoq, recon, coefp):
     b = pos.shape[0]
     modes = _period(modes, b)
     log2 = n.bit_length() - 1
@@ -49,10 +54,16 @@ def tq_encode_plain(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
     use_dst = n == 4 and c_idx == 0
     resi = org[rows, cols].to(torch.int32) - pred
     coef = transform.fwd_transform(resi, bit_depth, use_dst)
-    lev = quant.quant(coef, qp, log2, bit_depth, True)
+    scan_id = mdcs_scan_id(modes, n, c_idx)
+    if rdoq is None:
+        lev = quant.quant(coef, qp, log2, bit_depth, True)
+    else:
+        lev = _rdoq.rdoq_quant_plain(
+            coef, scan_id, qp=qp, log2_size=log2, bit_depth=bit_depth,
+            c_idx=c_idx, init_type=rdoq[0], lam=rdoq[1])
     if sbh:
-        lev = quant.sbh_adjust(lev, mdcs_scan_id(modes, n, c_idx), c_idx,
-                               coef, qp, bit_depth, lam)
+        lev = quant.sbh_adjust(lev, scan_id, c_idx, coef, qp, bit_depth,
+                               rdoq[1] if rdoq else 0.0)
     rq = transform.inv_transform(quant.dequant(lev, qp, log2, bit_depth),
                                  bit_depth, use_dst)
     recon[rows, cols] = torch.clamp(pred + rq, 0, (1 << bit_depth) - 1)
@@ -60,21 +71,23 @@ def tq_encode_plain(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
     return (lev != 0).flatten(1).any(1).to(torch.int32)
 
 
-def tq_encode(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh, lam,
+def tq_encode(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh, rdoq,
               recon, coefp):
     """Kernel C3, encode entry, over B blocks of size n.
 
     org/recon [H, W] int32 planes; pred [B, n, n] int32; pos [B, 2] int32
     (x, y); modes [P] int32 with P dividing B (block i's intra mode is
-    modes[i % P]; it picks the MDCS scan for SBH); c_idx 0 luma, 1 chroma.
-    Writes recon and the int16 levels into coefp [H, W] at each block, and
-    returns cbf [B] int32.
+    modes[i % P]; it picks the MDCS scan for RDOQ and SBH); c_idx 0 luma,
+    1 chroma. rdoq: None for the dead-zone quantizer, or (init_type, lam)
+    for RDOQ's level decisions, whose lam SBH then uses too (the
+    reference's ``_enc_plane_ys``). Writes recon and the int16 levels into
+    coefp [H, W] at each block, and returns cbf [B] int32.
     """
     if not pred.is_cuda:
         return tq_encode_plain(org, pred, pos, modes, n, c_idx, qp,
-                               bit_depth, sbh, lam, recon, coefp)
+                               bit_depth, sbh, rdoq, recon, coefp)
     return _tq_encode_cuda(org, pred, pos, modes, n, c_idx, qp, bit_depth,
-                           sbh, lam, recon, coefp)
+                           sbh, rdoq, recon, coefp)
 
 
 def tq_decode_plain(coefp, pos, n, qp, bit_depth, use_dst, out):
@@ -115,8 +128,8 @@ def _tables(dev, n, use_dst):
 
 
 def _tq_encode_cuda(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
-                    lam, recon, coefp):
-    global ENCODE_LAUNCHES
+                    rdoq, recon, coefp):
+    global ENCODE_LAUNCHES, ENCODE_RDOQ_LAUNCHES
     b = pos.shape[0]
     _check(pred, torch.int32, "pred")
     _check(pos, torch.int32, "pos")
@@ -134,10 +147,15 @@ def _tq_encode_cuda(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
     qs, qbits, qoff = quant.quant_params(qp, log2, bit_depth)
     dqs, dqsh = quant.dequant_params(qp, log2, bit_depth)
     tr_shift = 15 - bit_depth - log2
+    lam = rdoq[1] if rdoq else 0.0
     lamc = float(np.float32(lam * (4.0 ** tr_shift)))
+    rargs = None
+    if rdoq is not None:
+        rargs = _rdoq.kernel_args(log2, c_idx, qp, bit_depth, rdoq[0],
+                                  rdoq[1], pred.device)
     fn = _cuda.bind("tq", "hh_tq_encode",
                     "pi" "p" "pp" "i" "iiiii" "iii" "ii" "iif" "pp"
-                    "pi" "pi" "p" "p")
+                    "pi" "pi" "p" "p" "p")
     err = fn(org.data_ptr(), org.stride(0), pred.data_ptr(),
              pos.data_ptr(), modes.data_ptr(), modes.shape[0],
              b, n, c_idx, bit_depth, (1 << bit_depth) - 1,
@@ -145,10 +163,14 @@ def _tq_encode_cuda(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
              int(sbh), 1, lamc,
              mat.data_ptr(), tab[f"scan{log2}"].data_ptr(),
              recon.data_ptr(), recon.stride(0),
-             coefp.data_ptr(), coefp.stride(0),
-             cbf.data_ptr(), _cuda.stream(pred))
+             coefp.data_ptr(), coefp.stride(0), cbf.data_ptr(),
+             None if rargs is None else ctypes.addressof(rargs),
+             _cuda.stream(pred))
     _cuda.check("tq", err)
-    ENCODE_LAUNCHES += 1
+    if rdoq is None:
+        ENCODE_LAUNCHES += 1
+    else:
+        ENCODE_RDOQ_LAUNCHES += 1
     return cbf
 
 

@@ -2,7 +2,8 @@
 against the JAX encoder (byte-identical AnnexB streams), with uniform CUs
 and with the quadtree RD pre-pass, NxN, the residual quadtree and SAO; its
 Decoder on those streams, on JAX default-configuration streams (RDOQ
-levels), and on the committed reference fixtures."""
+levels), and on the committed reference fixtures, which its encoder also
+writes byte for byte (RDOQ on and off)."""
 import hashlib
 import json
 import pathlib
@@ -86,8 +87,19 @@ def _decode_fixture(name):
     return stream, meta
 
 
+def _encode_fixture(stream, meta):
+    """The port's encoder writes the reference's committed stream from the
+    same seeded frame (as the card's encoder must, in chip_smoke.py)."""
+    from chip_smoke import synth_class_b
+    cfg = convert.config_from_reference(meta["config"])
+    frame = synth_class_b(cfg.width, cfg.height, seed=meta["seed"])
+    assert IntraEncoder(cfg, device="cpu").encode_frame(*frame) == stream
+
+
 def test_port_decodes_committed_reference_fixture():
-    _decode_fixture("jax_intra_416x240_qp32")
+    stream, meta = _decode_fixture("jax_intra_416x240_qp32")
+    assert meta["config"]["rdoq"]
+    _encode_fixture(stream, meta)
 
 
 @pytest.mark.parametrize("name", ["jax_intra_sao_256x192_qp32",
@@ -95,13 +107,7 @@ def test_port_decodes_committed_reference_fixture():
 def test_port_decodes_committed_sao_fixture(name):
     stream, meta = _decode_fixture(name)
     assert meta["config"]["sao"]
-    if not meta["config"]["rdoq"]:
-        # the stream the card's encoder is held against: the port's
-        # encoder writes it from the same seeded frame
-        from chip_smoke import synth_class_b
-        cfg = convert.config_from_reference(meta["config"])
-        frame = synth_class_b(cfg.width, cfg.height, seed=meta["seed"])
-        assert IntraEncoder(cfg, device="cpu").encode_frame(*frame) == stream
+    _encode_fixture(stream, meta)
 
 
 # ---------------------------------------------------------------------------

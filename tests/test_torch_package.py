@@ -1,6 +1,7 @@
 """hevc_hop_torch as a package: it loads neither JAX nor the JAX package,
 its entry points default to the card, its constant tables equal the
-reference's, and what it does not port yet (RDOQ) raises."""
+reference's, and every configuration of the reference's intra
+EncoderConfig builds."""
 import dataclasses
 import os
 import pathlib
@@ -76,7 +77,9 @@ def test_config_from_reference():
     for ref in (JaxConfig(width=416, height=240, qp=27, cu_log2=3,
                           rdoq=False),
                 JaxConfig(width=1920, height=1088, qp=32, sao=True,
-                          rdoq=False)):
+                          rdoq=False),
+                # bench.py's production configuration: RDOQ on
+                JaxConfig(width=1920, height=1088, qp=32, sao=True)):
         cfg = convert.config_from_reference(dataclasses.asdict(ref))
         assert dataclasses.asdict(cfg) == dataclasses.asdict(ref)
         IntraEncoder(cfg, device="cpu")
@@ -84,24 +87,28 @@ def test_config_from_reference():
         convert.config_from_reference({"width": 64, "rate_control": True})
 
 
-@pytest.mark.parametrize("kw", [dict(rdoq=True),
-                                dict(cu_log2=None, mode_decision="rmd",
-                                     rdoq=True)], ids=["kw0", "kw3"])
-def test_unported_encoder_configurations_raise(kw):
-    cfg = dataclasses.replace(_supported(), **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IntraEncoder(cfg, device="cpu")
+def test_default_encoder_config_constructs():
+    """The reference's defaults, RDOQ on, build on the CPU."""
+    cfg = EncoderConfig()
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(JaxConfig())
+    assert cfg.rdoq
+    enc = IntraEncoder(cfg, device="cpu")
+    assert enc.sps.max_transform_hierarchy_depth_intra == 1
 
 
 @pytest.mark.parametrize("kw", [
     dict(sao=True), dict(cu_log2=None), dict(cu_log2=None, sao=True),
     dict(cu_log2=None, rqt=False), dict(cu_log2=None, nxn=False),
-    dict(cu_log2=None, rqt=False, nxn=False, sao=True, bit_depth=10)])
+    dict(cu_log2=None, rqt=False, nxn=False, sao=True, bit_depth=10),
+    dict(cu_log2=None, rdoq=True, sao=True),
+    dict(cu_log2=None, mode_decision="rmd", rdoq=True),
+    dict(cu_log2=None, rdoq=True, bit_depth=10)])
 def test_ported_encoder_configurations_construct(kw):
-    """Only rdoq=True still raises: the quadtree pre-pass, NxN, the
-    residual quadtree and SAO are ported."""
+    """The quadtree pre-pass, NxN, the residual quadtree, SAO and RDOQ are
+    ported: every configuration builds."""
     enc = IntraEncoder(dataclasses.replace(_supported(), **kw), device="cpu")
-    quadtree = kw.get("cu_log2", 4) is None
+    quadtree = (kw.get("cu_log2", 4) is None
+                and kw.get("mode_decision", "analysis") == "analysis")
     assert enc.sps.sao_enabled == bool(kw.get("sao"))
     assert enc.sps.max_transform_hierarchy_depth_intra == int(
         quadtree and kw.get("rqt", True))

@@ -17,7 +17,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and apply) at the main path's shapes, a 1920x1088 luma plane and its
    chroma, 8 and 10 bit: integers equal, float32 costs within COST_RTOL,
    and a decision that differs only where the two costs behind it agree
-   within COST_RTOL (each count printed);
+   within COST_RTOL (each count printed). Kernel C8 (motion compensation)
+   at every luma size 4-32 and chroma size 2-16, every phase, 8 and 10
+   bit, windows clamped at every edge, in its three forms;
 3. main paths, all on the card, each with every launch count set to 0
    just before it and read just after:
    - production: bench.py's production configuration, the all-intra
@@ -34,14 +36,28 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    - quadtree: the same with RDOQ off, QUADTREE_TIMED_FRAMES timed frames;
    - uniform: uniform 16x16 CUs, in-loop RMD, SAO and RDOQ off,
      UNIFORM_TIMED_FRAMES timed frames;
+   - iss: the lenslet ISS encode (bench.py:88-100's cell with the GT warp
+     off, at 1920x1088: quadtree pre-pass with C9's pre-pass entry,
+     self-similarity search C9, merge arms, sub-pel refinement and the
+     tournament C10, chroma MC C8, RDOQ, SAO, deblocking with the inter
+     boundary strengths) of a copy of tools/bdrate.py's lenslet frame and
+     its decode, ISS_TIMED_FRAMES timed frames;
+   - iss-uniform: the same with uniform 16x16 CUs and in-loop RMD, one
+     timed frame;
+   then C9's pre-pass entry on every block of the lenslet luma against
+   its plain body (in chunks), and one more encode and decode of each ISS
+   path with its C8, C9, C10 and C4 launches held against the plain
+   bodies (the fullest level of each size and every eighth level);
 4. cpu: small frames on the card and on the CPU (the path the CPU tests
    hold against the JAX reference), uniform CUs at cu_log2 3, 4 and 5 and
    the quadtree path at 8 and 10 bit and without RQT and NxN, RDOQ off,
-   and the production configuration at 8 and 10 bit and on a noisy frame:
-   the streams must be byte-identical;
-5. fixtures: the committed JAX streams under tests/torch_fixtures/ decode
-   on the card with hash_ok and the stored per-plane MD5s, and the card's
-   encoder writes each one (RDOQ on and off) byte for byte from the same
+   and the production configuration at 8 and 10 bit and on a noisy frame,
+   and five small ISS cases (uniform 8x8 and 16x16 CUs, the quadtree with
+   SAO, RDOQ on and off, deblocking off): the streams must be
+   byte-identical;
+5. fixtures: the committed JAX streams under tests/torch_fixtures/ (intra
+   and ISS) decode on the card with hash_ok and the stored per-plane MD5s,
+   and the card's encoders write each one byte for byte from the same
    seeded frame;
 6. cli: two 1920x1088 frames through ``python -m hevc_hop_torch.utils.cli``
    encode (cfg/encoder_intra_main.cfg), decode and bytecount on the card:
@@ -64,7 +80,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    operations by the algorithms HM uses), and the wrapper's and the
    plain version's time per call (CUDA events); then torch.profiler over
    one more encode and one more decode of each path for each kernel's
-   device time per frame and the card's idle share.
+   device time per frame and the card's idle share. The kernels of the
+   ISS paths get rows the same way: C9's scan entry (with a grouped
+   float32 conv2d of the same windows as its library yardstick), its
+   pre-pass entry, C10's two entries, C8's two forms and C4 with the ISS
+   frame's inter maps.
 
 It prints the card's name and power limit, one JSON line for the kernels,
 one for the main paths, and as its last line
@@ -478,10 +498,12 @@ def phase_partition_sao(checks):
 
 def _counters():
     """(name, module, attribute) of every kernel's launch count; the
-    kernels of csrc/tq.cu (encode, its RDOQ arm, decode), csrc/partition.cu
-    and csrc/sao.cu count apart."""
-    from hevc_hop_torch.models import partition
-    from hevc_hop_torch.ops import deblock, hashes, intra, rdoq, sao, tq
+    kernels of csrc/tq.cu (encode, its RDOQ arm, decode), csrc/partition.cu,
+    csrc/sao.cu, csrc/interp.cu (luma, chroma), csrc/ss_search.cu (scan,
+    pre-pass) and csrc/inter_arms.cu (arms, motion) count apart."""
+    from hevc_hop_torch.models import partition, ss_partition
+    from hevc_hop_torch.ops import (deblock, hashes, inter_arms, interp,
+                                    intra, rdoq, sao, ss_search, tq)
     return [("C1", hashes, "LAUNCHES"), ("C2", intra, "LAUNCHES"),
             ("C3 encode", tq, "ENCODE_LAUNCHES"),
             ("C3 encode (RDOQ)", tq, "ENCODE_RDOQ_LAUNCHES"),
@@ -491,7 +513,13 @@ def _counters():
             ("C5 rd", partition, "RD_LAUNCHES"),
             ("C5 decide", partition, "DECIDE_LAUNCHES"),
             ("C6 stats", sao, "STATS_LAUNCHES"),
-            ("C6 apply", sao, "APPLY_LAUNCHES")]
+            ("C6 apply", sao, "APPLY_LAUNCHES"),
+            ("C8 luma", interp, "LUMA_LAUNCHES"),
+            ("C8 chroma", interp, "CHROMA_LAUNCHES"),
+            ("C9 search", ss_search, "SEARCH_LAUNCHES"),
+            ("C9 prepass", ss_partition, "PREPASS_LAUNCHES"),
+            ("C10 arms", inter_arms, "LAUNCHES"),
+            ("C10 motion", inter_arms, "MOTION_LAUNCHES")]
 
 
 PATHS = {
@@ -675,6 +703,28 @@ def phase_cpu_parity():
         sc = next(reversed(wavefront_scan._SCHEDULES.values()))
         log(f"cpu parity: {kw} {len(g)} bytes identical, transform blocks "
             f"{ {int(lg): int(p.cnt.sum()) for lg, p in sc.plans.items()} }")
+    # the lenslet ISS encoder: uniform 8x8 and 16x16 CUs, the quadtree with
+    # SAO, RDOQ on and off, deblocking off
+    from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
+    small = lenslet_frame(128, 96, mi=16)
+    for fr, kw in (
+            (synth_lenslet(96, 64, 13, seed=128),
+             dict(width=96, height=64, cu_log2=4, mi_size=13)),
+            (synth_lenslet(64, 64, 8, seed=91),
+             dict(width=64, height=64, cu_log2=3, qp=27, mi_size=8,
+                  search_range=24)),
+            (small, dict(width=128, height=96, quadtree=True, sao=True,
+                         mi_size=16)),
+            (small, dict(width=128, height=96, quadtree=True, sao=True,
+                         rdoq=False, mi_size=16)),
+            (synth_lenslet(64, 64, 13, seed=9),
+             dict(width=64, height=64, cu_log2=4, qp=30, mi_size=13,
+                  search_range=24, deblocking=False))):
+        cfg = HoloConfig(**dict(dict(qp=QP, gt=False), **kw))
+        g = HoloEncoder(cfg).encode_frame(*fr)
+        c = HoloEncoder(cfg, device="cpu").encode_frame(*fr)
+        require(g == c, f"card and CPU ISS streams differ for {kw}")
+        log(f"cpu parity: ISS {kw} {len(g)} bytes identical")
     torch.cuda.synchronize()
 
 
@@ -706,6 +756,27 @@ def phase_fixture():
                     f"{len(stream)}")
             log(f"fixture {name}: the card's encoder writes the "
                 "reference's stream byte for byte")
+    from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
+    for name in ("jax_iss_128x96_qp32", "jax_iss_quadtree_sao_128x96_qp32"):
+        base = os.path.join(ROOT, "tests", "torch_fixtures", name)
+        with open(base + ".bin", "rb") as f:
+            stream = f.read()
+        with open(base + ".json") as f:
+            meta = json.load(f)
+        dec = Decoder()
+        (planes,) = dec.decode_stream(stream)
+        require(dec.hash_ok == [True], f"{name}: hash_ok {dec.hash_ok}")
+        md5 = {k: hashlib.md5(p.astype(np.uint8).tobytes()).hexdigest()
+               for k, p in zip(("y", "cb", "cr"), planes)}
+        require(md5 == meta["md5"], f"{name}: MD5s {md5}")
+        cfg = HoloConfig(**meta["config"])
+        frame = lenslet_frame(cfg.width, cfg.height, mi=16, seed=meta["seed"])
+        got = HoloEncoder(cfg).encode_frame(*frame)
+        require(got == stream, f"{name}: the card's ISS encoder writes "
+                f"{len(got)} bytes that differ from the reference's "
+                f"{len(stream)}")
+        log(f"fixture {name}: decoded with hash_ok and the stored MD5s; the "
+            "card's ISS encoder writes it byte for byte")
 
 
 def phase_cli():
@@ -1287,6 +1358,15 @@ def phase_timing(ctxs, ps, checks, launches):
          lambda: sao.apply_sao_plane(py_, tm, om, bm, 5, 8),
          lambda: sao.apply_sao_plane_plain(py_, tm, om, bm, 5, 8),
          2 * 4 * H * W + 6 * 4 * ctus, 20 * H * W)
+    return _time_specs(specs, checks, launches)
+
+
+def _time_specs(specs, checks, launches):
+    """Each spec's kernel held once more against its plain version, then
+    timed: device ms from a complete profiler trace, the wrapper's and the
+    plain version's ms per call (CUDA events), the bound, and the library
+    call's ms where the spec names one; one row of the kernels line each."""
+    import torch
     rows = []
     for sp in specs:
         name, counter, fn, plain = (sp[k] for k in ("name", "counter", "fn",
@@ -1301,9 +1381,13 @@ def phase_timing(ctxs, ps, checks, launches):
             if torch.is_tensor(g) and g.is_floating_point():
                 check.add_close(g, w_, COST_RTOL,
                                 f"{name} at the main path's shape")
+            elif sp.get("rtol"):
+                check.add_close(g, w_, sp["rtol"],
+                                f"{name} at the main path's shape")
             else:
                 check.add(g, w_, f"{name} at the main path's shape")
-        slow = counter == "C5 rd"     # the plain body takes seconds
+        # the plain bodies of these take seconds
+        slow = counter in ("C5 rd", "C9 prepass", "C9 search", "C10 arms")
         call_ms = time_ms(fn, reps=3 if slow else 7, inner=3 if slow else 10)
         pms = time_ms(plain, reps=1 if slow else 5, inner=1)
         # the kernel's own device time per call: a call of these small
@@ -1344,14 +1428,584 @@ def phase_timing(ctxs, ps, checks, launches):
                      "ms": ms, "kernel_ms": ms, "call_ms": call_ms,
                      "profile_traces": traces,
                      "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
-                     "library_ms": None, "shape": sp["shape"], **fused})
+                     "library_ms": (time_ms(sp["library"])
+                                    if sp.get("library") else None),
+                     "library_call": sp.get("library_call"),
+                     "shape": sp["shape"], **fused})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# The lenslet ISS slice: kernels C8, C9, C10 and C4's inter arm.
+
+# bench.py:88-100's lenslet cell at 1920x1088 with the GT warp off
+ISS_CONFIG = dict(qp=QP, mi_size=16, search_range=32, quadtree=True,
+                  sao=True, rdoq=True, sbh=True, gt=False)
+ISS_TIMED_FRAMES = 3
+ISS_PATHS = {
+    "iss": (dict(ISS_CONFIG), ISS_TIMED_FRAMES,
+            ("C1", "C2", "C3 encode (RDOQ)", "C3 decode", "C4", "C5 rd",
+             "C5 decide", "C6 stats", "C6 apply", "C8 luma", "C8 chroma",
+             "C9 search", "C9 prepass", "C10 arms", "C10 motion")),
+    # uniform 16x16 CUs: the only path with the scan's in-loop RMD arm
+    "iss-uniform": (dict(ISS_CONFIG, quadtree=False, sao=False, cu_log2=4),
+                    1, ("C1", "C2", "C3 encode (RDOQ)", "C3 decode", "C4",
+                        "C8 luma", "C8 chroma", "C9 search", "C10 arms",
+                        "C10 motion")),
+}
+
+
+def lenslet_frame(w=512, h=384, mi=16, seed=5):
+    """tools/bdrate.py's synthetic lenslet light field (copied: this script
+    imports nothing of the JAX package or its tools): a micro-image grid
+    with a smooth per-MI disparity drift over a textured scene."""
+    rng = np.random.default_rng(seed)
+    scene_w, scene_h = w * 2, h * 2
+    sy, sx = np.mgrid[0:scene_h, 0:scene_w]
+    scene = (100 + 70 * np.sin(sx / 23.0) * np.cos(sy / 17.0)
+             + 40 * np.sin((sx - sy) / 31.0)
+             + rng.normal(0, 4, (scene_h, scene_w))).clip(0, 255)
+    y = np.zeros((h, w))
+    for by in range(h // mi):
+        for bx in range(w // mi):
+            ox = int(bx * mi * 0.6) + 40
+            oy = int(by * mi * 0.6) + 40
+            y[by * mi:(by + 1) * mi, bx * mi:(bx + 1) * mi] = \
+                scene[oy:oy + mi, ox:ox + mi]
+    y = y.clip(0, 255).astype(np.int32)
+    cb = (120 + 20 * np.sin(np.mgrid[0:h // 2, 0:w // 2][1] / 19.0)
+          ).clip(0, 255).astype(np.int32)
+    cr = (128 + 18 * np.cos(np.mgrid[0:h // 2, 0:w // 2][0] / 23.0)
+          ).clip(0, 255).astype(np.int32)
+    return y, cb, cr
+
+
+def synth_lenslet(w, h, mi, seed=3):
+    """tests/test_e2e_iss.py's micro-image grid with drift and noise
+    (copied)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(40, 200, (mi, mi))
+    yy, xx = np.mgrid[0:h, 0:w]
+    y = (base[yy % mi, xx % mi] + 0.2 * xx + 0.1 * yy
+         + rng.normal(0, 2, (h, w))).clip(0, 255).astype(np.int32)
+    cb = (128 + base[yy[::2, ::2] % mi, xx[::2, ::2] % mi] // 8
+          ).clip(0, 255).astype(np.int32)
+    cr = (128 - base[(yy[::2, ::2] + 5) % mi, xx[::2, ::2] % mi] // 8
+          ).clip(0, 255).astype(np.int32)
+    return y, cb, cr
+
+
+def phase_interp(checks):
+    """Kernel C8 against its plain body: every luma size 4-32 and chroma
+    size 2-16, every quarter- and eighth-pel phase, 8 and 10 bit, MVs that
+    clamp the window at every edge of both stacked pictures, and the three
+    forms (prediction, masked write, add-residual epilogue)."""
+    import torch
+    from hevc_hop_torch.ops import interp
+    dev = torch.device("cuda")
+    c8 = checks["C8"]
+    rng = np.random.default_rng(8)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                  device=dev)
+    for bd in (8, 10):
+        for chroma, sizes in ((False, (4, 8, 16, 32)), (True, (2, 4, 8, 16))):
+            h, w, pad = 96, 128, 16
+            hc_off = h + pad
+            rows = 2 * hc_off if chroma else h + pad
+            plane = t(rng.integers(0, 1 << bd, (rows, w)))
+            for n in sizes:
+                b = 256
+                pos = np.stack([rng.integers(0, w - n + 1, b),
+                                rng.integers(0, h - n + 1, b)], -1)
+                if chroma:
+                    pos[b // 2:, 1] += hc_off
+                mv = rng.integers(-4 * (n + 24), 4 * (n + 24), (b, 2))
+                mv[:64, 0] = np.arange(64) % 16 - 8
+                mv[64:128, 1] = np.arange(64) % 16 - 8
+                pos, mv = t(pos), t(mv)
+                args = (pos, mv, n, chroma, h, bd, hc_off)
+                what = f"C8 {'chroma' if chroma else 'luma'} n={n} bd={bd}"
+                c8.add(interp.mc_blocks(plane, *args),
+                       interp.mc_blocks_plain(plane, *args), what)
+                only = t(rng.random(b) < 0.5)
+                base = t(rng.integers(0, 1 << bd, (b, n, n)))
+                c8.add(interp.mc_blocks(plane, *args, out=base.clone(),
+                                        only=only),
+                       interp.mc_blocks_plain(plane, *args, out=base.clone(),
+                                              only=only), what + " masked")
+                # the decode epilogue writes the plane in place, so (as
+                # the decoder's schedule guarantees) no block may read
+                # samples another writes: blocks n + 16 apart, MVs within
+                # +-8 samples, so that each window (+-4 more for the taps)
+                # stays clear of the other blocks
+                step = n + 16
+                g = np.stack(np.meshgrid(np.arange(0, w - n + 1, step),
+                                         np.arange(0, h - n + 1, step)),
+                             -1).reshape(-1, 2)
+                if chroma:
+                    g = np.concatenate([g, g + [0, hc_off]])
+                gpos = t(g)
+                gmv = t(rng.integers(-8 * (4 if not chroma else 8),
+                                     8 * (4 if not chroma else 8),
+                                     (len(g), 2)))
+                resi = t(rng.integers(-300, 300, tuple(plane.shape)))
+                pk, pp = plane.clone(), plane.clone()
+                interp.mc_blocks(pk, gpos, gmv, n, chroma, h, bd, hc_off,
+                                 resi=resi)
+                interp.mc_blocks_plain(pp, gpos, gmv, n, chroma, h, bd,
+                                       hc_off, resi=resi)
+                c8.add(pk, pp, what + " decode epilogue")
+    torch.cuda.synchronize()
+    log(f"C8: {c8.cases} cases {c8.mism} mismatches")
+
+
+def phase_iss_path(name):
+    """An ISS main path on the card: the launch counts of one encode and
+    its decode (set to 0 just before, read just after), then the timed
+    frames."""
+    import torch
+    from hevc_hop_torch.models.decoder import Decoder
+    from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
+    extra, timed, needed = ISS_PATHS[name]
+    frame = lenslet_frame(W, H, mi=16)
+    enc = HoloEncoder(HoloConfig(width=W, height=H, **extra))
+    counters = _counters()
+    for _, m, attr in counters:
+        setattr(m, attr, 0)
+    stream, e_s, d_s = _roundtrip(enc, frame, name)
+    launches = {k: getattr(m, attr) for k, m, attr in counters}
+    log(f"{name} path launches: {launches}")
+    require(all(launches[k] > 0 for k in needed),
+            f"a kernel was not launched on the {name} path: {launches}")
+    maps = enc.last_maps
+    inter_share = float((maps.pred4 == 0).mean())
+    require(inter_share > 0, f"{name}: no SS or merge CU")
+    mse = np.mean((enc.recon_yuv[0].astype(np.float64) - frame[0]) ** 2)
+    psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-9))
+    require(psnr > 25, f"{name}: Y-PSNR {psnr:.2f} dB")
+    enc_s, dec_s, probes = [], [], []
+    for _ in range(timed):
+        probes.append(host_probes())
+        t0 = time.perf_counter()
+        again = enc.encode_frame(*frame)
+        torch.cuda.synchronize()
+        enc_s.append(time.perf_counter() - t0)
+        require(again == stream, f"{name}: a later encode differs")
+        t0 = time.perf_counter()
+        dec = Decoder()
+        dec.decode_stream(stream)
+        torch.cuda.synchronize()
+        dec_s.append(time.perf_counter() - t0)
+        require(dec.hash_ok == [True], f"{name}: a later decode's hash")
+    plans = _last_prep(enc)[0]
+    out = {"frame": f"{W}x{H}", "qp": QP, "config": extra,
+           "content": f"lenslet_frame({W}, {H}, mi=16, seed=5)",
+           "wavefront_levels": enc.last_stats["levels"],
+           "cus": {int(lg): int(p.cnt.sum()) for lg, p in plans.items()},
+           "inter_share": inter_share,
+           "bytes": len(stream), "y_psnr_db": psnr,
+           "first_encode_decode_s": e_s + d_s, "timed_frames": timed,
+           "encode_s": float(np.median(enc_s)), "encode_s_max": max(enc_s),
+           "decode_s": float(np.median(dec_s)), "decode_s_max": max(dec_s),
+           "encode_fps": 1.0 / float(np.median(enc_s)),
+           "decode_fps": 1.0 / float(np.median(dec_s)),
+           "python_probe_ms": float(np.median([p[0] for p in probes])),
+           "launch_probe_ms": float(np.median([p[1] for p in probes])),
+           "last_stats": dict(enc.last_stats), "launches": launches}
+    log(f"{name} path: {json.dumps(out)}")
+    return out, dict(enc=enc, frame=frame, stream=stream)
+
+
+def _hold_iss_launches(enc, frame, stream, checks, every=8):
+    """The launches of one ISS encode and its decode, kernel against plain
+    body on the same inputs, at the fullest level of every CU size and at
+    every ``every``-th level: C9's search, C10's arms and motion write,
+    C8's masked chroma (encoder) and both decode epilogues, and C4 with
+    the inter maps. The encode goes on with the kernels' outputs."""
+    import torch
+    from hevc_hop_torch.models import ss_scan
+    from hevc_hop_torch.models.decoder import Decoder
+    from hevc_hop_torch.ops import deblock, interp
+    from hevc_hop_torch.ops import inter_arms as ia
+    from hevc_hop_torch.ops import ss_search as ss
+    from hevc_hop_torch.models import ss_encoder, decoder as dmod
+    c8, c9, c10, c4 = (checks[k] for k in ("C8", "C9", "C10", "C4"))
+    orig = dict(mc=ss_scan.mc_blocks, ss=ss_scan.ss_search,
+                arms=ss_scan.inter_arms, mw=ss_scan.motion_write,
+                db=deblock.deblock_frame)
+    calls = {}
+    fullest = {}
+    plans = _last_prep(enc)[0]
+    for lg, p in plans.items():
+        fullest[p.n] = int(p.cnt.max())
+    held = {}
+
+    def pick(kind, n, b):
+        k = calls[(kind, n)] = calls.get((kind, n), -1) + 1
+        return b == fullest.get(n, -1) or k % every == 0
+
+    def mark(what):
+        held[what] = held.get(what, 0) + 1
+
+    def mc(plane, pos, mv, n, chroma, h_real, bd=8, hc_off=0, out=None,
+           only=None, resi=None):
+        if not pick("mc" + str(chroma) + str(resi is None), n,
+                    pos.shape[0] // (2 if chroma else 1)):
+            return orig["mc"](plane, pos, mv, n, chroma, h_real, bd, hc_off,
+                              out, only, resi)
+        p2 = plane.clone()
+        o2 = None if out is None else out.clone()
+        want = interp.mc_blocks_plain(p2, pos, mv, n, chroma, h_real, bd,
+                                      hc_off, o2, only, resi)
+        got = orig["mc"](plane, pos, mv, n, chroma, h_real, bd, hc_off, out,
+                         only, resi)
+        what = (f"C8 {'chroma' if chroma else 'luma'} "
+                f"{'masked' if resi is None else 'decode'} n={n}")
+        c8.add(plane, p2, what + " plane")
+        if out is not None:
+            c8.add(out, o2, what)
+        mark(what)
+        return got if resi is None else want
+
+    def search(recon, org, pos, zcur, zmaxw, motion, nbav, miav, n, radius,
+               w, h, lam, mi):
+        got = orig["ss"](recon, org, pos, zcur, zmaxw, motion, nbav, miav, n,
+                         radius, w, h, lam, mi)
+        if pick("ss", n, pos.shape[0]):
+            preds = ia.gather_cands(*motion, pos, nbav, miav, n, mi)[3]
+            want = ss.ss_search_plain(recon, org, pos, zcur, zmaxw, preds, n,
+                                      radius, w, h, lam)
+            for g, w_, nm in zip(got, want, ("mv", "cost", "pred", "sse")):
+                c9.add(g, w_, f"C9 search n={n} {nm}")
+            mark(f"C9 search n={n}")
+        return got
+
+    def arms(recon, org, pos, zcur, zmaxw, motion, nbav, miav, mv_i, pred0,
+             sse0, ipred, imode, n, w, h, bd, lam, mi):
+        if not pick("arms", n, pos.shape[0]):
+            return orig["arms"](recon, org, pos, zcur, zmaxw, motion, nbav,
+                                miav, mv_i, pred0, sse0, ipred, imode, n, w,
+                                h, bd, lam, mi)
+        ip2 = ipred.clone()
+        want = ia.inter_arms_plain(recon, org, pos, zcur, zmaxw, motion, nbav,
+                                   miav, mv_i, pred0, sse0, ip2, imode, n, w,
+                                   h, bd, lam, mi)
+        got = orig["arms"](recon, org, pos, zcur, zmaxw, motion, nbav, miav,
+                           mv_i, pred0, sse0, ipred, imode, n, w, h, bd, lam,
+                           mi)
+        for g, w_, nm in zip(got + (ipred,), want + (ip2,),
+                             ("inter", "mv", "smode", "costs", "pred")):
+            c10.add(g, w_, f"C10 arms n={n} {nm}")
+        mark(f"C10 arms n={n}")
+        return got
+
+    def motion(mvx4, mvy4, pi4, pos, inter, mv, n):
+        if not pick("mw", n, pos.shape[0]):
+            return orig["mw"](mvx4, mvy4, pi4, pos, inter, mv, n)
+        c = [t_.clone() for t_ in (mvx4, mvy4, pi4)]
+        ia.motion_write_plain(*c, pos, inter, mv, n)
+        orig["mw"](mvx4, mvy4, pi4, pos, inter, mv, n)
+        c10.add(torch.stack([mvx4, mvy4, pi4]), torch.stack(c),
+                f"C10 motion n={n}")
+        mark(f"C10 motion n={n}")
+        return None
+
+    def deblock_both(y, cb, cr, tu4, qp, qp_c, bit_depth=8, beta_off=0,
+                     tc_off=0, **kw):
+        want = deblock.deblock_frame_plain(y, cb, cr, tu4, qp, qp_c,
+                                           bit_depth, beta_off, tc_off, **kw)
+        got = orig["db"](y, cb, cr, tu4, qp, qp_c, bit_depth, beta_off,
+                         tc_off, **kw)
+        for g, w_, nm in zip(got, want, ("y", "cb", "cr")):
+            c4.add(g, w_, f"C4 inter arm {nm}")
+        mark("C4 inter arm")
+        return got
+
+    ss_scan.mc_blocks, ss_scan.ss_search = mc, search
+    ss_scan.inter_arms, ss_scan.motion_write = arms, motion
+    ss_encoder.deblock.deblock_frame = deblock_both
+    try:
+        got = enc.encode_frame(*frame)
+        calls.clear()
+        dec = Decoder()
+        dec.decode_stream(got)
+    finally:
+        ss_scan.mc_blocks, ss_scan.ss_search = orig["mc"], orig["ss"]
+        ss_scan.inter_arms, ss_scan.motion_write = orig["arms"], orig["mw"]
+        ss_encoder.deblock.deblock_frame = orig["db"]
+    require(dmod.deblock.deblock_frame is orig["db"], "deblock restored")
+    require(got == stream, "the held encode differs from the path's")
+    require(dec.hash_ok == [True], "the held decode's hash")
+    torch.cuda.synchronize()
+    log(f"ISS launches held against the plain bodies: {json.dumps(held)}")
+    return held
+
+
+def phase_iss_kernels(checks, ctxs):
+    """Kernels C9 (pre-pass entry, every block of every size of the
+    1920x1088 lenslet luma, in chunks), and C8, C9's scan entry, C10 and
+    C4's inter arm on the launches of real ISS encodes and decodes, each
+    against its plain body on the card."""
+    import torch
+    from hevc_hop_torch.models import partition, ss_partition, wavefront
+    from hevc_hop_torch.models.ss_scan import zmax_win_px
+    dev = torch.device("cuda")
+    c9 = checks["C9"]
+    y = torch.as_tensor(lenslet_frame(W, H, mi=16)[0], device=dev)
+    lam = partition.full_lambda(QP)
+    zplane4 = wavefront.zaddr4_plane(W, H, 5)
+    tally = {}
+    for n in (8, 16, 32):
+        ys, xs = np.mgrid[0:H:n, 0:W:n]
+        ys, xs = ys.ravel(), xs.ravel()
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                      device=dev)
+        zmaxw = t(zmax_win_px(zplane4, n))
+        chunk = 2048
+        for i in range(0, len(xs), chunk):
+            pos = t(np.stack([xs[i:i + chunk], ys[i:i + chunk]], -1))
+            zcur = t(zplane4[ys[i:i + chunk] >> 2, xs[i:i + chunk] >> 2])
+            args = (y, pos, zcur, zmaxw, n, QP, 8, 32, W, H, 16, lam)
+            got = ss_partition.ss_rd_costs(*args)
+            want = ss_partition.ss_rd_costs_plain(*args)
+            tally[f"not_bit_equal_n{n}"] = tally.get(
+                f"not_bit_equal_n{n}", 0) + c9.add_close(
+                got, want, COST_RTOL, f"C9 pre-pass n={n} blocks {i}+")
+            tally[f"causal_n{n}"] = tally.get(f"causal_n{n}", 0) + int(
+                (want < 1e37).sum())
+    log(f"C9 pre-pass entry, every block of the {W}x{H} lenslet luma "
+        f"(costs within {COST_RTOL} relative): {json.dumps(tally)}")
+    held = {}
+    for name in ISS_PATHS:
+        c = ctxs[name]
+        held[name] = _hold_iss_launches(c["enc"], c["frame"], c["stream"],
+                                        checks)
+    need = {"C9 search", "C10 arms", "C10 motion", "C8 chroma masked",
+            "C8 luma decode", "C8 chroma decode", "C4 inter arm"}
+    seen = {k.rsplit(" n=", 1)[0] for h in held.values() for k in h}
+    require(need <= seen, f"ISS launch forms never held: {need - seen}")
+    log("ISS kernels: " + ", ".join(
+        f"{k} {checks[k].cases} cases {checks[k].mism} mismatches"
+        for k in ("C4", "C8", "C9", "C10")))
+    return tally
+
+
+def _last_prep(enc):
+    """(plans, nsteps, zmaxw) of the partition the encoder coded last."""
+    return enc._prep_cache[next(reversed(enc._prep_cache))]
+
+
+def search_ops(pos, zcur, zmaxw, n, radius):
+    """Float32 operations of the search over blocks pos at the causal
+    displacements these inputs have (the kernel skips the others): per
+    displacement 2 n^2 multiply-adds (correlation and ref^2, two
+    operations each) and the SSE, rate and compare (about 12 + 10 per
+    predictor, counted as 80)."""
+    import torch
+    d = torch.arange(-radius, radius + 1, device=pos.device)
+    ty = pos[:, 1, None, None].long() + d[None, :, None]
+    tx = pos[:, 0, None, None].long() + d[None, None, :]
+    inb = (ty >= 0) & (tx >= 0) & (ty + n <= H) & (tx + n <= W)
+    zm = zmaxw[ty.clamp(0, H - n), tx.clamp(0, W - n)]
+    causal = int((inb & (zm < zcur[:, None, None])).sum())
+    return causal * (4 * n * n + 80), causal
+
+
+def mc_ops(n, taps):
+    """int32 operations of one n x n MC: two separable stages of ``taps``
+    multiply-adds per sample (the first over n + taps - 1 rows), plus the
+    shifts, offsets and clip (4 per sample)."""
+    return 2 * taps * n * (n + taps - 1) + 2 * taps * n * n + 4 * n * n
+
+
+def phase_iss_timing(ctxs, checks, launches):
+    """Rows of the kernels line for C8, C9, C10 and C4's inter arm, each at
+    the largest launch the iss path gives it, held once more and timed
+    beside its plain version, its bound and, for C9, a library call."""
+    import torch
+    import torch.nn.functional as F
+    from hevc_hop_torch.models import partition, ss_partition, wavefront
+    from hevc_hop_torch.models.ss_scan import zmax_win_px
+    from hevc_hop_torch.ops import deblock, interp
+    from hevc_hop_torch.ops import inter_arms as ia
+    from hevc_hop_torch.ops import ss_search as ss
+    dev = torch.device("cuda")
+    # the level loop's inputs at the fullest 16x16 level of the iss path:
+    # at radius 32 no 32x32 displacement is causal (the window with the
+    # filter margin spans 40 samples), so 16x16 is the largest search
+    path = "iss" if 4 in _last_prep(ctxs["iss"]["enc"])[0] else "iss-uniform"
+    enc, frame = ctxs[path]["enc"], ctxs[path]["frame"]
+    plans, _, zmaxws = _last_prep(enc)
+    lam = partition.full_lambda(QP)
+    specs = []
+
+    def spec(**kw):
+        specs.append(kw)
+
+    lg = 4
+    p = plans[lg]
+    n = p.n
+    s = int(np.argmax(p.cnt))
+    o, c = int(p.off[s]), int(p.cnt[s])
+    sl = slice(o, o + c)
+    pos, zcur, nbav, miav = p.pos[sl], p.zcur[sl], p.nbav[sl], p.miav[sl]
+    oy, oc = enc._upload(*frame)
+    ry = oy.clone()                  # the recon: the original, ahead
+    ry[H:] = 0
+    motion = tuple(torch.zeros((oy.shape[0] // 4, W // 4), dtype=torch.int32,
+                               device=dev) for _ in range(4))
+    rng = np.random.default_rng(9)
+    motion[0][:] = torch.as_tensor(rng.integers(-200, 40, motion[0].shape))
+    motion[1][:] = torch.as_tensor(rng.integers(-200, 40, motion[1].shape))
+    motion[2][:] = torch.as_tensor(rng.random(motion[2].shape) < 0.6)
+    zmaxw = zmaxws[lg]
+    sargs = (ry, oy, pos, zcur, zmaxw, motion, nbav, miav, n, 32, W, H, lam,
+             16)
+    ops, causal = search_ops(pos, zcur, zmaxw, n, 32)
+    wsz = n + 64
+    spec(name=f"C9 ss_search (scan, {n}x{n})", counter="C9 search",
+         path=path, kernel="ss_search_kernel",
+         shape=f"{c} CUs of {n}x{n}, radius 32, {causal} causal "
+               "displacements", source="hevc_hop_torch/csrc/ss_search.cu",
+         replaces="hevc_hop_tpu/models/ss_scan.py:198",
+         fn=lambda: ss.ss_search(*sargs),
+         plain=lambda: ss.ss_search_plain(
+             ry, oy, pos, zcur, zmaxw,
+             ia.gather_cands(*motion, pos, nbav, miav, n, 16)[3], n, 32, W,
+             H, lam),
+         nbytes=c * (wsz * wsz + n * n) * 4 + c * (n * n * 4 + 16),
+         ops=(0, ops))
+    # the library yardstick: cuDNN's grouped float32 convolution of the
+    # same windows with the blocks (the correlation alone, TF32 allowed as
+    # PyTorch's default)
+    ar = torch.arange(wsz, device=dev)
+    wy = (pos[:, 1, None].long() - 32 + ar[None]).clamp(0, H - 1)
+    wx = (pos[:, 0, None].long() - 32 + ar[None]).clamp(0, W - 1)
+    win = ry[wy[:, :, None], wx[:, None, :]].float()[None]
+    ker = ss.block_at(oy, pos, n).float()[:, None]
+    specs[-1]["library"] = lambda: F.conv2d(win, ker, groups=c)
+    specs[-1]["library_call"] = ("torch.nn.functional.conv2d, grouped, "
+                                 "float32 (cuDNN; the correlation only)")
+    # C9's pre-pass entry on every 16x16 block of the lenslet luma
+    ys, xs = np.mgrid[0:H:16, 0:W:16]
+    ppos = torch.as_tensor(np.stack([xs.ravel(), ys.ravel()], -1).astype(
+        np.int32), device=dev)
+    zplane4 = wavefront.zaddr4_plane(W, H, 5)
+    pz = torch.as_tensor(zplane4[ys.ravel() >> 2, xs.ravel() >> 2].astype(
+        np.int32), device=dev)
+    pzm = torch.as_tensor(zmax_win_px(zplane4, 16), device=dev)
+    yl = oy[:H]
+    pops, pcausal = search_ops(ppos, pz, pzm, 16, 32)
+    nb = ppos.shape[0]
+    rargs = (yl, ppos, pz, pzm, 16, QP, 8, 32, W, H, 16, lam)
+    spec(name="C9 ss_search (pre-pass, 16x16)", counter="C9 prepass",
+         path="iss", kernel="ss_rd_kernel",
+         shape=f"{nb} blocks of 16x16 of the {W}x{H} luma, radius 32, "
+               f"{pcausal} causal displacements",
+         source="hevc_hop_torch/csrc/ss_search.cu",
+         replaces="hevc_hop_tpu/models/ss_partition.py:40",
+         fn=lambda: ss_partition.ss_rd_costs(*rargs),
+         plain=lambda: ss_partition.ss_rd_costs_plain(*rargs),
+         rtol=COST_RTOL,
+         nbytes=nb * (80 * 80 + 256) * 4 + nb * 4,
+         ops=(nb * 16 * 1024, pops + nb * 256 * 4))
+    # C10 on the same level's blocks, after a real search
+    mv_i, _, pred0, sse0 = ss.ss_search(*sargs)
+    ipred = ss.block_at(oy, pos, n).clone()
+    imode = torch.zeros(c, dtype=torch.int32, device=dev)
+    aargs = (ry, oy, pos, zcur, zmaxw, motion, nbav, miav, mv_i, pred0, sse0)
+    tail = (imode, n, W, H, 8, lam, 16)
+    bufs = {k: ipred.clone() for k in ("kernel", "plain")}
+    spec(name=f"C10 inter_arms ({n}x{n})", counter="C10 arms", path=path,
+         kernel="inter_arms_kernel",
+         shape=f"{c} CUs of {n}x{n}: 9 merge candidates, 16 sub-pel",
+         source="hevc_hop_torch/csrc/inter_arms.cu",
+         replaces="hevc_hop_tpu/models/ss_scan.py:410",
+         fn=lambda: ia.inter_arms(*aargs, bufs["kernel"].copy_(ipred),
+                                  *tail) + (bufs["kernel"],),
+         plain=lambda: ia.inter_arms_plain(*aargs,
+                                           bufs["plain"].copy_(ipred),
+                                           *tail) + (bufs["plain"],),
+         nbytes=c * (3 * n * n * 4 + 4 * (n + 7) ** 2 + 64),
+         ops=(c * 25 * mc_ops(n, 8), c * 26 * 3 * n * n))
+    inter = torch.ones(c, dtype=torch.int32, device=dev)
+    mvq = mv_i * 4 + 1
+    mbufs = {k: tuple(m.clone() for m in motion[:3])
+             for k in ("kernel", "plain")}
+    spec(name=f"C10 motion_write ({n}x{n})", counter="C10 motion",
+         path=path, kernel="motion_write_kernel",
+         shape=f"{c} CUs of {n}x{n}",
+         source="hevc_hop_torch/csrc/inter_arms.cu",
+         replaces="hevc_hop_tpu/models/ss_scan.py:835",
+         fn=lambda: (ia.motion_write(*mbufs["kernel"], pos, inter, mvq, n),
+                     torch.stack(mbufs["kernel"]))[1],
+         plain=lambda: (ia.motion_write_plain(*mbufs["plain"], pos, inter,
+                                              mvq, n),
+                        torch.stack(mbufs["plain"]))[1],
+         nbytes=c * (16 + 3 * 4 * (n // 4) ** 2), ops=c * 3 * (n // 4) ** 2)
+    # C8: the encoder's masked chroma and the decoder's luma epilogue
+    m = n // 2
+    hc_off = H // 2 + 32
+    cpos = p.cpos[2 * o:2 * o + 2 * c]
+    rc = oc.clone()
+    only = (torch.arange(c, device=dev) % 2).to(torch.int32)
+    cbase = torch.zeros((2 * c, m, m), dtype=torch.int32, device=dev)
+    spec(name=f"C8 interp (chroma, {m}x{m})", counter="C8 chroma",
+         path=path, kernel="mc_kernel",
+         shape=f"{2 * c} chroma blocks of {m}x{m}, masked write",
+         source="hevc_hop_torch/csrc/interp.cu",
+         replaces="hevc_hop_tpu/ops/interp.py:94",
+         fn=lambda: interp.mc_blocks(rc, cpos, mvq, m, True, H // 2, 8,
+                                     hc_off, out=cbase.clone(), only=only),
+         plain=lambda: interp.mc_blocks_plain(rc, cpos, mvq, m, True, H // 2,
+                                              8, hc_off, out=cbase.clone(),
+                                              only=only),
+         nbytes=2 * c * ((m + 3) ** 2 + m * m) * 4,
+         ops=2 * c * mc_ops(m, 4))
+    resi = torch.as_tensor(rng.integers(-30, 30, tuple(oy.shape)).astype(
+        np.int32), device=dev)
+    lbufs = {k: ry.clone() for k in ("kernel", "plain")}
+    spec(name=f"C8 interp (luma, {n}x{n})", counter="C8 luma", path=path,
+         kernel="mc_kernel",
+         shape=f"{c} luma blocks of {n}x{n}, decode epilogue",
+         source="hevc_hop_torch/csrc/interp.cu",
+         replaces="hevc_hop_tpu/ops/interp.py:120",
+         fn=lambda: (interp.mc_blocks(lbufs["kernel"].copy_(ry), pos, mvq, n,
+                                      False, H, resi=resi),
+                     lbufs["kernel"])[1],
+         plain=lambda: (interp.mc_blocks_plain(lbufs["plain"].copy_(ry), pos,
+                                               mvq, n, False, H, resi=resi),
+                        lbufs["plain"])[1],
+         nbytes=c * ((n + 7) ** 2 + 2 * n * n) * 4,
+         ops=c * mc_ops(n, 8))
+    # C4 with the iss frame's own inter maps
+    maps = ctxs["iss"]["enc"].last_maps
+    dm = lambda a: torch.as_tensor(a, device=dev)
+    ry2, rcb, rcr = ctxs["iss"]["enc"]._recon_dev
+    inter_maps = dict(pred4=dm(maps.pred4), cbf4=dm(maps.cbf4_y),
+                      ref4=dm(maps.ref4), mv4x=dm(maps.mv4x),
+                      mv4y=dm(maps.mv4y))
+    tu4 = dm(maps.tu4)
+    npx = H * W * 3 // 2
+    spec(name="C4 deblock (inter arm)", counter="C4", path="iss",
+         kernel="deblock_kernel",
+         shape=f"{W}x{H} frame, both passes, the iss frame's inter maps",
+         source="hevc_hop_torch/csrc/deblock.cu",
+         replaces="hevc_hop_tpu/ops/deblock.py:138",
+         fn=lambda: deblock.deblock_frame(ry2, rcb, rcr, tu4, QP, 31,
+                                          **inter_maps),
+         plain=lambda: deblock.deblock_frame_plain(ry2, rcb, rcr, tu4, QP,
+                                                   31, **inter_maps),
+         nbytes=2 * 4 * npx + 8 * tu4.numel(), ops=2 * 50 * npx // 4)
+    return _time_specs(specs, checks, launches)
 
 
 KERNELS = ("checksum_kernel", "intra_kernel", "tq_encode_kernel",
            "tq_encode_rdoq_kernel", "tq_decode_kernel", "rdoq_quant_kernel",
            "deblock_kernel", "partition_rd_kernel",
-           "partition_decide_kernel", "sao_stats_kernel", "sao_apply_kernel")
+           "partition_decide_kernel", "sao_stats_kernel", "sao_apply_kernel",
+           "mc_kernel", "ss_search_kernel", "ss_rd_kernel",
+           "inter_arms_kernel", "motion_write_kernel")
 
 
 def _profile(fn):
@@ -1420,22 +2074,28 @@ def main() -> int:
     phase_build()
     log_host("built")
     checks = {k: Check() for k in ("C1", "C2", "C3", "C4", "C5", "C6",
-                                   "C7")}
+                                   "C7", "C8", "C9", "C10")}
     phase_kernels(checks)
     phase_rdoq(checks)
+    phase_interp(checks)
     ps = phase_partition_sao(checks)
     log_host("kernels held")
     paths, ctxs = {}, {}
     for name in PATHS:
         paths[name], ctxs[name] = phase_main_path(name)
         log_host(f"{name} path timed")
+    for name in ISS_PATHS:
+        paths[name], ctxs[name] = phase_iss_path(name)
+        log_host(f"{name} path timed")
+    iss_prepass = phase_iss_kernels(checks, ctxs)
     phase_cpu_parity()
     phase_fixture()
     cli_s = phase_cli()
     log_host("parity, fixtures and CLI done")
-    rows = phase_timing(ctxs, ps, checks,
-                        {k: v["launches"] for k, v in paths.items()})
-    for name in PATHS:
+    launches = {k: v["launches"] for k, v in paths.items()}
+    rows = (phase_timing(ctxs, ps, checks, launches)
+            + phase_iss_timing(ctxs, checks, launches))
+    for name in paths:
         paths[name]["profile"] = phase_profile(name, ctxs[name])
     for r in rows:
         # C7's frame time is that of the arm it runs in, transforms included
@@ -1444,10 +2104,11 @@ def main() -> int:
             name: {side: prof[side]["kernel_ms"][k]
                    if prof[side]["device_busy_ms"] else None
                    for side in ("encode", "decode")}
-            for name, prof in ((n, paths[n]["profile"]) for n in PATHS)}
+            for name, prof in ((n, paths[n]["profile"]) for n in paths)}
     log_host("end")
     log(card)
-    log(json.dumps({"main_paths": paths, "cli_s": cli_s, "card": card}))
+    log(json.dumps({"main_paths": paths, "cli_s": cli_s, "card": card,
+                    "iss_prepass_check": iss_prepass}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

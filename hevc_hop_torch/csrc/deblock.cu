@@ -1,8 +1,13 @@
-// Kernel C4: in-loop deblocking of an all-intra frame, one pass of edges.
+// Kernel C4: in-loop deblocking, one pass of edges.
 //
-// Replaces hevc_hop_tpu/ops/deblock.py deblock_frame with pred4 None (the
-// all-intra boundary strength of _edge_bs_v: BS 2 on every transform-block
-// edge of the 8-grid) and its _luma_edges and _chroma_edges filters.
+// Replaces hevc_hop_tpu/ops/deblock.py deblock_frame with its boundary
+// strength _edge_bs_v and its _luma_edges and _chroma_edges filters.
+// Without the inter maps (all-intra slices) every transform-block edge of
+// the 8-grid has BS 2. With them (pred4, cbf4, ref4 uint8 and mv4x, mv4y
+// int16, [h/4, w/4], the ISS slices) a transform-block edge has BS 2 where
+// either side is intra, 1 where either side codes luma levels or the
+// references or MVs (quarter pel) differ by a full pel or more, else 0;
+// luma takes tc at BS 1 or 2, chroma filters BS 2 edges only.
 //
 // One launch filters every vertical edge of the three planes; a second
 // launch, on its output, every horizontal edge (blockIdx.y picks the
@@ -92,9 +97,26 @@ __device__ void chroma_line(const Line &l, int tc, int maxv) {
   l.at(0) = clip3(0, maxv, q0 - delta);
 }
 
+struct InterMaps {
+  const uint8_t *pred4, *cbf4, *ref4;  // null: all-intra slice
+  const int16_t *mv4x, *mv4y;
+};
+
+// BS of the edge between 4x4 cells p and q (offsets into the maps)
+__device__ int edge_bs(const InterMaps &m, int p, int q) {
+  if (m.pred4 == nullptr) return 2;
+  if (m.pred4[p] != 0 || m.pred4[q] != 0) return 2;
+  const bool cbf = m.cbf4[p] != 0 || m.cbf4[q] != 0;
+  const bool ref = m.ref4[p] != m.ref4[q];
+  const bool mv = iabs((int)m.mv4x[p] - (int)m.mv4x[q]) >= 4 ||
+                  iabs((int)m.mv4y[p] - (int)m.mv4y[q]) >= 4;
+  return (cbf || ref || mv) ? 1 : 0;
+}
+
 __global__ void deblock_kernel(Plane y, Plane cb, Plane cr,
-                               const uint8_t *tu4, int vertical, int beta,
-                               int tc, int tc_c, int bit_depth) {
+                               const uint8_t *tu4, InterMaps im,
+                               int vertical, int beta, int tc, int tc1,
+                               int tc_c, int bit_depth) {
   const int plane = blockIdx.y;
   const Plane pl = plane == 0 ? y : (plane == 1 ? cb : cr);
   const int luma = plane == 0;
@@ -123,8 +145,13 @@ __global__ void deblock_kernel(Plane y, Plane cb, Plane cr,
   const int pos = 8 * (j + 1);              // edge position across
   const int lx = luma ? pos : 2 * pos;      // in luma samples
   const int cq = lx / 4;
-  const int t = vertical ? tu4[seg * tw + cq] : tu4[cq * tw + seg];
+  // the 4x4 cells on both sides: seg indexes 4-line luma segments
+  const int q = vertical ? seg * tw + cq : cq * tw + seg;
+  const int p = vertical ? q - 1 : q - tw;
+  const int t = tu4[q];
   if (lx % (1 << t) != 0) return;           // not a transform-block edge
+  const int bs = edge_bs(im, p, q);
+  if (bs == 0 || (!luma && bs != 2)) return;
   const int along = vertical ? pl.w : 1;
   const int across = vertical ? 1 : pl.w;
   Line ln[4];
@@ -134,7 +161,7 @@ __global__ void deblock_kernel(Plane y, Plane cb, Plane cr,
     ln[r].across = across;
   }
   if (luma) {
-    luma_segment(ln, beta, tc, maxv);
+    luma_segment(ln, beta, bs == 2 ? tc : tc1, maxv);
   } else {
     chroma_line(ln[0], tc_c, maxv);
     chroma_line(ln[1], tc_c, maxv);
@@ -143,12 +170,22 @@ __global__ void deblock_kernel(Plane y, Plane cb, Plane cr,
 
 }  // namespace
 
-// y [h, w], cb/cr [h/2, w/2] int32 (dense rows), tu4 [h/4, w/4] uint8.
-// vertical = 1 filters the vertical edges, 0 the horizontal ones. tc is
-// the luma tc at BS 2, tc_c the chroma tc (0 skips chroma).
+// y [h, w], cb/cr [h/2, w/2] int32 (dense rows), tu4 [h/4, w/4] uint8;
+// pred4, cbf4, ref4 uint8 and mv4x, mv4y int16 [h/4, w/4], all null for an
+// all-intra slice. vertical = 1 filters the vertical edges, 0 the
+// horizontal ones. tc and tc1 are the luma tc at BS 2 and 1, tc_c the
+// chroma tc (0 skips chroma).
 HH_EXPORT int hh_deblock(void *py, void *pcb, void *pcr, const void *tu4,
-                         int h, int w, int vertical, int beta, int tc,
-                         int tc_c, int bit_depth, void *stream) {
+                         const void *pred4, const void *cbf4,
+                         const void *ref4, const void *mv4x,
+                         const void *mv4y, int h, int w, int vertical,
+                         int beta, int tc, int tc1, int tc_c, int bit_depth,
+                         void *stream) {
+  const InterMaps im{static_cast<const uint8_t *>(pred4),
+                     static_cast<const uint8_t *>(cbf4),
+                     static_cast<const uint8_t *>(ref4),
+                     static_cast<const int16_t *>(mv4x),
+                     static_cast<const int16_t *>(mv4y)};
   const Plane y{static_cast<int32_t *>(py), h, w};
   const Plane cb{static_cast<int32_t *>(pcb), h / 2, w / 2};
   const Plane cr{static_cast<int32_t *>(pcr), h / 2, w / 2};
@@ -159,7 +196,7 @@ HH_EXPORT int hh_deblock(void *py, void *pcb, void *pcr, const void *tu4,
   const int blocks = (int)((items + threads - 1) / threads);
   deblock_kernel<<<dim3(blocks, 3), threads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      y, cb, cr, static_cast<const uint8_t *>(tu4), vertical, beta, tc, tc_c,
-      bit_depth);
+      y, cb, cr, static_cast<const uint8_t *>(tu4), im, vertical, beta, tc,
+      tc1, tc_c, bit_depth);
   return (int)cudaGetLastError();
 }

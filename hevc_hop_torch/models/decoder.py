@@ -1,16 +1,20 @@
-"""HEVC decoder for I slices, on the card.
+"""HEVC decoder for I and ISS slices, on the card.
 
-Counterpart of hevc_hop_tpu/models/decoder.py for I slices. Native C++
-parses the slice into dense maps; the residuals are dequantized and
-inverse-transformed by kernel C3's decode entry (one launch per TU size and
-plane); prediction runs as the wavefront level loop over kernel C2 with its
-add-residual epilogue (models/wavefront_scan.py); deblocking is kernel C4
-SAO's apply is kernel C6, and the checksum SEI is verified by kernel C1.
-Quadtree, NxN, RQT, DST and SAO streams decode fully: every I-slice stream
-the reference encoder writes. The ISS/PSS slices of the lenslet tools are
-not ported yet and raise NotImplementedError.
+Counterpart of hevc_hop_tpu/models/decoder.py. Native C++ parses the slice
+into dense maps; the residuals are dequantized and inverse-transformed by
+kernel C3's decode entry (one launch per TU size and plane). I slices:
+prediction runs as the wavefront level loop over kernel C2 with its
+add-residual epilogue (models/wavefront_scan.py). ISS slices: the
+MV-aware level loop of models/ss_scan.py, kernel C2 for the intra CUs and
+kernel C8 for the self-similarity ones. Deblocking is kernel C4 (with the
+inter boundary strengths on ISS slices), SAO's apply is kernel C6, and the
+checksum SEI is verified by kernel C1. Every I-slice stream and every
+GT-free ISS stream the reference encoder writes decodes; GT prediction
+units (slice 3b) and PSS slices (slice 4) raise NotImplementedError.
 """
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -22,9 +26,14 @@ from hevc_hop_torch.common.types import NalUnitType, SliceType
 from hevc_hop_torch.device import resolve
 from hevc_hop_torch.entropy import ctx_layout, native
 from hevc_hop_torch.io import yuv as yuvio
-from hevc_hop_torch.models import wavefront_scan
+from hevc_hop_torch.models import ss_scan, wavefront, wavefront_scan
 from hevc_hop_torch.ops import deblock, hashes, sao
 from hevc_hop_torch.ops.tq import tq_decode
+
+
+# packed ISS decode schedules, keyed by device, geometry, leaves and the
+# coded MVs' rectangles (bounded, least recently used out)
+_SS_PLANS: collections.OrderedDict = collections.OrderedDict()
 
 
 def _not_ported(what: str):
@@ -123,14 +132,22 @@ class Decoder:
         sps, pps = self.sps, self.pps
         holo = bool(self.vps and self.vps.holo)
         sh = params.parse_slice_header(rbsp, sps, pps, nal_type, holo)
-        if sh.slice_type in (SliceType.ISS, SliceType.PSS):
-            raise _not_ported("the lenslet ISS/PSS slices")
-        if sh.slice_type != SliceType.I:
+        if sh.slice_type == SliceType.PSS:
+            raise _not_ported("PSS slices (slice 4)")
+        if sh.slice_type not in (SliceType.I, SliceType.ISS):
             raise _not_ported("P/B slices")
         w, h, bd = sps.pic_width, sps.pic_height, sps.bit_depth
         qp = sh.slice_qp
         states = ctx_layout.init_states(int(sh.slice_type), qp)
-        if pps.entropy_coding_sync:
+        if sh.slice_type == SliceType.ISS:
+            maps = native.decode_slice_data_ss(
+                states, rbsp[sh.data_offset:], w, h, sps.ctb_log2,
+                sps.max_transform_hierarchy_depth_intra, int(SliceType.ISS),
+                self.vps.holo_mi_size, sao_on=int(sps.sao_enabled),
+                sbh=int(pps.sign_data_hiding))
+            if maps.gt8.any():
+                raise _not_ported("GT prediction units (slice 3b)")
+        elif pps.entropy_coding_sync:
             data = rbsp[sh.data_offset:]
             ny = (h + (1 << sps.ctb_log2) - 1) >> sps.ctb_log2
             if len(sh.entry_offsets) != ny - 1:
@@ -148,9 +165,17 @@ class Decoder:
                 sao_on=int(sps.sao_enabled), sbh=int(pps.sign_data_hiding))
 
         # reconstruction structure = TRANSFORM blocks (prediction is per-TU)
-        sched = wavefront_scan.schedule(maps.depth8, maps.tu4, w, h,
-                                        sps.ctb_log2, self.device)
-        luma_pos, chroma_pos = sched.tu_pos
+        if sh.slice_type == SliceType.ISS:
+            sched = None
+            leaves = np.array(wavefront.tu_blocks_from_maps(
+                maps.depth8, maps.tu4, w, h, sps.ctb_log2),
+                np.int32).reshape(-1, 3)
+            luma_pos, chroma_pos = wavefront_scan.tu_positions(leaves,
+                                                               self.device)
+        else:
+            sched = wavefront_scan.schedule(maps.depth8, maps.tu4, w, h,
+                                            sps.ctb_log2, self.device)
+            luma_pos, chroma_pos = sched.tu_pos
         qp_c = rom.chroma_qp_from_luma(qp)
         pad = 1 << sps.ctb_log2
         hcp = h // 2 + pad
@@ -163,7 +188,10 @@ class Decoder:
                         resi_c[:h // 2])
         _dense_residual(maps.coef_cr, chroma_pos, qp_c, bd, False,
                         resi_c[hcp:hcp + h // 2])
-        self._recon(maps, sched, qp, resi_y, resi_c, hcp)
+        if sched is None:
+            self._recon_ss(maps, leaves, qp, resi_y, resi_c, hcp)
+        else:
+            self._recon(maps, sched, qp, resi_y, resi_c, hcp)
 
     def _recon(self, maps, sched, qp, resi_y, resi_c, hcp) -> None:
         sps = self.sps
@@ -196,6 +224,71 @@ class Decoder:
                 qp=qp, qp_c=qp_c, bit_depth=bd,
                 beta_off=self.pps.beta_offset_div2,
                 tc_off=self.pps.tc_offset_div2)
+        if sps.sao_enabled:
+            ry, rcb, rcr = sao.apply_sao_frame(
+                ry, rcb, rcr, maps.sao_type, maps.sao_off, maps.sao_band,
+                sps.ctb_log2, bd)
+        self._pics_dev.append((ry, rcb, rcr))
+
+    def _recon_ss(self, maps, leaves, qp, resi_y, resi_c, hcp) -> None:
+        """ISS reconstruction: the level loop over intra and SS CUs,
+        scheduled by the coded MVs' dependency rectangles (the reference's
+        ``_recon_ss``), then deblocking with the inter boundary strengths
+        and SAO."""
+        sps = self.sps
+        w, h, bd = sps.pic_width, sps.pic_height, sps.bit_depth
+        lx, ly, lg = leaves[:, 0], leaves[:, 1], leaves[:, 2]
+        n = (1 << lg).astype(np.int32)
+        x4, y4 = lx // 4, ly // 4
+        is_ss = (maps.pred4[y4, x4] == 0) & (maps.ref4[y4, x4] ==
+                                             maps.num_ref - 1)
+        f = ss_scan.IFM
+        x0 = lx + (maps.mv4x[y4, x4].astype(np.int32) >> 2) - f
+        y0 = ly + (maps.mv4y[y4, x4].astype(np.int32) >> 2) - f
+        wh = n + 2 * f
+        rects = np.where(is_ss[:, None], np.stack([x0, y0, wh, wh], -1),
+                         0).astype(np.int32)
+        key = (str(self.device), w, h, sps.ctb_log2, leaves.tobytes(),
+               rects.tobytes(), maps.pred4.tobytes())
+        hit = _SS_PLANS.get(key)
+        if hit is None:
+            sizes, data, nsteps = ss_scan.build_schedule_ss(
+                leaves, w, h, sps.ctb_log2, radius=0, mv_rect=rects)
+            inter = lambda log2, pos: maps.pred4[pos[:, 1] // 4,
+                                                 pos[:, 0] // 4] == 0
+            hit = (ss_scan.pack_ss(sizes, data, hcp, self.device, None,
+                                   inter), nsteps)
+            _SS_PLANS[key] = hit
+            while len(_SS_PLANS) > 8:
+                _SS_PLANS.popitem(last=False)
+        else:
+            _SS_PLANS.move_to_end(key)
+        plans, nsteps = hit
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                      device=self.device)
+        modes, cmodes, mvs = {}, {}, {}
+        for log2, p in plans.items():
+            px, py = p.vpos[:, 0], p.vpos[:, 1]
+            m = maps.mode4[py // 4, px // 4].astype(np.int32)
+            cm = maps.cmode8[py // 8, px // 8].astype(np.int32)
+            modes[log2] = t(m)
+            cmodes[log2] = t(np.where(cm == 36, m, cm))
+            mvs[log2] = t(np.stack([maps.mv4x[py // 4, px // 4],
+                                    maps.mv4y[py // 4, px // 4]], -1))
+        ry, rc = ss_scan.scan_decode_ss(resi_y, resi_c, plans, nsteps,
+                                        modes, cmodes, mvs, bd,
+                                        sps.strong_intra_smoothing, h)
+        ry, rcb, rcr = ry[:h], rc[:h // 2], rc[hcp:hcp + h // 2]
+        if not self.pps.deblocking_disabled:
+            dev = self.device
+            m = lambda a: torch.as_tensor(a, device=dev)
+            ry, rcb, rcr = deblock.deblock_frame(
+                ry, rcb, rcr, m(maps.tu4), qp=qp,
+                qp_c=rom.chroma_qp_from_luma(qp), bit_depth=bd,
+                beta_off=self.pps.beta_offset_div2,
+                tc_off=self.pps.tc_offset_div2, pred4=m(maps.pred4),
+                cbf4=m(maps.cbf4_y), ref4=m(maps.ref4), mv4x=m(maps.mv4x),
+                mv4y=m(maps.mv4y))
         if sps.sao_enabled:
             ry, rcb, rcr = sao.apply_sao_frame(
                 ry, rcb, rcr, maps.sao_type, maps.sao_off, maps.sao_band,

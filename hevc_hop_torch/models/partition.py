@@ -104,14 +104,6 @@ def _chains(y: torch.Tensor, idx: torch.Tensor, n: int, bit_depth: int):
     return ext[cy, cx], y[rows, cols]
 
 
-def _sum_seq(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis, one element after another from the first."""
-    acc = x[..., 0].clone()
-    for j in range(1, x.shape[-1]):
-        acc = acc + x[..., j]
-    return acc
-
-
 def _tq_cost(resi: torch.Tensor, n: int, qp: int, bit_depth: int):
     """float32 RD cost of coding each residual block [B, n, n] int32 as one
     TU: SSE after recon plus lambda times the level-rate proxy."""
@@ -122,11 +114,12 @@ def _tq_cost(resi: torch.Tensor, n: int, qp: int, bit_depth: int):
     rq = transform.inv_transform(quant.dequant(lev, qp, log2, bit_depth),
                                  bit_depth, use_dst)
     err = (resi - rq).to(torch.float32).flatten(1)
-    dist = _sum_seq(err * err)
+    dist = quant.seq_sum(err * err)
     # rate proxy: per-nonzero cost ~ 3 + 2*log2(|level|), + per-TU overhead
     a = torch.abs(lev).to(torch.float32).flatten(1)
     zero = torch.zeros((), dtype=torch.float32, device=resi.device)
-    bits = _sum_seq(torch.where(a > 0, 3.0 + 2.0 * torch.log2(a + 1.0), zero))
+    bits = quant.seq_sum(torch.where(a > 0, 3.0 + 2.0 * torch.log2(a + 1.0),
+                                     zero))
     nz_any = (lev != 0).flatten(1).any(1)
     ten = torch.full((), 10.0, dtype=torch.float32, device=resi.device)
     bits = bits + torch.where(nz_any, ten, 1.0)  # last-pos/CG vs cbf=0

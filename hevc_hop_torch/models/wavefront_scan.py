@@ -202,24 +202,26 @@ class Schedule:
 
     @functools.cached_property
     def tu_pos(self) -> tuple:
-        """(luma, chroma): log2 -> [B, 2] int32 positions of the TUs of
-        that size in their own plane. Chroma TUs follow the CU tree only
-        down to 8x8 luma: an NxN CU's chroma is one 4x4 TU at the CU
-        origin, not four 2x2s."""
-        lv = self.leaves
-        nxn = lv[lv[:, 2] == 2]
-        cu = np.concatenate([lv[lv[:, 2] >= 3], np.unique(
-            np.stack([nxn[:, 0] // 8 * 8, nxn[:, 1] // 8 * 8,
-                      np.full(len(nxn), 3, np.int32)], -1), axis=0)])
-        dev = self.tu4_dev.device
-        group = lambda a, sh: {
-            int(lg): torch.as_tensor(
-                np.ascontiguousarray(a[a[:, 2] == lg, :2] >> sh),
-                dtype=torch.int32, device=dev)
-            for lg in np.unique(a[:, 2])}
-        luma = group(lv, 0)
-        chroma = {lg - 1: p for lg, p in group(cu, 1).items()}
-        return luma, chroma
+        return tu_positions(self.leaves, self.tu4_dev.device)
+
+
+def tu_positions(lv: np.ndarray, device) -> tuple:
+    """(luma, chroma): log2 -> [B, 2] int32 positions of the TUs of that
+    size in their own plane, from the luma TU leaves lv [L, 3]. Chroma TUs
+    follow the CU tree only down to 8x8 luma: an NxN CU's chroma is one 4x4
+    TU at the CU origin, not four 2x2s."""
+    nxn = lv[lv[:, 2] == 2]
+    cu = np.concatenate([lv[lv[:, 2] >= 3], np.unique(
+        np.stack([nxn[:, 0] // 8 * 8, nxn[:, 1] // 8 * 8,
+                  np.full(len(nxn), 3, np.int32)], -1), axis=0)])
+    group = lambda a, sh: {
+        int(lg): torch.as_tensor(
+            np.ascontiguousarray(a[a[:, 2] == lg, :2] >> sh),
+            dtype=torch.int32, device=device)
+        for lg in np.unique(a[:, 2])}
+    luma = group(lv, 0)
+    chroma = {lg - 1: p for lg, p in group(cu, 1).items()}
+    return luma, chroma
 
 
 _SCHEDULES: collections.OrderedDict = collections.OrderedDict()

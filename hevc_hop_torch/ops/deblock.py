@@ -1,9 +1,12 @@
-"""In-loop deblocking of an all-intra frame; kernel C4.
+"""In-loop deblocking; kernel C4.
 
-Counterpart of hevc_hop_tpu/ops/deblock.py ``deblock_frame`` with
-``pred4 is None`` (every edge of a transform block has BS 2). The inter-BS
-arm (pred4, cbf4, ref4, mv4x, mv4y) belongs to the P-slice path and is not
-ported yet.
+Counterpart of hevc_hop_tpu/ops/deblock.py ``deblock_frame``. Without the
+inter maps (``pred4 is None``, an all-intra slice) every transform-block
+edge of the 8-grid has BS 2. With them (pred4, cbf4, ref4, mv4x, mv4y, the
+ISS slices' dense maps) the boundary strength is the reference's
+``_edge_bs_v``: 2 where either side is intra, 1 where either side codes
+luma levels or the references or MVs differ (by a full pel or more), else
+0; luma's tc depends on the BS, and chroma filters BS 2 edges only.
 
 :func:`deblock_frame` launches kernel C4 (``csrc/deblock.cu``) on CUDA
 tensors: one launch filters all vertical edges of the three planes, a
@@ -138,56 +141,99 @@ def _chroma_edges(plane, edge_on, tc: int, bit_depth: int, rep: int = 2):
     return plane
 
 
-def edge_on_v(tu4: torch.Tensor, w: int) -> torch.Tensor:
-    """[H/4, E] transform-block edges on the vertical 8-grid (BS 2 in an
-    all-intra slice), E = w // 8 - 1."""
+def tc_bs1(qp: int, bit_depth: int = 8, tc_off: int = 0) -> int:
+    """Luma tc at BS 1 (BS 2 adds DEFAULT_INTRA_TC_OFFSET = 2 to the QP)."""
+    return int(TC_TABLE[min(max(qp + tc_off * 2, 0), 53)]) << (bit_depth - 8)
+
+
+def edge_bs_v(tu4, w: int, inter=None):
+    """[H/4, E] boundary strength of the vertical 8-grid edges, E = w // 8
+    - 1: 0 off a transform-block edge; else 2 without the inter maps
+    inter = (pred4, cbf4, ref4, mv4x, mv4y), or the reference's
+    ``_edge_bs_v`` with them."""
     e = w // 8 - 1
     xs = (torch.arange(e, device=tu4.device) + 1) * 8
-    sizes = 1 << tu4[:, xs // 4].to(torch.int64)
-    return (xs[None, :] % sizes) == 0
+    cq = xs // 4
+    sizes = 1 << tu4[:, cq].to(torch.int64)
+    edge_on = (xs[None, :] % sizes) == 0
+    if inter is None:
+        return torch.where(edge_on, 2, 0)
+    pred4, cbf4, ref4, mv4x, mv4y = (m.to(torch.int32) for m in inter)
+    intra = (pred4[:, cq - 1] != 0) | (pred4[:, cq] != 0)
+    cbf = (cbf4[:, cq - 1] != 0) | (cbf4[:, cq] != 0)
+    refdiff = ref4[:, cq - 1] != ref4[:, cq]
+    mvdiff = ((torch.abs(mv4x[:, cq - 1] - mv4x[:, cq]) >= 4)
+              | (torch.abs(mv4y[:, cq - 1] - mv4y[:, cq]) >= 4))
+    bs = torch.where(intra, 2, torch.where(cbf | refdiff | mvdiff, 1, 0))
+    return torch.where(edge_on, bs, 0)
+
+
+def _inter_maps(y, pred4, cbf4, ref4, mv4x, mv4y):
+    maps = (pred4, cbf4, ref4, mv4x, mv4y)
+    if pred4 is None:
+        return None
+    return tuple(torch.as_tensor(m).to(y.device) for m in maps)
 
 
 def deblock_frame_plain(y, cb, cr, tu4, qp: int, qp_c: int,
                         bit_depth: int = 8, beta_off: int = 0,
-                        tc_off: int = 0):
+                        tc_off: int = 0, pred4=None, cbf4=None, ref4=None,
+                        mv4x=None, mv4y=None):
     """Plain version of :func:`deblock_frame` (returns new planes)."""
     h, w = y.shape
     beta, tc, tc_c = thresholds(qp, qp_c, bit_depth, beta_off, tc_off)
-    tu4 = tu4.to(torch.int64)
-    ev = edge_on_v(tu4, w)
-    eh = edge_on_v(tu4.T, h)
-    tcs = lambda on: torch.where(on, tc, 0).to(torch.int32)
-    y = _luma_edges(y, ev, beta, tcs(ev), bit_depth)
-    y = _luma_edges(y.T, eh, beta, tcs(eh), bit_depth).T.contiguous()
+    tc1 = tc_bs1(qp, bit_depth, tc_off)
+    tu4 = torch.as_tensor(tu4).to(y.device).to(torch.int64)
+    inter = _inter_maps(y, pred4, cbf4, ref4, mv4x, mv4y)
+    bs_v = edge_bs_v(tu4, w, inter)
+    bs_h = edge_bs_v(tu4.T, h, None if inter is None
+                     else tuple(m.T for m in inter))
+    tcs = lambda bs: torch.where(bs == 2, tc, torch.where(bs == 1, tc1, 0)
+                                 ).to(torch.int32)
+    y = _luma_edges(y, bs_v > 0, beta, tcs(bs_v), bit_depth)
+    y = _luma_edges(y.T, bs_h > 0, beta, tcs(bs_h), bit_depth).T.contiguous()
     if tc_c > 0:
         hc, wc = cb.shape
         if wc // 8 - 1 > 0:
-            evc = ev[:, 1::2][:, :wc // 8 - 1]
+            evc = (bs_v[:, 1::2] == 2)[:, :wc // 8 - 1]
             cb = _chroma_edges(cb, evc, tc_c, bit_depth)
             cr = _chroma_edges(cr, evc, tc_c, bit_depth)
         if hc // 8 - 1 > 0:
-            ehc = eh[:, 1::2][:, :hc // 8 - 1]
+            ehc = (bs_h[:, 1::2] == 2)[:, :hc // 8 - 1]
             cb = _chroma_edges(cb.T, ehc, tc_c, bit_depth).T.contiguous()
             cr = _chroma_edges(cr.T, ehc, tc_c, bit_depth).T.contiguous()
     return y, cb, cr
 
 
 def deblock_frame(y, cb, cr, tu4, qp: int, qp_c: int, bit_depth: int = 8,
-                  beta_off: int = 0, tc_off: int = 0):
-    """Deblock one all-intra frame. y [H, W], cb/cr [H/2, W/2] int32,
-    tu4 [H/4, W/4] leaf-TU log2 map. Returns the filtered planes (new
-    tensors; the inputs are left as they were)."""
+                  beta_off: int = 0, tc_off: int = 0, pred4=None, cbf4=None,
+                  ref4=None, mv4x=None, mv4y=None):
+    """Deblock one frame. y [H, W], cb/cr [H/2, W/2] int32, tu4 [H/4, W/4]
+    leaf-TU log2 map; pred4/cbf4/ref4/mv4x/mv4y ([H/4, W/4], MVs in
+    quarter pel) give the inter boundary strengths, all None an all-intra
+    slice. Returns the filtered planes (new tensors; the inputs are left
+    as they were)."""
     if not y.is_cuda:
         return deblock_frame_plain(y, cb, cr, tu4, qp, qp_c, bit_depth,
-                                   beta_off, tc_off)
+                                   beta_off, tc_off, pred4, cbf4, ref4,
+                                   mv4x, mv4y)
     return _deblock_cuda(y, cb, cr, tu4, qp, qp_c, bit_depth, beta_off,
-                         tc_off)
+                         tc_off, _inter_maps(y, pred4, cbf4, ref4, mv4x,
+                                             mv4y))
 
 
-def _deblock_cuda(y, cb, cr, tu4, qp, qp_c, bit_depth, beta_off, tc_off):
+def _deblock_cuda(y, cb, cr, tu4, qp, qp_c, bit_depth, beta_off, tc_off,
+                  inter):
     global LAUNCHES
     planes = [p.contiguous().clone() for p in (y, cb, cr)]
     tu = tu4.to(device=y.device, dtype=torch.uint8).contiguous()
+    if inter is not None:
+        u8 = lambda m: m.to(torch.uint8).contiguous()
+        i16 = lambda m: m.to(torch.int16).contiguous()
+        inter = (u8(inter[0]), u8(inter[1]), u8(inter[2]), i16(inter[3]),
+                 i16(inter[4]))
+        if any(tuple(m.shape) != tuple(tu.shape) for m in inter):
+            raise ValueError("deblock_frame: the inter maps are [H/4, W/4]")
     for p in planes:
         if not (p.is_cuda and p.dtype == torch.int32):
             raise ValueError("deblock_frame: int32 CUDA planes")
@@ -198,12 +244,15 @@ def _deblock_cuda(y, cb, cr, tu4, qp, qp_c, bit_depth, beta_off, tc_off):
         raise ValueError("deblock_frame: 8-aligned 4:2:0 planes and a "
                          "[H/4, W/4] tu4 map")
     beta, tc, tc_c = thresholds(qp, qp_c, bit_depth, beta_off, tc_off)
-    fn = _cuda.bind("deblock", "hh_deblock", "pppp" "ii" "iiiii" "p")
+    tc1 = tc_bs1(qp, bit_depth, tc_off)
+    ptr = [None] * 5 if inter is None else [m.data_ptr() for m in inter]
+    fn = _cuda.bind("deblock", "hh_deblock", "pppp" "ppppp" "ii" "iiiiii"
+                    "p")
     py, pcb, pcr = planes
     for vertical in (1, 0):
         err = fn(py.data_ptr(), pcb.data_ptr(), pcr.data_ptr(),
-                 tu.data_ptr(), h, w, vertical, beta, tc, tc_c, bit_depth,
-                 _cuda.stream(py))
+                 tu.data_ptr(), *ptr, h, w, vertical, beta, tc, tc1, tc_c,
+                 bit_depth, _cuda.stream(py))
         _cuda.check("deblock", err)
         LAUNCHES += 1
     return py, pcb, pcr

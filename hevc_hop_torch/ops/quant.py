@@ -197,6 +197,14 @@ def sbh_adjust(lev: torch.Tensor, scan_id: torch.Tensor, c_idx: int = 0,
     return out.reshape(b, n, n)
 
 
+def seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last axis, one rounded add after another."""
+    acc = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
 def argmin_first(x: torch.Tensor) -> torch.Tensor:
     """argmin over the last axis, ties to the lowest index (jnp.argmin's
     rule; torch's argmin does not promise one)."""

@@ -44,6 +44,7 @@ from hevc_hop_torch.common import rom
 from hevc_hop_torch.entropy import cal_bits as _cal
 from hevc_hop_torch.entropy import ctx_layout, tables
 from hevc_hop_torch.ops.quant import bit_length, fma
+from hevc_hop_torch.ops.quant import seq_sum as _seq_sum
 
 SCALE = 32768.0  # rate unit: 2^15 per bit (SCALE_BITS)
 _INF = 1e30
@@ -270,13 +271,6 @@ def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
     tot = xla_cumsum(blk[..., -1])
     excl = torch.cat([torch.zeros_like(tot[..., :1]), tot[..., :-1]], -1)
     return (blk + excl[..., None]).reshape(x.shape)
-
-
-def _seq_sum(x: torch.Tensor) -> torch.Tensor:
-    acc = x[..., 0]
-    for j in range(1, x.shape[-1]):
-        acc = acc + x[..., j]
-    return acc
 
 
 def xla_sum(x: torch.Tensor) -> torch.Tensor:

@@ -74,8 +74,9 @@ def encode_main(argv: list, device=None) -> int:
     v = o.values
     if v["holo"]:
         raise NotImplementedError(
-            "HoloscopicIntra (-hi) needs the lenslet ISS/PSS encoder, which "
-            "is not ported to hevc_hop_torch yet: see ROADMAP.md queue 1")
+            "HoloscopicIntra (-hi) needs the lenslet encoder with the GT "
+            "warp and PSS pictures, which are not ported to hevc_hop_torch "
+            "yet: see ROADMAP.md queue 1, slice 3b")
     assert v["input"] and v["width"] and v["height"], \
         "need -i/-wdt/-hgt (or a cfg file)"
     frames = yuvio.read_yuv420(v["input"], v["width"], v["height"],

@@ -48,6 +48,37 @@ def test_deblock_frame_matches_reference(w, h, qp, offsets):
     assert (got[0].numpy() != y).any()
 
 
+@pytest.mark.parametrize("tc_off", [0, -2, 3])
+@pytest.mark.parametrize("qp", [27, 37])
+def test_deblock_inter_boundary_strength_matches_reference(qp, tc_off):
+    """The inter arm (ISS slices): BS 2 where either side is intra, 1 where
+    either codes luma levels or the references or MVs differ by a full pel,
+    else 0, from random dense maps with MVs that straddle the threshold."""
+    w, h = 96, 64
+    rng = np.random.default_rng(qp + tc_off)
+    y = _blocky(rng, h, w)
+    cb = _blocky(rng, h // 2, w // 2)
+    cr = _blocky(rng, h // 2, w // 2)
+    tu4 = rng.integers(3, 6, (h // 4, w // 4)).astype(np.uint8)
+    u = (h // 4, w // 4)
+    maps = dict(pred4=(rng.random(u) < 0.3).astype(np.uint8),
+                cbf4=(rng.random(u) < 0.3).astype(np.uint8),
+                ref4=(rng.random(u) < 0.1).astype(np.uint8),
+                mv4x=rng.integers(-6, 7, u).astype(np.int16),
+                mv4y=rng.integers(-6, 7, u).astype(np.int16))
+    ref = jdb.deblock_frame(y, cb, cr, tu4, qp=qp, qp_c=qp - 2,
+                            tc_off=tc_off, **maps)
+    got = deblock.deblock_frame(T(y), T(cb), T(cr), T(tu4), qp, qp - 2,
+                                tc_off=tc_off,
+                                **{k: T(v) for k, v in maps.items()})
+    for g, r, name in zip(got, ref, ("y", "cb", "cr")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r),
+                                      err_msg=name)
+    bs = deblock.edge_bs_v(T(tu4).long(), w, tuple(
+        T(maps[k]) for k in ("pred4", "cbf4", "ref4", "mv4x", "mv4y")))
+    assert set(bs.unique().tolist()) == {0, 1, 2}
+
+
 @pytest.mark.parametrize("bd", [8, 10])
 def test_plane_checksum_matches_reference(bd):
     rng = np.random.default_rng(bd)

@@ -19,6 +19,7 @@ from hevc_hop_tpu.ops import intra as jintra
 from hevc_hop_torch import convert
 from hevc_hop_torch.models.decoder import Decoder
 from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -39,6 +40,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr + out.stdout
     assert len(mods) > 20
+    # the lenslet ISS slice's modules are among them
+    assert {"hevc_hop_torch.ops.interp", "hevc_hop_torch.ops.ss_search",
+            "hevc_hop_torch.ops.inter_arms", "hevc_hop_torch.models.ss_scan",
+            "hevc_hop_torch.models.ss_partition",
+            "hevc_hop_torch.models.ss_encoder"} <= set(mods)
 
 
 def _supported(**kw):
@@ -52,6 +58,8 @@ def test_entry_points_default_to_the_card():
         IntraEncoder(_supported())
     with pytest.raises(RuntimeError, match="CUDA"):
         Decoder()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HoloEncoder(HoloConfig(gt=False))
 
 
 def test_device_tables_equal_reference_tables():

@@ -10,6 +10,13 @@ content:
 - jax_intra_sao_nordoq_256x192_qp32: SAO on and RDOQ off, 256x192, seed 2.
   Its .json names the seed, so that an encoder fed the same frame can be
   held byte for byte against the stream.
+- jax_iss_128x96_qp32 and jax_iss_quadtree_sao_128x96_qp32: the lenslet
+  ISS encoder (HoloEncoder, GT off) on tools/bdrate.py's
+  lenslet_frame(128, 96, mi=16, seed=5), uniform 16x16 CUs, and the
+  quadtree pre-pass with SAO; RDOQ and SBH on.
+- jax_iss_gt_96x64_qp37: the ISS encoder with the GT warp on, on
+  tests/test_e2e_iss.py's warped lenslet content (seed 5); a stream whose
+  GT prediction units a decoder without the warp must refuse.
 
 Each .json records the generator, seed, configuration and the per-plane MD5
 of the JAX decoder's output. Run from the repository root:
@@ -31,6 +38,9 @@ sys.path.insert(0, ROOT)
 from bench import synth_class_b  # noqa: E402
 from hevc_hop_tpu.models.decoder import Decoder  # noqa: E402
 from hevc_hop_tpu.models.encoder import EncoderConfig, IntraEncoder  # noqa: E402
+from hevc_hop_tpu.models.ss_encoder import HoloConfig, HoloEncoder  # noqa: E402
+from tests.test_e2e_iss import synth_warped_lenslet  # noqa: E402
+from tools.bdrate import lenslet_frame  # noqa: E402
 
 # name -> (width, height, seed, configuration beyond width, height and qp)
 FIXTURES = {
@@ -65,9 +75,53 @@ def write(name: str, w: int, h: int, seed: int, extra: dict) -> None:
         f.write("\n")
 
 
+# name -> (width, height, seed, HoloConfig fields beyond the size)
+ISS_FIXTURES = {
+    "jax_iss_128x96_qp32": (128, 96, 5, dict(
+        qp=32, cu_log2=4, mi_size=16, search_range=32, gt=False)),
+    "jax_iss_quadtree_sao_128x96_qp32": (128, 96, 5, dict(
+        qp=32, quadtree=True, sao=True, mi_size=16, search_range=32,
+        gt=False)),
+    "jax_iss_gt_96x64_qp37": (96, 64, 5, dict(
+        qp=37, cu_log2=4, mi_size=16, search_range=32, gt=True)),
+}
+
+
+def write_iss(name: str, w: int, h: int, seed: int, extra: dict) -> None:
+    cfg = HoloConfig(width=w, height=h, **extra)
+    if cfg.gt:
+        frame, content = (synth_warped_lenslet(w, h, 16, seed=seed),
+                          f"tests/test_e2e_iss.py synth_warped_lenslet({w}, "
+                          f"{h}, 16, seed={seed})")
+    else:
+        frame, content = (lenslet_frame(w, h, mi=16, seed=seed),
+                          f"tools/bdrate.py lenslet_frame({w}, {h}, mi=16, "
+                          f"seed={seed})")
+    enc = HoloEncoder(cfg)
+    stream = enc.encode_frame(*frame)
+    assert bool(enc.last_maps.gt8.any()) == cfg.gt
+    dec = Decoder()
+    (y, cb, cr), = dec.decode_stream(stream)
+    assert dec.hash_ok == [True]
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, name + ".bin"), "wb") as f:
+        f.write(stream)
+    meta = dict(
+        generator="tests/torch_fixtures/make_jax_fixture.py "
+                  "(hevc_hop_tpu HoloEncoder, JAX on the CPU)",
+        content=content, seed=seed, config=dataclasses.asdict(cfg),
+        bytes=len(stream),
+        md5={"y": plane_md5(y), "cb": plane_md5(cb), "cr": plane_md5(cr)})
+    with open(os.path.join(here, name + ".json"), "w") as f:
+        json.dump(meta, f, indent=1)
+        f.write("\n")
+
+
 def main() -> None:
     for name, (w, h, seed, extra) in FIXTURES.items():
         write(name, w, h, seed, extra)
+    for name, (w, h, seed, extra) in ISS_FIXTURES.items():
+        write_iss(name, w, h, seed, extra)
 
 
 if __name__ == "__main__":

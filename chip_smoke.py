@@ -19,7 +19,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and a decision that differs only where the two costs behind it agree
    within COST_RTOL (each count printed). Kernel C8 (motion compensation)
    at every luma size 4-32 and chroma size 2-16, every phase, 8 and 10
-   bit, windows clamped at every edge, in its three forms;
+   bit, windows clamped at every edge, in its three forms. Kernel C11 (the
+   GT warp) on every golden case of tests/golden/hm_golden.json and a
+   sweep of both forms (luma 8-32, chroma 4-16, 8 and 10 bit, corners to
+   +-n, the knife edges reached), prediction and safety mask, and its
+   plane entries in their masked and add-residual forms;
 3. main paths, all on the card, each with every launch count set to 0
    just before it and read just after:
    - production: bench.py's production configuration, the all-intra
@@ -44,25 +48,41 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      its decode, ISS_TIMED_FRAMES timed frames;
    - iss-uniform: the same with uniform 16x16 CUs and in-loop RMD, one
      timed frame;
+   - iss-gt: bench.py:88-100's lenslet cell whole, the GT warp on (C9's
+     anchor ring, C12's corner search and decision, C11's GT chroma and
+     decode), ISS_TIMED_FRAMES timed frames, its GT area printed;
+   - iss-gt-warped: tests/test_e2e_iss.py's GT configuration (16x16 CUs,
+     QP 37) on a copy of its warped lenslet content at 1920x1088, where
+     GT engages (the run fails if it never does), two timed frames;
+   and for the two GT paths the GT tool's share of the encode, each path's
+   encoder against a gt=False twin on its frame, in turns in one process;
    then C9's pre-pass entry on every block of the lenslet luma against
    its plain body (in chunks), and one more encode and decode of each ISS
    path with its C8, C9, C10 and C4 launches held against the plain
-   bodies (the fullest level of each size and every eighth level);
+   bodies (the fullest level of each size and every eighth level), and on
+   the GT paths every launch of C9 (with its ring), C12 and C11;
 4. cpu: small frames on the card and on the CPU (the path the CPU tests
    hold against the JAX reference), uniform CUs at cu_log2 3, 4 and 5 and
    the quadtree path at 8 and 10 bit and without RQT and NxN, RDOQ off,
    and the production configuration at 8 and 10 bit and on a noisy frame,
    and five small ISS cases (uniform 8x8 and 16x16 CUs, the quadtree with
-   SAO, RDOQ on and off, deblocking off): the streams must be
-   byte-identical;
-5. fixtures: the committed JAX streams under tests/torch_fixtures/ (intra
-   and ISS) decode on the card with hash_ok and the stored per-plane MD5s,
-   and the card's encoders write each one byte for byte from the same
-   seeded frame;
+   SAO, RDOQ on and off, deblocking off), and four small GT cases (16x16
+   CUs, the quadtree with SAO, 10 bit, the bench's lenslet content): the
+   streams must be byte-identical;
+5. fixtures: the committed JAX streams under tests/torch_fixtures/ (intra,
+   ISS and GT, and the JAX streams of the iss-gt and iss-gt-warped paths
+   at 1920x1088) decode on the card with hash_ok and the stored per-plane
+   MD5s, and the card's encoders write each one byte for byte from the
+   same seeded frame (the full-size ones are the paths' own streams);
 6. cli: two 1920x1088 frames through ``python -m hevc_hop_torch.utils.cli``
    encode (cfg/encoder_intra_main.cfg), decode and bytecount on the card:
    rc 0, the checksum SEI verified ([OK]), the decoded frames equal to the
-   recon (see phase_cli for the recon file's fault R1);
+   recon (see phase_cli for the recon file's fault R1); and one 1920x1088
+   lenslet frame through ``-hi`` with cfg/3DHencoder_intra_main.cfg, whose
+   bitstream must equal the iss-gt path's; then the lenslet BD-rate of the
+   port on the card (tools/bdrate.py's run_ours_iss configuration on its
+   512x384 lenslet frame at QPs 22-37 against tests/golden/bdrate.json's
+   HM anchors), which must stay under tests/test_bdrate.py's ceiling;
 7. timing: every launch form of the three paths held against its plain
    version on the 1920x1088 frames' own schedules, 0 mismatching
    elements: the uniform path's RMD, chroma and decode-epilogue launches;
@@ -84,7 +104,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    ISS paths get rows the same way: C9's scan entry (with a grouped
    float32 conv2d of the same windows as its library yardstick), its
    pre-pass entry, C10's two entries, C8's two forms and C4 with the ISS
-   frame's inter maps.
+   frame's inter maps; and those of the GT paths: C9's scan entry with
+   the ring, C12's search and decide entries, and C11's two plane
+   entries.
 
 It prints the card's name and power limit, one JSON line for the kernels,
 one for the main paths, and as its last line
@@ -500,10 +522,12 @@ def _counters():
     """(name, module, attribute) of every kernel's launch count; the
     kernels of csrc/tq.cu (encode, its RDOQ arm, decode), csrc/partition.cu,
     csrc/sao.cu, csrc/interp.cu (luma, chroma), csrc/ss_search.cu (scan,
-    pre-pass) and csrc/inter_arms.cu (arms, motion) count apart."""
+    the scan with the GT ring among them, pre-pass), csrc/inter_arms.cu
+    (arms, motion), csrc/warp.cu (window, luma, chroma) and
+    csrc/gt_search.cu (search, decide) count apart."""
     from hevc_hop_torch.models import partition, ss_partition
-    from hevc_hop_torch.ops import (deblock, hashes, inter_arms, interp,
-                                    intra, rdoq, sao, ss_search, tq)
+    from hevc_hop_torch.ops import (deblock, gt, hashes, inter_arms, interp,
+                                    intra, rdoq, sao, ss_search, tq, warp)
     return [("C1", hashes, "LAUNCHES"), ("C2", intra, "LAUNCHES"),
             ("C3 encode", tq, "ENCODE_LAUNCHES"),
             ("C3 encode (RDOQ)", tq, "ENCODE_RDOQ_LAUNCHES"),
@@ -517,9 +541,15 @@ def _counters():
             ("C8 luma", interp, "LUMA_LAUNCHES"),
             ("C8 chroma", interp, "CHROMA_LAUNCHES"),
             ("C9 search", ss_search, "SEARCH_LAUNCHES"),
+            ("C9 ring", ss_search, "RING_LAUNCHES"),
             ("C9 prepass", ss_partition, "PREPASS_LAUNCHES"),
             ("C10 arms", inter_arms, "LAUNCHES"),
-            ("C10 motion", inter_arms, "MOTION_LAUNCHES")]
+            ("C10 motion", inter_arms, "MOTION_LAUNCHES"),
+            ("C11 window", warp, "LAUNCHES"),
+            ("C11 luma", warp, "LUMA_LAUNCHES"),
+            ("C11 chroma", warp, "CHROMA_LAUNCHES"),
+            ("C12 search", gt, "SEARCH_LAUNCHES"),
+            ("C12 decide", gt, "DECIDE_LAUNCHES")]
 
 
 PATHS = {
@@ -725,6 +755,27 @@ def phase_cpu_parity():
         c = HoloEncoder(cfg, device="cpu").encode_frame(*fr)
         require(g == c, f"card and CPU ISS streams differ for {kw}")
         log(f"cpu parity: ISS {kw} {len(g)} bytes identical")
+    # the GT warp on: the warped lenslet grid with 16x16 CUs, the quadtree
+    # with SAO, 10-bit samples, and the bench's lenslet content with the
+    # quadtree; GT engages in the first three
+    warped = synth_warped_lenslet(96, 64, 16, seed=5)
+    for fr, kw, engages in (
+            (warped, dict(width=96, height=64, cu_log2=4, qp=37), True),
+            (synth_warped_lenslet(128, 96, 16, seed=6),
+             dict(width=128, height=96, quadtree=True, sao=True), True),
+            (tuple(p * 4 for p in warped),
+             dict(width=96, height=64, cu_log2=4, qp=37, bit_depth=10),
+             True),
+            (small, dict(width=128, height=96, quadtree=True, sao=True),
+             False)):
+        cfg = HoloConfig(**dict(dict(qp=QP, mi_size=16, gt=True), **kw))
+        enc = HoloEncoder(cfg)
+        g = enc.encode_frame(*fr)
+        c = HoloEncoder(cfg, device="cpu").encode_frame(*fr)
+        require(g == c, f"card and CPU GT streams differ for {kw}")
+        gt_cus = int(enc.last_maps.gt8.sum())
+        require(gt_cus > 0 or not engages, f"GT never engaged for {kw}")
+        log(f"cpu parity: GT {kw} {len(g)} bytes identical, {gt_cus} GT CUs")
     torch.cuda.synchronize()
 
 
@@ -757,7 +808,8 @@ def phase_fixture():
             log(f"fixture {name}: the card's encoder writes the "
                 "reference's stream byte for byte")
     from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
-    for name in ("jax_iss_128x96_qp32", "jax_iss_quadtree_sao_128x96_qp32"):
+    for name in ("jax_iss_128x96_qp32", "jax_iss_quadtree_sao_128x96_qp32",
+                 "jax_iss_gt_96x64_qp37"):
         base = os.path.join(ROOT, "tests", "torch_fixtures", name)
         with open(base + ".bin", "rb") as f:
             stream = f.read()
@@ -770,13 +822,59 @@ def phase_fixture():
                for k, p in zip(("y", "cb", "cr"), planes)}
         require(md5 == meta["md5"], f"{name}: MD5s {md5}")
         cfg = HoloConfig(**meta["config"])
-        frame = lenslet_frame(cfg.width, cfg.height, mi=16, seed=meta["seed"])
+        if "synth_warped_lenslet" in meta["content"]:
+            frame = synth_warped_lenslet(cfg.width, cfg.height, 16,
+                                         seed=meta["seed"])
+        else:
+            frame = lenslet_frame(cfg.width, cfg.height, mi=16,
+                                  seed=meta["seed"])
         got = HoloEncoder(cfg).encode_frame(*frame)
         require(got == stream, f"{name}: the card's ISS encoder writes "
                 f"{len(got)} bytes that differ from the reference's "
                 f"{len(stream)}")
         log(f"fixture {name}: decoded with hash_ok and the stored MD5s; the "
             "card's ISS encoder writes it byte for byte")
+
+
+FULL_FIXTURES = {"iss-gt": "jax_iss_gt_1920x1088_qp32",
+                 "iss-gt-warped": "jax_iss_gt_warped_1920x1088_qp37"}
+
+
+def phase_full_fixtures(ctxs):
+    """The JAX encoder's streams of the two GT paths at 1920x1088
+    (tests/torch_fixtures/, made on a CPU by make_jax_fixture.py): each
+    decodes on the card with hash_ok and its stored MD5s, and the path's
+    own stream, from the same configuration and seeded frame, equals it
+    byte for byte."""
+    from hevc_hop_torch.models.decoder import Decoder
+    from hevc_hop_torch.models.ss_encoder import HoloConfig
+    out = {}
+    for path, name in FULL_FIXTURES.items():
+        base = os.path.join(ROOT, "tests", "torch_fixtures", name)
+        with open(base + ".bin", "rb") as f:
+            stream = f.read()
+        with open(base + ".json") as f:
+            meta = json.load(f)
+        dec = Decoder()
+        (planes,) = dec.decode_stream(stream)
+        require(dec.hash_ok == [True], f"{name}: hash_ok {dec.hash_ok}")
+        md5 = {k: hashlib.md5(p.astype(np.uint8).tobytes()).hexdigest()
+               for k, p in zip(("y", "cb", "cr"), planes)}
+        require(md5 == meta["md5"], f"{name}: MD5s {md5}")
+        enc = ctxs[path]["enc"]
+        require(enc.cfg == HoloConfig(**meta["config"])
+                and meta["content"].endswith(ctxs[path]["content"]),
+                f"{name}: not the {path} path's configuration and frame")
+        got = ctxs[path]["stream"]
+        first = next((i for i, (a, b) in enumerate(zip(got, stream))
+                      if a != b), min(len(got), len(stream)))
+        require(got == stream, f"{name}: the card's {path} stream "
+                f"({len(got)} bytes) differs from the reference's "
+                f"({len(stream)} bytes) from byte {first}")
+        out[name] = {"bytes": len(stream), "md5": md5}
+        log(f"fixture {name}: decoded with hash_ok and the stored MD5s; the "
+            f"card's {path} path writes it byte for byte")
+    return out
 
 
 def phase_cli():
@@ -833,6 +931,116 @@ def phase_cli():
     log(f"cli: encode, decode and bytecount of 2 frames at {W}x{H}, "
         f"seconds per process {json.dumps(runs)}")
     return runs
+
+
+def phase_cli_holo(ctxs):
+    """The holoscopic CLI: one 1920x1088 lenslet frame through ``python -m
+    hevc_hop_torch.utils.cli encode -c cfg/3DHencoder_intra_main.cfg -f 1``
+    (the quadtree pre-pass, MI merge candidates, GT, SAO, RDOQ, the
+    checksum SEI: the iss-gt path's configuration), decode and bytecount
+    on the card. Each exits 0, the decode verifies the SEI, the decoded
+    frame equals the recon file, and the bitstream equals the iss-gt
+    path's."""
+    import tempfile
+    from hevc_hop_torch.io import yuv as yuvio
+    frame = ctxs["iss-gt"]["frame"]
+    with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
+        src, bs, rec, dec = (os.path.join(tmp, f) for f in (
+            "in.yuv", "out.bin", "rec.yuv", "dec.yuv"))
+        yuvio.write_yuv420(src, [frame])
+        cli = [sys.executable, "-m", "hevc_hop_torch.utils.cli"]
+        runs = {}
+        for cmd in (["encode", "-c", os.path.join(ROOT, "cfg",
+                                                 "3DHencoder_intra_main.cfg"),
+                     "-i", src, "-b", bs, "-o", rec, "-wdt", str(W),
+                     "-hgt", str(H), "-f", "1"],
+                    ["decode", "-b", bs, "-o", dec],
+                    ["bytecount", "-b", bs]):
+            t0 = time.perf_counter()
+            out = subprocess.run(cli + cmd, cwd=ROOT, capture_output=True,
+                                 text=True, timeout=600)
+            runs[cmd[0]] = time.perf_counter() - t0
+            require(out.returncode == 0, f"cli -hi {cmd[0]}: rc "
+                    f"{out.returncode}\n{out.stdout[-2000:]}\n"
+                    f"{out.stderr[-2000:]}")
+            if cmd[0] == "decode":
+                require("[OK]" in out.stdout, f"cli -hi decode: {out.stdout}")
+            log(f"cli -hi {cmd[0]}: " + " | ".join(
+                out.stdout.strip().splitlines()[-2:]))
+        with open(rec, "rb") as f:
+            recon = f.read()
+        with open(dec, "rb") as f:
+            decoded = f.read()
+        with open(bs, "rb") as f:
+            stream = f.read()
+    require(len(recon) == W * H * 3 // 2 and decoded == recon,
+            "cli -hi: decoded frame != recon file")
+    require(stream == ctxs["iss-gt"]["stream"], "cli -hi: the bitstream "
+            "differs from the iss-gt path's")
+    log(f"cli -hi: encode, decode and bytecount of 1 lenslet frame at "
+        f"{W}x{H}, {len(stream)} bytes, seconds per process "
+        f"{json.dumps(runs)}")
+    return runs
+
+
+# tools/bdrate.py's QPs and tests/test_bdrate.py's lenslet ceiling
+BD_QPS = (22, 27, 32, 37)
+BD_CEILING_LENSLET = 49.0
+
+
+def psnr(a, b, maxv=255.0):
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64))
+                  ** 2)
+    return 99.0 if mse == 0 else 10.0 * np.log10(maxv * maxv / mse)
+
+
+def bd_rate(rate_a, psnr_a, rate_b, psnr_b):
+    """tools/bdrate.py's Bjontegaard delta-rate of B against A (copied):
+    cubic fits of log-rate over PSNR, integrated over the overlap; per
+    cent, negative where B is better."""
+    la, lb = np.log(rate_a), np.log(rate_b)
+    pa = np.polyfit(psnr_a, la, 3)
+    pb = np.polyfit(psnr_b, lb, 3)
+    lo = max(min(psnr_a), min(psnr_b))
+    hi = min(max(psnr_a), max(psnr_b))
+    ia = np.polyval(np.polyint(pa), hi) - np.polyval(np.polyint(pa), lo)
+    ib = np.polyval(np.polyint(pb), hi) - np.polyval(np.polyint(pb), lo)
+    return (np.exp((ib - ia) / (hi - lo)) - 1.0) * 100.0
+
+
+def phase_bdrate():
+    """The port's lenslet BD-rate on the card: tools/bdrate.py's
+    run_ours_iss configuration (quadtree, SAO, GT, MI 16, radius 32) on a
+    copy of its lenslet_frame(512, 384) at QPs 22-37, against the HM
+    anchors of tests/golden/bdrate.json (hm_lenslet_iss), with the
+    weighted (6 Y + Cb + Cr) / 8 PSNR; it must stay under
+    tests/test_bdrate.py's ceiling."""
+    from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
+    with open(os.path.join(ROOT, "tests", "golden", "bdrate.json")) as f:
+        hm = json.load(f)["hm_lenslet_iss"]
+    require(tuple(hm["qps"]) == BD_QPS, "bdrate.json QPs")
+    frame = lenslet_frame()
+    h, w = frame[0].shape
+    rates, wpsnrs, ypsnrs = [], [], []
+    for qp in BD_QPS:
+        enc = HoloEncoder(HoloConfig(width=w, height=h, qp=qp, mi_size=16,
+                                     gt=True, search_range=32, quadtree=True,
+                                     sao=True))
+        stream = enc.encode_frame(*frame)
+        rec = enc.recon_yuv
+        p = [psnr(a, b) for a, b in zip(frame, rec)]
+        rates.append(len(stream))
+        wpsnrs.append((6 * p[0] + p[1] + p[2]) / 8.0)
+        ypsnrs.append(p[0])
+    bdr = float(bd_rate(hm["bytes"], hm["wpsnr"], rates, wpsnrs))
+    out = {"frame": f"lenslet_frame({w}, {h}, mi=16, seed=5)",
+           "qps": list(BD_QPS), "bytes": rates, "wpsnr": wpsnrs,
+           "ypsnr": ypsnrs, "bdrate_vs_hm_pct": bdr,
+           "ceiling_pct": BD_CEILING_LENSLET}
+    log(f"bdrate: {json.dumps(out)}")
+    require(bdr < BD_CEILING_LENSLET, f"lenslet BD-rate {bdr:+.2f} % is over "
+            f"the ceiling of {BD_CEILING_LENSLET}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1387,7 +1595,8 @@ def _time_specs(specs, checks, launches):
             else:
                 check.add(g, w_, f"{name} at the main path's shape")
         # the plain bodies of these take seconds
-        slow = counter in ("C5 rd", "C9 prepass", "C9 search", "C10 arms")
+        slow = counter in ("C5 rd", "C9 prepass", "C9 search", "C9 ring",
+                           "C10 arms", "C12 search", "C12 decide")
         call_ms = time_ms(fn, reps=3 if slow else 7, inner=3 if slow else 10)
         pms = time_ms(plain, reps=1 if slow else 5, inner=1)
         # the kernel's own device time per call: a call of these small
@@ -1442,16 +1651,29 @@ def _time_specs(specs, checks, launches):
 ISS_CONFIG = dict(qp=QP, mi_size=16, search_range=32, quadtree=True,
                   sao=True, rdoq=True, sbh=True, gt=False)
 ISS_TIMED_FRAMES = 3
+_ISS_KERNELS = ("C1", "C2", "C3 encode (RDOQ)", "C3 decode", "C4", "C8 luma",
+                "C8 chroma", "C9 search", "C10 arms", "C10 motion")
+_GT_KERNELS = ("C9 ring", "C11 luma", "C11 chroma", "C12 search",
+               "C12 decide")
+_PREPASS_KERNELS = ("C5 rd", "C5 decide", "C6 stats", "C6 apply",
+                    "C9 prepass")
+# name -> (HoloConfig fields beyond the size, timed frames, kernels the
+# path must launch, content)
 ISS_PATHS = {
     "iss": (dict(ISS_CONFIG), ISS_TIMED_FRAMES,
-            ("C1", "C2", "C3 encode (RDOQ)", "C3 decode", "C4", "C5 rd",
-             "C5 decide", "C6 stats", "C6 apply", "C8 luma", "C8 chroma",
-             "C9 search", "C9 prepass", "C10 arms", "C10 motion")),
+            _ISS_KERNELS + _PREPASS_KERNELS, "lenslet"),
     # uniform 16x16 CUs: the only path with the scan's in-loop RMD arm
     "iss-uniform": (dict(ISS_CONFIG, quadtree=False, sao=False, cu_log2=4),
-                    1, ("C1", "C2", "C3 encode (RDOQ)", "C3 decode", "C4",
-                        "C8 luma", "C8 chroma", "C9 search", "C10 arms",
-                        "C10 motion")),
+                    1, _ISS_KERNELS, "lenslet"),
+    # bench.py:88-100's lenslet cell whole, the GT warp on
+    "iss-gt": (dict(ISS_CONFIG, gt=True), ISS_TIMED_FRAMES,
+               _ISS_KERNELS + _PREPASS_KERNELS + _GT_KERNELS, "lenslet"),
+    # tests/test_e2e_iss.py's GT configuration (test_gt_roundtrip_and_
+    # engages: 16x16 CUs, QP 37, SAO off) at full size on its warped
+    # lenslet content, where the GT arm wins 24 times the area
+    "iss-gt-warped": (dict(qp=37, cu_log2=4, search_range=32, mi_size=16,
+                           gt=True), 2, _ISS_KERNELS + _GT_KERNELS,
+                      "warped"),
 }
 
 
@@ -1493,6 +1715,46 @@ def synth_lenslet(w, h, mi, seed=3):
     cr = (128 - base[(yy[::2, ::2] + 5) % mi, xx[::2, ::2] % mi] // 8
           ).clip(0, 255).astype(np.int32)
     return y, cb, cr
+
+
+def synth_warped_lenslet(w, h, mi, seed=5):
+    """tests/test_e2e_iss.py's micro-image grid with a two-axis zoom
+    gradient (copied): pure translation mispredicts, the GT warp
+    compensates."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(30, 220, (mi * 4, mi * 4)).astype(np.float64)
+    k = np.ones((3, 3)) / 9.0
+    for _ in range(2):
+        base = np.pad(base, 1, mode="edge")
+        base = sum(base[i:i + mi * 4, j:j + mi * 4] * k[i, j]
+                   for i in range(3) for j in range(3))
+    out = np.zeros((h, w))
+    for by in range(0, h, mi):
+        for bx in range(0, w, mi):
+            s = 1.0 + 0.12 * (bx // mi) + 0.12 * (by // mi)
+            ly, lx = np.mgrid[0:mi, 0:mi]
+            sy = np.clip(ly * s, 0, mi * 4 - 1)
+            sx = np.clip(lx * s, 0, mi * 4 - 1)
+            y0, x0 = sy.astype(int), sx.astype(int)
+            fy, fx = sy - y0, sx - x0
+            y1 = np.clip(y0 + 1, 0, mi * 4 - 1)
+            x1 = np.clip(x0 + 1, 0, mi * 4 - 1)
+            out[by:by + mi, bx:bx + mi] = (
+                (1 - fy) * ((1 - fx) * base[y0, x0] + fx * base[y0, x1])
+                + fy * ((1 - fx) * base[y1, x0] + fx * base[y1, x1]))
+    y = out.clip(0, 255).astype(np.int32)
+    cb = np.full((h // 2, w // 2), 128, np.int32)
+    cr = np.full((h // 2, w // 2), 128, np.int32)
+    return y, cb, cr
+
+
+def path_frame(content):
+    """The 1920x1088 frame of an ISS path and its description."""
+    if content == "warped":
+        return (synth_warped_lenslet(W, H, 16, seed=5),
+                f"synth_warped_lenslet({W}, {H}, 16, seed=5)")
+    return (lenslet_frame(W, H, mi=16),
+            f"lenslet_frame({W}, {H}, mi=16, seed=5)")
 
 
 def phase_interp(checks):
@@ -1559,6 +1821,95 @@ def phase_interp(checks):
     log(f"C8: {c8.cases} cases {c8.mism} mismatches")
 
 
+def phase_warp(checks):
+    """Kernel C11 against its plain body: the window entry on every case of
+    tests/golden/hm_golden.json ``gt_warp`` and on a sweep (luma n = 8, 16,
+    32; chroma, half-pel, m = 4, 8, 16; 8 and 10 bit; corner offsets up to
+    +-n, small integral ones and ramps that reach the knife edges and the
+    clamp), prediction and ``safe``; the plane entries (luma, chroma) in
+    their masked-write and add-residual forms."""
+    import torch
+    from hevc_hop_torch.ops import gt, warp
+    dev = torch.device("cuda")
+    c11 = checks["C11"]
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                  device=dev)
+    with open(os.path.join(ROOT, "tests", "golden", "hm_golden.json")) as f:
+        golden = json.load(f)["gt_warp"]
+    for i, case in enumerate(golden):
+        n = case["n"]
+        win = t(np.array(case["win"]).reshape(1, 2 * n, 2 * n))
+        cor = t(np.array(case["gt"]).reshape(1, 4, 2))
+        got, want = warp.warp_blocks(win, cor, n), warp.warp_blocks_plain(
+            win, cor, n)
+        c11.add(got[0], want[0], f"C11 golden case {i} pred")
+        c11.add(got[1], want[1], f"C11 golden case {i} safe")
+    rng = np.random.default_rng(11)
+    unsafe = 0
+    for bd in (8, 10):
+        for half, sizes in ((False, (8, 16, 32)), (True, (4, 8, 16))):
+            for n in sizes:
+                b = 512
+                win = rng.integers(0, 1 << bd, (b, 2 * n, 2 * n))
+                win[: b // 4] = (np.arange(2 * n)[:, None] * 3
+                                 + np.arange(2 * n)[None] * 5) % (1 << bd)
+                reach = 2 * n if half else n
+                cor = rng.integers(-reach, reach + 1, (b, 4, 2))
+                cor[b // 4: b // 2] = rng.integers(-1, 2, (b // 4, 4, 2))
+                cor[:8] = 0
+                win, cor = t(win), t(cor)
+                got = warp.warp_blocks(win, cor, n, bd, half)
+                want = warp.warp_blocks_plain(win, cor, n, bd, half)
+                what = f"C11 window {'chroma' if half else 'luma'} n={n} " \
+                       f"bd={bd}"
+                c11.add(got[0], want[0], what + " pred")
+                c11.add(got[1], want[1], what + " safe")
+                unsafe += int((~want[1]).sum())
+    require(unsafe > 0, "the C11 sweep reached no knife edge")
+    # the plane entries: windows clamped at every edge of both pictures
+    for bd in (8, 10):
+        for chroma, sizes in ((False, (8, 16, 32)), (True, (4, 8, 16))):
+            h, w, pad = 96, 128, 16
+            hc_off = h + pad
+            plane = t(rng.integers(0, 1 << bd,
+                                   (2 * hc_off if chroma else h + pad, w)))
+            for n in sizes:
+                step = 2 * n + 8
+                g = np.stack(np.meshgrid(np.arange(0, w - n + 1, step),
+                                         np.arange(0, h - n + 1, step)),
+                             -1).reshape(-1, 2)
+                p = len(g)
+                if chroma:
+                    g = np.concatenate([g, g + [0, hc_off]])
+                pos = t(g)
+                mv = t(rng.integers(-4 * n, 4 * n, (p, 2)))
+                gtc = t(rng.integers(-n, n + 1, (p, 6)))
+                only = t(rng.random(p) < 0.7)
+                what = f"C11 {'chroma' if chroma else 'luma'} n={n} bd={bd}"
+                args = (pos, mv, gtc, n, chroma, h, bd, hc_off)
+                base = t(rng.integers(0, 1 << bd, (len(g), n, n)))
+                c11.add(warp.gt_pred_blocks(plane, *args, out=base.clone(),
+                                            only=only),
+                        gt.gt_pred_blocks_plain(plane, *args,
+                                                  out=base.clone(),
+                                                  only=only),
+                        what + " masked")
+                # the decode epilogue writes the plane in place: blocks
+                # 2n + 8 apart, anchors within +-2 samples, so that no
+                # window reaches another block
+                mv2 = t(rng.integers(-8, 9, (p, 2)))
+                resi = t(rng.integers(-300, 300, tuple(plane.shape)))
+                pk, pp = plane.clone(), plane.clone()
+                warp.gt_pred_blocks(pk, pos, mv2, gtc, n, chroma, h, bd,
+                                    hc_off, resi=resi, only=only)
+                gt.gt_pred_blocks_plain(pp, pos, mv2, gtc, n, chroma, h,
+                                          bd, hc_off, resi=resi, only=only)
+                c11.add(pk, pp, what + " decode epilogue")
+    torch.cuda.synchronize()
+    log(f"C11: {c11.cases} cases {c11.mism} mismatches ({len(golden)} "
+        f"golden cases; {unsafe} unsafe blocks in the sweep)")
+
+
 def phase_iss_path(name):
     """An ISS main path on the card: the launch counts of one encode and
     its decode (set to 0 just before, read just after), then the timed
@@ -1566,8 +1917,8 @@ def phase_iss_path(name):
     import torch
     from hevc_hop_torch.models.decoder import Decoder
     from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
-    extra, timed, needed = ISS_PATHS[name]
-    frame = lenslet_frame(W, H, mi=16)
+    extra, timed, needed, content = ISS_PATHS[name]
+    frame, content = path_frame(content)
     enc = HoloEncoder(HoloConfig(width=W, height=H, **extra))
     counters = _counters()
     for _, m, attr in counters:
@@ -1583,6 +1934,13 @@ def phase_iss_path(name):
     mse = np.mean((enc.recon_yuv[0].astype(np.float64) - frame[0]) ** 2)
     psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-9))
     require(psnr > 25, f"{name}: Y-PSNR {psnr:.2f} dB")
+    # the GT area: 8x8 units whose CU codes the GT warp (gt8 marks each GT
+    # CU's first unit)
+    gt_cus = int(maps.gt8.sum())
+    units = 1 << (2 * (maps.tu4[::2, ::2].astype(np.int64) - 3))
+    gt_area = int((units * (maps.gt8 != 0)).sum())
+    if name == "iss-gt-warped":
+        require(gt_cus > 0, f"{name}: GT never engaged")
     enc_s, dec_s, probes = [], [], []
     for _ in range(timed):
         probes.append(host_probes())
@@ -1598,11 +1956,13 @@ def phase_iss_path(name):
         dec_s.append(time.perf_counter() - t0)
         require(dec.hash_ok == [True], f"{name}: a later decode's hash")
     plans = _last_prep(enc)[0]
-    out = {"frame": f"{W}x{H}", "qp": QP, "config": extra,
-           "content": f"lenslet_frame({W}, {H}, mi=16, seed=5)",
+    out = {"frame": f"{W}x{H}", "qp": enc.cfg.qp, "config": extra,
+           "content": content,
            "wavefront_levels": enc.last_stats["levels"],
            "cus": {int(lg): int(p.cnt.sum()) for lg, p in plans.items()},
-           "inter_share": inter_share,
+           "inter_share": inter_share, "gt_cus": gt_cus,
+           "gt_area_8x8": gt_area,
+           "gt_area_share": gt_area / float((W // 8) * (H // 8)),
            "bytes": len(stream), "y_psnr_db": psnr,
            "first_encode_decode_s": e_s + d_s, "timed_frames": timed,
            "encode_s": float(np.median(enc_s)), "encode_s_max": max(enc_s),
@@ -1613,7 +1973,46 @@ def phase_iss_path(name):
            "launch_probe_ms": float(np.median([p[1] for p in probes])),
            "last_stats": dict(enc.last_stats), "launches": launches}
     log(f"{name} path: {json.dumps(out)}")
-    return out, dict(enc=enc, frame=frame, stream=stream)
+    return out, dict(enc=enc, frame=frame, stream=stream, content=content)
+
+
+GT_SHARE_TURNS = 2
+
+
+def phase_gt_share(ctxs):
+    """The GT tool's share of each GT path's encode, in turns in one
+    process: the path's encoder and a twin with gt=False on the same frame,
+    off, on, on, off, GT_SHARE_TURNS times over (after a warm-up frame of
+    the twin); medians of scan_s and of the whole encode each way."""
+    import dataclasses
+    import torch
+    from hevc_hop_torch.models.ss_encoder import HoloEncoder
+    out = {}
+    for name in ("iss-gt", "iss-gt-warped"):
+        enc, frame = ctxs[name]["enc"], ctxs[name]["frame"]
+        off = HoloEncoder(dataclasses.replace(enc.cfg, gt=False))
+        off.encode_frame(*frame)
+        t = {True: [], False: []}
+        for _ in range(GT_SHARE_TURNS):
+            for gt in (False, True, True, False):
+                e = enc if gt else off
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                e.encode_frame(*frame)
+                torch.cuda.synchronize()
+                t[gt].append((time.perf_counter() - t0,
+                              e.last_stats["scan_s"]))
+        med = {gt: np.median(np.array(v), axis=0) for gt, v in t.items()}
+        out[name] = {
+            "encode_s_gt_on": float(med[True][0]),
+            "encode_s_gt_off": float(med[False][0]),
+            "scan_s_gt_on": float(med[True][1]),
+            "scan_s_gt_off": float(med[False][1]),
+            "gt_share_of_scan_s": float(1 - med[False][1] / med[True][1]),
+            "gt_share_of_encode": float(1 - med[False][0] / med[True][0]),
+            "turns": GT_SHARE_TURNS}
+    log(f"gt share: {json.dumps(out)}")
+    return out
 
 
 def _hold_iss_launches(enc, frame, stream, checks, every=8):
@@ -1621,18 +2020,23 @@ def _hold_iss_launches(enc, frame, stream, checks, every=8):
     body on the same inputs, at the fullest level of every CU size and at
     every ``every``-th level: C9's search, C10's arms and motion write,
     C8's masked chroma (encoder) and both decode epilogues, and C4 with
-    the inter maps. The encode goes on with the kernels' outputs."""
+    the inter maps; with the GT on, every launch of C9 (its ring), C12
+    (search and decide, one wrapper call) and C11 (the encoder's masked
+    chroma, both decode epilogues). The encode goes on with the kernels'
+    outputs."""
     import torch
     from hevc_hop_torch.models import ss_scan
     from hevc_hop_torch.models.decoder import Decoder
-    from hevc_hop_torch.ops import deblock, interp
+    from hevc_hop_torch.ops import deblock, gt, interp
     from hevc_hop_torch.ops import inter_arms as ia
     from hevc_hop_torch.ops import ss_search as ss
     from hevc_hop_torch.models import ss_encoder, decoder as dmod
     c8, c9, c10, c4 = (checks[k] for k in ("C8", "C9", "C10", "C4"))
+    c11, c12 = checks["C11"], checks["C12"]
     orig = dict(mc=ss_scan.mc_blocks, ss=ss_scan.ss_search,
                 arms=ss_scan.inter_arms, mw=ss_scan.motion_write,
-                db=deblock.deblock_frame)
+                db=deblock.deblock_frame, gt=ss_scan.gt_step,
+                gp=ss_scan.gt_pred_blocks)
     calls = {}
     fullest = {}
     plans = _last_prep(enc)[0]
@@ -1668,16 +2072,51 @@ def _hold_iss_launches(enc, frame, stream, checks, every=8):
         return got if resi is None else want
 
     def search(recon, org, pos, zcur, zmaxw, motion, nbav, miav, n, radius,
-               w, h, lam, mi):
+               w, h, lam, mi, zmax2n=None):
         got = orig["ss"](recon, org, pos, zcur, zmaxw, motion, nbav, miav, n,
-                         radius, w, h, lam, mi)
-        if pick("ss", n, pos.shape[0]):
+                         radius, w, h, lam, mi, zmax2n)
+        if zmax2n is not None or pick("ss", n, pos.shape[0]):
             preds = ia.gather_cands(*motion, pos, nbav, miav, n, mi)[3]
             want = ss.ss_search_plain(recon, org, pos, zcur, zmaxw, preds, n,
-                                      radius, w, h, lam)
-            for g, w_, nm in zip(got, want, ("mv", "cost", "pred", "sse")):
+                                      radius, w, h, lam, zmax2n)
+            for g, w_, nm in zip(got, want, ("mv", "cost", "pred", "sse",
+                                              "anchor", "gt_rate",
+                                              "gt_ok")):
                 c9.add(g, w_, f"C9 search n={n} {nm}")
-            mark(f"C9 search n={n}")
+            mark(f"C9 {'ring' if zmax2n is not None else 'search'} n={n}")
+        return got
+
+    def gt_step(recon, org, rc, pos, zcur, z2, motion, nbav, miav, ring,
+                costs, pred, inter, mv, smode, n, w, h, hc_off, bd, lam, mi):
+        c = [t_.clone() for t_ in (pred, inter, mv, smode)]
+        want = gt.gt_step_plain(recon, org, rc, pos, zcur, z2, motion, nbav,
+                                miav, ring, costs, *c, n, w, h, hc_off, bd,
+                                lam, mi)
+        got = orig["gt"](recon, org, rc, pos, zcur, z2, motion, nbav, miav,
+                         ring, costs, pred, inter, mv, smode, n, w, h,
+                         hc_off, bd, lam, mi)
+        for g, w_, nm in zip(got + (pred, inter, mv, smode), want + tuple(c),
+                             ("flag", "gtc", "pred", "inter", "mv",
+                              "smode")):
+            c12.add(g, w_, f"C12 n={n} {nm}")
+        mark(f"C12 n={n}")
+        held["gt_cus"] = held.get("gt_cus", 0) + int(got[0].sum())
+        return got
+
+    def gt_pred(plane, pos, mv, gtc, n, chroma, h_real, bd=8, hc_off=0,
+                out=None, only=None, resi=None):
+        p2 = plane.clone()
+        o2 = None if out is None else out.clone()
+        gt.gt_pred_blocks_plain(p2, pos, mv, gtc, n, chroma, h_real, bd,
+                                hc_off, o2, only, resi)
+        got = orig["gp"](plane, pos, mv, gtc, n, chroma, h_real, bd, hc_off,
+                         out, only, resi)
+        what = (f"C11 {'chroma' if chroma else 'luma'} "
+                f"{'masked' if resi is None else 'decode'} n={n}")
+        c11.add(plane, p2, what + " plane")
+        if out is not None:
+            c11.add(out, o2, what)
+        mark(what)
         return got
 
     def arms(recon, org, pos, zcur, zmaxw, motion, nbav, miav, mv_i, pred0,
@@ -1723,6 +2162,7 @@ def _hold_iss_launches(enc, frame, stream, checks, every=8):
 
     ss_scan.mc_blocks, ss_scan.ss_search = mc, search
     ss_scan.inter_arms, ss_scan.motion_write = arms, motion
+    ss_scan.gt_step, ss_scan.gt_pred_blocks = gt_step, gt_pred
     ss_encoder.deblock.deblock_frame = deblock_both
     try:
         got = enc.encode_frame(*frame)
@@ -1732,6 +2172,7 @@ def _hold_iss_launches(enc, frame, stream, checks, every=8):
     finally:
         ss_scan.mc_blocks, ss_scan.ss_search = orig["mc"], orig["ss"]
         ss_scan.inter_arms, ss_scan.motion_write = orig["arms"], orig["mw"]
+        ss_scan.gt_step, ss_scan.gt_pred_blocks = orig["gt"], orig["gp"]
         ss_encoder.deblock.deblock_frame = orig["db"]
     require(dmod.deblock.deblock_frame is orig["db"], "deblock restored")
     require(got == stream, "the held encode differs from the path's")
@@ -1781,17 +2222,20 @@ def phase_iss_kernels(checks, ctxs):
         held[name] = _hold_iss_launches(c["enc"], c["frame"], c["stream"],
                                         checks)
     need = {"C9 search", "C10 arms", "C10 motion", "C8 chroma masked",
-            "C8 luma decode", "C8 chroma decode", "C4 inter arm"}
+            "C8 luma decode", "C8 chroma decode", "C4 inter arm", "C9 ring",
+            "C12", "C11 chroma masked", "C11 luma decode",
+            "C11 chroma decode"}
     seen = {k.rsplit(" n=", 1)[0] for h in held.values() for k in h}
     require(need <= seen, f"ISS launch forms never held: {need - seen}")
     log("ISS kernels: " + ", ".join(
         f"{k} {checks[k].cases} cases {checks[k].mism} mismatches"
-        for k in ("C4", "C8", "C9", "C10")))
+        for k in ("C4", "C8", "C9", "C10", "C11", "C12")))
     return tally
 
 
 def _last_prep(enc):
-    """(plans, nsteps, zmaxw) of the partition the encoder coded last."""
+    """(plans, nsteps, zmaxw, zmax2n) of the partition the encoder coded
+    last."""
     return enc._prep_cache[next(reversed(enc._prep_cache))]
 
 
@@ -1835,7 +2279,7 @@ def phase_iss_timing(ctxs, checks, launches):
     # filter margin spans 40 samples), so 16x16 is the largest search
     path = "iss" if 4 in _last_prep(ctxs["iss"]["enc"])[0] else "iss-uniform"
     enc, frame = ctxs[path]["enc"], ctxs[path]["frame"]
-    plans, _, zmaxws = _last_prep(enc)
+    plans, _, zmaxws = _last_prep(enc)[:3]
     lam = partition.full_lambda(QP)
     specs = []
 
@@ -2000,12 +2444,187 @@ def phase_iss_timing(ctxs, checks, launches):
     return _time_specs(specs, checks, launches)
 
 
+def warp_ops(n):
+    """int32 operations of one n x n GT warp: per sample the two map
+    coordinates, their truncating divisions and fractions, the clamp, the
+    bilinear sum, the rounding and the knife tests (about 45), and the
+    SSE's subtract, multiply and add (3)."""
+    return 48 * n * n
+
+
+def gt_anchor_count(pos, zcur, zmax2n, motion, nbav, miav, ring, n):
+    """The (block, anchor) pairs C12's search runs on these inputs: the
+    ring anchors found, and the predictor anchors that are valid, causal
+    and not the ring's again."""
+    import torch
+    from hevc_hop_torch.ops import inter_arms as ia
+    from hevc_hop_torch.ops import ss_search as ss
+    p_ss = ia.gather_cands(*motion, pos, nbav, miav, n, 16)[3][:, 0]
+    valid = (p_ss.abs() < ss.HUGE_PRED // 2).all(-1)
+    prd = torch.where(valid[:, None], (p_ss + 2) >> 2, 0)
+    ok_p = ss.ss_anchor_ok(pos, zcur, zmax2n, prd, n, W, H) & valid
+    dup = (ring[0] == prd).all(-1) & ring[2]
+    return int(ring[2].sum()) + int((ok_p & ~dup).sum())
+
+
+def phase_gt_timing(ctxs, checks, launches):
+    """Rows of the kernels line for C9's scan entry with the GT ring, C12's
+    two entries and C11's two plane entries, each at the fullest 16x16
+    level of a GT path, held once more and timed beside its plain version
+    and its bound."""
+    import torch
+    from hevc_hop_torch.models import partition
+    from hevc_hop_torch.ops import gt, inter_arms as ia
+    from hevc_hop_torch.ops import ss_search as ss
+    from hevc_hop_torch.ops import warp
+    dev = torch.device("cuda")
+    specs = []
+
+    def level(path):
+        enc, frame = ctxs[path]["enc"], ctxs[path]["frame"]
+        plans, _, zmaxws, zmax2ns = _last_prep(enc)
+        p = plans[4]
+        s = int(np.argmax(p.cnt))
+        o, c = int(p.off[s]), int(p.cnt[s])
+        sl = slice(o, o + c)
+        oy, oc = enc._upload(*frame)
+        ry = oy.clone()                  # the recon: the original, ahead
+        ry[H:] = 0
+        rng = np.random.default_rng(12)
+        motion = tuple(torch.zeros((oy.shape[0] // 4, W // 4),
+                                   dtype=torch.int32, device=dev)
+                       for _ in range(4))
+        motion[0][:] = torch.as_tensor(rng.integers(-200, 40,
+                                                    motion[0].shape))
+        motion[1][:] = torch.as_tensor(rng.integers(-200, 40,
+                                                    motion[1].shape))
+        motion[2][:] = torch.as_tensor(rng.random(motion[2].shape) < 0.6)
+        return dict(enc=enc, p=p, o=o, c=c, pos=p.pos[sl], zcur=p.zcur[sl],
+                    nbav=p.nbav[sl], miav=p.miav[sl], oy=oy, oc=oc, ry=ry,
+                    motion=motion, zmaxw=zmaxws[4], zmax2n=zmax2ns[4],
+                    lam=partition.full_lambda(enc.cfg.qp), qp=enc.cfg.qp)
+
+    # C9 with the ring, on the iss-gt path's fullest 16x16 level
+    L = level("iss-gt")
+    n, c = 16, L["c"]
+    sargs = (L["ry"], L["oy"], L["pos"], L["zcur"], L["zmaxw"], L["motion"],
+             L["nbav"], L["miav"], n, 32, W, H, L["lam"], 16)
+    ops, causal = search_ops(L["pos"], L["zcur"], L["zmaxw"], n, 32)
+    wsz = n + 64
+    spec = lambda **kw: specs.append(kw)
+    spec(name=f"C9 ss_search (scan, GT ring, {n}x{n})", counter="C9 ring",
+         path="iss-gt", kernel="ss_search_kernel",
+         shape=f"{c} CUs of {n}x{n}, radius 32, {causal} causal "
+               "displacements, the anchor ring",
+         source="hevc_hop_torch/csrc/ss_search.cu",
+         replaces="hevc_hop_tpu/models/ss_scan.py:266",
+         fn=lambda: ss.ss_search(*sargs, zmax2n=L["zmax2n"]),
+         plain=lambda: ss.ss_search_plain(
+             L["ry"], L["oy"], L["pos"], L["zcur"], L["zmaxw"],
+             ia.gather_cands(*L["motion"], L["pos"], L["nbav"], L["miav"],
+                             n, 16)[3], n, 32, W, H, L["lam"], L["zmax2n"]),
+         nbytes=c * (wsz * wsz + n * n) * 4 + c * (n * n * 4 + 28),
+         ops=(0, ops + causal * 10))
+
+    # C12 on the iss-gt-warped path's fullest level, after a real search
+    # and C10's tournament
+    G = level("iss-gt-warped")
+    c = G["c"]
+    gargs = (G["ry"], G["oy"], G["pos"], G["zcur"], G["zmaxw"], G["motion"],
+             G["nbav"], G["miav"], n, 32, W, H, G["lam"], 16)
+    mv_i, _, pred0, sse0, *ring = ss.ss_search(*gargs, zmax2n=G["zmax2n"])
+    ipred = ss.block_at(G["oy"], G["pos"], n).clone()
+    imode = torch.zeros(c, dtype=torch.int32, device=dev)
+    inter, mv, smode, costs = ia.inter_arms(
+        *gargs[:8], mv_i, pred0, sse0, ipred, imode, n, W, H, 8, G["lam"],
+        16)
+    base = (ipred, inter, mv, smode)
+    hc_off = H // 2 + 32
+    rc = G["oc"].clone()
+    head = (G["ry"], G["oy"], rc, G["pos"], G["zcur"], G["zmax2n"],
+            G["motion"], G["nbav"], G["miav"], ring, costs)
+    tail = (n, W, H, hc_off, 8, G["lam"], 16)
+
+    def step(fn):
+        bufs = tuple(t.clone() for t in base)
+        return fn(*head, *bufs, *tail) + bufs
+
+    anchors = gt_anchor_count(G["pos"], G["zcur"], G["zmax2n"], G["motion"],
+                              G["nbav"], G["miav"], ring, n)
+    flag = step(gt.gt_step)[0]
+    nflag = int(flag.sum())
+    m = n // 2
+    common = dict(counter="C12 search", path="iss-gt-warped",
+                  source="hevc_hop_torch/csrc/gt_search.cu",
+                  fn=lambda: step(gt.gt_step),
+                  plain=lambda: step(gt.gt_step_plain))
+    spec(name=f"C12 gt_search ({n}x{n})", kernel="gt_search_kernel",
+         shape=f"{c} CUs of {n}x{n}, {anchors} causal anchors of "
+               f"{2 * c}, 79 warps each",
+         replaces="hevc_hop_tpu/models/ss_scan.py:580",
+         nbytes=anchors * (5 * n * n * 4 + n * n * 4 + 64) + c * 48,
+         ops=anchors * 79 * warp_ops(n), **common)
+    # the decide entry's chroma check runs where the GT cost wins; count
+    # the flagged blocks as a floor
+    spec(name=f"C12 gt_decide ({n}x{n})", kernel="gt_decide_kernel",
+         shape=f"{c} CUs of {n}x{n}, {nflag} GT",
+         replaces="hevc_hop_tpu/models/ss_scan.py:796",
+         nbytes=c * 120 + nflag * (2 * n * n * 4 + 2 * (n + 3) ** 2 * 4),
+         ops=nflag * 2 * (mc_ops(n, 4) + warp_ops(m)),
+         **dict(common, counter="C12 decide"))
+    # C11: the encoder's masked chroma and the decoder's luma epilogue on
+    # the same level's blocks, the GT blocks of the step above selected
+    cpos = G["p"].cpos[2 * G["o"]:2 * G["o"] + 2 * c]
+    rng = np.random.default_rng(13)
+    gmv = torch.as_tensor(rng.integers(-8, 9, (c, 2)) * 4 - 64,
+                          dtype=torch.int32, device=dev)
+    gtc = torch.as_tensor(rng.integers(-4, 5, (c, 6)), dtype=torch.int32,
+                          device=dev)
+    only = (torch.arange(c, device=dev) % 2).to(torch.int32)
+    sel = int(only.sum())
+    cbase = torch.zeros((2 * c, m, m), dtype=torch.int32, device=dev)
+    spec(name=f"C11 gt_pred (chroma, {m}x{m})", counter="C11 chroma",
+         path="iss-gt-warped", kernel="gt_pred_kernel",
+         shape=f"{2 * c} chroma blocks of {m}x{m}, {2 * sel} GT, masked "
+               "write",
+         source="hevc_hop_torch/csrc/warp.cu",
+         replaces="hevc_hop_tpu/models/ss_scan.py:522",
+         fn=lambda: warp.gt_pred_blocks(rc, cpos, gmv, gtc, m, True, H // 2,
+                                        8, hc_off, out=cbase.clone(),
+                                        only=only),
+         plain=lambda: gt.gt_pred_blocks_plain(rc, cpos, gmv, gtc, m, True,
+                                                 H // 2, 8, hc_off,
+                                                 out=cbase.clone(),
+                                                 only=only),
+         nbytes=2 * sel * ((2 * m + 3) ** 2 + m * m) * 4 + c * 36,
+         ops=2 * sel * (mc_ops(2 * m, 4) + warp_ops(m)))
+    resi = torch.as_tensor(rng.integers(-30, 30, tuple(G["oy"].shape)).astype(
+        np.int32), device=dev)
+    lbufs = {k: G["ry"].clone() for k in ("kernel", "plain")}
+    spec(name=f"C11 gt_pred (luma, {n}x{n})", counter="C11 luma",
+         path="iss-gt-warped", kernel="gt_pred_kernel",
+         shape=f"{c} luma blocks of {n}x{n}, {sel} GT, decode epilogue",
+         source="hevc_hop_torch/csrc/warp.cu",
+         replaces="hevc_hop_tpu/models/ss_scan.py:514",
+         fn=lambda: (warp.gt_pred_blocks(lbufs["kernel"].copy_(G["ry"]),
+                                         G["pos"], gmv, gtc, n, False, H,
+                                         resi=resi, only=only),
+                     lbufs["kernel"])[1],
+         plain=lambda: (gt.gt_pred_blocks_plain(
+             lbufs["plain"].copy_(G["ry"]), G["pos"], gmv, gtc, n, False, H,
+             resi=resi, only=only), lbufs["plain"])[1],
+         nbytes=sel * (4 * n * n + 2 * n * n) * 4 + c * 36,
+         ops=sel * warp_ops(n))
+    return _time_specs(specs, checks, launches)
+
+
 KERNELS = ("checksum_kernel", "intra_kernel", "tq_encode_kernel",
            "tq_encode_rdoq_kernel", "tq_decode_kernel", "rdoq_quant_kernel",
            "deblock_kernel", "partition_rd_kernel",
            "partition_decide_kernel", "sao_stats_kernel", "sao_apply_kernel",
            "mc_kernel", "ss_search_kernel", "ss_rd_kernel",
-           "inter_arms_kernel", "motion_write_kernel")
+           "inter_arms_kernel", "motion_write_kernel", "warp_kernel",
+           "gt_pred_kernel", "gt_search_kernel", "gt_decide_kernel")
 
 
 def _profile(fn):
@@ -2074,10 +2693,11 @@ def main() -> int:
     phase_build()
     log_host("built")
     checks = {k: Check() for k in ("C1", "C2", "C3", "C4", "C5", "C6",
-                                   "C7", "C8", "C9", "C10")}
+                                   "C7", "C8", "C9", "C10", "C11", "C12")}
     phase_kernels(checks)
     phase_rdoq(checks)
     phase_interp(checks)
+    phase_warp(checks)
     ps = phase_partition_sao(checks)
     log_host("kernels held")
     paths, ctxs = {}, {}
@@ -2087,14 +2707,19 @@ def main() -> int:
     for name in ISS_PATHS:
         paths[name], ctxs[name] = phase_iss_path(name)
         log_host(f"{name} path timed")
+    gt_share = phase_gt_share(ctxs)
     iss_prepass = phase_iss_kernels(checks, ctxs)
     phase_cpu_parity()
     phase_fixture()
+    full_fixtures = phase_full_fixtures(ctxs)
     cli_s = phase_cli()
-    log_host("parity, fixtures and CLI done")
+    cli_holo_s = phase_cli_holo(ctxs)
+    bdrate = phase_bdrate()
+    log_host("parity, fixtures, CLI and BD-rate done")
     launches = {k: v["launches"] for k, v in paths.items()}
     rows = (phase_timing(ctxs, ps, checks, launches)
-            + phase_iss_timing(ctxs, checks, launches))
+            + phase_iss_timing(ctxs, checks, launches)
+            + phase_gt_timing(ctxs, checks, launches))
     for name in paths:
         paths[name]["profile"] = phase_profile(name, ctxs[name])
     for r in rows:
@@ -2107,8 +2732,11 @@ def main() -> int:
             for name, prof in ((n, paths[n]["profile"]) for n in paths)}
     log_host("end")
     log(card)
-    log(json.dumps({"main_paths": paths, "cli_s": cli_s, "card": card,
-                    "iss_prepass_check": iss_prepass}))
+    log(json.dumps({"main_paths": paths, "cli_s": cli_s,
+                    "cli_holo_s": cli_holo_s, "card": card,
+                    "iss_prepass_check": iss_prepass, "bdrate": bdrate,
+                    "gt_share": gt_share,
+                    "full_fixtures": full_fixtures}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 // Device code shared by kernel C9 (ss_search.cu) and kernel C10
-// (inter_arms.cu): the MVD rate of hevc_hop_tpu/models/ss_scan.py
-// _mvd_bits and _min_rate_bits, the causality test of a displacement, and
+// (inter_arms.cu), and by kernel C12 (gt_search.cu): the MVD rate of
+// hevc_hop_tpu/models/ss_scan.py _mvd_bits and _min_rate_bits, the
+// causality tests of a displacement (for its MC window and for its GT
+// window, ss_anchor_ok), and
 // _gather_cands (merge candidates and AMVP predictors from the carried 4x4
 // motion planes).
 #pragma once
@@ -109,6 +111,18 @@ __device__ __forceinline__ bool causal(const int32_t *zmaxw, int tx, int ty,
                                        int n, int w, int h, int zcur) {
   if (tx < 0 || ty < 0 || tx + n > w || ty + n > h) return false;
   return zmaxw[(long long)ty * (w - n + 1) + tx] < zcur;
+}
+
+// Whether the GT window of an n x n target at (tx, ty) (2n x 2n around it,
+// plus 2 samples of slack) is in the picture and causal: the reference's
+// mask2 and ss_anchor_ok
+__device__ __forceinline__ bool anchor_causal(const int32_t *zmax2n, int tx,
+                                              int ty, int n, int w, int h,
+                                              int zcur) {
+  const int wx = tx - n / 2, wy = ty - n / 2;
+  if (wx < 2 || wy < 2 || wx + 2 * n + 2 > w || wy + 2 * n + 2 > h)
+    return false;
+  return zmax2n[(long long)wy * (w - 2 * n + 1) + wx] < zcur;
 }
 
 }  // namespace

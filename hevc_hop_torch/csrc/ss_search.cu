@@ -1,8 +1,8 @@
 // Kernel C9: the self-similarity full search, in the scan and in the
 // quadtree pre-pass.
 //
-// Replaces hevc_hop_tpu/models/ss_scan.py _ss_search (the form without the
-// GT anchor ring), _dyn_rate_map and _mvd_bits (scan entry, hh_ss_search),
+// Replaces hevc_hop_tpu/models/ss_scan.py _ss_search (with its GT anchor
+// ring, :266-288), _dyn_rate_map and _mvd_bits (scan entry, hh_ss_search),
 // and the SS arm of hevc_hop_tpu/models/ss_partition.py _ss_rd_size
 // (pre-pass entry, hh_ss_rd).
 //
@@ -18,9 +18,13 @@
 // first in row-major order among equals (jnp.argmin's rule), through one
 // per-thread pass and a CTA reduction. The entry writes the MV, the cost,
 // the SSE (3e38 when no displacement was causal) and the full-pel
-// prediction. The pre-pass entry goes on with the dead-zone transform
-// round trip of the residual (tq.cuh, kernel C3's device functions) and
-// writes SSE + lambda * level bits + the search's rate.
+// prediction. With the GT on, the same pass keeps a second least cost, over
+// the displacements whose 2n GT window plus 2 samples of slack is in the
+// picture and causal (zmax2n), with the same tie rule (the reference's
+// lax.top_k with k = 1): the anchor ring, written as the anchor, its rate
+// and whether one was found. The pre-pass entry goes on with the dead-zone
+// transform round trip of the residual (tq.cuh, kernel C3's device
+// functions) and writes SSE + lambda * level bits + the search's rate.
 //
 // Floats: the reference's SSE map is float32 from XLA:CPU's convolution,
 // whose sums this kernel repeats in the same order (ROADMAP.md F8): over the
@@ -51,21 +55,25 @@ struct Search {
   const int32_t *zmaxw;
   int n, radius, w, h;
   float lam;
+  const int32_t *zmax2n;  // the GT window's causality plane, or null
 };
 
 struct Best {
   int mvx, mvy;
   float cost, sse;
+  int amvx, amvy, aok;  // the GT anchor ring (with zmax2n)
+  float arate;
 };
 
 // Shared-memory words of the search (block original + reduction + window)
 __host__ __device__ __forceinline__ int search_words(int n, int radius) {
   const int W = n + 2 * radius;
-  return n * n + 3 * kThreads + W * W;
+  return n * n + 5 * kThreads + W * W;
 }
 
+
 // The masked full search of the block at (px, py) over the CTA. sm holds
-// search_words(n, r) words: of [nn] float, reduction [3 * nt], window
+// search_words(n, r) words: of [nn] float, reduction [5 * nt], window
 // [W * W] float. Returns the winner to every thread.
 __device__ Best search_block(const Search &s, int px, int py, int zcur,
                              const int *preds, int np, float *sm) {
@@ -75,7 +83,9 @@ __device__ Best search_block(const Search &s, int px, int py, int zcur,
   float *red_cost = of + nn;
   int *red_idx = reinterpret_cast<int *>(red_cost + kThreads);
   float *red_sse = reinterpret_cast<float *>(red_idx + kThreads);
-  float *win = red_sse + kThreads;
+  float *red_cost2 = red_sse + kThreads;
+  int *red_idx2 = reinterpret_cast<int *>(red_cost2 + kThreads);
+  float *win = reinterpret_cast<float *>(red_idx2 + kThreads);
   __shared__ float org2_s;
   for (int i = tid; i < W * W; i += nt) {
     const int y = clip3(0, s.h - 1, py - r + i / W);
@@ -90,8 +100,8 @@ __device__ Best search_block(const Search &s, int px, int py, int zcur,
   __syncthreads();
   const float org2 = org2_s;
   const int rows_per_block = kConvBlock / n < n ? kConvBlock / n : n;
-  float bc = kBig, bs = 0.0f;
-  int bi = D * D;
+  float bc = kBig, bs = 0.0f, bc2 = kBig;
+  int bi = D * D, bi2 = D * D;
   for (int d = tid; d < D * D; d += nt) {
     const int dy = d / D, dx = d % D;
     const int ty = py + dy - r, tx = px + dx - r;
@@ -128,10 +138,18 @@ __device__ Best search_block(const Search &s, int px, int py, int zcur,
       bi = d;
       bs = sse;
     }
+    if (s.zmax2n != nullptr &&
+        anchor_causal(s.zmax2n, tx, ty, n, s.w, s.h, zcur) &&
+        (cost < bc2 || (cost == bc2 && d < bi2))) {
+      bc2 = cost;
+      bi2 = d;
+    }
   }
   red_cost[tid] = bc;
   red_idx[tid] = bi;
   red_sse[tid] = bs;
+  red_cost2[tid] = bc2;
+  red_idx2[tid] = bi2;
   __syncthreads();
   __shared__ Best best_s;
   if (tid == 0) {
@@ -148,6 +166,23 @@ __device__ Best search_block(const Search &s, int px, int py, int zcur,
     best_s.mvy = i / D - r;
     best_s.cost = c;
     best_s.sse = c < 1e37f ? e : kBig;
+    if (s.zmax2n != nullptr) {
+      float c2 = red_cost2[0];
+      int i2 = red_idx2[0];
+      for (int t = 1; t < nt; ++t)
+        if (red_cost2[t] < c2 || (red_cost2[t] == c2 && red_idx2[t] < i2)) {
+          c2 = red_cost2[t];
+          i2 = red_idx2[t];
+        }
+      if (i2 >= D * D) i2 = 0;   // no causal GT window: top_k's index 0
+      best_s.amvx = i2 % D - r;
+      best_s.amvy = i2 / D - r;
+      best_s.aok = c2 < 1e37f;
+      best_s.arate = __fmul_rn(
+          s.lam, __fadd_rn(min_rate_bits(4 * best_s.amvx, 4 * best_s.amvy,
+                                         preds, np),
+                           kInterBits));
+    }
   }
   __syncthreads();
   return best_s;
@@ -157,7 +192,8 @@ __global__ void ss_search_kernel(Search s, const int32_t *pos,
                                  const int32_t *zcur, Motion m,
                                  const uint8_t *nbav, const uint8_t *miav,
                                  int mi_size, int32_t *mv, float *cost,
-                                 int32_t *pred, float *sse) {
+                                 int32_t *pred, float *sse, int32_t *anchor,
+                                 float *gt_rate, uint8_t *gt_ok) {
   extern __shared__ float sm[];
   const int b = blockIdx.x;
   const int px = pos[2 * b], py = pos[2 * b + 1];
@@ -177,6 +213,12 @@ __global__ void ss_search_kernel(Search s, const int32_t *pos,
     mv[2 * b + 1] = best.mvy;
     cost[b] = best.cost;
     sse[b] = best.sse;
+    if (s.zmax2n != nullptr) {
+      anchor[2 * b] = best.amvx;
+      anchor[2 * b + 1] = best.amvy;
+      gt_rate[b] = best.arate;
+      gt_ok[b] = best.aok;
+    }
   }
 }
 
@@ -258,7 +300,9 @@ int launch_smem(const void *kernel, size_t smem) {
 // Scan entry. recon/org int32 planes (row stride), pos [B, 2], zcur [B],
 // zmaxw [h-n+1, w-n+1] int32; the motion planes [hp, wp] int32; nbav
 // [B, 5], miav [B, 3] bool. Out: mv [B, 2] full-pel int32, cost [B]
-// float32, pred [B, n, n] int32, sse [B] float32.
+// float32, pred [B, n, n] int32, sse [B] float32. With zmax2n [h-2n+1,
+// w-2n+1] int32 (null: GT off) also the anchor ring: anchor [B, 2] full-pel
+// int32, gt_rate [B] float32, gt_ok [B] bool.
 HH_EXPORT int hh_ss_search(const void *recon, const void *org, int stride,
                            const void *pos, const void *zcur,
                            const void *zmaxw, const void *mvx4,
@@ -267,10 +311,12 @@ HH_EXPORT int hh_ss_search(const void *recon, const void *org, int stride,
                            const void *nbav, const void *miav, int b, int n,
                            int radius, int w, int h, int mi_size, float lam,
                            void *mv, void *cost, void *pred, void *sse,
-                           void *stream) {
+                           const void *zmax2n, void *anchor, void *gt_rate,
+                           void *gt_ok, void *stream) {
   const Search s{static_cast<const int32_t *>(recon),
                  static_cast<const int32_t *>(org), stride,
-                 static_cast<const int32_t *>(zmaxw), n, radius, w, h, lam};
+                 static_cast<const int32_t *>(zmaxw), n, radius, w, h, lam,
+                 static_cast<const int32_t *>(zmax2n)};
   const Motion m{static_cast<const int32_t *>(mvx4),
                  static_cast<const int32_t *>(mvy4),
                  static_cast<const int32_t *>(pi4),
@@ -283,7 +329,9 @@ HH_EXPORT int hh_ss_search(const void *recon, const void *org, int stride,
       m, static_cast<const uint8_t *>(nbav),
       static_cast<const uint8_t *>(miav), mi_size,
       static_cast<int32_t *>(mv), static_cast<float *>(cost),
-      static_cast<int32_t *>(pred), static_cast<float *>(sse));
+      static_cast<int32_t *>(pred), static_cast<float *>(sse),
+      static_cast<int32_t *>(anchor), static_cast<float *>(gt_rate),
+      static_cast<uint8_t *>(gt_ok));
   return (int)cudaGetLastError();
 }
 
@@ -299,7 +347,8 @@ HH_EXPORT int hh_ss_rd(const void *org, int stride, const void *pos,
                        int mi_xy_y, void *cost, void *stream) {
   const Search s{static_cast<const int32_t *>(org),
                  static_cast<const int32_t *>(org), stride,
-                 static_cast<const int32_t *>(zmaxw), n, radius, w, h, lam};
+                 static_cast<const int32_t *>(zmaxw), n, radius, w, h, lam,
+                 nullptr};
   const Tq q{static_cast<const int32_t *>(mat), bit_depth, qs, qbits, qoff,
              dqs, dqsh};
   const size_t smem = sizeof(float) * (search_words(n, radius) + 7 * n * n);

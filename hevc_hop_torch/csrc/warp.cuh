@@ -1,0 +1,80 @@
+// Device code of the GT corner warp, shared by kernel C11 (warp.cu) and
+// kernel C12 (gt_search.cu): hevc_hop_tpu/ops/warp.py warp_blocks and
+// _trunc_div_tz, bit-exact.
+//
+// The warp is affine: every map coordinate is an exact rational ax / d with
+// d = 2 (2n - 1), so one output sample is a handful of int32 products, a
+// truncating division, a bilinear sum over four window samples and a
+// rounding half up. |num| stays below 9 d^2 (2^bd - 1), about 1.5e8 at
+// n = 32 and 10 bit, far below 2^31.
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+// One block's warp: the map ax = axx * x + axy * y + ax0 (and ay), the
+// central block's offset in the [2n, 2n] window, the NSS clamp.
+struct WarpGeom {
+  int n, off, nssg, lim, d;
+  int axx, axy, ax0, ayx, ayy, ay0;
+};
+
+// c4: the corner offsets (TL, TR, BR, BL) as (x, y) pairs, full pel, or
+// half pel with half (the chroma form). BR is not read: the warp is affine.
+__device__ __forceinline__ WarpGeom warp_geom(int n, const int *c4,
+                                              int half) {
+  WarpGeom g;
+  const int gs = 2 * n, w = gs - 1, s = half ? 1 : 2;
+  g.n = n;
+  g.d = 2 * w;
+  g.off = gs / 2 - n / 2;
+  g.nssg = n / 2;
+  g.lim = n / 2 + n - 1;
+  const int cx0 = c4[0] * s, cx1 = c4[2] * s + 2 * w, cx3 = c4[6] * s;
+  const int cy0 = c4[1] * s, cy1 = c4[3] * s, cy3 = c4[7] * s + 2 * w;
+  g.axx = cx1 - cx0;
+  g.axy = cx3 - cx0;
+  g.ax0 = cx0 * w;
+  g.ayx = cy1 - cy0;
+  g.ayy = cy3 - cy0;
+  g.ay0 = cy0 * w;
+  return g;
+}
+
+// The coded corners (TL, TR, BR, 6 ints) plus the affine BL = TL + BR - TR
+__device__ __forceinline__ void gt4(const int *gtc, int *c4) {
+  for (int k = 0; k < 6; ++k) c4[k] = gtc[k];
+  c4[6] = gtc[0] + gtc[4] - gtc[2];
+  c4[7] = gtc[1] + gtc[5] - gtc[3];
+}
+
+// Output sample i (raster order in the n x n block) of the warp of win
+// ([2n, 2n], row stride ws). Sets knife when the reference's float64 may
+// round this sample the other way: a coordinate exactly on a truncation
+// boundary that matters (negative, or at the clamp), or the rounding
+// exactly half way.
+__device__ __forceinline__ int warp_sample(const WarpGeom &g,
+                                           const int32_t *win, int ws, int i,
+                                           int maxv, int &knife) {
+  const int xg = g.off + i % g.n, yg = g.off + i / g.n, d = g.d;
+  const int ax = g.axx * xg + g.axy * yg + g.ax0;
+  const int ay = g.ayx * xg + g.ayy * yg + g.ay0;
+  const int xt = ax / d, yt = ay / d;   // toward zero, as C's (Int)
+  const int pn = ax - xt * d, qn = ay - yt * d;
+  const int xu = xt - g.off, yu = yt - g.off;
+  const int xi = clip3(-g.nssg, g.lim - 1, xu);
+  const int yi = clip3(-g.nssg, g.lim - 1, yu);
+  const int32_t *r0 = win + (yi + g.nssg) * ws + xi + g.nssg;
+  const int32_t *r1 = r0 + ws;
+  int num = (d - qn) * ((d - pn) * r0[0] + pn * r0[1]) +
+            qn * ((d - pn) * r1[0] + pn * r1[1]);
+  num = clip3(0, maxv * d * d, num);
+  const int t = 2 * num + d * d, dd2 = 2 * d * d;
+  if ((pn == 0 && (ax < 0 || xu <= -g.nssg || xu >= g.lim)) ||
+      (qn == 0 && (ay < 0 || yu <= -g.nssg || yu >= g.lim)) || t % dd2 == 0)
+    knife = 1;
+  return t / dd2;
+}
+
+}  // namespace

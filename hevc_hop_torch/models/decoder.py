@@ -5,12 +5,13 @@ into dense maps; the residuals are dequantized and inverse-transformed by
 kernel C3's decode entry (one launch per TU size and plane). I slices:
 prediction runs as the wavefront level loop over kernel C2 with its
 add-residual epilogue (models/wavefront_scan.py). ISS slices: the
-MV-aware level loop of models/ss_scan.py, kernel C2 for the intra CUs and
-kernel C8 for the self-similarity ones. Deblocking is kernel C4 (with the
+MV-aware level loop of models/ss_scan.py, kernel C2 for the intra CUs,
+kernel C8 for the self-similarity ones and kernel C11 for the GT
+(corner-warped) ones among them. Deblocking is kernel C4 (with the
 inter boundary strengths on ISS slices), SAO's apply is kernel C6, and the
-checksum SEI is verified by kernel C1. Every I-slice stream and every
-GT-free ISS stream the reference encoder writes decodes; GT prediction
-units (slice 3b) and PSS slices (slice 4) raise NotImplementedError.
+checksum SEI is verified by kernel C1. Every I-slice stream and every ISS
+stream the reference encoder writes decodes; PSS slices (slice 4) raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -145,8 +146,6 @@ class Decoder:
                 sps.max_transform_hierarchy_depth_intra, int(SliceType.ISS),
                 self.vps.holo_mi_size, sao_on=int(sps.sao_enabled),
                 sbh=int(pps.sign_data_hiding))
-            if maps.gt8.any():
-                raise _not_ported("GT prediction units (slice 3b)")
         elif pps.entropy_coding_sync:
             data = rbsp[sh.data_offset:]
             ny = (h + (1 << sps.ctb_log2) - 1) >> sps.ctb_log2
@@ -231,10 +230,11 @@ class Decoder:
         self._pics_dev.append((ry, rcb, rcr))
 
     def _recon_ss(self, maps, leaves, qp, resi_y, resi_c, hcp) -> None:
-        """ISS reconstruction: the level loop over intra and SS CUs,
+        """ISS reconstruction: the level loop over intra, SS and GT CUs,
         scheduled by the coded MVs' dependency rectangles (the reference's
-        ``_recon_ss``), then deblocking with the inter boundary strengths
-        and SAO."""
+        ``_recon_ss``: an SS CU's n window plus the interpolation margin, a
+        GT CU's 2n window plus 2 samples of slack), then deblocking with
+        the inter boundary strengths and SAO."""
         sps = self.sps
         w, h, bd = sps.pic_width, sps.pic_height, sps.bit_depth
         lx, ly, lg = leaves[:, 0], leaves[:, 1], leaves[:, 2]
@@ -242,10 +242,13 @@ class Decoder:
         x4, y4 = lx // 4, ly // 4
         is_ss = (maps.pred4[y4, x4] == 0) & (maps.ref4[y4, x4] ==
                                              maps.num_ref - 1)
-        f = ss_scan.IFM
-        x0 = lx + (maps.mv4x[y4, x4].astype(np.int32) >> 2) - f
-        y0 = ly + (maps.mv4y[y4, x4].astype(np.int32) >> 2) - f
-        wh = n + 2 * f
+        mvx = maps.mv4x[y4, x4].astype(np.int32) >> 2
+        mvy = maps.mv4y[y4, x4].astype(np.int32) >> 2
+        gt = maps.gt8[ly // 8, lx // 8] != 0
+        f = np.where(gt, 2, ss_scan.IFM)
+        x0 = np.where(gt, lx + mvx - n // 2 - f, lx + mvx - f)
+        y0 = np.where(gt, ly + mvy - n // 2 - f, ly + mvy - f)
+        wh = np.where(gt, 2 * n + 2 * f, n + 2 * f)
         rects = np.where(is_ss[:, None], np.stack([x0, y0, wh, wh], -1),
                          0).astype(np.int32)
         key = (str(self.device), w, h, sps.ctb_log2, leaves.tobytes(),
@@ -266,7 +269,7 @@ class Decoder:
         plans, nsteps = hit
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                       device=self.device)
-        modes, cmodes, mvs = {}, {}, {}
+        modes, cmodes, mvs, gts = {}, {}, {}, {}
         for log2, p in plans.items():
             px, py = p.vpos[:, 0], p.vpos[:, 1]
             m = maps.mode4[py // 4, px // 4].astype(np.int32)
@@ -275,9 +278,15 @@ class Decoder:
             cmodes[log2] = t(np.where(cm == 36, m, cm))
             mvs[log2] = t(np.stack([maps.mv4x[py // 4, px // 4],
                                     maps.mv4y[py // 4, px // 4]], -1))
-        ry, rc = ss_scan.scan_decode_ss(resi_y, resi_c, plans, nsteps,
-                                        modes, cmodes, mvs, bd,
-                                        sps.strong_intra_smoothing, h)
+            gtf = maps.gt8[py // 8, px // 8].astype(np.int32)
+            gtv = np.where(gtf[:, None] != 0, maps.gtv8[py // 8, px // 8], 0)
+            lvl = np.repeat(np.arange(len(p.cnt)), p.cnt)
+            gts[log2] = (t(gtf), t(gtv), np.bincount(
+                lvl, weights=gtf != 0, minlength=len(p.cnt)) > 0)
+        ry, rc = ss_scan.scan_decode_ss(
+            resi_y, resi_c, plans, nsteps, modes, cmodes, mvs, bd,
+            sps.strong_intra_smoothing, h,
+            gts if maps.gt8.any() else None)
         ry, rcb, rcr = ry[:h], rc[:h // 2], rc[hcp:hcp + h // 2]
         if not self.pps.deblocking_disabled:
             dev = self.device

@@ -1,21 +1,22 @@
 """Lenslet light-field encoder: ISS slices with self-similarity prediction.
 
-Counterpart of hevc_hop_tpu/models/ss_encoder.py for ISS pictures with the
-GT warp off. The stages, each timed in ``last_stats``:
+Counterpart of hevc_hop_tpu/models/ss_encoder.py for ISS pictures, with the
+GT warp (``gt=True``, the reference's default) or without. The stages,
+each timed in ``last_stats``:
 
   1. ``decide_s``: the quadtree pre-pass (models/ss_partition.py, kernels
      C5 and C9) or the uniform CU grid; then the ISS wavefront schedule
      (host, cached per partition);
-  2. ``scan_s``: the level loop over kernels C2, C9, C10, C3 and C8
-     (models/ss_scan.py);
+  2. ``scan_s``: the level loop over kernels C2, C9, C10, C12 (GT on), C3,
+     C8 and C11 (GT on) (models/ss_scan.py);
   3. ``loopfilter_s``: deblocking with the inter boundary strengths, C4;
   4. ``fetch_s``, ``maps_s``: level planes and per-block outputs to the
      host, the dense syntax maps;
   5. ``sao_s``: SAO statistics, host RDO and apply, C6;
   6. ``entropy_s``: native CABAC, NAL and the checksum SEI (C1).
 
-The GT warp (``gt=True``, the reference's default) and PSS pictures
-(``encode_sequence``) are not ported yet and raise NotImplementedError.
+``encode_sequence`` codes one picture (its ISS picture); PSS pictures
+(two or more frames) are not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -82,11 +83,9 @@ def _not_ported(what: str, where: str):
 
 
 class HoloEncoder:
-    """All-ISS encoder (HoloscopicIntra, GOP size 1), GT off."""
+    """All-ISS encoder (HoloscopicIntra, GOP size 1)."""
 
     def __init__(self, cfg: HoloConfig, device=None) -> None:
-        if cfg.gt:
-            raise _not_ported("the GT warp (gt=True)", "slice 3b")
         if cfg.width % 8 or cfg.height % 8:
             raise ValueError("the picture must be a multiple of 8")
         if cfg.cu_log2 < 3:
@@ -121,7 +120,15 @@ class HoloEncoder:
         ]
 
     def encode_sequence(self, frames: list) -> bytes:
-        raise _not_ported("PSS pictures (encode_sequence)", "slice 4")
+        """The low-delay holoscopic GOP of ``frames`` [(y, cb, cr), ...]:
+        its first picture, ISS; the PSS pictures after it are not ported
+        yet. Sets ``recon_history``, one recon per picture."""
+        if len(frames) > 1:
+            raise _not_ported("PSS pictures (encode_sequence of two or "
+                              "more frames)", "slice 4")
+        out = self.encode_frame(*frames[0])
+        self.recon_history = [self.recon_yuv]
+        return out
 
     def _encode_pss(self, y, cb, cr, poc):
         raise _not_ported("PSS pictures", "slice 4")
@@ -150,7 +157,10 @@ class HoloEncoder:
                                 miav)
         zmaxw = {lg: ss_scan.zmax_plane(w, h, cfg.ctb_log2, 1 << lg,
                                         self.device) for lg in sizes}
-        prep = (plans, nsteps, zmaxw)
+        zmax2n = ({lg: ss_scan.zmax_plane(w, h, cfg.ctb_log2, 2 << lg,
+                                          self.device, ifm=2)
+                   for lg in sizes} if cfg.gt else None)
+        prep = (plans, nsteps, zmaxw, zmax2n)
         self._prep_cache[key] = prep
         while len(self._prep_cache) > 4:
             self._prep_cache.popitem(last=False)
@@ -204,7 +214,7 @@ class HoloEncoder:
         """Dense syntax maps from the per-block outputs."""
         ctb_log2 = self.cfg.ctb_log2
         for log2, p in plans.items():
-            inter, mv, imode, cbf, cbf_b, cbf_r = outs[log2]
+            inter, mv, imode, cbf, cbf_b, cbf_r, gtflag, gtc = outs[log2]
             px, py = p.vpos[:, 0], p.vpos[:, 1]
             u4, u8 = p.n // 4, p.n // 8
             iy4 = py[:, None, None] // 4 + np.arange(u4)[None, :, None]
@@ -225,6 +235,10 @@ class HoloEncoder:
             maps.cbf4_y[iy4, ix4] = col(cbf.astype(np.uint8))
             maps.cbf8_cb[iy8, ix8] = col(cbf_b.astype(np.uint8))
             maps.cbf8_cr[iy8, ix8] = col(cbf_r.astype(np.uint8))
+            gf = gtflag != 0
+            maps.gt8[py // 8, px // 8] = gf.astype(np.uint8)
+            maps.gtv8[py // 8, px // 8] = np.where(gf[:, None], gtc,
+                                                   0).astype(np.int16)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -247,7 +261,7 @@ class HoloEncoder:
         stats["upload_s"] = time.perf_counter() - t0
 
         t1 = time.perf_counter()
-        (plans, nsteps, zmaxw), mode4 = self._frame_prep(org_y[:h])
+        (plans, nsteps, zmaxw, zmax2n), mode4 = self._frame_prep(org_y[:h])
         modes = None if mode4 is None else self._xs_with_modes(plans, mode4)
         self._sync()
         stats["decide_s"] = time.perf_counter() - t1
@@ -256,7 +270,7 @@ class HoloEncoder:
         ry, rc, coef_y, coef_c, outs = ss_scan.scan_encode_iss(
             org_y, org_c, plans, nsteps, zmaxw, qp, qp_c, cfg.bit_depth,
             cfg.strong_intra_smoothing, w, h, cfg.search_range, cfg.mi_size,
-            cfg.rdoq, cfg.sbh, modes)
+            cfg.rdoq, cfg.sbh, modes, zmax2n)
         self._sync()
         stats["scan_s"] = time.perf_counter() - t1
 

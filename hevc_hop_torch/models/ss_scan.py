@@ -1,7 +1,8 @@
 """ISS wavefront scan: joint intra / self-similarity encode and decode.
 
-Counterpart of hevc_hop_tpu/models/ss_scan.py for ISS slices with the GT
-warp off. The schedule is the reference's (:func:`build_schedule_ss`,
+Counterpart of hevc_hop_tpu/models/ss_scan.py for ISS slices, with and
+without the GT warp. The schedule is the reference's
+(:func:`build_schedule_ss`,
 numpy, copied): topological levels of CUs such that every z-earlier block
 within the search reach sits at an earlier level (encoder), or such that
 every block that the coded MV reads sits at an earlier level (decoder).
@@ -9,12 +10,15 @@ The reference runs the levels as one ``lax.scan``; here a Python loop
 launches, per level and CU size:
 
 - encode: C2 (intra prediction: the pre-pass's mode, or 35-mode RMD), C9
-  (full search), C10 (merge arms, sub-pel refinement, tournament), C3
-  (transform, RDOQ or the dead-zone quantizer, SBH, recon) and C10's
-  motion entry for luma; then C2 (chroma DM), C8 (chroma MC over the inter
-  blocks) and C3 for the stacked cb/cr plane;
+  (full search, with the GT anchor ring when the GT is on), C10 (merge
+  arms, sub-pel refinement, tournament), C12 (GT corner search and
+  decision, GT on), C3 (transform, RDOQ or the dead-zone quantizer, SBH,
+  recon) and C10's motion entry for luma; then C2 (chroma DM), C8 (chroma
+  MC over the inter blocks), C11 (GT chroma over the GT blocks) and C3 for
+  the stacked cb/cr plane;
 - decode: C2 with its add-residual epilogue for the intra blocks and C8
-  with its own for the inter blocks, luma then the stacked chroma plane.
+  with its own for the inter blocks, then C11's over the GT blocks among
+  them, luma then the stacked chroma plane.
 
 On the CPU the same loop runs the kernels' plain versions. Only the real
 slots of a level are launched (see models/wavefront_scan.py
@@ -32,11 +36,13 @@ from numpy.lib.stride_tricks import sliding_window_view
 
 from hevc_hop_torch.models import wavefront
 from hevc_hop_torch.models.partition import full_lambda
+from hevc_hop_torch.ops.gt import gt_step
 from hevc_hop_torch.ops.inter_arms import inter_arms, motion_write
 from hevc_hop_torch.ops.interp import mc_blocks
 from hevc_hop_torch.ops.intra import intra_blocks
 from hevc_hop_torch.ops.ss_search import IFM, ss_search
 from hevc_hop_torch.ops.tq import tq_encode
+from hevc_hop_torch.ops.warp import gt_pred_blocks
 
 
 def zmax_win_px(zaddr4: np.ndarray, n: int, ifm: int = IFM) -> np.ndarray:
@@ -52,18 +58,21 @@ def zmax_win_px(zaddr4: np.ndarray, n: int, ifm: int = IFM) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=32)
-def _zmax_planes(w: int, h: int, ctb_log2: int, n: int, device: str):
+def _zmax_planes(w: int, h: int, ctb_log2: int, n: int, ifm: int,
+                 device: str):
     return torch.as_tensor(zmax_win_px(wavefront.zaddr4_plane(w, h,
-                                                               ctb_log2), n),
-                           device=device)
+                                                               ctb_log2), n,
+                                       ifm), device=device)
 
 
-def zmax_plane(w: int, h: int, ctb_log2: int, n: int, device) -> torch.Tensor:
-    """:func:`zmax_win_px` of the picture's z-address plane for n-blocks,
-    int32 on ``device``; a function of the geometry alone, so built once
-    per geometry and device (the host's sliding maxima over a 1920x1088
-    picture take tenths of a second)."""
-    return _zmax_planes(w, h, ctb_log2, n, str(torch.device(device)))
+def zmax_plane(w: int, h: int, ctb_log2: int, n: int, device,
+               ifm: int = IFM) -> torch.Tensor:
+    """:func:`zmax_win_px` of the picture's z-address plane for n-blocks
+    (the MC window's plane; with n = 2 x the CU size and ifm = 2, the GT
+    window's, zmax2n), int32 on ``device``; a function of the geometry
+    alone, so built once per geometry and device (the host's sliding
+    maxima over a 1920x1088 picture take tenths of a second)."""
+    return _zmax_planes(w, h, ctb_log2, n, ifm, str(torch.device(device)))
 
 
 def build_schedule_ss(blocks, w: int, h: int, ctb_log2: int, radius: int,
@@ -203,15 +212,18 @@ def pack_ss(sizes, data, hc_off: int, device, miav: dict | None,
 def scan_encode_iss(org_y, org_c, plans: dict, nsteps: int, zmaxw: dict,
                     qp: int, qp_c: int, bit_depth: int, strong: bool,
                     w: int, h: int, radius: int, mi_size: int = 0,
-                    use_rdoq: bool = False, sbh: bool = False, modes=None):
-    """ISS encode of every CU, level by level (GT off).
+                    use_rdoq: bool = False, sbh: bool = False, modes=None,
+                    zmax2n: dict | None = None):
+    """ISS encode of every CU, level by level.
 
     org_y [h+pad, w] and org_c (stacked cb/cr) int32 on the target device;
     zmaxw[log2] the causality plane of each size; ``modes`` None for
     in-loop RMD, else modes[log2] [T] the pre-pass's intra modes in the
-    packed order. Returns (ry, rc, coef_y, coef_c, outs) with
-    outs[log2] = (inter [T], mv [T, 2] quarter-pel, imode [T], cbf_y [T],
-    cbf_cb [T], cbf_cr [T]) in the packed order of ``plans``.
+    packed order; zmax2n None for the GT off, else zmax2n[log2] the GT
+    window's causality plane of each size. Returns (ry, rc, coef_y, coef_c,
+    outs) with outs[log2] = (inter [T], mv [T, 2] quarter-pel, imode [T],
+    cbf_y [T], cbf_cb [T], cbf_cr [T], gtflag [T], gtc [T, 6]) in the
+    packed order of ``plans`` (gtflag 0 and gtc 0 with the GT off).
     """
     dev = org_y.device
     lam = full_lambda(qp)
@@ -229,7 +241,7 @@ def scan_encode_iss(org_y, org_c, plans: dict, nsteps: int, zmaxw: dict,
     widest = max((int(p.cnt.max(initial=0)) for p in plans.values()),
                  default=0)
     rmd = torch.full((max(widest, 1),), -1, dtype=torch.int32, device=dev)
-    acc = {log2: ([], [], [], [], []) for log2 in plans}
+    acc = {log2: ([], [], [], [], [], [], []) for log2 in plans}
     for s in range(nsteps):
         for log2, p in plans.items():
             c = int(p.cnt[s])
@@ -245,13 +257,23 @@ def scan_encode_iss(org_y, org_c, plans: dict, nsteps: int, zmaxw: dict,
                 imode = modes[log2][sl]
                 ipred, _ = intra_blocks(ry, pos, p.avail[sl], imode, n, 0,
                                         bit_depth, strong)
-            mv_i, _, pred0, sse0 = ss_search(
+            z2 = None if zmax2n is None else zmax2n[log2]
+            mv_i, _, pred0, sse0, *ring = ss_search(
                 ry, org_y, pos, zcur, zmaxw[log2], motion, p.nbav[sl],
-                p.miav[sl], n, radius, w, h, lam, mi_size)
-            inter, mv, smode, _ = inter_arms(
+                p.miav[sl], n, radius, w, h, lam, mi_size, z2)
+            inter, mv, smode, costs = inter_arms(
                 ry, org_y, pos, zcur, zmaxw[log2], motion, p.nbav[sl],
                 p.miav[sl], mv_i, pred0, sse0, ipred, imode, n, w, h,
                 bit_depth, lam, mi_size)
+            if z2 is None:
+                gtflag = torch.zeros_like(inter)
+                gtc = torch.zeros((c, 6), dtype=torch.int32, device=dev)
+            else:
+                # GT overrides C10's choice where it wins, in place
+                gtflag, gtc = gt_step(
+                    ry, org_y, rc, pos, zcur, z2, motion, p.nbav[sl],
+                    p.miav[sl], ring, costs, ipred, inter, mv, smode, n, w,
+                    h, hc_off, bit_depth, lam, mi_size)
             cbf = tq_encode(org_y, ipred, pos, smode, n, 0, qp, bit_depth,
                             sbh, rcfg_y, ry, coef_y)
             motion_write(*motion[:3], pos, inter, mv, n)
@@ -260,16 +282,22 @@ def scan_encode_iss(org_y, org_c, plans: dict, nsteps: int, zmaxw: dict,
                                     bit_depth, strong)
             mc_blocks(rc, cpos, mv, m, True, hc, bit_depth, hc_off,
                       out=cpred, only=inter)
+            if z2 is not None:
+                gt_pred_blocks(rc, cpos, mv, gtc, m, True, hc, bit_depth,
+                               hc_off, out=cpred, only=gtflag)
             cbf_c = tq_encode(org_c, cpred, cpos, smode, m, 1, qp_c,
                               bit_depth, sbh, rcfg_c, rc, coef_c)
-            for lst, v in zip(acc[log2], (inter, mv, imode, cbf, cbf_c)):
+            for lst, v in zip(acc[log2], (inter, mv, imode, cbf, cbf_c,
+                                          gtflag, gtc)):
                 lst.append(v)
     outs = {}
     for log2, lists in acc.items():
-        inter, mv, imode, cbf, cbf_c = (torch.cat(v) for v in lists)
+        inter, mv, imode, cbf, cbf_c, gtflag, gtc = (torch.cat(v)
+                                                     for v in lists)
         p = plans[log2]
         cb_rows, cr_rows = _chroma_rows(p)
-        outs[log2] = (inter, mv, imode, cbf, cbf_c[cb_rows], cbf_c[cr_rows])
+        outs[log2] = (inter, mv, imode, cbf, cbf_c[cb_rows], cbf_c[cr_rows],
+                      gtflag, gtc)
     return ry, rc, coef_y, coef_c, outs
 
 
@@ -285,12 +313,15 @@ def _chroma_rows(p: SSPlan):
 
 def scan_decode_ss(resi_y, resi_c, plans: dict, nsteps: int, modes: dict,
                    cmodes: dict, mvs: dict, bit_depth: int, strong: bool,
-                   h: int):
-    """ISS decode of every CU, level by level (GT-free streams): each
-    level's intra blocks (the first group of the plans) through C2's
-    add-residual epilogue, its inter blocks through C8's, luma then the
-    stacked chroma plane. modes/cmodes[log2] [T] int32 and mvs[log2]
-    [T, 2] quarter-pel, in the packed order of ``plans``. Returns (ry,
+                   h: int, gt: dict | None = None):
+    """ISS decode of every CU, level by level: each level's intra blocks
+    (the first group of the plans) through C2's add-residual epilogue, its
+    inter blocks through C8's and, among them, the GT blocks through
+    C11's, luma then the stacked chroma plane. modes/cmodes[log2] [T]
+    int32 and mvs[log2] [T, 2] quarter-pel, in the packed order of
+    ``plans``; gt None (no GT block) or gt[log2] = (gtf [T] int32, gtv
+    [T, 6] int32, the GT flag and coded corners in the same order, and
+    levels [nsteps] bool, the levels that hold a GT block). Returns (ry,
     rc)."""
     ry = torch.zeros_like(resi_y)
     rc = torch.zeros_like(resi_c)
@@ -316,4 +347,11 @@ def scan_decode_ss(resi_y, resi_c, plans: dict, nsteps: int, modes: dict,
                 mc_blocks(rc, p.cpos[co + 2 * ca:co + 2 * c], mvs[log2][b],
                           n // 2, True, h // 2, bit_depth, hc_off,
                           resi=resi_c)
+                if gt is not None and gt[log2][2][s]:
+                    gtf, gtv = gt[log2][0][b], gt[log2][1][b]
+                    gt_pred_blocks(ry, p.pos[b], mvs[log2][b], gtv, n, False,
+                                   h, bit_depth, resi=resi_y, only=gtf)
+                    gt_pred_blocks(rc, p.cpos[co + 2 * ca:co + 2 * c],
+                                   mvs[log2][b], gtv, n // 2, True, h // 2,
+                                   bit_depth, hc_off, resi=resi_c, only=gtf)
     return ry, rc

@@ -1,8 +1,8 @@
 """Self-similarity full search and its MVD rates; kernel C9.
 
 Counterpart of hevc_hop_tpu/models/ss_scan.py ``_mvd_bits``,
-``_min_rate_bits``, ``_dyn_rate_map`` and ``_ss_search`` (the form without
-the GT anchor ring), and of the search half of
+``_min_rate_bits``, ``_dyn_rate_map``, ``_ss_search`` (with its GT anchor
+ring) and ``ss_anchor_ok``, and of the search half of
 hevc_hop_tpu/models/ss_partition.py ``_ss_rd_size`` (whose wrapper is in
 models/ss_partition.py).
 
@@ -10,7 +10,10 @@ models/ss_partition.py).
 (``csrc/ss_search.cu``): for every block, the masked full search over the
 (2r+1)^2 full-pel displacements of the causal recon, cost = SSE + lambda *
 (INTER_BITS + the least MVD rate over the block's predictors), argmin with
-jnp.argmin's first-index rule, and the full-pel prediction. The predictors
+jnp.argmin's first-index rule, and the full-pel prediction; with the GT
+on, also the anchor ring: the least cost again, over the displacements
+whose whole 2n window (GT's, plus 2 samples of slack) is causal, with the
+same tie rule (the reference's lax.top_k with k = 1). The predictors
 come from the carried motion planes, gathered in the kernel
 (:func:`hevc_hop_torch.ops.inter_arms.gather_cands` is the plain form).
 The pre-pass entry's wrapper is models/ss_partition.py ``ss_rd_costs``.
@@ -43,6 +46,8 @@ from hevc_hop_torch.ops import quant
 from hevc_hop_torch.ops.quant import argmin_first, seq_sum
 
 SEARCH_LAUNCHES = 0
+# launches of the scan entry that also found the GT anchor ring
+RING_LAUNCHES = 0
 
 IFM = 4           # luma margin covering the chroma MC filter reach
 INTRA_BITS = 8.0  # flag + mode rate proxy for the SSE-domain tournament
@@ -86,12 +91,10 @@ def rate_bits_map(preds: torch.Tensor, radius: int) -> torch.Tensor:
     return (by[:, :, :, None] + bx[:, :, None, :]).amin(1)
 
 
-def add_rate(sse: torch.Tensor, lam: float, bits: torch.Tensor):
-    """float32 sse + lam * (INTER_BITS + bits), as the reference's compiled
-    search rounds it: the rate map lam * (INTER_BITS + bits) rounded on its
-    own, then added."""
-    rate = torch.tensor(f32(lam), dtype=torch.float32) * (bits + INTER_BITS)
-    return sse + rate
+def search_rate(lam: float, bits: torch.Tensor):
+    """float32 rate map lam * (INTER_BITS + bits), rounded on its own: the
+    reference's compiled search adds it so to the SSE."""
+    return torch.tensor(f32(lam), dtype=torch.float32) * (bits + INTER_BITS)
 
 
 # ---------------------------------------------------------------------------
@@ -155,10 +158,25 @@ def block_at(plane, pos, n):
                  pos[:, 0, None, None].long() + ar[None, None, :]]
 
 
+def ss_anchor_ok(pos, zcur, zmax2n, disp, n, w, h):
+    """[B] bool: the GT window of the block at pos displaced by disp
+    [B, 2] (full pel), 2n x 2n around the target plus 2 samples of slack,
+    lies in the picture and only over samples decoded before the block
+    (zmax2n [h-2n+1, w-2n+1], zmax_win_px of the 2n window with a margin
+    of 2)."""
+    wxx = (pos[:, 0] + disp[:, 0] - n // 2).long()
+    wyy = (pos[:, 1] + disp[:, 1] - n // 2).long()
+    inb2 = ((wxx >= 2) & (wyy >= 2) & (wxx + 2 * n + 2 <= w)
+            & (wyy + 2 * n + 2 <= h))
+    zm2 = zmax2n[wyy.clamp(0, h - 2 * n), wxx.clamp(0, w - 2 * n)]
+    return inb2 & (zm2 < zcur)
+
+
 def ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n, radius,
-                    w, h, lam):
+                    w, h, lam, zmax2n=None):
     """Plain version of the search: (mv [B, 2] full-pel (x, y), cost [B],
-    pred [B, n, n] int32, sse [B]) float32."""
+    pred [B, n, n] int32, sse [B]) float32, and with zmax2n the GT anchor
+    ring (anchor [B, 2] full pel, gt_rate [B] float32, gt_ok [B] bool)."""
     b = pos.shape[0]
     dev = recon.device
     d = 2 * radius + 1
@@ -180,8 +198,8 @@ def ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n, radius,
         ref2 = conv_sum(wf * wf, torch.ones_like(of), n, d)
         org2 = block_sum(of * of)[:, None, None]
         sse[live] = (org2 + ref2) - 2.0 * corr
-    cost = torch.where(mask, add_rate(sse, lam, rate_bits_map(preds, radius)),
-                       torch.full_like(sse, BIG))
+    rate = search_rate(lam, rate_bits_map(preds, radius))
+    cost = torch.where(mask, sse + rate, torch.full_like(sse, BIG))
     flat = cost.reshape(b, -1)
     idx = argmin_first(flat)
     best = flat.gather(1, idx[:, None])[:, 0]
@@ -194,8 +212,24 @@ def ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n, radius,
     pry = (mvy + radius).long()[:, None, None] + ar[None, :, None]
     prx = (mvx + radius).long()[:, None, None] + ar[None, None, :]
     pred = win[torch.arange(b, device=dev)[:, None, None], pry, prx]
-    return (torch.stack([mvx, mvy], -1), best, pred.to(torch.int32),
-            sse_best)
+    out = (torch.stack([mvx, mvy], -1), best, pred.to(torch.int32), sse_best)
+    if zmax2n is None:
+        return out
+    # the GT anchor ring: the least cost among the displacements whose
+    # whole 2n window (+2 samples of slack) is causal and in the picture;
+    # lax.top_k's k = 1 takes the lower index on a tie, as argmin does
+    wyy, wxx = ty - n // 2, tx - n // 2
+    inb2 = ((wxx >= 2) & (wyy >= 2) & (wxx + 2 * n + 2 <= w)
+            & (wyy + 2 * n + 2 <= h))
+    zm2 = zmax2n[wyy.clamp(0, h - 2 * n), wxx.clamp(0, w - 2 * n)]
+    mask2 = inb2 & (zm2 < zcur[:, None, None])
+    cost2 = torch.where(mask2, sse + rate, torch.full_like(sse, BIG))
+    idx2 = argmin_first(cost2.reshape(b, -1))
+    gt_ok = cost2.reshape(b, -1).gather(1, idx2[:, None])[:, 0] < 1e37
+    gt_rate = rate.reshape(b, -1).gather(1, idx2[:, None])[:, 0]
+    anchor = torch.stack([(idx2 % d).to(torch.int32) - radius,
+                          (idx2 // d).to(torch.int32) - radius], -1)
+    return out + (anchor, gt_rate, gt_ok)
 
 
 # ---------------------------------------------------------------------------
@@ -215,7 +249,7 @@ def _check_plane(t, name):
 
 
 def ss_search(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav, n,
-              radius, w, h, lam, mi_size):
+              radius, w, h, lam, mi_size, zmax2n=None):
     """Kernel C9, scan entry, over B blocks of size n.
 
     recon/org_plane [H(+pad), W] int32; pos [B, 2] int32 (x, y); zcur [B]
@@ -225,20 +259,22 @@ def ss_search(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav, n,
     nbav [B, 5] and miav [B, 3] bool availability of the spatial and MI
     candidates. Returns (mv [B, 2] full-pel int32, cost [B], pred [B, n, n]
     int32, sse [B]) as the reference's ``_ss_search`` with the predictors
-    of ``_gather_cands``.
+    of ``_gather_cands``. With zmax2n [h-2n+1, w-2n+1] int32 (the GT
+    window's causality plane) it also returns the GT anchor ring: (anchor
+    [B, 2] full pel, gt_rate [B] float32, gt_ok [B] bool).
     """
     if not recon.is_cuda:
         from hevc_hop_torch.ops.inter_arms import gather_cands
         preds = gather_cands(*motion, pos, nbav, miav, n, mi_size)[3]
         return ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n,
-                               radius, w, h, lam)
+                               radius, w, h, lam, zmax2n)
     return _ss_search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav,
-                           miav, n, radius, w, h, lam, mi_size)
+                           miav, n, radius, w, h, lam, mi_size, zmax2n)
 
 
 def _ss_search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav,
-                    n, radius, w, h, lam, mi_size):
-    global SEARCH_LAUNCHES
+                    n, radius, w, h, lam, mi_size, zmax2n):
+    global SEARCH_LAUNCHES, RING_LAUNCHES
     b = pos.shape[0]
     for t, nm in ((recon, "recon"), (org_plane, "org_plane")):
         _check_plane(t, nm)
@@ -252,13 +288,22 @@ def _ss_search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav,
     cost = torch.empty(b, dtype=torch.float32, device=dev)
     sse = torch.empty(b, dtype=torch.float32, device=dev)
     pred = torch.empty((b, n, n), dtype=torch.int32, device=dev)
+    out = (mv, cost, pred, sse)
+    ring = None
+    if zmax2n is not None:
+        _check(zmax2n, torch.int32, "zmax2n")
+        ring = (torch.empty((b, 2), dtype=torch.int32, device=dev),
+                torch.empty(b, dtype=torch.float32, device=dev),
+                torch.empty(b, dtype=torch.bool, device=dev))
+        out = out + ring
     if b == 0:
-        return mv, cost, pred, sse
+        return out
     mvx4, mvy4, pi4, rf4 = motion
     if recon.stride(0) != org_plane.stride(0):
         raise ValueError("ss_search: recon and org_plane share one stride")
+    ptr = lambda t: None if t is None else t.data_ptr()
     fn = _cuda.bind("ss_search", "hh_ss_search",
-                    "ppi" "ppp" "ppppii" "pp" "iiiiiif" "pppp" "p")
+                    "ppi" "ppp" "ppppii" "pp" "iiiiiif" "pppp" "pppp" "p")
     err = fn(recon.data_ptr(), org_plane.data_ptr(), recon.stride(0),
              pos.data_ptr(), zcur.data_ptr(), zmaxw.data_ptr(),
              mvx4.data_ptr(), mvy4.data_ptr(), pi4.data_ptr(),
@@ -266,7 +311,10 @@ def _ss_search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav,
              nbav.data_ptr(), miav.data_ptr(),
              b, n, radius, w, h, mi_size, f32(lam),
              mv.data_ptr(), cost.data_ptr(), pred.data_ptr(), sse.data_ptr(),
+             ptr(zmax2n), *(ptr(t) for t in (ring or (None,) * 3)),
              _cuda.stream(recon))
     _cuda.check("ss_search", err)
     SEARCH_LAUNCHES += 1
-    return mv, cost, pred, sse
+    if ring is not None:
+        RING_LAUNCHES += 1
+    return out

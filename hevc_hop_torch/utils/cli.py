@@ -15,9 +15,11 @@ TAppDecTop.cpp). Usage:
 
 From Python, ``main(argv, device="cpu")`` runs the same on the CPU (the
 kernels' plain versions); that is a keyword, not a command-line option.
-The holoscopic tools (-hi) are not ported yet and raise
-NotImplementedError (ROADMAP.md queue 1). -g is read and, on the intra
-path, unused, as in the reference.
+The holoscopic mode (-hi, e.g. with -c 3DHencoder_intra_main.cfg) codes
+one frame as an ISS picture with the quadtree pre-pass and, by default,
+the GT warp; two or more frames need PSS pictures, which are not ported
+yet and raise NotImplementedError (ROADMAP.md queue 1, slice 4). -g is
+read and unused, as in the reference.
 """
 from __future__ import annotations
 
@@ -72,34 +74,45 @@ def encode_main(argv: list, device=None) -> int:
         return 0
     o.parse(argv)
     v = o.values
-    if v["holo"]:
-        raise NotImplementedError(
-            "HoloscopicIntra (-hi) needs the lenslet encoder with the GT "
-            "warp and PSS pictures, which are not ported to hevc_hop_torch "
-            "yet: see ROADMAP.md queue 1, slice 3b")
     assert v["input"] and v["width"] and v["height"], \
         "need -i/-wdt/-hgt (or a cfg file)"
     frames = yuvio.read_yuv420(v["input"], v["width"], v["height"],
                                v["frames"], v["bit_depth"], v["skip"])
     assert frames, "no frames read"
     t0 = time.time()
-    from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
-    cfg = EncoderConfig(
-        width=v["width"], height=v["height"], qp=v["qp"],
-        bit_depth=v["bit_depth"], sao=v["sao"], rdoq=v["rdoq"],
-        sbh=v["sbh"], wpp=v["wpp"],
-        deblocking=not v["no_deblock"],
-        hash_type=_hash_type_cfg(v["hash_type"]))
-    enc = IntraEncoder(cfg, device=device)
-    # the reference's recon file: encode_frames codes every frame first, so
-    # each entry is the last frame's recon (R1 in ROADMAP.md queue 3, kept
-    # so that the two files agree)
-    streams, recons = [], []
-    for f in enc.encode_frames([tuple(np.asarray(p, np.int32)
-                                      for p in fr) for fr in frames]):
-        streams.append(f)
-        recons.append(enc.recon_yuv)
-    stream = b"".join(streams)
+    if v["holo"]:
+        from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
+        cfg = HoloConfig(
+            width=v["width"], height=v["height"], qp=v["qp"],
+            bit_depth=v["bit_depth"],
+            mi_size=v["mi_size"] if v["mi_merge"] or v["mi_size"] else 0,
+            gt=v["gt"], search_range=v["search_range"],
+            quadtree=True, sao=v["sao"], rdoq=v["rdoq"], sbh=v["sbh"],
+            deblocking=not v["no_deblock"],
+            hash_type=_hash_type_cfg(v["hash_type"]))
+        enc = HoloEncoder(cfg, device=device)
+        stream = enc.encode_sequence([tuple(np.asarray(p, np.int32)
+                                            for p in f) for f in frames])
+        recons = enc.recon_history
+        streams = None
+    else:
+        from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+        cfg = EncoderConfig(
+            width=v["width"], height=v["height"], qp=v["qp"],
+            bit_depth=v["bit_depth"], sao=v["sao"], rdoq=v["rdoq"],
+            sbh=v["sbh"], wpp=v["wpp"],
+            deblocking=not v["no_deblock"],
+            hash_type=_hash_type_cfg(v["hash_type"]))
+        enc = IntraEncoder(cfg, device=device)
+        # the reference's recon file: encode_frames codes every frame
+        # first, so each entry is the last frame's recon (R1 in ROADMAP.md
+        # queue 3, kept so that the two files agree)
+        streams, recons = [], []
+        for f in enc.encode_frames([tuple(np.asarray(p, np.int32)
+                                          for p in fr) for fr in frames]):
+            streams.append(f)
+            recons.append(enc.recon_yuv)
+        stream = b"".join(streams)
     dt = time.time() - t0
     with open(v["bitstream"], "wb") as f:
         f.write(stream)
@@ -109,9 +122,12 @@ def encode_main(argv: list, device=None) -> int:
     # printOutSummary)
     from hevc_hop_torch.utils.analyze import Analyzer
     an = Analyzer()
+    # the holoscopic stream is not split per picture: each gets its share
+    per = ([len(s) * 8 for s in streams] if streams is not None
+           else [len(stream) * 8 // max(len(frames), 1)] * len(recons))
     for i, (fr, rec) in enumerate(zip(frames, recons)):
-        an.add_picture(i, "I", v["qp"], len(streams[i]) * 8, fr, rec,
-                       v["bit_depth"], verbose=True)
+        an.add_picture(i, "ISS" if v["holo"] else "I", v["qp"], per[i], fr,
+                       rec, v["bit_depth"], verbose=True)
     an.print_summary()
     kbps = len(stream) * 8 / 1000.0 / max(len(frames), 1)
     print(f"encoded {len(frames)} frame(s): {len(stream)} bytes "

@@ -244,7 +244,7 @@ def test_search_rate_form_matches_compiled_reference():
         h=h)[:4])
     ok = cost < 1e37
     bits = ss.min_rate_bits(T(mv[:, None] * 4), T(preds))[:, 0]
-    sep = ss.add_rate(T(sse), LAM, bits).numpy()
+    sep = (T(sse) + ss.search_rate(LAM, bits)).numpy()
     fused = quant.fma(bits + 6.0, np.float32(LAM), T(sse)).numpy()
     np.testing.assert_array_equal(sep[ok], cost[ok])
     assert int((fused[ok] != cost[ok]).sum()) > 0

@@ -15,13 +15,21 @@ content:
   lenslet_frame(128, 96, mi=16, seed=5), uniform 16x16 CUs, and the
   quadtree pre-pass with SAO; RDOQ and SBH on.
 - jax_iss_gt_96x64_qp37: the ISS encoder with the GT warp on, on
-  tests/test_e2e_iss.py's warped lenslet content (seed 5); a stream whose
-  GT prediction units a decoder without the warp must refuse.
+  tests/test_e2e_iss.py's warped lenslet content (seed 5), 16x16 CUs.
+- jax_iss_gt_1920x1088_qp32: bench.py's lenslet cell (the quadtree
+  pre-pass, SAO, RDOQ, SBH, the GT warp) at full size on
+  lenslet_frame(1920, 1088, mi=16, seed=5), where GT takes 0.1 % of the
+  picture; about 90 s on a CPU.
+- jax_iss_gt_warped_1920x1088_qp37: the 96x64 GT configuration at full
+  size on synth_warped_lenslet(1920, 1088, 16, seed=5), where GT takes
+  2.4 %; about 50 s.
 
 Each .json records the generator, seed, configuration and the per-plane MD5
-of the JAX decoder's output. Run from the repository root:
+of the JAX decoder's output. Run from the repository root, with the names
+of the fixtures to write (all of them when none is given):
 
-    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_fixture.py
+    JAX_PLATFORMS=cpu python tests/torch_fixtures/make_jax_fixture.py \
+        [name ...]
 """
 import dataclasses
 import hashlib
@@ -75,7 +83,9 @@ def write(name: str, w: int, h: int, seed: int, extra: dict) -> None:
         f.write("\n")
 
 
-# name -> (width, height, seed, HoloConfig fields beyond the size)
+# name -> (width, height, seed, HoloConfig fields beyond the size); the
+# content is the warped lenslet grid for the GT configurations with 16x16
+# CUs, tools/bdrate.py's lenslet frame otherwise
 ISS_FIXTURES = {
     "jax_iss_128x96_qp32": (128, 96, 5, dict(
         qp=32, cu_log2=4, mi_size=16, search_range=32, gt=False)),
@@ -84,12 +94,17 @@ ISS_FIXTURES = {
         gt=False)),
     "jax_iss_gt_96x64_qp37": (96, 64, 5, dict(
         qp=37, cu_log2=4, mi_size=16, search_range=32, gt=True)),
+    "jax_iss_gt_1920x1088_qp32": (1920, 1088, 5, dict(
+        qp=32, quadtree=True, sao=True, rdoq=True, sbh=True, mi_size=16,
+        search_range=32, gt=True)),
+    "jax_iss_gt_warped_1920x1088_qp37": (1920, 1088, 5, dict(
+        qp=37, cu_log2=4, mi_size=16, search_range=32, gt=True)),
 }
 
 
 def write_iss(name: str, w: int, h: int, seed: int, extra: dict) -> None:
     cfg = HoloConfig(width=w, height=h, **extra)
-    if cfg.gt:
+    if cfg.gt and not cfg.quadtree:
         frame, content = (synth_warped_lenslet(w, h, 16, seed=seed),
                           f"tests/test_e2e_iss.py synth_warped_lenslet({w}, "
                           f"{h}, 16, seed={seed})")
@@ -117,12 +132,14 @@ def write_iss(name: str, w: int, h: int, seed: int, extra: dict) -> None:
         f.write("\n")
 
 
-def main() -> None:
+def main(names) -> None:
     for name, (w, h, seed, extra) in FIXTURES.items():
-        write(name, w, h, seed, extra)
+        if not names or name in names:
+            write(name, w, h, seed, extra)
     for name, (w, h, seed, extra) in ISS_FIXTURES.items():
-        write_iss(name, w, h, seed, extra)
+        if not names or name in names:
+            write_iss(name, w, h, seed, extra)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

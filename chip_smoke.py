@@ -11,7 +11,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    card, same seeded inputs, at every TU size 4-32 (DST4 included):
    0 mismatching elements. Kernel C7 (RDOQ) against its plain body for
    every TU class (4x4 to 32x32, luma and chroma), every MDCS scan the
-   class has, 8 and 10 bit, QP 22/27/32/37 and init types 2 and 3, on
+   class has, 8 and 10 bit, QP 22/27/32/37 and init types 2, 3 and 4 (I,
+   ISS and PSS slices), on
    seeded blocks with all-zero and clamped ones: 0 mismatching levels.
    Kernels C5 (partition RD pre-pass and decision) and C6 (SAO statistics
    and apply) at the main path's shapes, a 1920x1088 luma plane and its
@@ -54,13 +55,29 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    - iss-gt-warped: tests/test_e2e_iss.py's GT configuration (16x16 CUs,
      QP 37) on a copy of its warped lenslet content at 1920x1088, where
      GT engages (the run fails if it never does), two timed frames;
+   - pss-gt: the iss-gt configuration (search_range_t 16) on a low-delay
+     holoscopic sequence of PSS_FRAMES pictures through
+     HoloEncoder.encode_sequence, an ISS picture then PSS ones whose L0 is
+     [the previous picture, the SS reference] (C9's temporal search in
+     its scan launches, its pre-pass with the temporal arm, C10's and
+     C12's PSS forms, C8 out of the previous picture), on a copy of
+     make_jax_fixture.py's pss_frames (the lenslet frame panned one
+     sample per frame): every picture hash_ok and equal to the recon
+     history, temporal prediction chosen (each PSS picture's share
+     printed); then PSS_TIMED_TURNS more codings of the sequence, each PSS
+     picture timed;
    and for the two GT paths the GT tool's share of the encode, each path's
    encoder against a gt=False twin on its frame, in turns in one process;
    then C9's pre-pass entry on every block of the lenslet luma against
-   its plain body (in chunks), and one more encode and decode of each ISS
-   path with its C8, C9, C10 and C4 launches held against the plain
-   bodies (the fullest level of each size and every eighth level), and on
-   the GT paths every launch of C9 (with its ring), C12 and C11;
+   its plain body (in chunks), with the temporal arm on every block of
+   the pss-gt path's second picture, and one more encode and decode of
+   each ISS path with its C8, C9, C10 and C4 launches held against the
+   plain bodies (the fullest level of each size and every eighth level),
+   and on the GT paths every launch of C9 (with its ring), C12 and C11;
+   on the pss-gt path every launch of its PSS pictures' forms (C9's SS
+   and temporal searches and its pre-pass, C10, C12) and every C8 and C11
+   launch of the sequence, its ISS picture's other launches sampled as
+   above;
 4. cpu: small frames on the card and on the CPU (the path the CPU tests
    hold against the JAX reference), uniform CUs at cu_log2 3, 4 and 5 and
    the quadtree path at 8 and 10 bit and without RQT and NxN, RDOQ off,
@@ -70,16 +87,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    CUs, the quadtree with SAO, 10 bit, the bench's lenslet content): the
    streams must be byte-identical;
 5. fixtures: the committed JAX streams under tests/torch_fixtures/ (intra,
-   ISS and GT, and the JAX streams of the iss-gt and iss-gt-warped paths
-   at 1920x1088) decode on the card with hash_ok and the stored per-plane
-   MD5s, and the card's encoders write each one byte for byte from the
-   same seeded frame (the full-size ones are the paths' own streams);
+   ISS and GT, and the JAX streams of the iss-gt, iss-gt-warped and
+   pss-gt paths at 1920x1088) decode on the card with hash_ok and the
+   stored per-plane MD5s (per picture), and the card's encoders write
+   each one byte for byte from the same seeded frames (the full-size ones
+   are the paths' own streams);
 6. cli: two 1920x1088 frames through ``python -m hevc_hop_torch.utils.cli``
    encode (cfg/encoder_intra_main.cfg), decode and bytecount on the card:
    rc 0, the checksum SEI verified ([OK]), the decoded frames equal to the
    recon (see phase_cli for the recon file's fault R1); and one 1920x1088
    lenslet frame through ``-hi`` with cfg/3DHencoder_intra_main.cfg, whose
-   bitstream must equal the iss-gt path's; then the lenslet BD-rate of the
+   bitstream must equal the iss-gt path's, and the pss-gt path's frames
+   through ``-hi -f 3``, whose bitstream must equal that path's and whose
+   recon file (each picture's recon) the decoded file; then the lenslet
+   BD-rate of the
    port on the card (tools/bdrate.py's run_ours_iss configuration on its
    512x384 lenslet frame at QPs 22-37 against tests/golden/bdrate.json's
    HM anchors), which must stay under tests/test_bdrate.py's ceiling;
@@ -106,7 +127,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    pre-pass entry, C10's two entries, C8's two forms and C4 with the ISS
    frame's inter maps; and those of the GT paths: C9's scan entry with
    the ring, C12's search and decide entries, and C11's two plane
-   entries.
+   entries; and those of the PSS path, at its last picture's fullest
+   32x32 level: C9's scan entry with the temporal search (a grouped
+   conv2d of the temporal windows as its library yardstick), its pre-pass
+   entry with the temporal arm, C10's PSS forms and C12's PSS decide.
 
 It prints the card's name and power limit, one JSON line for the kernels,
 one for the main paths, and as its last line
@@ -137,8 +161,8 @@ PEAK_INT32_OPS = 33.5e12
 PEAK_FP32_OPS = 67e12
 
 W, H, QP = 1920, 1088, 32
-TIMED_FRAMES = 10
-QUADTREE_TIMED_FRAMES = 5
+TIMED_FRAMES = 6
+QUADTREE_TIMED_FRAMES = 3
 UNIFORM_TIMED_FRAMES = 3
 # the frame whose partition goes down to 4x4: bench.py's content with five
 # times its luma noise
@@ -330,7 +354,8 @@ def rdoq_coefs(rng, b, n):
 def phase_rdoq(checks):
     """Kernel C7 against its plain body on the card: every TU class (log2
     2..5, luma and chroma), every MDCS scan the class has, 8 and 10 bit,
-    QP 22/27/32/37, init types 2 and 3; 0 mismatching levels."""
+    QP 22/27/32/37, init types 2, 3 and 4 (I, ISS, PSS); 0 mismatching
+    levels."""
     import torch
     from hevc_hop_torch.models.partition import full_lambda
     from hevc_hop_torch.ops import rdoq
@@ -344,7 +369,7 @@ def phase_rdoq(checks):
             scans = (0, 1, 2) if not rdoq.single_scan(log2, c_idx) else (0,)
             for bd in (8, 10):
                 for qp in (22, 27, 32, 37):
-                    for init_type in (2, 3):
+                    for init_type in (2, 3, 4):
                         rng = np.random.default_rng(
                             [log2, c_idx, bd, qp, init_type])
                         coef = torch.as_tensor(rdoq_coefs(rng, b, n),
@@ -522,9 +547,11 @@ def _counters():
     """(name, module, attribute) of every kernel's launch count; the
     kernels of csrc/tq.cu (encode, its RDOQ arm, decode), csrc/partition.cu,
     csrc/sao.cu, csrc/interp.cu (luma, chroma), csrc/ss_search.cu (scan,
-    the scan with the GT ring among them, pre-pass), csrc/inter_arms.cu
-    (arms, motion), csrc/warp.cu (window, luma, chroma) and
-    csrc/gt_search.cu (search, decide) count apart."""
+    and among its launches those with the GT ring and those with the
+    temporal search; pre-pass, and among them those with the temporal
+    arm), csrc/inter_arms.cu (arms, motion, and among each the PSS form),
+    csrc/warp.cu (window, luma, chroma) and csrc/gt_search.cu (search,
+    decide, and among the latter the PSS form) count apart."""
     from hevc_hop_torch.models import partition, ss_partition
     from hevc_hop_torch.ops import (deblock, gt, hashes, inter_arms, interp,
                                     intra, rdoq, sao, ss_search, tq, warp)
@@ -542,14 +569,20 @@ def _counters():
             ("C8 chroma", interp, "CHROMA_LAUNCHES"),
             ("C9 search", ss_search, "SEARCH_LAUNCHES"),
             ("C9 ring", ss_search, "RING_LAUNCHES"),
+            ("C9 temporal", ss_search, "TEMPORAL_LAUNCHES"),
             ("C9 prepass", ss_partition, "PREPASS_LAUNCHES"),
+            ("C9 prepass temporal", ss_partition,
+             "TEMPORAL_PREPASS_LAUNCHES"),
             ("C10 arms", inter_arms, "LAUNCHES"),
+            ("C10 arms PSS", inter_arms, "PSS_LAUNCHES"),
             ("C10 motion", inter_arms, "MOTION_LAUNCHES"),
+            ("C10 motion PSS", inter_arms, "PSS_MOTION_LAUNCHES"),
             ("C11 window", warp, "LAUNCHES"),
             ("C11 luma", warp, "LUMA_LAUNCHES"),
             ("C11 chroma", warp, "CHROMA_LAUNCHES"),
             ("C12 search", gt, "SEARCH_LAUNCHES"),
-            ("C12 decide", gt, "DECIDE_LAUNCHES")]
+            ("C12 decide", gt, "DECIDE_LAUNCHES"),
+            ("C12 decide PSS", gt, "PSS_DECIDE_LAUNCHES")]
 
 
 PATHS = {
@@ -597,7 +630,8 @@ def log_host(where):
     _PROBE["clock"] = (wall, cpu)
     py_ms, launch_ms = host_probes()
     log("host " + json.dumps({
-        "at": where, "python_probe_ms": py_ms, "launch_probe_ms": launch_ms,
+        "at": where, "t_s": wall - _PROBE.setdefault("t0", wall),
+        "python_probe_ms": py_ms, "launch_probe_ms": launch_ms,
         "loadavg_1min": os.getloadavg()[0],
         "threads": len(os.listdir("/proc/self/task")),
         "cpu_s_per_wall_s": (cpu - c0) / (wall - w0) if wall > w0 else None}))
@@ -837,15 +871,16 @@ def phase_fixture():
 
 
 FULL_FIXTURES = {"iss-gt": "jax_iss_gt_1920x1088_qp32",
-                 "iss-gt-warped": "jax_iss_gt_warped_1920x1088_qp37"}
+                 "iss-gt-warped": "jax_iss_gt_warped_1920x1088_qp37",
+                 "pss-gt": "jax_pss_gt_1920x1088_qp32"}
 
 
 def phase_full_fixtures(ctxs):
-    """The JAX encoder's streams of the two GT paths at 1920x1088
-    (tests/torch_fixtures/, made on a CPU by make_jax_fixture.py): each
-    decodes on the card with hash_ok and its stored MD5s, and the path's
-    own stream, from the same configuration and seeded frame, equals it
-    byte for byte."""
+    """The JAX encoder's streams of the two GT paths and the PSS path at
+    1920x1088 (tests/torch_fixtures/, made on a CPU by
+    make_jax_fixture.py): each decodes on the card with hash_ok and its
+    stored MD5s (one per picture), and the path's own stream, from the
+    same configuration and seeded frames, equals it byte for byte."""
     from hevc_hop_torch.models.decoder import Decoder
     from hevc_hop_torch.models.ss_encoder import HoloConfig
     out = {}
@@ -856,11 +891,15 @@ def phase_full_fixtures(ctxs):
         with open(base + ".json") as f:
             meta = json.load(f)
         dec = Decoder()
-        (planes,) = dec.decode_stream(stream)
-        require(dec.hash_ok == [True], f"{name}: hash_ok {dec.hash_ok}")
-        md5 = {k: hashlib.md5(p.astype(np.uint8).tobytes()).hexdigest()
-               for k, p in zip(("y", "cb", "cr"), planes)}
-        require(md5 == meta["md5"], f"{name}: MD5s {md5}")
+        pics = dec.decode_stream(stream)
+        want = meta["md5"] if isinstance(meta["md5"], list) else [
+            meta["md5"]]
+        require(dec.hash_ok == [True] * len(want),
+                f"{name}: hash_ok {dec.hash_ok}")
+        md5 = [{k: hashlib.md5(p.astype(np.uint8).tobytes()).hexdigest()
+                for k, p in zip(("y", "cb", "cr"), planes)}
+               for planes in pics]
+        require(md5 == want, f"{name}: MD5s {md5}")
         enc = ctxs[path]["enc"]
         require(enc.cfg == HoloConfig(**meta["config"])
                 and meta["content"].endswith(ctxs[path]["content"]),
@@ -940,32 +979,41 @@ def phase_cli_holo(ctxs):
     checksum SEI: the iss-gt path's configuration), decode and bytecount
     on the card. Each exits 0, the decode verifies the SEI, the decoded
     frame equals the recon file, and the bitstream equals the iss-gt
-    path's."""
+    path's. Then the pss-gt path's PSS_FRAMES frames through ``-f 3``
+    (an ISS picture, then PSS ones): its bitstream equals the path's, and
+    the recon file (each picture's recon) the decoded file."""
+    out = {"iss-gt": _cli_holo(ctxs["iss-gt"], "-f 1")}
+    out["pss-gt"] = _cli_holo(ctxs["pss-gt"], f"-f {PSS_FRAMES}")
+    return out
+
+
+def _cli_holo(ctx, what):
     import tempfile
     from hevc_hop_torch.io import yuv as yuvio
-    frame = ctxs["iss-gt"]["frame"]
+    frames = ctx.get("frames", [ctx["frame"]])
     with tempfile.TemporaryDirectory(dir=ROOT) as tmp:
         src, bs, rec, dec = (os.path.join(tmp, f) for f in (
             "in.yuv", "out.bin", "rec.yuv", "dec.yuv"))
-        yuvio.write_yuv420(src, [frame])
+        yuvio.write_yuv420(src, frames)
         cli = [sys.executable, "-m", "hevc_hop_torch.utils.cli"]
         runs = {}
         for cmd in (["encode", "-c", os.path.join(ROOT, "cfg",
                                                  "3DHencoder_intra_main.cfg"),
                      "-i", src, "-b", bs, "-o", rec, "-wdt", str(W),
-                     "-hgt", str(H), "-f", "1"],
+                     "-hgt", str(H), "-f", str(len(frames))],
                     ["decode", "-b", bs, "-o", dec],
                     ["bytecount", "-b", bs]):
             t0 = time.perf_counter()
             out = subprocess.run(cli + cmd, cwd=ROOT, capture_output=True,
                                  text=True, timeout=600)
             runs[cmd[0]] = time.perf_counter() - t0
-            require(out.returncode == 0, f"cli -hi {cmd[0]}: rc "
+            require(out.returncode == 0, f"cli -hi {what} {cmd[0]}: rc "
                     f"{out.returncode}\n{out.stdout[-2000:]}\n"
                     f"{out.stderr[-2000:]}")
             if cmd[0] == "decode":
-                require("[OK]" in out.stdout, f"cli -hi decode: {out.stdout}")
-            log(f"cli -hi {cmd[0]}: " + " | ".join(
+                require("[OK]" in out.stdout,
+                        f"cli -hi {what} decode: {out.stdout}")
+            log(f"cli -hi {what} {cmd[0]}: " + " | ".join(
                 out.stdout.strip().splitlines()[-2:]))
         with open(rec, "rb") as f:
             recon = f.read()
@@ -973,13 +1021,13 @@ def phase_cli_holo(ctxs):
             decoded = f.read()
         with open(bs, "rb") as f:
             stream = f.read()
-    require(len(recon) == W * H * 3 // 2 and decoded == recon,
-            "cli -hi: decoded frame != recon file")
-    require(stream == ctxs["iss-gt"]["stream"], "cli -hi: the bitstream "
-            "differs from the iss-gt path's")
-    log(f"cli -hi: encode, decode and bytecount of 1 lenslet frame at "
-        f"{W}x{H}, {len(stream)} bytes, seconds per process "
-        f"{json.dumps(runs)}")
+    require(len(recon) == len(frames) * W * H * 3 // 2 and decoded == recon,
+            f"cli -hi {what}: decoded frames != recon file")
+    require(stream == ctx["stream"], f"cli -hi {what}: the bitstream "
+            "differs from the path's")
+    log(f"cli -hi {what}: encode, decode and bytecount of {len(frames)} "
+        f"lenslet frame(s) at {W}x{H}, {len(stream)} bytes, seconds per "
+        f"process {json.dumps(runs)}")
     return runs
 
 
@@ -1596,7 +1644,9 @@ def _time_specs(specs, checks, launches):
                 check.add(g, w_, f"{name} at the main path's shape")
         # the plain bodies of these take seconds
         slow = counter in ("C5 rd", "C9 prepass", "C9 search", "C9 ring",
-                           "C10 arms", "C12 search", "C12 decide")
+                           "C10 arms", "C12 search", "C12 decide",
+                           "C9 temporal", "C9 prepass temporal",
+                           "C10 arms PSS", "C12 decide PSS")
         call_ms = time_ms(fn, reps=3 if slow else 7, inner=3 if slow else 10)
         pms = time_ms(plain, reps=1 if slow else 5, inner=1)
         # the kernel's own device time per call: a call of these small
@@ -1657,8 +1707,14 @@ _GT_KERNELS = ("C9 ring", "C11 luma", "C11 chroma", "C12 search",
                "C12 decide")
 _PREPASS_KERNELS = ("C5 rd", "C5 decide", "C6 stats", "C6 apply",
                     "C9 prepass")
-# name -> (HoloConfig fields beyond the size, timed frames, kernels the
-# path must launch, content)
+_PSS_KERNELS = ("C9 temporal", "C9 prepass temporal", "C10 arms PSS",
+                "C10 motion PSS", "C12 decide PSS")
+# the PSS path's sequence: an ISS picture, then PSS ones; the sequence is
+# coded PSS_TIMED_TURNS more times for its timing
+PSS_FRAMES = 3
+PSS_TIMED_TURNS = 2
+# name -> (HoloConfig fields beyond the size, timed frames (the PSS path:
+# timed turns of its sequence), kernels the path must launch, content)
 ISS_PATHS = {
     "iss": (dict(ISS_CONFIG), ISS_TIMED_FRAMES,
             _ISS_KERNELS + _PREPASS_KERNELS, "lenslet"),
@@ -1674,6 +1730,14 @@ ISS_PATHS = {
     "iss-gt-warped": (dict(qp=37, cu_log2=4, search_range=32, mi_size=16,
                            gt=True), 2, _ISS_KERNELS + _GT_KERNELS,
                       "warped"),
+    # bench.py:88-100's lenslet cell whole on a low-delay holoscopic
+    # sequence (HoloEncoder.encode_sequence: an ISS picture, then PSS ones
+    # whose L0 is [the previous picture, the SS reference]): a plenoptic
+    # video camera panning one sample per frame (pss_frames)
+    "pss-gt": (dict(ISS_CONFIG, gt=True, search_range_t=16),
+               PSS_TIMED_TURNS,
+               _ISS_KERNELS + _PREPASS_KERNELS + _GT_KERNELS + _PSS_KERNELS,
+               "panned"),
 }
 
 
@@ -1700,6 +1764,27 @@ def lenslet_frame(w=512, h=384, mi=16, seed=5):
     cr = (128 + 18 * np.cos(np.mgrid[0:h // 2, 0:w // 2][0] / 23.0)
           ).clip(0, 255).astype(np.int32)
     return y, cb, cr
+
+
+def pss_frames(w, h, count, seed=5):
+    """tests/torch_fixtures/make_jax_fixture.py's pss_frames (copied): the
+    motion model of tests/test_e2e_iss.py test_pss_sequence_roundtrip on
+    lenslet_frame(w, h, mi=16, seed): frame t is the luma rolled by t
+    samples plus default_rng(7) noise in [-2, 2], clipped; the chroma
+    rolled by t // 2."""
+    y0, cb0, cr0 = lenslet_frame(w, h, mi=16, seed=seed)
+    rng = np.random.default_rng(7)
+    frames = []
+    for t in range(count):
+        y = np.roll(y0, t, axis=1) + rng.integers(-2, 3, (h, w))
+        frames.append((y.clip(0, 255).astype(np.int32),
+                       np.roll(cb0, t // 2, axis=1).astype(np.int32),
+                       np.roll(cr0, t // 2, axis=1).astype(np.int32)))
+    return frames
+
+
+PSS_CONTENT = (f"make_jax_fixture.py pss_frames({W}, {H}, {PSS_FRAMES}, "
+               "seed=5) on tools/bdrate.py lenslet_frame")
 
 
 def synth_lenslet(w, h, mi, seed=3):
@@ -1976,7 +2061,106 @@ def phase_iss_path(name):
     return out, dict(enc=enc, frame=frame, stream=stream, content=content)
 
 
-GT_SHARE_TURNS = 2
+def _temporal_share(maps):
+    """The share of the picture's 4x4 units that temporal prediction codes
+    (inter, reference index 0 of L0 = [previous picture, SS])."""
+    return float(((maps.pred4 == 0) & (maps.ref4 == 0)).mean())
+
+
+def phase_pss_path(name):
+    """The PSS main path on the card: the launch counts of one
+    encode_sequence of the PSS_FRAMES pictures and its decode (set to 0
+    just before, read just after); every picture hash_ok and equal to the
+    encoder's recon history; temporal prediction chosen. Then the sequence
+    coded PSS_TIMED_TURNS more times picture by picture, each PSS picture
+    timed (host_probes beside it), and its decode timed."""
+    import torch
+    from hevc_hop_torch.models.decoder import Decoder
+    from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
+    extra, turns, needed, _ = ISS_PATHS[name]
+    frames = pss_frames(W, H, PSS_FRAMES)
+    enc = HoloEncoder(HoloConfig(width=W, height=H, **extra))
+    counters = _counters()
+    for _, m, attr in counters:
+        setattr(m, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stream = enc.encode_sequence(frames)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dec = Decoder()
+    pics = dec.decode_stream(stream)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = {k: getattr(m, attr) for k, m, attr in counters}
+    log(f"{name} path launches: {launches}")
+    require(all(launches[k] > 0 for k in needed),
+            f"a kernel was not launched on the {name} path: {launches}")
+    require(dec.hash_ok == [True] * PSS_FRAMES and dec.concealed == [],
+            f"{name}: hash_ok {dec.hash_ok}, concealed {dec.concealed}")
+    require(len(pics) == len(enc.recon_history) == PSS_FRAMES,
+            f"{name}: {len(pics)} pictures decoded")
+    for i, (pic, rec) in enumerate(zip(pics, enc.recon_history)):
+        for a, b, nm in zip(pic, rec, ("y", "cb", "cr")):
+            require(np.array_equal(a, b),
+                    f"{name}: picture {i} decoded {nm} != recon")
+    psnr = [10 * np.log10(255.0 ** 2 / max(np.mean(
+        (rec[0].astype(np.float64) - fr[0]) ** 2), 1e-9))
+        for rec, fr in zip(enc.recon_history, frames)]
+    require(min(psnr) > 25, f"{name}: Y-PSNR {psnr}")
+    # the timed turns, picture by picture: each PSS picture's temporal
+    # share and GT CUs, and its time
+    pss_s, iss_s, dec_s, probes, share, gt_cus, stats = ([] for _ in
+                                                         range(7))
+    for _ in range(turns):
+        torch.cuda.synchronize()
+        t0_ = time.perf_counter()
+        out = [enc.encode_frame(*frames[0])]
+        torch.cuda.synchronize()
+        iss_s.append(time.perf_counter() - t0_)
+        for poc in range(1, PSS_FRAMES):
+            probes.append(host_probes())
+            t0_ = time.perf_counter()
+            out.append(enc._encode_pss(*frames[poc], poc))
+            torch.cuda.synchronize()
+            pss_s.append(time.perf_counter() - t0_)
+            share.append(_temporal_share(enc.last_maps))
+            gt_cus.append(int(enc.last_maps.gt8.sum()))
+            stats.append(dict(enc.last_stats))
+        require(b"".join(out) == stream, f"{name}: a later encode differs")
+        t0_ = time.perf_counter()
+        d2 = Decoder()
+        d2.decode_stream(stream)
+        torch.cuda.synchronize()
+        dec_s.append(time.perf_counter() - t0_)
+        require(d2.hash_ok == [True] * PSS_FRAMES, f"{name}: a later decode")
+    require(min(share) > 0, f"{name}: temporal prediction never chosen "
+            f"({share})")
+    plans = _last_prep(enc)[0]
+    out = {"frame": f"{W}x{H}", "qp": enc.cfg.qp, "config": extra,
+           "content": PSS_CONTENT, "pictures": PSS_FRAMES,
+           "wavefront_levels": enc.last_stats["levels"],
+           "cus_last_picture": {int(lg): int(p.cnt.sum())
+                                for lg, p in plans.items()},
+           "temporal_share": share, "gt_cus": gt_cus,
+           "bytes": len(stream), "y_psnr_db": psnr,
+           "first_encode_sequence_s": t1 - t0,
+           "first_decode_sequence_s": t2 - t1, "timed_turns": turns,
+           "pss_encode_s": float(np.median(pss_s)),
+           "pss_encode_s_max": max(pss_s),
+           "iss_encode_s": float(np.median(iss_s)),
+           "decode_s_per_picture": float(np.median(dec_s)) / PSS_FRAMES,
+           "decode_sequence_s_max": max(dec_s),
+           "pss_encode_fps": 1.0 / float(np.median(pss_s)),
+           "python_probe_ms": float(np.median([p[0] for p in probes])),
+           "launch_probe_ms": float(np.median([p[1] for p in probes])),
+           "last_stats": stats[-1], "launches": launches}
+    log(f"{name} path: {json.dumps(out)}")
+    return out, dict(enc=enc, frames=frames, frame=frames[1],
+                     stream=stream, content=PSS_CONTENT)
+
+
+GT_SHARE_TURNS = 1
 
 
 def phase_gt_share(ctxs):
@@ -2015,14 +2199,18 @@ def phase_gt_share(ctxs):
     return out
 
 
-def _hold_iss_launches(enc, frame, stream, checks, every=8):
-    """The launches of one ISS encode and its decode, kernel against plain
-    body on the same inputs, at the fullest level of every CU size and at
-    every ``every``-th level: C9's search, C10's arms and motion write,
-    C8's masked chroma (encoder) and both decode epilogues, and C4 with
-    the inter maps; with the GT on, every launch of C9 (its ring), C12
-    (search and decide, one wrapper call) and C11 (the encoder's masked
-    chroma, both decode epilogues). The encode goes on with the kernels'
+def _hold_iss_launches(enc, frames, stream, checks, every=8):
+    """The launches of one encode of ``frames`` (one ISS picture, or the
+    PSS path's sequence) and its decode, kernel against plain body on the
+    same inputs, at the fullest level of every CU size and at every
+    ``every``-th level: C9's search, C10's arms and motion write, C8's
+    masked chroma (encoder) and both decode epilogues, and C4 with the
+    inter maps; with the GT on, every launch of C9 (its ring), C12 (search
+    and decide, one wrapper call) and C11 (the encoder's masked chroma,
+    both decode epilogues); on the PSS path's sequence every launch of
+    C9's temporal forms (scan and pre-pass), C10's PSS forms, C12's PSS
+    decide and C8 (from the previous picture too), its ISS picture's C9 ring and C12 launches
+    sampled as the other forms. The encode goes on with the kernels'
     outputs."""
     import torch
     from hevc_hop_torch.models import ss_scan
@@ -2031,9 +2219,11 @@ def _hold_iss_launches(enc, frame, stream, checks, every=8):
     from hevc_hop_torch.ops import inter_arms as ia
     from hevc_hop_torch.ops import ss_search as ss
     from hevc_hop_torch.models import ss_encoder, decoder as dmod
+    from hevc_hop_torch.models import ss_partition
     c8, c9, c10, c4 = (checks[k] for k in ("C8", "C9", "C10", "C4"))
     c11, c12 = checks["C11"], checks["C12"]
     orig = dict(mc=ss_scan.mc_blocks, ss=ss_scan.ss_search,
+                ps=ss_scan.pss_search, rd=ss_partition.ss_rd_costs,
                 arms=ss_scan.inter_arms, mw=ss_scan.motion_write,
                 db=deblock.deblock_frame, gt=ss_scan.gt_step,
                 gp=ss_scan.gt_pred_blocks)
@@ -2052,22 +2242,32 @@ def _hold_iss_launches(enc, frame, stream, checks, every=8):
         held[what] = held.get(what, 0) + 1
 
     def mc(plane, pos, mv, n, chroma, h_real, bd=8, hc_off=0, out=None,
-           only=None, resi=None):
-        if not pick("mc" + str(chroma) + str(resi is None), n,
-                    pos.shape[0] // (2 if chroma else 1)):
+           only=None, resi=None, dst=None):
+        # a PSS picture's temporal blocks read the previous picture (the
+        # decoder writes them into the recon): every launch of a sequence
+        other = dst is not None and dst is not plane
+        if len(frames) == 1 and not pick(
+                "mc" + str(chroma) + str(resi is None), n,
+                pos.shape[0] // (2 if chroma else 1)):
             return orig["mc"](plane, pos, mv, n, chroma, h_real, bd, hc_off,
-                              out, only, resi)
+                              out, only, resi, dst)
         p2 = plane.clone()
         o2 = None if out is None else out.clone()
+        d2 = dst.clone() if dst is not None and dst is not plane else None
         want = interp.mc_blocks_plain(p2, pos, mv, n, chroma, h_real, bd,
-                                      hc_off, o2, only, resi)
+                                      hc_off, o2, only, resi,
+                                      d2 if d2 is not None else
+                                      (None if dst is None else p2))
         got = orig["mc"](plane, pos, mv, n, chroma, h_real, bd, hc_off, out,
-                         only, resi)
+                         only, resi, dst)
         what = (f"C8 {'chroma' if chroma else 'luma'} "
-                f"{'masked' if resi is None else 'decode'} n={n}")
+                f"{'masked' if resi is None else 'decode'}"
+                f"{' previous picture' if other else ''} n={n}")
         c8.add(plane, p2, what + " plane")
         if out is not None:
             c8.add(out, o2, what)
+        if d2 is not None:
+            c8.add(dst, d2, what + " into the recon")
         mark(what)
         return got if resi is None else want
 
@@ -2075,7 +2275,10 @@ def _hold_iss_launches(enc, frame, stream, checks, every=8):
                w, h, lam, mi, zmax2n=None):
         got = orig["ss"](recon, org, pos, zcur, zmaxw, motion, nbav, miav, n,
                          radius, w, h, lam, mi, zmax2n)
-        if zmax2n is not None or pick("ss", n, pos.shape[0]):
+        # the GT paths hold every ring launch; the PSS path's ISS picture
+        # samples them as the other forms
+        if (zmax2n is not None and len(frames) == 1) or pick(
+                "ss", n, pos.shape[0]):
             preds = ia.gather_cands(*motion, pos, nbav, miav, n, mi)[3]
             want = ss.ss_search_plain(recon, org, pos, zcur, zmaxw, preds, n,
                                       radius, w, h, lam, zmax2n)
@@ -2086,20 +2289,63 @@ def _hold_iss_launches(enc, frame, stream, checks, every=8):
             mark(f"C9 {'ring' if zmax2n is not None else 'search'} n={n}")
         return got
 
+    def psearch(recon, org, pos, zcur, zmaxw, motion, nbav, miav, n, radius,
+                w, h, lam, mi, zmax2n, ref, radius_t):
+        got = orig["ps"](recon, org, pos, zcur, zmaxw, motion, nbav, miav,
+                         n, radius, w, h, lam, mi, zmax2n, ref, radius_t)
+        p_ss, p_t = ia.gather_cands(*motion, pos, nbav, miav, n, mi,
+                                    ss.SS_IDX_PSS)[3:]
+        want = (ss.ss_search_plain(recon, org, pos, zcur, zmaxw, p_ss, n,
+                                   radius, w, h, lam, zmax2n, seq=True),
+                ss.t_search_plain(ref, org, pos, p_t, n, radius_t, w, h,
+                                  lam))
+        for side, g_, w_ in zip(("SS", "temporal"), got, want):
+            for g, w2, nm in zip(g_, w_, ("mv", "cost", "pred", "sse",
+                                          "anchor", "gt_rate", "gt_ok")):
+                c9.add(g, w2, f"C9 PSS {side} n={n} {nm}")
+        mark(f"C9 temporal n={n}")
+        return got
+
+    def prepass(org, pos, zcur, zmaxw, n, qp, bd, radius, w, h, mi, lam,
+                ref=None, radius_t=0):
+        got = orig["rd"](org, pos, zcur, zmaxw, n, qp, bd, radius, w, h, mi,
+                         lam, ref, radius_t)
+        if ref is not None:
+            # the PSS pictures' pre-pass launches, every one, in chunks
+            for i in range(0, pos.shape[0], 2048):
+                sl = slice(i, i + 2048)
+                want = ss_partition.ss_rd_costs_plain(
+                    org, pos[sl], zcur[sl], zmaxw, n, qp, bd, radius, w, h,
+                    mi, lam, ref, radius_t)
+                c9.add_close(got[sl], want, COST_RTOL,
+                             f"C9 pre-pass temporal n={n} blocks {i}+")
+            mark(f"C9 prepass temporal n={n}")
+        return got
+
     def gt_step(recon, org, rc, pos, zcur, z2, motion, nbav, miav, ring,
-                costs, pred, inter, mv, smode, n, w, h, hc_off, bd, lam, mi):
+                costs, pred, inter, mv, smode, n, w, h, hc_off, bd, lam, mi,
+                refsel=None):
+        if refsel is None and len(frames) > 1 and not pick(
+                "gt", n, pos.shape[0]):
+            return orig["gt"](recon, org, rc, pos, zcur, z2, motion, nbav,
+                              miav, ring, costs, pred, inter, mv, smode, n,
+                              w, h, hc_off, bd, lam, mi)
         c = [t_.clone() for t_ in (pred, inter, mv, smode)]
+        r2 = None if refsel is None else refsel.clone()
         want = gt.gt_step_plain(recon, org, rc, pos, zcur, z2, motion, nbav,
                                 miav, ring, costs, *c, n, w, h, hc_off, bd,
-                                lam, mi)
+                                lam, mi, r2)
         got = orig["gt"](recon, org, rc, pos, zcur, z2, motion, nbav, miav,
                          ring, costs, pred, inter, mv, smode, n, w, h,
-                         hc_off, bd, lam, mi)
+                         hc_off, bd, lam, mi, refsel)
+        extra = () if refsel is None else ((refsel, r2, "refsel"),)
         for g, w_, nm in zip(got + (pred, inter, mv, smode), want + tuple(c),
                              ("flag", "gtc", "pred", "inter", "mv",
                               "smode")):
             c12.add(g, w_, f"C12 n={n} {nm}")
-        mark(f"C12 n={n}")
+        for g, w_, nm in extra:
+            c12.add(g, w_, f"C12 PSS n={n} {nm}")
+        mark(f"C12 {'PSS ' if refsel is not None else ''}n={n}")
         held["gt_cus"] = held.get("gt_cus", 0) + int(got[0].sum())
         return got
 
@@ -2120,33 +2366,40 @@ def _hold_iss_launches(enc, frame, stream, checks, every=8):
         return got
 
     def arms(recon, org, pos, zcur, zmaxw, motion, nbav, miav, mv_i, pred0,
-             sse0, ipred, imode, n, w, h, bd, lam, mi):
-        if not pick("arms", n, pos.shape[0]):
+             sse0, ipred, imode, n, w, h, bd, lam, mi, pss=None):
+        if pss is None and not pick("arms", n, pos.shape[0]):
             return orig["arms"](recon, org, pos, zcur, zmaxw, motion, nbav,
                                 miav, mv_i, pred0, sse0, ipred, imode, n, w,
                                 h, bd, lam, mi)
         ip2 = ipred.clone()
         want = ia.inter_arms_plain(recon, org, pos, zcur, zmaxw, motion, nbav,
                                    miav, mv_i, pred0, sse0, ip2, imode, n, w,
-                                   h, bd, lam, mi)
+                                   h, bd, lam, mi, pss)
         got = orig["arms"](recon, org, pos, zcur, zmaxw, motion, nbav, miav,
                            mv_i, pred0, sse0, ipred, imode, n, w, h, bd, lam,
-                           mi)
+                           mi, pss=pss)
+        form = "" if pss is None else " PSS"
         for g, w_, nm in zip(got + (ipred,), want + (ip2,),
-                             ("inter", "mv", "smode", "costs", "pred")):
-            c10.add(g, w_, f"C10 arms n={n} {nm}")
-        mark(f"C10 arms n={n}")
+                             ("inter", "mv", "smode", "costs", "refsel",
+                              "pred")[:len(got)] + ("pred",)):
+            c10.add(g, w_, f"C10 arms{form} n={n} {nm}")
+        mark(f"C10 arms{form} n={n}")
         return got
 
-    def motion(mvx4, mvy4, pi4, pos, inter, mv, n):
-        if not pick("mw", n, pos.shape[0]):
-            return orig["mw"](mvx4, mvy4, pi4, pos, inter, mv, n)
-        c = [t_.clone() for t_ in (mvx4, mvy4, pi4)]
-        ia.motion_write_plain(*c, pos, inter, mv, n)
-        orig["mw"](mvx4, mvy4, pi4, pos, inter, mv, n)
-        c10.add(torch.stack([mvx4, mvy4, pi4]), torch.stack(c),
-                f"C10 motion n={n}")
-        mark(f"C10 motion n={n}")
+    def motion(mvx4, mvy4, pi4, pos, inter, mv, n, rf4=None, refsel=None):
+        if refsel is None and not pick("mw", n, pos.shape[0]):
+            return orig["mw"](mvx4, mvy4, pi4, pos, inter, mv, n, rf4,
+                              refsel)
+        planes = (mvx4, mvy4, pi4) + (() if refsel is None else (rf4,))
+        c = [t_.clone() for t_ in planes]
+        ia.motion_write_plain(*c[:3], pos, inter, mv, n,
+                              *((c[3], refsel) if refsel is not None
+                                else ()))
+        orig["mw"](mvx4, mvy4, pi4, pos, inter, mv, n, rf4, refsel)
+        form = "" if refsel is None else " PSS"
+        c10.add(torch.stack(planes), torch.stack(c),
+                f"C10 motion{form} n={n}")
+        mark(f"C10 motion{form} n={n}")
         return None
 
     def deblock_both(y, cb, cr, tu4, qp, qp_c, bit_depth=8, beta_off=0,
@@ -2161,22 +2414,25 @@ def _hold_iss_launches(enc, frame, stream, checks, every=8):
         return got
 
     ss_scan.mc_blocks, ss_scan.ss_search = mc, search
+    ss_scan.pss_search, ss_partition.ss_rd_costs = psearch, prepass
     ss_scan.inter_arms, ss_scan.motion_write = arms, motion
     ss_scan.gt_step, ss_scan.gt_pred_blocks = gt_step, gt_pred
     ss_encoder.deblock.deblock_frame = deblock_both
     try:
-        got = enc.encode_frame(*frame)
+        got = (enc.encode_frame(*frames[0]) if len(frames) == 1
+               else enc.encode_sequence(frames))
         calls.clear()
         dec = Decoder()
         dec.decode_stream(got)
     finally:
         ss_scan.mc_blocks, ss_scan.ss_search = orig["mc"], orig["ss"]
+        ss_scan.pss_search, ss_partition.ss_rd_costs = orig["ps"], orig["rd"]
         ss_scan.inter_arms, ss_scan.motion_write = orig["arms"], orig["mw"]
         ss_scan.gt_step, ss_scan.gt_pred_blocks = orig["gt"], orig["gp"]
         ss_encoder.deblock.deblock_frame = orig["db"]
     require(dmod.deblock.deblock_frame is orig["db"], "deblock restored")
     require(got == stream, "the held encode differs from the path's")
-    require(dec.hash_ok == [True], "the held decode's hash")
+    require(dec.hash_ok == [True] * len(frames), "the held decode's hash")
     torch.cuda.synchronize()
     log(f"ISS launches held against the plain bodies: {json.dumps(held)}")
     return held
@@ -2184,9 +2440,10 @@ def _hold_iss_launches(enc, frame, stream, checks, every=8):
 
 def phase_iss_kernels(checks, ctxs):
     """Kernels C9 (pre-pass entry, every block of every size of the
-    1920x1088 lenslet luma, in chunks), and C8, C9's scan entry, C10 and
-    C4's inter arm on the launches of real ISS encodes and decodes, each
-    against its plain body on the card."""
+    1920x1088 lenslet luma, in chunks, and with the temporal arm every
+    block of the pss-gt path's second picture), and C8, C9's scan entry,
+    C10, C12 and C4's inter arm on the launches of real ISS and PSS
+    encodes and decodes, each against its plain body on the card."""
     import torch
     from hevc_hop_torch.models import partition, ss_partition, wavefront
     from hevc_hop_torch.models.ss_scan import zmax_win_px
@@ -2216,15 +2473,44 @@ def phase_iss_kernels(checks, ctxs):
                 (want < 1e37).sum())
     log(f"C9 pre-pass entry, every block of the {W}x{H} lenslet luma "
         f"(costs within {COST_RTOL} relative): {json.dumps(tally)}")
+    # the pre-pass with its temporal arm: every block of the pss-gt path's
+    # second picture against the first's recon
+    enc = ctxs["pss-gt"]["enc"]
+    y1 = torch.as_tensor(ctxs["pss-gt"]["frames"][1][0], device=dev)
+    ref = torch.as_tensor(enc.recon_history[0][0], device=dev)
+    for n in (8, 16, 32):
+        ys, xs = np.mgrid[0:H:n, 0:W:n]
+        ys, xs = ys.ravel(), xs.ravel()
+        t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                      device=dev)
+        zmaxw = t(zmax_win_px(zplane4, n))
+        for i in range(0, len(xs), 2048):
+            pos = t(np.stack([xs[i:i + 2048], ys[i:i + 2048]], -1))
+            zcur = t(zplane4[ys[i:i + 2048] >> 2, xs[i:i + 2048] >> 2])
+            args = (y1, pos, zcur, zmaxw, n, QP, 8, 32, W, H, 16, lam, ref,
+                    16)
+            got = ss_partition.ss_rd_costs(*args)
+            want = ss_partition.ss_rd_costs_plain(*args)
+            tally[f"temporal_not_bit_equal_n{n}"] = tally.get(
+                f"temporal_not_bit_equal_n{n}", 0) + c9.add_close(
+                got, want, COST_RTOL,
+                f"C9 pre-pass temporal n={n} blocks {i}+")
+    log(f"C9 pre-pass entry with the temporal arm, every block of the "
+        f"pss-gt path's second picture: {json.dumps(tally)}")
+    log_host("pre-pass entries held")
     held = {}
     for name in ISS_PATHS:
         c = ctxs[name]
-        held[name] = _hold_iss_launches(c["enc"], c["frame"], c["stream"],
-                                        checks)
+        held[name] = _hold_iss_launches(c["enc"], c.get("frames",
+                                                        [c["frame"]]),
+                                        c["stream"], checks)
+        log_host(f"{name} launches held")
     need = {"C9 search", "C10 arms", "C10 motion", "C8 chroma masked",
             "C8 luma decode", "C8 chroma decode", "C4 inter arm", "C9 ring",
             "C12", "C11 chroma masked", "C11 luma decode",
-            "C11 chroma decode"}
+            "C11 chroma decode", "C9 temporal", "C10 arms PSS",
+            "C10 motion PSS", "C12 PSS", "C8 luma decode previous picture",
+            "C8 chroma decode previous picture", "C9 prepass temporal"}
     seen = {k.rsplit(" n=", 1)[0] for h in held.values() for k in h}
     require(need <= seen, f"ISS launch forms never held: {need - seen}")
     log("ISS kernels: " + ", ".join(
@@ -2452,14 +2738,16 @@ def warp_ops(n):
     return 48 * n * n
 
 
-def gt_anchor_count(pos, zcur, zmax2n, motion, nbav, miav, ring, n):
+def gt_anchor_count(pos, zcur, zmax2n, motion, nbav, miav, ring, n,
+                    ss_idx=0):
     """The (block, anchor) pairs C12's search runs on these inputs: the
     ring anchors found, and the predictor anchors that are valid, causal
     and not the ring's again."""
     import torch
     from hevc_hop_torch.ops import inter_arms as ia
     from hevc_hop_torch.ops import ss_search as ss
-    p_ss = ia.gather_cands(*motion, pos, nbav, miav, n, 16)[3][:, 0]
+    p_ss = ia.gather_cands(*motion, pos, nbav, miav, n, 16,
+                           ss_idx)[3][:, 0]
     valid = (p_ss.abs() < ss.HUGE_PRED // 2).all(-1)
     prd = torch.where(valid[:, None], (p_ss + 2) >> 2, 0)
     ok_p = ss.ss_anchor_ok(pos, zcur, zmax2n, prd, n, W, H) & valid
@@ -2618,6 +2906,183 @@ def phase_gt_timing(ctxs, checks, launches):
     return _time_specs(specs, checks, launches)
 
 
+def phase_pss_timing(ctxs, checks, launches):
+    """Rows of the kernels line for the PSS forms, each at the fullest
+    32x32 level of the pss-gt path's last picture (the recon: the
+    original, ahead; the previous picture: the path's recon of its first;
+    random carried motion naming either reference), held once more and
+    timed beside its plain version, its bound and, for C9, a library
+    call: C9's scan entry with the temporal search (one launch, the SS and
+    temporal CTAs), its pre-pass entry with the temporal arm, C10's PSS
+    forms and C12 with its PSS decide."""
+    import torch
+    import torch.nn.functional as F
+    from hevc_hop_torch.models import partition, ss_partition, wavefront
+    from hevc_hop_torch.models.ss_scan import zmax_win_px
+    from hevc_hop_torch.ops import gt, inter_arms as ia
+    from hevc_hop_torch.ops import ss_search as ss
+    dev = torch.device("cuda")
+    ctx = ctxs["pss-gt"]
+    enc = ctx["enc"]
+    plans, _, zmaxws, zmax2ns = _last_prep(enc)
+    lg = 5 if 5 in plans else max(plans)
+    p = plans[lg]
+    n = p.n
+    s_ = int(np.argmax(p.cnt))
+    o, c = int(p.off[s_]), int(p.cnt[s_])
+    sl = slice(o, o + c)
+    pos, zcur, nbav, miav = p.pos[sl], p.zcur[sl], p.nbav[sl], p.miav[sl]
+    oy, oc = enc._upload(*ctx["frames"][-1])
+    ry = oy.clone()
+    ry[H:] = 0
+    ref = torch.as_tensor(enc.recon_history[-2][0], device=dev)
+    rng = np.random.default_rng(14)
+    motion = tuple(torch.zeros((oy.shape[0] // 4, W // 4), dtype=torch.int32,
+                               device=dev) for _ in range(4))
+    motion[0][:] = torch.as_tensor(rng.integers(-40, 8, motion[0].shape))
+    motion[1][:] = torch.as_tensor(rng.integers(-8, 8, motion[1].shape))
+    motion[2][:] = torch.as_tensor(rng.random(motion[2].shape) < 0.8)
+    motion[3][:] = torch.as_tensor(rng.random(motion[3].shape) < 0.3)
+    lam = partition.full_lambda(QP)
+    zmaxw, zmax2n = zmaxws[lg], zmax2ns[lg]
+    specs = []
+    spec = lambda **kw: specs.append(kw)
+    sargs = (ry, oy, pos, zcur, zmaxw, motion, nbav, miav, n, 32, W, H, lam,
+             16, zmax2n, ref, 16)
+    ops_s, causal = search_ops(pos, zcur, zmaxw, n, 32)
+    dt = torch.arange(-16, 17, device=dev)
+    ty = pos[:, 1, None, None].long() + dt[None, :, None]
+    tx = pos[:, 0, None, None].long() + dt[None, None, :]
+    inpic = int(((ty >= 0) & (tx >= 0) & (ty + n <= H)
+                 & (tx + n <= W)).sum())
+    ops_t = inpic * (4 * n * n + 80)
+    ws, wt = n + 64, n + 32
+
+    def plain_search():
+        p_ss, p_t = ia.gather_cands(*motion, pos, nbav, miav, n, 16,
+                                    ss.SS_IDX_PSS)[3:]
+        return (ss.ss_search_plain(ry, oy, pos, zcur, zmaxw, p_ss, n, 32, W,
+                                   H, lam, zmax2n, seq=True)
+                + ss.t_search_plain(ref, oy, pos, p_t, n, 16, W, H, lam))
+
+    spec(name=f"C9 ss_search (scan, PSS: SS with the ring + temporal, "
+              f"{n}x{n})", counter="C9 temporal", path="pss-gt",
+         kernel="ss_search_kernel",
+         shape=f"{c} CUs of {n}x{n}: the SS search at radius 32 ({causal} "
+               f"causal displacements) and the temporal one at radius 16 "
+               f"({inpic} displacements), one launch of {2 * c} CTAs",
+         source="hevc_hop_torch/csrc/ss_search.cu",
+         replaces="hevc_hop_tpu/models/ss_scan.py:301",
+         fn=lambda: (lambda r: r[0] + r[1])(ss.pss_search(*sargs)),
+         plain=plain_search,
+         nbytes=c * (ws * ws + wt * wt + n * n) * 4
+         + c * (2 * n * n * 4 + 44),
+         ops=(0, ops_s + ops_t))
+    # the library yardstick: the temporal correlation as cuDNN's grouped
+    # float32 convolution of the same windows (TF32 allowed, its default)
+    ar = torch.arange(wt, device=dev)
+    wy = (pos[:, 1, None].long() - 16 + ar[None]).clamp(0, H - 1)
+    wx = (pos[:, 0, None].long() - 16 + ar[None]).clamp(0, W - 1)
+    win = ref[wy[:, :, None], wx[:, None, :]].float()[None]
+    ker = ss.block_at(oy, pos, n).float()[:, None]
+    specs[-1]["library"] = lambda: F.conv2d(win, ker, groups=c)
+    specs[-1]["library_call"] = ("torch.nn.functional.conv2d, grouped, "
+                                 "float32 (cuDNN; the temporal correlation "
+                                 "only)")
+    # the pre-pass entry with the temporal arm on every 32x32 block
+    ys, xs = np.mgrid[0:H:n, 0:W:n]
+    ppos = torch.as_tensor(np.stack([xs.ravel(), ys.ravel()], -1).astype(
+        np.int32), device=dev)
+    zplane4 = wavefront.zaddr4_plane(W, H, 5)
+    pz = torch.as_tensor(zplane4[ys.ravel() >> 2, xs.ravel() >> 2].astype(
+        np.int32), device=dev)
+    pzm = torch.as_tensor(zmax_win_px(zplane4, n), device=dev)
+    nb = ppos.shape[0]
+    pops, _ = search_ops(ppos, pz, pzm, n, 32)
+    pt_ = ppos[:, 1, None, None].long() + dt[None, :, None]
+    px_ = ppos[:, 0, None, None].long() + dt[None, None, :]
+    pin = int(((pt_ >= 0) & (px_ >= 0) & (pt_ + n <= H)
+               & (px_ + n <= W)).sum())
+    rargs = (oy[:H], ppos, pz, pzm, n, QP, 8, 32, W, H, 16, lam, ref, 16)
+    spec(name=f"C9 ss_search (pre-pass, temporal arm, {n}x{n})",
+         counter="C9 prepass temporal", path="pss-gt", kernel="ss_rd_kernel",
+         shape=f"{nb} blocks of {n}x{n} of the {W}x{H} luma: SS radius 32, "
+               f"temporal radius 16 ({pin} displacements)",
+         source="hevc_hop_torch/csrc/ss_search.cu",
+         replaces="hevc_hop_tpu/models/ss_partition.py:40",
+         fn=lambda: ss_partition.ss_rd_costs(*rargs),
+         plain=lambda: ss_partition.ss_rd_costs_plain(*rargs),
+         rtol=COST_RTOL,
+         nbytes=nb * ((n + 64) ** 2 + (n + 32) ** 2 + n * n) * 4 + nb * 4,
+         ops=(nb * n * 4 * n * n, pops + pin * (4 * n * n + 80)))
+    # C10's PSS form on the same level's blocks, after a real search
+    (mv_i, _, pred0, sse0, *ring), (mv_t, _, tpred0, tsse0) = \
+        ss.pss_search(*sargs)
+    ipred = ss.block_at(oy, pos, n).clone()
+    imode = torch.zeros(c, dtype=torch.int32, device=dev)
+    aargs = (ry, oy, pos, zcur, zmaxw, motion, nbav, miav, mv_i, pred0, sse0)
+    tail = (imode, n, W, H, 8, lam, 16)
+    pss = (ref, mv_t, tpred0, tsse0)
+    bufs = {k: ipred.clone() for k in ("kernel", "plain")}
+    spec(name=f"C10 inter_arms (PSS, {n}x{n})", counter="C10 arms PSS",
+         path="pss-gt", kernel="inter_arms_kernel",
+         shape=f"{c} CUs of {n}x{n}: 9 merge candidates on either "
+               "reference, 16 sub-pel on each of the two",
+         source="hevc_hop_torch/csrc/inter_arms.cu",
+         replaces="hevc_hop_tpu/models/ss_scan.py:982",
+         fn=lambda: ia.inter_arms(*aargs, bufs["kernel"].copy_(ipred),
+                                  *tail, pss=pss) + (bufs["kernel"],),
+         plain=lambda: ia.inter_arms_plain(*aargs,
+                                           bufs["plain"].copy_(ipred),
+                                           *tail, pss) + (bufs["plain"],),
+         nbytes=c * (4 * n * n * 4 + 4 * (n + 7) ** 2 + 80),
+         ops=(c * 41 * mc_ops(n, 8), c * 42 * 3 * n * n))
+    inter = torch.ones(c, dtype=torch.int32, device=dev)
+    refsel = (torch.arange(c, device=dev) % 2).to(torch.int32)
+    mvq = mv_i * 4 + 1
+    mbufs = {k: tuple(m.clone() for m in motion) for k in ("kernel", "plain")}
+    spec(name=f"C10 motion_write (PSS, {n}x{n})", counter="C10 motion PSS",
+         path="pss-gt", kernel="motion_write_kernel",
+         shape=f"{c} CUs of {n}x{n}, four planes",
+         source="hevc_hop_torch/csrc/inter_arms.cu",
+         replaces="hevc_hop_tpu/models/ss_scan.py:1013",
+         fn=lambda: (ia.motion_write(*mbufs["kernel"][:3], pos, inter, mvq,
+                                     n, mbufs["kernel"][3], refsel),
+                     torch.stack(mbufs["kernel"]))[1],
+         plain=lambda: (ia.motion_write_plain(*mbufs["plain"][:3], pos, inter,
+                                              mvq, n, mbufs["plain"][3],
+                                              refsel),
+                        torch.stack(mbufs["plain"]))[1],
+         nbytes=c * (20 + 4 * 4 * (n // 4) ** 2), ops=c * 4 * (n // 4) ** 2)
+    # C12 with its PSS decide, after C10's PSS form on the same level
+    inter0, mv0, smode0, costs, refsel0 = ia.inter_arms(
+        *aargs, ipred.clone(), *tail, pss=pss)
+    base = (ipred, inter0, mv0, smode0)
+    hc_off = H // 2 + 32
+    rc = oc.clone()
+    head = (ry, oy, rc, pos, zcur, zmax2n, motion, nbav, miav, ring, costs)
+    gtail = (n, W, H, hc_off, 8, lam, 16)
+
+    def step(fn):
+        b = tuple(t.clone() for t in base)
+        r = refsel0.clone()
+        return fn(*head, *b, *gtail, r) + b + (r,)
+
+    anchors = gt_anchor_count(pos, zcur, zmax2n, motion, nbav, miav, ring, n,
+                              ss.SS_IDX_PSS)
+    nflag = int(step(gt.gt_step)[0].sum())
+    spec(name=f"C12 gt_decide (PSS, {n}x{n})", counter="C12 decide PSS",
+         path="pss-gt", kernel="gt_decide_kernel",
+         shape=f"{c} CUs of {n}x{n}, {anchors} causal anchors searched, "
+               f"{nflag} GT",
+         source="hevc_hop_torch/csrc/gt_search.cu",
+         replaces="hevc_hop_tpu/models/ss_scan.py:973",
+         fn=lambda: step(gt.gt_step), plain=lambda: step(gt.gt_step_plain),
+         nbytes=c * 140 + nflag * (2 * n * n * 4 + 2 * (n + 3) ** 2 * 4),
+         ops=nflag * 2 * (mc_ops(n, 4) + warp_ops(n // 2)))
+    return _time_specs(specs, checks, launches)
+
+
 KERNELS = ("checksum_kernel", "intra_kernel", "tq_encode_kernel",
            "tq_encode_rdoq_kernel", "tq_decode_kernel", "rdoq_quant_kernel",
            "deblock_kernel", "partition_rd_kernel",
@@ -2668,12 +3133,19 @@ def _profile(fn):
 def phase_profile(name, ctx):
     """One encode and one decode of a main path's frame, each under
     torch.profiler: the card's idle share of each, and each kernel's
-    device time (C2's sums every C2 launch: RMD, chroma, decode)."""
+    device time (C2's sums every C2 launch: RMD, chroma, decode). On the
+    PSS path the encode is its first PSS picture's (after the ISS one,
+    untraced) and the decode the whole sequence's."""
     from hevc_hop_torch.models.decoder import Decoder
     enc, frame = ctx["enc"], ctx["frame"]
     box = {}
-    out = {"encode": _profile(
-        lambda: box.setdefault("s", enc.encode_frame(*frame)))}
+    if "frames" in ctx:
+        enc.encode_frame(*ctx["frames"][0])
+        out = {"encode": _profile(lambda: enc._encode_pss(*frame, 1))}
+        box["s"] = ctx["stream"]
+    else:
+        out = {"encode": _profile(
+            lambda: box.setdefault("s", enc.encode_frame(*frame)))}
     out["decode"] = _profile(lambda: Decoder().decode_stream(box["s"]))
     log(f"profile {name}: {json.dumps(out)}")
     return out
@@ -2704,22 +3176,28 @@ def main() -> int:
     for name in PATHS:
         paths[name], ctxs[name] = phase_main_path(name)
         log_host(f"{name} path timed")
-    for name in ISS_PATHS:
-        paths[name], ctxs[name] = phase_iss_path(name)
+    for name, (*_, content) in ISS_PATHS.items():
+        run = phase_pss_path if content == "panned" else phase_iss_path
+        paths[name], ctxs[name] = run(name)
         log_host(f"{name} path timed")
     gt_share = phase_gt_share(ctxs)
+    log_host("gt share timed")
     iss_prepass = phase_iss_kernels(checks, ctxs)
+    log_host("lenslet launches held")
     phase_cpu_parity()
     phase_fixture()
     full_fixtures = phase_full_fixtures(ctxs)
+    log_host("parity and fixtures done")
     cli_s = phase_cli()
     cli_holo_s = phase_cli_holo(ctxs)
+    log_host("CLI done")
     bdrate = phase_bdrate()
     log_host("parity, fixtures, CLI and BD-rate done")
     launches = {k: v["launches"] for k, v in paths.items()}
     rows = (phase_timing(ctxs, ps, checks, launches)
             + phase_iss_timing(ctxs, checks, launches)
-            + phase_gt_timing(ctxs, checks, launches))
+            + phase_gt_timing(ctxs, checks, launches)
+            + phase_pss_timing(ctxs, checks, launches))
     for name in paths:
         paths[name]["profile"] = phase_profile(name, ctxs[name])
     for r in rows:

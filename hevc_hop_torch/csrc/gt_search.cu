@@ -1,14 +1,15 @@
-// Kernel C12: the GT corner search of the ISS tournament, and the GT
-// decision.
+// Kernel C12: the GT corner search of the ISS and PSS tournaments, and the
+// GT decision.
 //
 // Replaces hevc_hop_tpu/models/ss_scan.py _gt_search, _gt_arm (search
-// entry, hh_gt_search), and the GT branch of scan_encode_iss's step with
-// gt_chroma_safe (decide entry, hh_gt_decide).
+// entry, hh_gt_search), and the GT branch of scan_encode_iss's and
+// scan_encode_pss's steps with gt_chroma_safe (decide entry,
+// hh_gt_decide).
 //
 // Search entry, one CTA per (block, anchor). Anchor 0 is kernel C9's ring
 // (the least-cost displacement whose 2n window is causal); anchor 1 is the
-// block's first AMVP predictor (ss_common.cuh gather_cands, read before the
-// level's motion write), rounded to full pel, when it is valid, causal and
+// block's first SS AMVP predictor (ss_common.cuh gather_cands, read before
+// the level's motion write), rounded to full pel, when it is valid, causal and
 // not anchor 0 again. A CTA whose anchor is not causal writes a cost of
 // 3e38 and stops. Otherwise it stages the clamped [2n, 2n] recon window
 // around the anchor and the block's original in shared memory, and runs the
@@ -30,7 +31,9 @@
 // as they stand before the level's chroma recon: interp.cuh's mc_block at
 // phase 0 or 4, then the half-pel warp) must be safe. Then the GT flag is
 // set and C10's choice overridden in place: the prediction, inter = 1,
-// MV = anchor * 4, the diagonal scan (mode 0).
+// MV = anchor * 4, the diagonal scan (mode 0). PSS form (refsel not null):
+// the GT cost must also beat C10's temporal cost, and the reference index
+// of a GT block is the SS one.
 //
 // Floats: each SSE is the reference's float32 sum where that is exact
 // (below 2^24); above it, ss_common.cuh block_sum's order, which is not the
@@ -68,7 +71,7 @@ struct GtSearch {
   const int32_t *anchor;
   const float *gt_rate;
   const uint8_t *gt_ok;
-  int n, w, h, bit_depth, mi_size;
+  int n, w, h, bit_depth, mi_size, ss_idx;
   float lam;
   int32_t *s_gtc, *s_pred;
   float *s_cost;
@@ -105,7 +108,7 @@ __global__ void gt_search_kernel(GtSearch a) {
     } else {
       Cands c;
       gather_cands(a.m, px, py, n, a.nbav + 5 * b, a.miav + 3 * b,
-                   a.mi_size, c);
+                   a.mi_size, a.ss_idx, c);
       const int qx = c.preds[0][0], qy = c.preds[0][1];
       const bool valid =
           iabs(qx) < kHugePred / 2 && iabs(qy) < kHugePred / 2;
@@ -223,6 +226,8 @@ struct GtDecide {
   const int32_t *s_amv, *s_ok;
   const float *costs;
   int32_t *pred, *inter, *mv, *smode, *flag, *gtc;
+  int32_t *refsel;   // PSS: costs [B, 4] and the reference index; null
+  int ss_idx;
 };
 
 __global__ void gt_decide_kernel(GtDecide a) {
@@ -239,10 +244,13 @@ __global__ void gt_decide_kernel(GtDecide a) {
       nonzero |= s_gt[k] != 0;
       a.gtc[6 * b + k] = s_gt[k];
     }
-    const float *c = a.costs + 3 * b;   // intra, merge, SS
+    const bool pss = a.refsel != nullptr;
+    // intra, merge, SS (and temporal on PSS)
+    const float *c = a.costs + (pss ? 4 : 3) * b;
     s_ai = ai;
     s_cand = (a.s_ok[2 * b] || a.s_ok[2 * b + 1]) && nonzero &&
-             gcost < c[2] && gcost < c[0] && gcost < c[1];
+             gcost < c[2] && gcost < c[0] && gcost < c[1] &&
+             (!pss || gcost < c[3]);
   }
   __syncthreads();
   const int ai = s_ai;
@@ -279,6 +287,7 @@ __global__ void gt_decide_kernel(GtDecide a) {
       a.mv[2 * b] = 4 * vx;
       a.mv[2 * b + 1] = 4 * vy;
       a.smode[b] = 0;
+      if (a.refsel != nullptr) a.refsel[b] = a.ss_idx;
     }
   }
 }
@@ -306,7 +315,8 @@ HH_EXPORT int hh_gt_search(
     const void *pi4, const void *rf4, int hp, int wp, const void *nbav,
     const void *miav, const void *anchor, const void *gt_rate,
     const void *gt_ok, int b, int n, int w, int h, int bit_depth,
-    int mi_size, float lam, void *s_gtc, void *s_pred, void *s_cost,
+    int mi_size, int ss_idx, float lam, void *s_gtc, void *s_pred,
+    void *s_cost,
     void *s_amv, void *s_ok, void *stream) {
   GtSearch a;
   a.recon = static_cast<const int32_t *>(recon);
@@ -329,6 +339,7 @@ HH_EXPORT int hh_gt_search(
   a.h = h;
   a.bit_depth = bit_depth;
   a.mi_size = mi_size;
+  a.ss_idx = ss_idx;
   a.lam = lam;
   a.s_gtc = static_cast<int32_t *>(s_gtc);
   a.s_pred = static_cast<int32_t *>(s_pred);
@@ -347,14 +358,17 @@ HH_EXPORT int hh_gt_search(
 // cr from row hc_off, hc rows per picture); pos [B, 2]; the search entry's
 // outputs; costs [B, 3] float32 (intra, merge, SS) from kernel C10. In
 // place where GT wins: pred [B, n, n], inter [B], mv [B, 2], smode [B]
-// int32. Out: flag [B], gtc [B, 6] int32.
+// int32. Out: flag [B], gtc [B, 6] int32. PSS form: costs [B, 4] (the
+// temporal cost last) and refsel [B] int32, set to ss_idx where GT wins;
+// refsel null: the ISS form, costs [B, 3].
 HH_EXPORT int hh_gt_decide(const void *rc, int pw, int stride, int b, int n,
                            int hc, int hc_off, int bit_depth, const void *pos,
                            const void *s_gtc, const void *s_pred,
                            const void *s_cost, const void *s_amv,
                            const void *s_ok, const void *costs, void *pred,
                            void *inter, void *mv, void *smode, void *flag,
-                           void *gtc, void *stream) {
+                           void *gtc, void *refsel, int ss_idx,
+                           void *stream) {
   GtDecide a;
   a.rc = Src{static_cast<const int32_t *>(rc), stride, 0, hc - 1, pw};
   a.hc_off = hc_off;
@@ -373,6 +387,8 @@ HH_EXPORT int hh_gt_decide(const void *rc, int pw, int stride, int b, int n,
   a.smode = static_cast<int32_t *>(smode);
   a.flag = static_cast<int32_t *>(flag);
   a.gtc = static_cast<int32_t *>(gtc);
+  a.refsel = static_cast<int32_t *>(refsel);
+  a.ss_idx = ss_idx;
   // the (n+3)^2 chroma window and the [n, n] interpolated one (n = 2m)
   const size_t smem = sizeof(int32_t) * (n * n + mc_smem_words(n, 1));
   gt_decide_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

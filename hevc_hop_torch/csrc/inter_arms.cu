@@ -1,10 +1,12 @@
-// Kernel C10: merge arms, sub-pel refinement and the ISS tournament; and
-// the write of a level's motion into the carried planes.
+// Kernel C10: merge arms, sub-pel refinement and the ISS and PSS
+// tournaments; and the write of a level's motion into the carried planes.
 //
 // Replaces hevc_hop_tpu/models/ss_scan.py _gather_cands, _merge_arms,
 // _frac_refine, _min_rate_bits and the intra / SS / merge tournament of
-// scan_encode_iss's step with the GT warp off (entry hh_inter_arms), and
-// that step's motion-plane scatter (entry hh_motion_write).
+// scan_encode_iss's step, and the intra / SS / temporal / merge one of
+// scan_encode_pss's (:982-1003), with the GT warp off (entry
+// hh_inter_arms), and those steps' motion-plane scatter (entry
+// hh_motion_write).
 //
 // Arms entry, one CTA per block. Thread 0 gathers the nine merge candidates
 // and six AMVP predictors (ss_common.cuh). Each merge candidate that is
@@ -18,17 +20,26 @@
 // the intra one in place, and the inter flag, the MV, the mode that picks
 // kernel C3's scan (0 for inter: the diagonal scan) and the three costs.
 //
+// PSS form (ref not null; L0 = [previous picture, SS], the SS reference at
+// index 1): a merge candidate that names the temporal reference is
+// predicted from the previous picture and needs no causal test; C9's
+// temporal result is refined over the previous picture with the temporal
+// predictors; the tournament takes the lower of the SS and temporal costs
+// as the inter cost (the SS arm wins only when strictly lower, as in the
+// reference), and writes the four costs and the reference index too.
+//
 // Floats: each SSE is the reference's float32 sum (ss_common.cuh block_sum's
 // order). The terms are exact integers, so when their integer total stays
 // below 2^24 every partial sum is exact and the total is that sum: the CTA
 // adds in integers and thread 0 takes block_sum's order only above 2^24.
 //
 // Motion entry, one thread per 4x4 cell of a launch's blocks: writes each
-// block's MV (zero for intra) and inter flag into mvx4, mvy4 and pi4, after
-// the arms entry of every block of the level has read them.
+// block's MV (zero for intra) and inter flag into mvx4, mvy4 and pi4 (on a
+// PSS picture its reference index into rf4, zero for intra), after the
+// arms entry of every block of the level has read them.
 //
-// Bound: integer operations: 25 MCs of (n+7) n 8-tap and n^2 8-tap
-// multiply-adds each against n^2 + (n+7)^2 samples. The design keeps the
+// Bound: integer operations: 25 MCs (41 in the PSS form) of (n+7) n 8-tap
+// and n^2 8-tap multiply-adds each against n^2 + (n+7)^2 samples. The design keeps the
 // block, the MC scratch and the three running predictions in shared memory;
 // the candidates run one after another, each over the whole CTA.
 #include "interp.cuh"
@@ -43,7 +54,7 @@ __constant__ int kFracOffs[8][2] = {{-1, -1}, {0, -1}, {1, -1}, {-1, 0},
                                     {1, 0},   {-1, 1}, {0, 1},  {1, 1}};
 
 struct Arms {
-  Src recon;
+  Src recon, ref;   // ref: the previous picture (PSS), ref.p null on ISS
   const int32_t *org;
   const int32_t *zmaxw;
   Motion m;
@@ -56,6 +67,10 @@ struct Arms {
   float lam, lam_i, mrate[9];
   int32_t *inter, *mv, *smode;
   float *costs;
+  // PSS: C9's temporal search, and the reference index out
+  const int32_t *mv_t, *tpred0;
+  const float *tsse0;
+  int32_t *refsel;
 };
 
 // float32 sum of (a - b)^2 over the n x n block in block_sum's order (see
@@ -88,51 +103,21 @@ __device__ void copy_block(int32_t *dst, const int32_t *src, int nn) {
   __syncthreads();
 }
 
-__global__ void inter_arms_kernel(Arms a, const int32_t *pos,
-                                  const int32_t *zcur) {
-  extern __shared__ int32_t sm[];
-  const int b = blockIdx.x, n = a.n, nn = n * n;
-  const int px = pos[2 * b], py = pos[2 * b + 1], zc = zcur[b];
-  int32_t *O = sm;
-  int32_t *P = O + nn;     // the candidate's prediction
-  int32_t *MP = P + nn;    // best merge prediction
-  int32_t *RP = MP + nn;   // best refined prediction
-  int32_t *SP = RP + nn;   // best of a refinement stage
-  unsigned long long *red = reinterpret_cast<unsigned long long *>(SP + nn);
-  int32_t *scratch = reinterpret_cast<int32_t *>(red + kThreads);
-  __shared__ Cands c;
-  for (int i = threadIdx.x; i < nn; i += blockDim.x)
-    O[i] = a.org[(long long)(py + i / n) * a.recon.stride + px + i % n];
-  if (threadIdx.x == 0)
-    gather_cands(a.m, px, py, n, a.nbav + 5 * b, a.miav + 3 * b, a.mi_size,
-                 c);
-  __syncthreads();
-
-  // merge arms
-  float mcost = kBig;
-  int mk = 0;
-  for (int k = 0; k < 9; ++k) {
-    const int cx = c.mv[k][0], cy = c.mv[k][1];
-    float cost = kBig;
-    const bool ok = c.valid[k] && causal(a.zmaxw, px + (cx >> 2),
-                                         py + (cy >> 2), n, a.w, a.h, zc);
-    if (ok) {
-      mc_block(a.recon, px, py, cx, cy, n, 0, a.bit_depth, scratch, P);
-      cost = __fadd_rn(sse_block(O, P, n, red), a.mrate[k]);
-    }
-    if (k == 0 || cost < mcost) {
-      mcost = cost;
-      mk = k;
-      if (ok) copy_block(MP, P, nn);
-    }
-  }
-
-  // half- then quarter-pel refinement of kernel C9's result
-  const float sse0 = a.sse0[b];
-  int bmx = 4 * a.mv_i[2 * b], bmy = 4 * a.mv_i[2 * b + 1];
-  float best = fmaf(__fadd_rn(min_rate_bits(bmx, bmy, &c.preds[0][0], 6),
-                              kInterBits), a.lam, sse0);
-  copy_block(RP, a.pred0 + (long long)b * nn, nn);
+// Half- then quarter-pel refinement of a full-pel search result (mv_i,
+// pred0, sse0) over src with np predictors: the best quarter-pel MV into
+// (mx, my), its prediction into RP, and the cost returned. SP and P are
+// scratch [n, n]; O the block's original.
+__device__ float refine(const Src &src, int px, int py, int n, int bit_depth,
+                        float lam, const int32_t *O, const int32_t *mv_i,
+                        const int32_t *pred0, float sse0, const int *preds,
+                        int np, int &mx, int &my, int32_t *RP, int32_t *SP,
+                        int32_t *P, int32_t *scratch,
+                        unsigned long long *red) {
+  const int nn = n * n;
+  int bmx = 4 * mv_i[0], bmy = 4 * mv_i[1];
+  float best = fmaf(__fadd_rn(min_rate_bits(bmx, bmy, preds, np), kInterBits),
+                    lam, sse0);
+  copy_block(RP, pred0, nn);
   if (sse0 < 1e37f) {
     for (int step = 2; step >= 1; --step) {
       const int ox = bmx, oy = bmy;
@@ -141,11 +126,11 @@ __global__ void inter_arms_kernel(Arms a, const int32_t *pos,
       for (int k = 0; k < 8; ++k) {
         const int cx = ox + kFracOffs[k][0] * step;
         const int cy = oy + kFracOffs[k][1] * step;
-        mc_block(a.recon, px, py, cx, cy, n, 0, a.bit_depth, scratch, P);
+        mc_block(src, px, py, cx, cy, n, 0, bit_depth, scratch, P);
         const float sse = sse_block(O, P, n, red);
         const float cost = fmaf(
-            __fadd_rn(min_rate_bits(cx, cy, &c.preds[0][0], 6), kInterBits),
-            a.lam, sse);
+            __fadd_rn(min_rate_bits(cx, cy, preds, np), kInterBits), lam,
+            sse);
         if (k == 0 || cost < cmin) {
           cmin = cost;
           ci = k;
@@ -160,31 +145,103 @@ __global__ void inter_arms_kernel(Arms a, const int32_t *pos,
       best = fminf(best, cmin);
     }
   }
+  mx = bmx;
+  my = bmy;
+  return best;
+}
+
+__global__ void inter_arms_kernel(Arms a, const int32_t *pos,
+                                  const int32_t *zcur) {
+  extern __shared__ int32_t sm[];
+  const int b = blockIdx.x, n = a.n, nn = n * n;
+  const int px = pos[2 * b], py = pos[2 * b + 1], zc = zcur[b];
+  const bool pss = a.ref.p != nullptr;
+  const int ss_idx = pss ? 1 : 0;
+  int32_t *O = sm;
+  int32_t *P = O + nn;     // the candidate's prediction
+  int32_t *MP = P + nn;    // best merge prediction
+  int32_t *RP = MP + nn;   // best refined SS prediction
+  int32_t *SP = RP + nn;   // best of a refinement stage
+  int32_t *TP = SP + nn;   // best refined temporal prediction (PSS)
+  unsigned long long *red =
+      reinterpret_cast<unsigned long long *>(TP + (pss ? nn : 0));
+  int32_t *scratch = reinterpret_cast<int32_t *>(red + kThreads);
+  __shared__ Cands c;
+  for (int i = threadIdx.x; i < nn; i += blockDim.x)
+    O[i] = a.org[(long long)(py + i / n) * a.recon.stride + px + i % n];
+  if (threadIdx.x == 0)
+    gather_cands(a.m, px, py, n, a.nbav + 5 * b, a.miav + 3 * b, a.mi_size,
+                 ss_idx, c);
+  __syncthreads();
+
+  // merge arms: an SS candidate reads the recon and must be causal, a
+  // temporal one (PSS) reads the previous picture
+  float mcost = kBig;
+  int mk = 0;
+  for (int k = 0; k < 9; ++k) {
+    const int cx = c.mv[k][0], cy = c.mv[k][1];
+    const bool is_ss = c.ref[k] == ss_idx;
+    float cost = kBig;
+    const bool ok =
+        c.valid[k] && (!is_ss || causal(a.zmaxw, px + (cx >> 2),
+                                        py + (cy >> 2), n, a.w, a.h, zc));
+    if (ok) {
+      mc_block(is_ss ? a.recon : a.ref, px, py, cx, cy, n, 0, a.bit_depth,
+               scratch, P);
+      cost = __fadd_rn(sse_block(O, P, n, red), a.mrate[k]);
+    }
+    if (k == 0 || cost < mcost) {
+      mcost = cost;
+      mk = k;
+      if (ok) copy_block(MP, P, nn);
+    }
+  }
+
+  // half- then quarter-pel refinement of kernel C9's results
+  int bmx, bmy, tmx = 0, tmy = 0;
+  const float best =
+      refine(a.recon, px, py, n, a.bit_depth, a.lam, O, a.mv_i + 2 * b,
+             a.pred0 + (long long)b * nn, a.sse0[b], &c.preds[0][0], 6, bmx,
+             bmy, RP, SP, P, scratch, red);
+  float tbest = kBig;
+  if (pss)
+    tbest = refine(a.ref, px, py, n, a.bit_depth, a.lam, O, a.mv_t + 2 * b,
+                   a.tpred0 + (long long)b * nn, a.tsse0[b],
+                   &c.tpreds[0][0], 3, tmx, tmy, TP, SP, P, scratch, red);
 
   // tournament against the intra prediction
   int32_t *ip = a.ipred + (long long)b * nn;
   copy_block(P, ip, nn);
   const float icost = __fadd_rn(sse_block(O, P, n, red), a.lam_i);
-  const bool merge_win = mcost < best && mcost < icost;
-  const bool inter = merge_win || best < icost;
-  if (merge_win || inter)
+  const bool ss_beats_t = !pss || best < tbest;
+  const float intercost = pss ? fminf(best, tbest) : best;
+  const bool merge_win = mcost < intercost && mcost < icost;
+  const bool inter = merge_win || intercost < icost;
+  const int32_t *AP = ss_beats_t ? RP : TP;
+  if (inter)
     for (int i = threadIdx.x; i < nn; i += blockDim.x)
-      ip[i] = merge_win ? MP[i] : RP[i];
+      ip[i] = merge_win ? MP[i] : AP[i];
   if (threadIdx.x == 0) {
     a.inter[b] = inter;
-    a.mv[2 * b] = merge_win ? c.mv[mk][0] : bmx;
-    a.mv[2 * b + 1] = merge_win ? c.mv[mk][1] : bmy;
+    a.mv[2 * b] = merge_win ? c.mv[mk][0] : ss_beats_t ? bmx : tmx;
+    a.mv[2 * b + 1] = merge_win ? c.mv[mk][1] : ss_beats_t ? bmy : tmy;
     a.smode[b] = inter ? 0 : a.imode[b];
-    a.costs[3 * b] = icost;
-    a.costs[3 * b + 1] = mcost;
-    a.costs[3 * b + 2] = best;
+    const int nc = pss ? 4 : 3;
+    a.costs[nc * b] = icost;
+    a.costs[nc * b + 1] = mcost;
+    a.costs[nc * b + 2] = best;
+    if (pss) {
+      a.costs[nc * b + 3] = tbest;
+      a.refsel[b] = merge_win ? c.ref[mk] : ss_beats_t ? ss_idx : 0;
+    }
   }
 }
 
 __global__ void motion_write_kernel(int32_t *mvx4, int32_t *mvy4,
                                     int32_t *pi4, int wp, const int32_t *pos,
                                     const int32_t *inter, const int32_t *mv,
-                                    int nb, int u) {
+                                    int nb, int u, int32_t *rf4,
+                                    const int32_t *refsel) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)nb * u * u) return;
   const int b = (int)(i / (u * u)), cell = (int)(i % (u * u));
@@ -194,6 +251,7 @@ __global__ void motion_write_kernel(int32_t *mvx4, int32_t *mvy4,
   mvx4[o] = on ? mv[2 * b] : 0;
   mvy4[o] = on ? mv[2 * b + 1] : 0;
   pi4[o] = on;
+  if (rf4 != nullptr) rf4[o] = on ? refsel[b] : 0;
 }
 
 }  // namespace
@@ -204,7 +262,10 @@ __global__ void motion_write_kernel(int32_t *mvx4, int32_t *mvy4,
 // int32 and sse0 [B] float32 from kernel C9; ipred [B, n, n] and imode [B]
 // int32 from kernel C2 (ipred is overwritten). lam float32, lam_i = float32
 // (lam * 8), mrate[9] the merge rates. Out: inter, mv [B, 2], smode int32,
-// costs [B, 3] float32.
+// costs [B, 3] float32. PSS form: ref the previous picture (int32, the
+// recon's row stride, h rows), mv_t [B, 2] and tpred0 [B, n, n] int32 and
+// tsse0 [B] float32 from kernel C9's temporal search; costs [B, 4] and
+// refsel [B] int32 out. ref null: the ISS form.
 HH_EXPORT int hh_inter_arms(
     const void *recon, const void *org, int stride, const void *pos,
     const void *zcur, const void *zmaxw, const void *mvx4, const void *mvy4,
@@ -213,9 +274,16 @@ HH_EXPORT int hh_inter_arms(
     void *ipred, const void *imode, int b, int n, int w, int h,
     int bit_depth, int mi_size, float lam, float lam_i, float r0, float r1,
     float r2, float r3, float r4, float r5, float r6, float r7, float r8,
-    void *inter, void *mv, void *smode, void *costs, void *stream) {
+    void *inter, void *mv, void *smode, void *costs, const void *ref,
+    const void *mv_t, const void *tpred0, const void *tsse0, void *refsel,
+    void *stream) {
   Arms a;
   a.recon = Src{static_cast<const int32_t *>(recon), stride, 0, h - 1, w};
+  a.ref = Src{static_cast<const int32_t *>(ref), stride, 0, h - 1, w};
+  a.mv_t = static_cast<const int32_t *>(mv_t);
+  a.tpred0 = static_cast<const int32_t *>(tpred0);
+  a.tsse0 = static_cast<const float *>(tsse0);
+  a.refsel = static_cast<int32_t *>(refsel);
   a.org = static_cast<const int32_t *>(org);
   a.zmaxw = static_cast<const int32_t *>(zmaxw);
   a.m = Motion{static_cast<const int32_t *>(mvx4),
@@ -242,8 +310,10 @@ HH_EXPORT int hh_inter_arms(
   a.mv = static_cast<int32_t *>(mv);
   a.smode = static_cast<int32_t *>(smode);
   a.costs = static_cast<float *>(costs);
-  const size_t smem = sizeof(int32_t) * (5 * n * n + mc_smem_words(n, 0)) +
-                      sizeof(unsigned long long) * kThreads;
+  const int bufs = ref != nullptr ? 6 : 5;
+  const size_t smem =
+      sizeof(int32_t) * (bufs * n * n + mc_smem_words(n, 0)) +
+      sizeof(unsigned long long) * kThreads;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         (const void *)inter_arms_kernel,
@@ -257,10 +327,12 @@ HH_EXPORT int hh_inter_arms(
 }
 
 // Motion entry: mvx4, mvy4, pi4 int32 [hp, wp]; pos [B, 2], inter [B], mv
-// [B, 2] int32 of B blocks of size n.
+// [B, 2] int32 of B blocks of size n; on a PSS picture rf4 [hp, wp] and
+// refsel [B] int32 (both null on an ISS one).
 HH_EXPORT int hh_motion_write(void *mvx4, void *mvy4, void *pi4, int wp,
                               const void *pos, const void *inter,
-                              const void *mv, int b, int n, void *stream) {
+                              const void *mv, int b, int n, void *rf4,
+                              const void *refsel, void *stream) {
   const int u = n / 4;
   const long long items = (long long)b * u * u;
   const int threads = 128;
@@ -269,6 +341,6 @@ HH_EXPORT int hh_motion_write(void *mvx4, void *mvy4, void *pi4, int wp,
       static_cast<int32_t *>(mvx4), static_cast<int32_t *>(mvy4),
       static_cast<int32_t *>(pi4), wp, static_cast<const int32_t *>(pos),
       static_cast<const int32_t *>(inter), static_cast<const int32_t *>(mv),
-      b, u);
+      b, u, static_cast<int32_t *>(rf4), static_cast<const int32_t *>(refsel));
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,10 @@
 // Device code shared by kernel C9 (ss_search.cu) and kernel C10
 // (inter_arms.cu), and by kernel C12 (gt_search.cu): the MVD rate of
 // hevc_hop_tpu/models/ss_scan.py _mvd_bits and _min_rate_bits, the
-// causality tests of a displacement (for its MC window and for its GT
-// window, ss_anchor_ok), and
-// _gather_cands (merge candidates and AMVP predictors from the carried 4x4
-// motion planes).
+// validity tests of a displacement (in the picture; causal for its MC
+// window and for its GT window, ss_anchor_ok), and _gather_cands (merge
+// candidates with their reference indices, and the SS and temporal AMVP
+// predictors, from the carried 4x4 motion planes).
 #pragma once
 
 #include "common.cuh"
@@ -63,23 +63,25 @@ struct Motion {
 struct Cands {
   int mv[9][2];   // quarter pel: A1, B1, B0, A0, B2, three MI, zero
   int valid[9];
-  int preds[6][2];
+  int ref[9];     // each candidate's reference index
+  int preds[6][2];   // the SS predictors
+  int tpreds[3][2];  // the temporal predictors (PSS)
 };
 
-// _gather_cands with the SS reference at index 0 (ISS slices)
+// _gather_cands with the SS reference at index ss_idx (0 on ISS slices,
+// L0's last on PSS ones)
 __device__ void gather_cands(const Motion &m, int px, int py, int n,
                              const uint8_t *nbav, const uint8_t *miav,
-                             int mi_size, Cands &c) {
+                             int mi_size, int ss_idx, Cands &c) {
   const int nx[5] = {px - 1, px + n - 1, px + n, px - 1, px - 1};
   const int ny[5] = {py + n - 1, py - 1, py - 1, py + n, py - 1};
-  int ref[5];
   for (int k = 0; k < 5; ++k) {
     const int gy = clip3(0, m.hp * 4 - 1, ny[k]) / 4;
     const int gx = clip3(0, m.wp * 4 - 1, nx[k]) / 4;
     const long long o = (long long)gy * m.wp + gx;
     c.mv[k][0] = m.mvx4[o];
     c.mv[k][1] = m.mvy4[o];
-    ref[k] = m.rf4[o];
+    c.ref[k] = m.rf4[o];
     c.valid[k] = nbav[k] && m.pi4[o] == 1;
   }
   const int dmi = mi_size ? -(((n + mi_size - 1) / mi_size) * mi_size) * 4
@@ -89,14 +91,20 @@ __device__ void gather_cands(const Motion &m, int px, int py, int n,
     c.mv[5 + k][0] = mi[k][0];
     c.mv[5 + k][1] = mi[k][1];
     c.valid[5 + k] = mi_size > 0 && miav[k];
+    c.ref[5 + k] = ss_idx;
   }
   c.mv[8][0] = c.mv[8][1] = 0;
   c.valid[8] = 1;
+  c.ref[8] = 0;
   for (int k = 0; k < 2; ++k) {
-    const bool ok = c.valid[k] && ref[k] == 0;
+    const bool ok = c.valid[k] && c.ref[k] == ss_idx;
+    const bool tok = c.valid[k] && c.ref[k] != ss_idx;
     c.preds[k][0] = ok ? c.mv[k][0] : kHugePred;
     c.preds[k][1] = ok ? c.mv[k][1] : kHugePred;
+    c.tpreds[k][0] = tok ? c.mv[k][0] : kHugePred;
+    c.tpreds[k][1] = tok ? c.mv[k][1] : kHugePred;
   }
+  c.tpreds[2][0] = c.tpreds[2][1] = 0;
   for (int k = 0; k < 3; ++k) {
     c.preds[2 + k][0] = c.valid[5 + k] ? mi[k][0] : kHugePred;
     c.preds[2 + k][1] = c.valid[5 + k] ? mi[k][1] : kHugePred;
@@ -104,12 +112,18 @@ __device__ void gather_cands(const Motion &m, int px, int py, int n,
   c.preds[5][0] = c.preds[5][1] = 0;
 }
 
+// Whether an n x n block at (tx, ty) lies in the picture
+__device__ __forceinline__ bool in_picture(int tx, int ty, int n, int w,
+                                           int h) {
+  return tx >= 0 && ty >= 0 && tx + n <= w && ty + n <= h;
+}
+
 // Whether an n x n block at (tx, ty) lies in the picture and, with its
 // interpolation margin, only over samples decoded before the current block
 // (zmaxw [h - n + 1, w - n + 1], the reference's masks)
 __device__ __forceinline__ bool causal(const int32_t *zmaxw, int tx, int ty,
                                        int n, int w, int h, int zcur) {
-  if (tx < 0 || ty < 0 || tx + n > w || ty + n > h) return false;
+  if (!in_picture(tx, ty, n, w, h)) return false;
   return zmaxw[(long long)ty * (w - n + 1) + tx] < zcur;
 }
 

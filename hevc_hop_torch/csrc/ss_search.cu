@@ -1,10 +1,10 @@
-// Kernel C9: the self-similarity full search, in the scan and in the
-// quadtree pre-pass.
+// Kernel C9: the self-similarity and temporal full searches, in the scan
+// and in the quadtree pre-pass.
 //
 // Replaces hevc_hop_tpu/models/ss_scan.py _ss_search (with its GT anchor
-// ring, :266-288), _dyn_rate_map and _mvd_bits (scan entry, hh_ss_search),
-// and the SS arm of hevc_hop_tpu/models/ss_partition.py _ss_rd_size
-// (pre-pass entry, hh_ss_rd).
+// ring, :266-288), _t_search (:301), _dyn_rate_map and _mvd_bits (scan
+// entry, hh_ss_search), and hevc_hop_tpu/models/ss_partition.py
+// _ss_rd_size, its SS arm and its temporal one (pre-pass entry, hh_ss_rd).
 //
 // One CTA per block. The CTA stages the clamped (n+2r)^2 search window of
 // the recon (the original plane in the pre-pass) and the block's original
@@ -22,17 +22,28 @@
 // the displacements whose 2n GT window plus 2 samples of slack is in the
 // picture and causal (zmax2n), with the same tie rule (the reference's
 // lax.top_k with k = 1): the anchor ring, written as the anchor, its rate
-// and whether one was found. The pre-pass entry goes on with the dead-zone
-// transform round trip of the residual (tq.cuh, kernel C3's device
-// functions) and writes SSE + lambda * level bits + the search's rate.
+// and whether one was found. On a PSS picture the scan entry's grid has a
+// second row of CTAs, one per block again, that run the temporal search:
+// the same code over the previous picture's window with radius radius_t,
+// every displacement inside the picture valid (no causal test), with the
+// temporal predictors (the neighbours that name the temporal reference,
+// and zero); its own outputs. The pre-pass entry goes on with the
+// dead-zone transform round trip of the residual (tq.cuh, kernel C3's
+// device functions) and writes SSE + lambda * level bits + the search's
+// rate; on a PSS picture it first runs the temporal search over the
+// previous luma with the zero predictor, and takes its residual and rate
+// where its cost is lower.
 //
 // Floats: the reference's SSE map is float32 from XLA:CPU's convolution,
 // whose sums this kernel repeats in the same order (ROADMAP.md F8): over the
 // kernel in row-major order in blocks of 512 products, two accumulators per
 // block (even and odd products), added at the block's end, blocks added in
-// order; org^2 in ss_common.cuh block_sum's order. The rate lambda * (6 +
-// bits) is rounded on its own and then added, as in the reference. For
-// 8-bit samples and n <= 16 every sum is exact.
+// order; org^2 in ss_common.cuh block_sum's order. The PSS program compiles
+// both searches' sums otherwise (ROADMAP.md F10): over the kernel in
+// row-major order, one rounded add after another (Search::seq; the scan
+// entry's PSS launches). The rate lambda * (6 + bits) is rounded on its own
+// and then added, as in the reference. For 8-bit samples and n <= 16 every
+// sum is exact.
 //
 // Bound: float32 operations, 2 n^2 (2r+1)^2 multiply-adds per block for the
 // correlation and ref^2 against (n+2r)^2 + n^2 samples: far above the
@@ -49,13 +60,14 @@ constexpr int kConvBlock = 512;
 constexpr int kThreads = 256;
 
 struct Search {
-  const int32_t *src;  // searched plane (recon, or the original)
+  const int32_t *src;  // searched plane (recon, original, previous picture)
   const int32_t *org;  // original plane
   int stride;
-  const int32_t *zmaxw;
+  const int32_t *zmaxw;   // causality plane; null: the temporal search
   int n, radius, w, h;
   float lam;
   const int32_t *zmax2n;  // the GT window's causality plane, or null
+  int seq;                // the PSS program's sequential sums (F10)
 };
 
 struct Best {
@@ -105,12 +117,23 @@ __device__ Best search_block(const Search &s, int px, int py, int zcur,
   for (int d = tid; d < D * D; d += nt) {
     const int dy = d / D, dx = d % D;
     const int ty = py + dy - r, tx = px + dx - r;
-    if (!causal(s.zmaxw, tx, ty, n, s.w, s.h, zcur)) {
+    if (s.zmaxw != nullptr ? !causal(s.zmaxw, tx, ty, n, s.w, s.h, zcur)
+                           : !in_picture(tx, ty, n, s.w, s.h)) {
       if (bi == D * D) bi = d;   // a masked first entry, as argmin sees it
       continue;
     }
     float corr = 0.0f, ref2 = 0.0f;
-    for (int y0 = 0; y0 < n; y0 += rows_per_block) {
+    // F10: one accumulator over the whole kernel (the products are exact,
+    // so each fmaf is the rounded add)
+    for (int ky = 0; s.seq && ky < n; ++ky) {
+      const float *wr = win + (dy + ky) * W + dx;
+      const float *orow = of + ky * n;
+      for (int kx = 0; kx < n; ++kx) {
+        corr = fmaf(wr[kx], orow[kx], corr);
+        ref2 = fmaf(wr[kx], wr[kx], ref2);
+      }
+    }
+    for (int y0 = 0; !s.seq && y0 < n; y0 += rows_per_block) {
       float c0 = 0.0f, c1 = 0.0f, q0 = 0.0f, q1 = 0.0f;
       for (int ky = y0; ky < y0 + rows_per_block; ++ky) {
         const float *wr = win + (dy + ky) * W + dx;
@@ -188,32 +211,43 @@ __device__ Best search_block(const Search &s, int px, int py, int zcur,
   return best_s;
 }
 
-__global__ void ss_search_kernel(Search s, const int32_t *pos,
+struct Found {
+  int32_t *mv, *pred;
+  float *cost, *sse;
+};
+
+__global__ void ss_search_kernel(Search s, Search st, const int32_t *pos,
                                  const int32_t *zcur, Motion m,
                                  const uint8_t *nbav, const uint8_t *miav,
-                                 int mi_size, int32_t *mv, float *cost,
-                                 int32_t *pred, float *sse, int32_t *anchor,
-                                 float *gt_rate, uint8_t *gt_ok) {
+                                 int mi_size, int ss_idx, Found f,
+                                 Found ft, int32_t *anchor, float *gt_rate,
+                                 uint8_t *gt_ok) {
   extern __shared__ float sm[];
   const int b = blockIdx.x;
+  const bool temporal = blockIdx.y == 1;
+  const Search &q = temporal ? st : s;
+  const Found &o = temporal ? ft : f;
   const int px = pos[2 * b], py = pos[2 * b + 1];
   __shared__ Cands c;
   if (threadIdx.x == 0)
-    gather_cands(m, px, py, s.n, nbav + 5 * b, miav + 3 * b, mi_size, c);
+    gather_cands(m, px, py, q.n, nbav + 5 * b, miav + 3 * b, mi_size, ss_idx,
+                 c);
   __syncthreads();
-  const Best best = search_block(s, px, py, zcur[b], &c.preds[0][0], 6, sm);
-  const int n = s.n, W = n + 2 * s.radius;
-  const float *win = sm + search_words(n, s.radius) - W * W;
+  const Best best =
+      temporal ? search_block(q, px, py, 0, &c.tpreds[0][0], 3, sm)
+               : search_block(q, px, py, zcur[b], &c.preds[0][0], 6, sm);
+  const int n = q.n, W = n + 2 * q.radius;
+  const float *win = sm + search_words(n, q.radius) - W * W;
   for (int i = threadIdx.x; i < n * n; i += blockDim.x)
-    pred[(long long)b * n * n + i] =
-        (int32_t)win[(best.mvy + s.radius + i / n) * W + best.mvx + s.radius +
+    o.pred[(long long)b * n * n + i] =
+        (int32_t)win[(best.mvy + q.radius + i / n) * W + best.mvx + q.radius +
                      i % n];
   if (threadIdx.x == 0) {
-    mv[2 * b] = best.mvx;
-    mv[2 * b + 1] = best.mvy;
-    cost[b] = best.cost;
-    sse[b] = best.sse;
-    if (s.zmax2n != nullptr) {
+    o.mv[2 * b] = best.mvx;
+    o.mv[2 * b + 1] = best.mvy;
+    o.cost[b] = best.cost;
+    o.sse[b] = best.sse;
+    if (q.zmax2n != nullptr) {
       anchor[2 * b] = best.amvx;
       anchor[2 * b + 1] = best.amvy;
       gt_rate[b] = best.arate;
@@ -227,23 +261,39 @@ struct Tq {
   int bit_depth, qs, qbits, qoff, dqs, dqsh;
 };
 
-__global__ void ss_rd_kernel(Search s, const int32_t *pos,
+__global__ void ss_rd_kernel(Search s, Search st, const int32_t *pos,
                              const int32_t *zcur, int4 mi, Tq q,
                              float *cost) {
   extern __shared__ float sm[];
   const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int n = s.n, nn = n * n, W = n + 2 * s.radius;
+  const int n = s.n, nn = n * n;
+  const int rmax = st.src != nullptr && st.radius > s.radius ? st.radius
+                                                             : s.radius;
   const int px = pos[2 * b], py = pos[2 * b + 1];
   const int preds[8] = {0, 0, mi.x, 0, 0, mi.y, mi.z, mi.w};
-  const Best best = search_block(s, px, py, zcur[b], preds, 4, sm);
-  // the residual, then the transform round trip in the window's place
-  int32_t *O = reinterpret_cast<int32_t *>(sm + search_words(n, s.radius));
-  const float *win = sm + search_words(n, s.radius) - W * W;
-  for (int i = tid; i < nn; i += nt)
-    O[i] = (int32_t)sm[i] -
-           (int32_t)win[(best.mvy + s.radius + i / n) * W + best.mvx +
-                        s.radius + i % n];
-  __syncthreads();
+  Best best = search_block(s, px, py, zcur[b], preds, 4, sm);
+  // the residual (the original sits at the start of sm), then the transform
+  // round trip, past the larger search's words
+  int32_t *O = reinterpret_cast<int32_t *>(sm + search_words(n, rmax));
+  auto residual = [&](const Search &p, const Best &bb) {
+    const int W = n + 2 * p.radius;
+    const float *win = sm + search_words(n, p.radius) - W * W;
+    for (int i = tid; i < nn; i += nt)
+      O[i] = (int32_t)sm[i] - (int32_t)win[(bb.mvy + p.radius + i / n) * W +
+                                           bb.mvx + p.radius + i % n];
+    __syncthreads();
+  };
+  residual(s, best);
+  float valid = best.cost;
+  if (st.src != nullptr) {
+    const int zero[2] = {0, 0};
+    const Best tb = search_block(st, px, py, 0, zero, 1, sm);
+    valid = fminf(best.cost, tb.cost);
+    if (tb.cost < best.cost) {
+      residual(st, tb);
+      best = tb;
+    }
+  }
   int32_t *A = O + nn, *C = A + nn, *E = C + nn, *M = E + nn;
   float *F = reinterpret_cast<float *>(M + nn);
   float *G = F + nn;
@@ -282,7 +332,7 @@ __global__ void ss_rd_kernel(Search s, const int32_t *pos,
     bits = __fadd_rn(bits, any ? 10.0f : 1.0f);
     const float out = __fadd_rn(fmaf(bits, s.lam, dist),
                                 __fsub_rn(best.cost, best.sse));
-    cost[b] = best.cost < 1e37f ? out : kBig;
+    cost[b] = valid < 1e37f ? out : kBig;
   }
 }
 
@@ -302,7 +352,10 @@ int launch_smem(const void *kernel, size_t smem) {
 // [B, 5], miav [B, 3] bool. Out: mv [B, 2] full-pel int32, cost [B]
 // float32, pred [B, n, n] int32, sse [B] float32. With zmax2n [h-2n+1,
 // w-2n+1] int32 (null: GT off) also the anchor ring: anchor [B, 2] full-pel
-// int32, gt_rate [B] float32, gt_ok [B] bool.
+// int32, gt_rate [B] float32, gt_ok [B] bool. With ref (null: ISS) the
+// previous picture (int32, the same row stride, h rows) and radius_t, the
+// temporal search too, into tmv, tcost, tpred, tsse as mv, cost, pred,
+// sse; ss_idx is the SS reference's index (0 on ISS, 1 on PSS).
 HH_EXPORT int hh_ss_search(const void *recon, const void *org, int stride,
                            const void *pos, const void *zcur,
                            const void *zmaxw, const void *mvx4,
@@ -312,51 +365,67 @@ HH_EXPORT int hh_ss_search(const void *recon, const void *org, int stride,
                            int radius, int w, int h, int mi_size, float lam,
                            void *mv, void *cost, void *pred, void *sse,
                            const void *zmax2n, void *anchor, void *gt_rate,
-                           void *gt_ok, void *stream) {
+                           void *gt_ok, const void *ref, int radius_t,
+                           int ss_idx, void *tmv, void *tcost, void *tpred,
+                           void *tsse, void *stream) {
   const Search s{static_cast<const int32_t *>(recon),
                  static_cast<const int32_t *>(org), stride,
                  static_cast<const int32_t *>(zmaxw), n, radius, w, h, lam,
-                 static_cast<const int32_t *>(zmax2n)};
+                 static_cast<const int32_t *>(zmax2n), ref != nullptr};
+  const Search st{static_cast<const int32_t *>(ref),
+                  static_cast<const int32_t *>(org), stride, nullptr, n,
+                  radius_t, w, h, lam, nullptr, 1};
   const Motion m{static_cast<const int32_t *>(mvx4),
                  static_cast<const int32_t *>(mvy4),
                  static_cast<const int32_t *>(pi4),
                  static_cast<const int32_t *>(rf4), hp, wp};
-  const size_t smem = sizeof(float) * search_words(n, radius);
+  const Found f{static_cast<int32_t *>(mv), static_cast<int32_t *>(pred),
+                static_cast<float *>(cost), static_cast<float *>(sse)};
+  const Found ft{static_cast<int32_t *>(tmv), static_cast<int32_t *>(tpred),
+                 static_cast<float *>(tcost), static_cast<float *>(tsse)};
+  const bool temporal = ref != nullptr;
+  const int rmax = temporal && radius_t > radius ? radius_t : radius;
+  const size_t smem = sizeof(float) * search_words(n, rmax);
   const int err = launch_smem((const void *)ss_search_kernel, smem);
   if (err) return err;
-  ss_search_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      s, static_cast<const int32_t *>(pos), static_cast<const int32_t *>(zcur),
-      m, static_cast<const uint8_t *>(nbav),
-      static_cast<const uint8_t *>(miav), mi_size,
-      static_cast<int32_t *>(mv), static_cast<float *>(cost),
-      static_cast<int32_t *>(pred), static_cast<float *>(sse),
-      static_cast<int32_t *>(anchor), static_cast<float *>(gt_rate),
-      static_cast<uint8_t *>(gt_ok));
+  ss_search_kernel<<<dim3(b, temporal ? 2 : 1), kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      s, st, static_cast<const int32_t *>(pos),
+      static_cast<const int32_t *>(zcur), m,
+      static_cast<const uint8_t *>(nbav), static_cast<const uint8_t *>(miav),
+      mi_size, ss_idx, f, ft, static_cast<int32_t *>(anchor),
+      static_cast<float *>(gt_rate), static_cast<uint8_t *>(gt_ok));
   return (int)cudaGetLastError();
 }
 
 // Pre-pass entry on the original plane org (row stride): pos [B, 2], zcur
 // [B], zmaxw int32; mat the n x n DCT; the quantizer's and dequantizer's
-// parameters; the MI predictors (mi_x, 0), (0, mi_y), (mi_xy_x, mi_xy_y).
-// Out: cost [B] float32.
+// parameters; the MI predictors (mi_x, 0), (0, mi_y), (mi_xy_x, mi_xy_y);
+// ref the previous luma (the same row stride, h rows) and its radius_t on
+// a PSS picture, null on an ISS one. Out: cost [B] float32.
 HH_EXPORT int hh_ss_rd(const void *org, int stride, const void *pos,
                        const void *zcur, const void *zmaxw, const void *mat,
                        int b, int n, int radius, int w, int h, int bit_depth,
                        float lam, int qs, int qbits, int qoff, int dqs,
                        int dqsh, int mi_x, int mi_y, int mi_xy_x,
-                       int mi_xy_y, void *cost, void *stream) {
+                       int mi_xy_y, const void *ref, int radius_t,
+                       void *cost, void *stream) {
   const Search s{static_cast<const int32_t *>(org),
                  static_cast<const int32_t *>(org), stride,
                  static_cast<const int32_t *>(zmaxw), n, radius, w, h, lam,
                  nullptr};
+  const Search st{static_cast<const int32_t *>(ref),
+                  static_cast<const int32_t *>(org), stride, nullptr, n,
+                  radius_t, w, h, lam, nullptr};
   const Tq q{static_cast<const int32_t *>(mat), bit_depth, qs, qbits, qoff,
              dqs, dqsh};
-  const size_t smem = sizeof(float) * (search_words(n, radius) + 7 * n * n);
+  const int rmax = ref != nullptr && radius_t > radius ? radius_t : radius;
+  const size_t smem = sizeof(float) * (search_words(n, rmax) + 7 * n * n);
   const int err = launch_smem((const void *)ss_rd_kernel, smem);
   if (err) return err;
   ss_rd_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      s, static_cast<const int32_t *>(pos), static_cast<const int32_t *>(zcur),
-      make_int4(mi_x, mi_y, mi_xy_x, mi_xy_y), q,
-      static_cast<float *>(cost));
+      s, st, static_cast<const int32_t *>(pos),
+      static_cast<const int32_t *>(zcur),
+      make_int4(mi_x, mi_y, mi_xy_x, mi_xy_y), q, static_cast<float *>(cost));
   return (int)cudaGetLastError();
 }

@@ -1,17 +1,19 @@
-"""HEVC decoder for I and ISS slices, on the card.
+"""HEVC decoder for I, ISS and PSS slices, on the card.
 
 Counterpart of hevc_hop_tpu/models/decoder.py. Native C++ parses the slice
 into dense maps; the residuals are dequantized and inverse-transformed by
 kernel C3's decode entry (one launch per TU size and plane). I slices:
 prediction runs as the wavefront level loop over kernel C2 with its
-add-residual epilogue (models/wavefront_scan.py). ISS slices: the
-MV-aware level loop of models/ss_scan.py, kernel C2 for the intra CUs,
-kernel C8 for the self-similarity ones and kernel C11 for the GT
-(corner-warped) ones among them. Deblocking is kernel C4 (with the
-inter boundary strengths on ISS slices), SAO's apply is kernel C6, and the
-checksum SEI is verified by kernel C1. Every I-slice stream and every ISS
-stream the reference encoder writes decodes; PSS slices (slice 4) raise
-NotImplementedError.
+add-residual epilogue (models/wavefront_scan.py). ISS and PSS slices:
+the MV-aware level loop of models/ss_scan.py, kernel C2 for the intra CUs,
+kernel C8 for the self-similarity ones (and on a PSS slice for the
+temporal ones, out of the previous picture) and kernel C11 for the GT
+(corner-warped) ones among them. A PSS slice with no picture before it
+(its reference lost) is decoded against a mid-grey picture, which is
+appended to the pictures and recorded in ``concealed``. Deblocking is
+kernel C4 (with the inter boundary strengths on ISS and PSS slices),
+SAO's apply is kernel C6, and the checksum SEI is verified by kernel C1.
+Every stream the reference encoder writes decodes.
 """
 from __future__ import annotations
 
@@ -63,6 +65,7 @@ class Decoder:
         self._pics_dev = []   # device (y, cb, cr) int32 triples
         self._pics_np = []    # lazily fetched host copies
         self.hash_ok = []     # per decoded-picture-hash SEI verification
+        self.concealed = []   # indices of synthesized lost references
         self.sei_log = []     # (payload_type, parsed-or-raw)
 
     @property
@@ -133,19 +136,22 @@ class Decoder:
         sps, pps = self.sps, self.pps
         holo = bool(self.vps and self.vps.holo)
         sh = params.parse_slice_header(rbsp, sps, pps, nal_type, holo)
-        if sh.slice_type == SliceType.PSS:
-            raise _not_ported("PSS slices (slice 4)")
-        if sh.slice_type not in (SliceType.I, SliceType.ISS):
+        if sh.slice_type not in (SliceType.I, SliceType.ISS, SliceType.PSS):
             raise _not_ported("P/B slices")
         w, h, bd = sps.pic_width, sps.pic_height, sps.bit_depth
         qp = sh.slice_qp
+        holo_slice = sh.slice_type in (SliceType.ISS, SliceType.PSS)
         states = ctx_layout.init_states(int(sh.slice_type), qp)
-        if sh.slice_type == SliceType.ISS:
+        if holo_slice:
+            # a PSS slice's signalled L0 count includes the SS reference,
+            # which takes the last entry
             maps = native.decode_slice_data_ss(
                 states, rbsp[sh.data_offset:], w, h, sps.ctb_log2,
-                sps.max_transform_hierarchy_depth_intra, int(SliceType.ISS),
-                self.vps.holo_mi_size, sao_on=int(sps.sao_enabled),
-                sbh=int(pps.sign_data_hiding))
+                sps.max_transform_hierarchy_depth_intra, int(sh.slice_type),
+                self.vps.holo_mi_size,
+                *((sh.num_ref_wire,) if sh.slice_type == SliceType.PSS
+                  else ()),
+                sao_on=int(sps.sao_enabled), sbh=int(pps.sign_data_hiding))
         elif pps.entropy_coding_sync:
             data = rbsp[sh.data_offset:]
             ny = (h + (1 << sps.ctb_log2) - 1) >> sps.ctb_log2
@@ -164,7 +170,7 @@ class Decoder:
                 sao_on=int(sps.sao_enabled), sbh=int(pps.sign_data_hiding))
 
         # reconstruction structure = TRANSFORM blocks (prediction is per-TU)
-        if sh.slice_type == SliceType.ISS:
+        if holo_slice:
             sched = None
             leaves = np.array(wavefront.tu_blocks_from_maps(
                 maps.depth8, maps.tu4, w, h, sps.ctb_log2),
@@ -182,7 +188,9 @@ class Decoder:
         resi_y = torch.zeros((h + pad, w), dtype=torch.int32, device=dev)
         resi_c = torch.zeros((2 * hcp, w // 2), dtype=torch.int32,
                              device=dev)
-        _dense_residual(maps.coef_y, luma_pos, qp, bd, True, resi_y[:h])
+        # the DST is intra 4x4 luma's, on I and ISS slices
+        _dense_residual(maps.coef_y, luma_pos, qp, bd,
+                        sh.slice_type != SliceType.PSS, resi_y[:h])
         _dense_residual(maps.coef_cb, chroma_pos, qp_c, bd, False,
                         resi_c[:h // 2])
         _dense_residual(maps.coef_cr, chroma_pos, qp_c, bd, False,
@@ -230,18 +238,21 @@ class Decoder:
         self._pics_dev.append((ry, rcb, rcr))
 
     def _recon_ss(self, maps, leaves, qp, resi_y, resi_c, hcp) -> None:
-        """ISS reconstruction: the level loop over intra, SS and GT CUs,
-        scheduled by the coded MVs' dependency rectangles (the reference's
-        ``_recon_ss``: an SS CU's n window plus the interpolation margin, a
-        GT CU's 2n window plus 2 samples of slack), then deblocking with
-        the inter boundary strengths and SAO."""
+        """ISS and PSS reconstruction: the level loop over intra, SS,
+        temporal and GT CUs, scheduled by the coded MVs' dependency
+        rectangles (the reference's ``_recon_ss``: an SS CU's n window plus
+        the interpolation margin, a GT CU's 2n window plus 2 samples of
+        slack; a temporal CU reads the previous picture and waits on
+        nothing), then deblocking with the inter boundary strengths and
+        SAO."""
         sps = self.sps
         w, h, bd = sps.pic_width, sps.pic_height, sps.bit_depth
+        pss = maps.slice_type == int(SliceType.PSS)
+        ss_idx = maps.num_ref - 1
         lx, ly, lg = leaves[:, 0], leaves[:, 1], leaves[:, 2]
         n = (1 << lg).astype(np.int32)
         x4, y4 = lx // 4, ly // 4
-        is_ss = (maps.pred4[y4, x4] == 0) & (maps.ref4[y4, x4] ==
-                                             maps.num_ref - 1)
+        is_ss = (maps.pred4[y4, x4] == 0) & (maps.ref4[y4, x4] == ss_idx)
         mvx = maps.mv4x[y4, x4].astype(np.int32) >> 2
         mvy = maps.mv4y[y4, x4].astype(np.int32) >> 2
         gt = maps.gt8[ly // 8, lx // 8] != 0
@@ -269,7 +280,7 @@ class Decoder:
         plans, nsteps = hit
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                       device=self.device)
-        modes, cmodes, mvs, gts = {}, {}, {}, {}
+        modes, cmodes, mvs, gts, tfs = {}, {}, {}, {}, {}
         for log2, p in plans.items():
             px, py = p.vpos[:, 0], p.vpos[:, 1]
             m = maps.mode4[py // 4, px // 4].astype(np.int32)
@@ -281,12 +292,24 @@ class Decoder:
             gtf = maps.gt8[py // 8, px // 8].astype(np.int32)
             gtv = np.where(gtf[:, None] != 0, maps.gtv8[py // 8, px // 8], 0)
             lvl = np.repeat(np.arange(len(p.cnt)), p.cnt)
-            gts[log2] = (t(gtf), t(gtv), np.bincount(
-                lvl, weights=gtf != 0, minlength=len(p.cnt)) > 0)
-        ry, rc = ss_scan.scan_decode_ss(
-            resi_y, resi_c, plans, nsteps, modes, cmodes, mvs, bd,
-            sps.strong_intra_smoothing, h,
-            gts if maps.gt8.any() else None)
+            levels = lambda on: np.bincount(lvl, weights=on,
+                                            minlength=len(p.cnt)) > 0
+            gts[log2] = (t(gtf), t(gtv), levels(gtf != 0))
+            if pss:
+                inter = maps.pred4[py // 4, px // 4] == 0
+                ssf = inter & (maps.ref4[py // 4, px // 4] == ss_idx)
+                tf = inter & ~ssf
+                tfs[log2] = (t(tf), t(ssf), levels(tf), levels(ssf))
+        gt = gts if maps.gt8.any() else None
+        if pss:
+            ref_y, ref_c = self._reference(hcp)
+            ry, rc = ss_scan.scan_decode_pss(
+                resi_y, resi_c, ref_y, ref_c, plans, nsteps, modes, cmodes,
+                mvs, tfs, bd, sps.strong_intra_smoothing, h, gt)
+        else:
+            ry, rc = ss_scan.scan_decode_ss(
+                resi_y, resi_c, plans, nsteps, modes, cmodes, mvs, bd,
+                sps.strong_intra_smoothing, h, gt)
         ry, rcb, rcr = ry[:h], rc[:h // 2], rc[hcp:hcp + h // 2]
         if not self.pps.deblocking_disabled:
             dev = self.device
@@ -303,6 +326,29 @@ class Decoder:
                 ry, rcb, rcr, maps.sao_type, maps.sao_off, maps.sao_band,
                 sps.ctb_log2, bd)
         self._pics_dev.append((ry, rcb, rcr))
+
+    def _reference(self, hcp: int):
+        """(luma [h, w], stacked cb/cr [2 hcp, w/2]) int32 of the previous
+        picture, the temporal reference of a PSS slice. Without one (the
+        reference was lost) a mid-grey picture stands in: it is appended to
+        the pictures and its index to ``concealed``."""
+        sps = self.sps
+        w, h = sps.pic_width, sps.pic_height
+        if not self._pics_dev:
+            mid = 1 << (sps.bit_depth - 1)
+            grey = tuple(torch.full(shape, mid, dtype=torch.int32,
+                                    device=self.device)
+                         for shape in ((h, w), (h // 2, w // 2),
+                                       (h // 2, w // 2)))
+            self._pics_dev.append(grey)
+            self._pics_np.append(tuple(p.cpu().numpy() for p in grey))
+            self.concealed.append(len(self._pics_dev) - 1)
+        ry, rcb, rcr = self._pics_dev[-1]
+        rc = torch.zeros((2 * hcp, w // 2), dtype=torch.int32,
+                         device=self.device)
+        rc[:h // 2] = rcb
+        rc[hcp:hcp + h // 2] = rcr
+        return ry.contiguous(), rc
 
     def picture_md5(self, idx: int = -1) -> bytes:
         # the decoded-picture hash covers the FULL coded picture

@@ -1,12 +1,16 @@
-"""Lenslet light-field encoder: ISS slices with self-similarity prediction.
+"""Lenslet light-field encoder: ISS and PSS slices with self-similarity
+prediction.
 
-Counterpart of hevc_hop_tpu/models/ss_encoder.py for ISS pictures, with the
-GT warp (``gt=True``, the reference's default) or without. The stages,
-each timed in ``last_stats``:
+Counterpart of hevc_hop_tpu/models/ss_encoder.py, with the GT warp
+(``gt=True``, the reference's default) or without. ``encode_frame`` codes
+an ISS picture; ``encode_sequence`` codes the low-delay holoscopic GOP: an
+ISS picture, then PSS pictures whose L0 is [the previous picture's
+filtered recon, the SS reference last]. The stages of a picture, each
+timed in ``last_stats``:
 
   1. ``decide_s``: the quadtree pre-pass (models/ss_partition.py, kernels
-     C5 and C9) or the uniform CU grid; then the ISS wavefront schedule
-     (host, cached per partition);
+     C5 and C9, on a PSS picture with the temporal arm) or the uniform CU
+     grid; then the wavefront schedule (host, cached per partition);
   2. ``scan_s``: the level loop over kernels C2, C9, C10, C12 (GT on), C3,
      C8 and C11 (GT on) (models/ss_scan.py);
   3. ``loopfilter_s``: deblocking with the inter boundary strengths, C4;
@@ -14,9 +18,6 @@ each timed in ``last_stats``:
      host, the dense syntax maps;
   5. ``sao_s``: SAO statistics, host RDO and apply, C6;
   6. ``entropy_s``: native CABAC, NAL and the checksum SEI (C1).
-
-``encode_sequence`` codes one picture (its ISS picture); PSS pictures
-(two or more frames) are not ported yet and raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -76,14 +77,9 @@ class HoloConfig:
     hash_type: int = 2  # sei.HASH_CHECKSUM
 
 
-def _not_ported(what: str, where: str):
-    return NotImplementedError(
-        f"{what} is not ported to hevc_hop_torch yet: see ROADMAP.md, "
-        f"{where}")
-
-
 class HoloEncoder:
-    """All-ISS encoder (HoloscopicIntra, GOP size 1)."""
+    """Holoscopic encoder: ISS pictures, and the low-delay GOP of an ISS
+    picture followed by PSS pictures."""
 
     def __init__(self, cfg: HoloConfig, device=None) -> None:
         if cfg.width % 8 or cfg.height % 8:
@@ -121,17 +117,14 @@ class HoloEncoder:
 
     def encode_sequence(self, frames: list) -> bytes:
         """The low-delay holoscopic GOP of ``frames`` [(y, cb, cr), ...]:
-        its first picture, ISS; the PSS pictures after it are not ported
-        yet. Sets ``recon_history``, one recon per picture."""
-        if len(frames) > 1:
-            raise _not_ported("PSS pictures (encode_sequence of two or "
-                              "more frames)", "slice 4")
-        out = self.encode_frame(*frames[0])
+        an ISS IDR picture, then PSS trail pictures. Sets
+        ``recon_history``, one recon per picture."""
+        out = [self.encode_frame(*frames[0])]
         self.recon_history = [self.recon_yuv]
-        return out
-
-    def _encode_pss(self, y, cb, cr, poc):
-        raise _not_ported("PSS pictures", "slice 4")
+        for poc, (y, cb, cr) in enumerate(frames[1:], start=1):
+            out.append(self._encode_pss(y, cb, cr, poc))
+            self.recon_history.append(self.recon_yuv)
+        return b"".join(out)
 
     def _prep(self, leaves=None, key=None):
         """Schedule, packed plans and causality planes of a partition,
@@ -166,15 +159,15 @@ class HoloEncoder:
             self._prep_cache.popitem(last=False)
         return prep
 
-    def _frame_prep(self, y_dev: torch.Tensor):
+    def _frame_prep(self, y_dev: torch.Tensor, ref_y=None):
         """Per-frame partition and intra modes: (prep, mode4 or None for
-        in-loop RMD)."""
+        in-loop RMD); ref_y the previous picture's luma on a PSS one."""
         cfg = self.cfg
         if not cfg.quadtree:
             return self._prep(), None
         depth8, mode4 = ss_partition.decide(
             y_dev, cfg.qp, cfg.ctb_log2, cfg.search_range, cfg.mi_size,
-            cfg.bit_depth)
+            cfg.bit_depth, ref_y, cfg.search_range_t)
         self._depth8 = depth8
         leaves = wavefront.leaves_from_depth(depth8, cfg.width, cfg.height,
                                              cfg.ctb_log2)
@@ -210,11 +203,15 @@ class HoloEncoder:
                 {k: tuple(v.cpu().numpy() for v in o)
                  for k, o in outs.items()})
 
-    def _fill_maps(self, maps, plans, outs) -> None:
+    def _fill_maps(self, maps, plans, outs, pss: bool) -> None:
         """Dense syntax maps from the per-block outputs."""
         ctb_log2 = self.cfg.ctb_log2
         for log2, p in plans.items():
-            inter, mv, imode, cbf, cbf_b, cbf_r, gtflag, gtc = outs[log2]
+            if pss:
+                (inter, refsel, mv, imode, cbf, cbf_b, cbf_r, gtflag,
+                 gtc) = outs[log2]
+            else:
+                inter, mv, imode, cbf, cbf_b, cbf_r, gtflag, gtc = outs[log2]
             px, py = p.vpos[:, 0], p.vpos[:, 1]
             u4, u8 = p.n // 4, p.n // 8
             iy4 = py[:, None, None] // 4 + np.arange(u4)[None, :, None]
@@ -233,6 +230,9 @@ class HoloEncoder:
             maps.mv4y[iy4, ix4] = col(np.where(iv, mv[:, 1], 0).astype(
                 np.int16))
             maps.cbf4_y[iy4, ix4] = col(cbf.astype(np.uint8))
+            if pss:
+                maps.ref4[iy4, ix4] = col(np.where(iv, refsel, 0).astype(
+                    np.uint8))
             maps.cbf8_cb[iy8, ix8] = col(cbf_b.astype(np.uint8))
             maps.cbf8_cr[iy8, ix8] = col(cbf_r.astype(np.uint8))
             gf = gtflag != 0
@@ -250,35 +250,61 @@ class HoloEncoder:
         headers). The recon stays on the device (recon_yuv fetches it).
         Per-stage wall-clock seconds land in self.last_stats; on the card
         each stage ends with a synchronize."""
+        return self._encode_picture(y, cb, cr, 0)
+
+    def _encode_pss(self, y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                    poc: int) -> bytes:
+        """One PSS picture: L0 = [previous filtered recon, SS ref (last)];
+        returns its slice and SEI NAL units."""
+        return self._encode_picture(y, cb, cr, poc)
+
+    def _encode_picture(self, y, cb, cr, poc: int) -> bytes:
         cfg = self.cfg
+        pss = poc > 0
         stats = {}
         t0 = time.perf_counter()
         w, h = cfg.width, cfg.height
         qp, qp_c = cfg.qp, rom.chroma_qp_from_luma(cfg.qp)
         hc, hc_off = h // 2, h // 2 + (1 << cfg.ctb_log2)
         org_y, org_c = self._upload(y, cb, cr)
+        ref = None
+        if pss:
+            ref_y, ref_cb, ref_cr = self._recon_dev
+            ref_c = torch.zeros_like(org_c)
+            ref_c[:hc] = ref_cb
+            ref_c[hc_off:hc_off + hc] = ref_cr
+            ref = (ref_y.contiguous(), ref_c)
         self._sync()
         stats["upload_s"] = time.perf_counter() - t0
 
         t1 = time.perf_counter()
-        (plans, nsteps, zmaxw, zmax2n), mode4 = self._frame_prep(org_y[:h])
+        (plans, nsteps, zmaxw, zmax2n), mode4 = self._frame_prep(
+            org_y[:h], None if ref is None else ref[0])
         modes = None if mode4 is None else self._xs_with_modes(plans, mode4)
         self._sync()
         stats["decide_s"] = time.perf_counter() - t1
 
         t1 = time.perf_counter()
-        ry, rc, coef_y, coef_c, outs = ss_scan.scan_encode_iss(
-            org_y, org_c, plans, nsteps, zmaxw, qp, qp_c, cfg.bit_depth,
-            cfg.strong_intra_smoothing, w, h, cfg.search_range, cfg.mi_size,
-            cfg.rdoq, cfg.sbh, modes, zmax2n)
+        args = (plans, nsteps, zmaxw, qp, qp_c, cfg.bit_depth,
+                cfg.strong_intra_smoothing, w, h, cfg.search_range)
+        tail = (cfg.mi_size, cfg.rdoq, cfg.sbh, modes, zmax2n)
+        if pss:
+            ry, rc, coef_y, coef_c, outs = ss_scan.scan_encode_pss(
+                org_y, org_c, *ref, *args, cfg.search_range_t, *tail)
+        else:
+            ry, rc, coef_y, coef_c, outs = ss_scan.scan_encode_iss(
+                org_y, org_c, *args, *tail)
         self._sync()
         stats["scan_s"] = time.perf_counter() - t1
 
         t1 = time.perf_counter()
+        stype = SliceType.PSS if pss else SliceType.ISS
         maps = native.SliceMaps(w, h, cfg.ctb_log2, max_hier_depth=0)
-        maps.slice_type = int(SliceType.ISS)
+        maps.slice_type = int(stype)
         maps.sbh = int(cfg.sbh)
         maps.mi_size = cfg.mi_size
+        if pss:
+            maps.num_ref = 2   # [temporal, SS (last)]
         cy_np, ccb_np, ccr_np, outs_np = self._fetch_all(coef_y, coef_c,
                                                          outs, h, hc_off)
         maps.coef_y[:] = cy_np
@@ -286,7 +312,7 @@ class HoloEncoder:
         maps.coef_cr[:] = ccr_np
         stats["fetch_s"] = time.perf_counter() - t1
         t1 = time.perf_counter()
-        self._fill_maps(maps, plans, outs_np)
+        self._fill_maps(maps, plans, outs_np, pss)
         stats["maps_s"] = time.perf_counter() - t1
 
         t1 = time.perf_counter()
@@ -318,12 +344,21 @@ class HoloEncoder:
 
         t1 = time.perf_counter()
         self.last_maps = maps
-        sh = params.SliceHeader(slice_type=SliceType.ISS, slice_qp=qp)
+        if pss:
+            sh = params.SliceHeader(slice_type=stype, slice_qp=qp, idr=False,
+                                    poc=poc, num_ref_wire=maps.num_ref)
+        else:
+            sh = params.SliceHeader(slice_type=stype, slice_qp=qp)
         hw = params.write_slice_header(sh, self.sps, self.pps)
-        states = ctx_layout.init_states(int(SliceType.ISS), qp)
+        states = ctx_layout.init_states(int(stype), qp)
         hw.write_bytes(native.encode_slice_data_ss(states, maps))
-        slice_nal = nal.make_nal(NalUnitType.IDR_W_RADL, hw.get_bytes())
-        out = nal.annexb_wrap(self.headers() + [slice_nal, self._hash_sei()])
+        if pss:
+            slice_nal = nal.make_nal(NalUnitType.TRAIL_R, hw.get_bytes())
+            out = nal.annexb_wrap([slice_nal, self._hash_sei()])
+        else:
+            slice_nal = nal.make_nal(NalUnitType.IDR_W_RADL, hw.get_bytes())
+            out = nal.annexb_wrap(self.headers()
+                                  + [slice_nal, self._hash_sei()])
         stats["entropy_s"] = time.perf_counter() - t1
         stats["total_s"] = time.perf_counter() - t0
         stats["bytes"] = len(out)

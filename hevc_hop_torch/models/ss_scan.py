@@ -1,7 +1,8 @@
-"""ISS wavefront scan: joint intra / self-similarity encode and decode.
+"""ISS and PSS wavefront scans: joint intra / self-similarity / temporal
+encode and decode.
 
-Counterpart of hevc_hop_tpu/models/ss_scan.py for ISS slices, with and
-without the GT warp. The schedule is the reference's
+Counterpart of hevc_hop_tpu/models/ss_scan.py for ISS and PSS slices, with
+and without the GT warp. The schedule is the reference's
 (:func:`build_schedule_ss`,
 numpy, copied): topological levels of CUs such that every z-earlier block
 within the search reach sits at an earlier level (encoder), or such that
@@ -10,15 +11,18 @@ The reference runs the levels as one ``lax.scan``; here a Python loop
 launches, per level and CU size:
 
 - encode: C2 (intra prediction: the pre-pass's mode, or 35-mode RMD), C9
-  (full search, with the GT anchor ring when the GT is on), C10 (merge
-  arms, sub-pel refinement, tournament), C12 (GT corner search and
-  decision, GT on), C3 (transform, RDOQ or the dead-zone quantizer, SBH,
-  recon) and C10's motion entry for luma; then C2 (chroma DM), C8 (chroma
-  MC over the inter blocks), C11 (GT chroma over the GT blocks) and C3 for
-  the stacked cb/cr plane;
+  (full search, with the GT anchor ring when the GT is on, and on a PSS
+  picture the temporal search in the same launch), C10 (merge arms,
+  sub-pel refinement, tournament), C12 (GT corner search and decision, GT
+  on), C3 (transform, RDOQ or the dead-zone quantizer, SBH, recon) and
+  C10's motion entry for luma; then C2 (chroma DM), C8 (chroma MC over the
+  inter blocks: from the recon for SS blocks, and on a PSS picture from
+  the previous picture for temporal ones), C11 (GT chroma over the GT
+  blocks) and C3 for the stacked cb/cr plane;
 - decode: C2 with its add-residual epilogue for the intra blocks and C8
-  with its own for the inter blocks, then C11's over the GT blocks among
-  them, luma then the stacked chroma plane.
+  with its own for the inter blocks (on a PSS picture the temporal ones
+  read the previous picture and write the recon), then C11's over the GT
+  blocks among them, luma then the stacked chroma plane.
 
 On the CPU the same loop runs the kernels' plain versions. Only the real
 slots of a level are launched (see models/wavefront_scan.py
@@ -40,7 +44,7 @@ from hevc_hop_torch.ops.gt import gt_step
 from hevc_hop_torch.ops.inter_arms import inter_arms, motion_write
 from hevc_hop_torch.ops.interp import mc_blocks
 from hevc_hop_torch.ops.intra import intra_blocks
-from hevc_hop_torch.ops.ss_search import IFM, ss_search
+from hevc_hop_torch.ops.ss_search import IFM, pss_search, ss_search
 from hevc_hop_torch.ops.tq import tq_encode
 from hevc_hop_torch.ops.warp import gt_pred_blocks
 
@@ -225,10 +229,37 @@ def scan_encode_iss(org_y, org_c, plans: dict, nsteps: int, zmaxw: dict,
     cbf_y [T], cbf_cb [T], cbf_cr [T], gtflag [T], gtc [T, 6]) in the
     packed order of ``plans`` (gtflag 0 and gtc 0 with the GT off).
     """
+    return _scan_encode(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c,
+                        bit_depth, strong, w, h, radius, mi_size, use_rdoq,
+                        sbh, modes, zmax2n)
+
+
+def scan_encode_pss(org_y, org_c, ref_y, ref_c, plans: dict, nsteps: int,
+                    zmaxw: dict, qp: int, qp_c: int, bit_depth: int,
+                    strong: bool, w: int, h: int, radius: int,
+                    radius_t: int, mi_size: int = 0, use_rdoq: bool = False,
+                    sbh: bool = False, modes=None,
+                    zmax2n: dict | None = None):
+    """PSS encode of every CU, level by level: L0 = [the previous picture,
+    the SS reference (the recon carry), last]. As :func:`scan_encode_iss`,
+    with ref_y [h, w] and ref_c (stacked cb/cr, org_c's layout) int32 the
+    previous picture's filtered recon, searched with radius ``radius_t``.
+    outs[log2] = (inter, refsel [T] (0 temporal, 1 SS), mv, imode, cbf_y,
+    cbf_cb, cbf_cr, gtflag, gtc)."""
+    return _scan_encode(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c,
+                        bit_depth, strong, w, h, radius, mi_size, use_rdoq,
+                        sbh, modes, zmax2n, (ref_y, ref_c), radius_t)
+
+
+def _scan_encode(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c, bit_depth,
+                 strong, w, h, radius, mi_size, use_rdoq, sbh, modes, zmax2n,
+                 ref=None, radius_t=0):
     dev = org_y.device
     lam = full_lambda(qp)
-    rcfg_y = (3, lam) if use_rdoq else None           # init type ISS
-    rcfg_c = (3, lam * 2.0 ** ((qp_c - qp) / 3.0)) if use_rdoq else None
+    init_type = 3 if ref is None else 4               # ISS, PSS
+    rcfg_y = (init_type, lam) if use_rdoq else None
+    rcfg_c = ((init_type, lam * 2.0 ** ((qp_c - qp) / 3.0)) if use_rdoq
+              else None)
     hc = h // 2
     hc_off = (org_c.shape[0]) // 2
     ry = torch.zeros_like(org_y)
@@ -241,7 +272,9 @@ def scan_encode_iss(org_y, org_c, plans: dict, nsteps: int, zmaxw: dict,
     widest = max((int(p.cnt.max(initial=0)) for p in plans.values()),
                  default=0)
     rmd = torch.full((max(widest, 1),), -1, dtype=torch.int32, device=dev)
-    acc = {log2: ([], [], [], [], [], [], []) for log2 in plans}
+    names = ("inter", "refsel", "mv", "imode", "cbf", "cbf_c", "gtflag",
+             "gtc")
+    acc = {log2: {k: [] for k in names} for log2 in plans}
     for s in range(nsteps):
         for log2, p in plans.items():
             c = int(p.cnt[s])
@@ -258,13 +291,22 @@ def scan_encode_iss(org_y, org_c, plans: dict, nsteps: int, zmaxw: dict,
                 ipred, _ = intra_blocks(ry, pos, p.avail[sl], imode, n, 0,
                                         bit_depth, strong)
             z2 = None if zmax2n is None else zmax2n[log2]
-            mv_i, _, pred0, sse0, *ring = ss_search(
-                ry, org_y, pos, zcur, zmaxw[log2], motion, p.nbav[sl],
-                p.miav[sl], n, radius, w, h, lam, mi_size, z2)
-            inter, mv, smode, costs = inter_arms(
-                ry, org_y, pos, zcur, zmaxw[log2], motion, p.nbav[sl],
-                p.miav[sl], mv_i, pred0, sse0, ipred, imode, n, w, h,
-                bit_depth, lam, mi_size)
+            sargs = (ry, org_y, pos, zcur, zmaxw[log2], motion, p.nbav[sl],
+                     p.miav[sl], n, radius, w, h, lam, mi_size, z2)
+            aargs = (ry, org_y, pos, zcur, zmaxw[log2], motion, p.nbav[sl],
+                     p.miav[sl])
+            tail = (n, w, h, bit_depth, lam, mi_size)
+            if ref is None:
+                mv_i, _, pred0, sse0, *ring = ss_search(*sargs)
+                inter, mv, smode, costs = inter_arms(
+                    *aargs, mv_i, pred0, sse0, ipred, imode, *tail)
+                refsel = None
+            else:
+                (mv_i, _, pred0, sse0, *ring), (mv_t, _, tpred0, tsse0) = \
+                    pss_search(*sargs, ref[0], radius_t)
+                inter, mv, smode, costs, refsel = inter_arms(
+                    *aargs, mv_i, pred0, sse0, ipred, imode, *tail,
+                    pss=(ref[0], mv_t, tpred0, tsse0))
             if z2 is None:
                 gtflag = torch.zeros_like(inter)
                 gtc = torch.zeros((c, 6), dtype=torch.int32, device=dev)
@@ -273,31 +315,43 @@ def scan_encode_iss(org_y, org_c, plans: dict, nsteps: int, zmaxw: dict,
                 gtflag, gtc = gt_step(
                     ry, org_y, rc, pos, zcur, z2, motion, p.nbav[sl],
                     p.miav[sl], ring, costs, ipred, inter, mv, smode, n, w,
-                    h, hc_off, bit_depth, lam, mi_size)
+                    h, hc_off, bit_depth, lam, mi_size, refsel)
             cbf = tq_encode(org_y, ipred, pos, smode, n, 0, qp, bit_depth,
                             sbh, rcfg_y, ry, coef_y)
-            motion_write(*motion[:3], pos, inter, mv, n)
+            motion_write(*motion[:3], pos, inter, mv, n, motion[3], refsel)
             cpos = p.cpos[2 * o:2 * o + 2 * c]
             cpred, _ = intra_blocks(rc, cpos, p.cavail[sl], imode, m, 1,
                                     bit_depth, strong)
-            mc_blocks(rc, cpos, mv, m, True, hc, bit_depth, hc_off,
-                      out=cpred, only=inter)
+            if ref is None:
+                mc_blocks(rc, cpos, mv, m, True, hc, bit_depth, hc_off,
+                          out=cpred, only=inter)
+            else:
+                # SS blocks (GT ones too) read the recon, temporal ones the
+                # previous picture
+                use_ss = inter * refsel
+                mc_blocks(rc, cpos, mv, m, True, hc, bit_depth, hc_off,
+                          out=cpred, only=use_ss)
+                mc_blocks(ref[1], cpos, mv, m, True, hc, bit_depth, hc_off,
+                          out=cpred, only=inter - use_ss)
             if z2 is not None:
                 gt_pred_blocks(rc, cpos, mv, gtc, m, True, hc, bit_depth,
                                hc_off, out=cpred, only=gtflag)
             cbf_c = tq_encode(org_c, cpred, cpos, smode, m, 1, qp_c,
                               bit_depth, sbh, rcfg_c, rc, coef_c)
-            for lst, v in zip(acc[log2], (inter, mv, imode, cbf, cbf_c,
-                                          gtflag, gtc)):
-                lst.append(v)
+            for k, v in zip(names, (inter, refsel, mv, imode, cbf, cbf_c,
+                                    gtflag, gtc)):
+                if v is not None:
+                    acc[log2][k].append(v)
     outs = {}
     for log2, lists in acc.items():
-        inter, mv, imode, cbf, cbf_c, gtflag, gtc = (torch.cat(v)
-                                                     for v in lists)
-        p = plans[log2]
-        cb_rows, cr_rows = _chroma_rows(p)
-        outs[log2] = (inter, mv, imode, cbf, cbf_c[cb_rows], cbf_c[cr_rows],
-                      gtflag, gtc)
+        cat = {k: torch.cat(v) for k, v in lists.items() if v}
+        cb_rows, cr_rows = _chroma_rows(plans[log2])
+        cbf_c = cat["cbf_c"]
+        outs[log2] = ((cat["inter"],)
+                      + (() if ref is None else (cat["refsel"],))
+                      + (cat["mv"], cat["imode"], cat["cbf"],
+                         cbf_c[cb_rows], cbf_c[cr_rows], cat["gtflag"],
+                         cat["gtc"]))
     return ry, rc, coef_y, coef_c, outs
 
 
@@ -323,6 +377,26 @@ def scan_decode_ss(resi_y, resi_c, plans: dict, nsteps: int, modes: dict,
     [T, 6] int32, the GT flag and coded corners in the same order, and
     levels [nsteps] bool, the levels that hold a GT block). Returns (ry,
     rc)."""
+    return _scan_decode(resi_y, resi_c, plans, nsteps, modes, cmodes, mvs,
+                        bit_depth, strong, h, gt)
+
+
+def scan_decode_pss(resi_y, resi_c, ref_y, ref_c, plans: dict, nsteps: int,
+                    modes: dict, cmodes: dict, mvs: dict, tf: dict,
+                    bit_depth: int, strong: bool, h: int,
+                    gt: dict | None = None):
+    """PSS decode of every CU, level by level, as :func:`scan_decode_ss`;
+    the temporal blocks (tf[log2] = (tflag [T] int32, 1 where the inter
+    block reads the previous picture, and its complement ssf [T] int32, 1
+    where it reads the recon, and their levels [nsteps] bool each)) read
+    ref_y [h, w] and ref_c (the stacked layout of resi_c), the previous
+    picture, through C8 and write the recon. Returns (ry, rc)."""
+    return _scan_decode(resi_y, resi_c, plans, nsteps, modes, cmodes, mvs,
+                        bit_depth, strong, h, gt, (ref_y, ref_c), tf)
+
+
+def _scan_decode(resi_y, resi_c, plans, nsteps, modes, cmodes, mvs,
+                 bit_depth, strong, h, gt, ref=None, tf=None):
     ry = torch.zeros_like(resi_y)
     rc = torch.zeros_like(resi_c)
     hc_off = resi_c.shape[0] // 2
@@ -342,16 +416,24 @@ def scan_decode_ss(resi_y, resi_c, plans: dict, nsteps: int, modes: dict,
                              resi=resi_c)
             if ca < c:
                 b = slice(o + ca, o + c)
-                mc_blocks(ry, p.pos[b], mvs[log2][b], n, False, h, bit_depth,
-                          resi=resi_y)
-                mc_blocks(rc, p.cpos[co + 2 * ca:co + 2 * c], mvs[log2][b],
-                          n // 2, True, h // 2, bit_depth, hc_off,
-                          resi=resi_c)
+                cb = p.cpos[co + 2 * ca:co + 2 * c]
+                # (source planes, the blocks that read them or None: all)
+                srcs = [(ry, rc, None)]
+                if ref is not None:
+                    tflag, ssf, t_lv, ss_lv = tf[log2]
+                    srcs = ([(ry, rc, ssf[b])] if ss_lv[s] else []) + (
+                        [(ref[0], ref[1], tflag[b])] if t_lv[s] else [])
+                for sy, sc, only in srcs:
+                    mc_blocks(sy, p.pos[b], mvs[log2][b], n, False, h,
+                              bit_depth, resi=resi_y, only=only, dst=ry)
+                    mc_blocks(sc, cb, mvs[log2][b], n // 2, True, h // 2,
+                              bit_depth, hc_off, resi=resi_c, only=only,
+                              dst=rc)
                 if gt is not None and gt[log2][2][s]:
                     gtf, gtv = gt[log2][0][b], gt[log2][1][b]
                     gt_pred_blocks(ry, p.pos[b], mvs[log2][b], gtv, n, False,
                                    h, bit_depth, resi=resi_y, only=gtf)
-                    gt_pred_blocks(rc, p.cpos[co + 2 * ca:co + 2 * c],
-                                   mvs[log2][b], gtv, n // 2, True, h // 2,
-                                   bit_depth, hc_off, resi=resi_c, only=gtf)
+                    gt_pred_blocks(rc, cb, mvs[log2][b], gtv, n // 2, True,
+                                   h // 2, bit_depth, hc_off, resi=resi_c,
+                                   only=gtf)
     return ry, rc

@@ -3,8 +3,8 @@
 Counterpart of hevc_hop_tpu/models/ss_scan.py ``_gt4``, ``_gt_window``,
 ``gt_pred_luma``, ``gt_pred_chroma``, ``gt_chroma_safe``, ``_gt_bits``,
 ``_gt_search``, ``_gt_arm`` and the GT branch of ``scan_encode_iss``'s
-step (the chroma safety gate, the GT flag and its override of the SS
-tournament).
+and ``scan_encode_pss``'s steps (the chroma safety gate, the GT flag and
+its override of the tournament).
 
 :func:`gt_step` is the wrapper of kernel C12 (``csrc/gt_search.cu``). Its
 search entry runs one CTA per (block, anchor): the anchors are C9's ring
@@ -16,9 +16,10 @@ halving from n/2 to 1; every set is warped with kernel C11's device code
 and costs its SSE + lambda * corner bits, 1e30 where the warp is not safe.
 Its decide entry, one CTA per block, keeps the cheaper anchor (the first
 among equals), checks that the chroma warps of both planes are safe, and
-where the GT cost beats the intra, merge and SS costs of kernel C10, sets
-the GT flag and overrides C10's choice: inter, MV = anchor * 4, the
-diagonal scan and the GT prediction, in place.
+where the GT cost beats the intra, merge and SS costs of kernel C10 (and
+on a PSS picture its temporal cost), sets the GT flag and overrides C10's
+choice: inter, MV = anchor * 4, the diagonal scan and the GT prediction,
+in place, and on a PSS picture the reference index: the SS one.
 
 Float forms, copied from the compiled reference (``jax.jit``; ROADMAP.md
 queue 3): a corner set's cost is one fused multiply-add, fma(bits, lambda,
@@ -41,13 +42,15 @@ from hevc_hop_torch import _cuda
 from hevc_hop_torch.ops import interp, quant
 from hevc_hop_torch.ops.quant import argmin_first
 from hevc_hop_torch.ops.ss_search import (BIG, HUGE_PRED, INTER_BITS,
-                                          block_at, block_sum, f32,
-                                          min_rate_bits, mvd_bits,
+                                          SS_IDX_PSS, block_at, block_sum,
+                                          f32, min_rate_bits, mvd_bits,
                                           ss_anchor_ok)
 from hevc_hop_torch.ops.warp import warp_blocks_plain
 
 SEARCH_LAUNCHES = 0
 DECIDE_LAUNCHES = 0
+# launches of the decide entry's PSS form
+PSS_DECIDE_LAUNCHES = 0
 
 UNSAFE = 1.0e30
 ITERS = 6
@@ -248,11 +251,12 @@ def gt_arm_plain(recon, org, pos, zcur, zmax2n, anchor, gt_rate, gt_ok,
 
 def gt_step_plain(recon, org_plane, rc, pos, zcur, zmax2n, motion, nbav, miav,
                   ring, costs, pred, inter, mv, smode, n, w, h, hc_off,
-                  bit_depth, lam, mi_size):
+                  bit_depth, lam, mi_size, refsel=None):
     """Plain version of :func:`gt_step` (same arguments and results)."""
     from hevc_hop_torch.ops.inter_arms import gather_cands
     anchor, gt_rate, gt_ok = ring
-    p_ss = gather_cands(*motion, pos, nbav, miav, n, mi_size)[3]
+    ss_idx = 0 if refsel is None else SS_IDX_PSS
+    p_ss = gather_cands(*motion, pos, nbav, miav, n, mi_size, ss_idx)[3]
     org = block_at(org_plane, pos, n)
     gcost, gtc, gpred, amv, gok = gt_arm_plain(
         recon, org, pos, zcur, zmax2n, anchor, gt_rate, gt_ok, p_ss, n, lam,
@@ -265,9 +269,12 @@ def gt_step_plain(recon, org_plane, rc, pos, zcur, zmax2n, motion, nbav, miav,
     for cp in (cb, cr):
         lo, hi = interp._rows(cp, True, hc, hc_off)
         csafe &= _chroma_gt(rc, cp, amv, gtc, m, lo, hi, bit_depth)[1]
-    icost, mcost, sscost = costs.unbind(1)
+    icost, mcost, sscost = costs.unbind(1)[:3]
     flag = (gok & nonzero & csafe & (gcost < sscost) & (gcost < icost)
             & (gcost < mcost))
+    if refsel is not None:
+        flag &= gcost < costs[:, 3]
+        refsel[flag] = ss_idx
     pred[flag] = gpred[flag]
     inter[flag] = 1
     mv[flag] = amv[flag] * 4
@@ -293,7 +300,7 @@ def _check_plane(t, name):
 
 def gt_step(recon, org_plane, rc, pos, zcur, zmax2n, motion, nbav, miav,
             ring, costs, pred, inter, mv, smode, n, w, h, hc_off, bit_depth,
-            lam, mi_size):
+            lam, mi_size, refsel=None):
     """Kernel C12 over B blocks of size n (one wavefront level), between
     kernel C10 and kernel C3.
 
@@ -304,30 +311,39 @@ def gt_step(recon, org_plane, rc, pos, zcur, zmax2n, motion, nbav, miav,
     from C9's ring; costs [B, 3] (intra, merge, SS) from C10. Where GT
     wins, overwrites pred [B, n, n], inter [B], mv [B, 2] (quarter pel) and
     smode [B] in place. Returns (gtflag [B] int32, gtc [B, 6] int32: the
-    winning anchor's coded corners, TL, TR, BR as (x, y))."""
+    winning anchor's coded corners, TL, TR, BR as (x, y)).
+
+    On a PSS picture refsel [B] int32 is C10's reference index (the SS
+    reference, L0's last entry, names the AMVP predictors; GT must also
+    beat the temporal cost, costs [B, 4]) and is set to the SS one where
+    GT wins."""
     if not recon.is_cuda:
         return gt_step_plain(recon, org_plane, rc, pos, zcur, zmax2n, motion,
                              nbav, miav, ring, costs, pred, inter, mv, smode,
-                             n, w, h, hc_off, bit_depth, lam, mi_size)
+                             n, w, h, hc_off, bit_depth, lam, mi_size,
+                             refsel)
     return _gt_step_cuda(recon, org_plane, rc, pos, zcur, zmax2n, motion,
                          nbav, miav, ring, costs, pred, inter, mv, smode, n,
-                         w, h, hc_off, bit_depth, lam, mi_size)
+                         w, h, hc_off, bit_depth, lam, mi_size, refsel)
 
 
 def _gt_step_cuda(recon, org_plane, rc, pos, zcur, zmax2n, motion, nbav,
                   miav, ring, costs, pred, inter, mv, smode, n, w, h, hc_off,
-                  bit_depth, lam, mi_size):
-    global SEARCH_LAUNCHES, DECIDE_LAUNCHES
+                  bit_depth, lam, mi_size, refsel):
+    global SEARCH_LAUNCHES, DECIDE_LAUNCHES, PSS_DECIDE_LAUNCHES
     b = pos.shape[0]
     anchor, gt_rate, gt_ok = ring
     for t, nm in ((recon, "recon"), (org_plane, "org_plane"), (rc, "rc")):
         _check_plane(t, nm)
     if recon.stride(0) != org_plane.stride(0):
         raise ValueError("gt_step: recon and org_plane share one stride")
+    if costs.shape[1:] != ((3,) if refsel is None else (4,)):
+        raise ValueError("gt_step: costs [B, 3], or [B, 4] with refsel")
     for t, nm in ((pos, "pos"), (zcur, "zcur"), (zmax2n, "zmax2n"),
                   (anchor, "anchor"), (pred, "pred"), (inter, "inter"),
                   (mv, "mv"), (smode, "smode"),
-                  *((m, "motion") for m in motion)):
+                  *((m, "motion") for m in motion),
+                  *(() if refsel is None else ((refsel, "refsel"),))):
         _check(t, torch.int32, nm)
     for t, nm in ((gt_rate, "gt_rate"), (costs, "costs")):
         _check(t, torch.float32, nm)
@@ -346,29 +362,33 @@ def _gt_step_cuda(recon, org_plane, rc, pos, zcur, zmax2n, motion, nbav,
     s_ok = torch.empty((b, 2), dtype=torch.int32, device=dev)
     mvx4, mvy4, pi4, rf4 = motion
     lam32 = f32(lam)
+    ss_idx = 0 if refsel is None else SS_IDX_PSS
     fn = _cuda.bind("gt_search", "hh_gt_search",
                     "ppi" "ppp" "pppp" "ii" "pp" "ppp"
-                    "iiiiiif" "ppppp" "p")
+                    "iiiiiiif" "ppppp" "p")
     err = fn(recon.data_ptr(), org_plane.data_ptr(), recon.stride(0),
              pos.data_ptr(), zcur.data_ptr(), zmax2n.data_ptr(),
              mvx4.data_ptr(), mvy4.data_ptr(), pi4.data_ptr(),
              rf4.data_ptr(), pi4.shape[0], pi4.shape[1],
              nbav.data_ptr(), miav.data_ptr(),
              anchor.data_ptr(), gt_rate.data_ptr(), gt_ok.data_ptr(),
-             b, n, w, h, bit_depth, mi_size, lam32,
+             b, n, w, h, bit_depth, mi_size, ss_idx, lam32,
              s_gtc.data_ptr(), s_pred.data_ptr(), s_cost.data_ptr(),
              s_amv.data_ptr(), s_ok.data_ptr(), _cuda.stream(recon))
     _cuda.check("gt_search", err)
     SEARCH_LAUNCHES += 1
     fn = _cuda.bind("gt_search", "hh_gt_decide",
-                    "pii" "iiiii" "ppppppp" "ppppppp")
+                    "pii" "iiiii" "ppppppp" "pppppp" "pi" "p")
     err = fn(rc.data_ptr(), rc.shape[1], rc.stride(0),
              b, n, h // 2, hc_off, bit_depth,
              pos.data_ptr(), s_gtc.data_ptr(), s_pred.data_ptr(),
              s_cost.data_ptr(), s_amv.data_ptr(), s_ok.data_ptr(),
              costs.data_ptr(), pred.data_ptr(), inter.data_ptr(),
              mv.data_ptr(), smode.data_ptr(), flag.data_ptr(),
-             gtc.data_ptr(), _cuda.stream(recon))
+             gtc.data_ptr(), None if refsel is None else refsel.data_ptr(),
+             ss_idx, _cuda.stream(recon))
     _cuda.check("gt_search", err)
     DECIDE_LAUNCHES += 1
+    if refsel is not None:
+        PSS_DECIDE_LAUNCHES += 1
     return flag, gtc

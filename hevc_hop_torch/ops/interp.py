@@ -12,7 +12,10 @@ compensation of a batch of blocks out of a recon plane, luma or the stacked
 cb/cr plane (cb rows [0, hc), cr rows [hc_off, hc_off + hc)), with two
 optional epilogues: write the prediction only into the blocks a mask
 selects (the encoder's chroma, over C2's intra prediction), or add the
-residual and write the clipped recon in place (the decoder). On a CUDA
+residual and write the clipped recon, in place or into another plane of
+the same shape (the decoder; a PSS picture's temporal blocks read the
+previous picture and write the current one), for every block or only for
+those a mask selects. On a CUDA
 tensor it launches the kernel; on a CPU tensor it runs
 :func:`mc_blocks_plain`.
 """
@@ -131,30 +134,34 @@ def _rows(pos, chroma, h_real, hc_off):
 
 
 def mc_blocks_plain(plane, pos, mv, n, chroma, h_real, bit_depth=8,
-                    hc_off=0, out=None, only=None, resi=None):
+                    hc_off=0, out=None, only=None, resi=None, dst=None):
     """Plain version of :func:`mc_blocks` (same arguments, same results)."""
     b = pos.shape[0]
     mv = mv if mv.shape[0] == b else mv.repeat(b // mv.shape[0], 1)
     lo, hi = _rows(pos, chroma, h_real, hc_off)
     pred = _mc(plane, pos, mv, n, chroma, lo, hi, bit_depth)
+    sel = (None if only is None else
+           (only if only.shape[0] == b else only.repeat(b // only.shape[0]))
+           != 0)
     if resi is not None:
+        ps = pos if sel is None else pos[sel]
+        pred = pred if sel is None else pred[sel]
         ar = torch.arange(n, device=plane.device)
-        rows = (pos[:, 1, None, None].long() + ar[None, :, None]).expand(
+        rows = (ps[:, 1, None, None].long() + ar[None, :, None]).expand(
             -1, n, n)
-        cols = (pos[:, 0, None, None].long() + ar[None, None, :]).expand(
+        cols = (ps[:, 0, None, None].long() + ar[None, None, :]).expand(
             -1, n, n)
-        plane[rows, cols] = torch.clamp(pred + resi[rows, cols], 0,
-                                        (1 << bit_depth) - 1)
+        (plane if dst is None else dst)[rows, cols] = torch.clamp(
+            pred + resi[rows, cols], 0, (1 << bit_depth) - 1)
         return None
     if out is None:
         return pred
-    sel = only if only.shape[0] == b else only.repeat(b // only.shape[0])
-    out[sel != 0] = pred[sel != 0]
+    out[sel] = pred[sel]
     return out
 
 
 def mc_blocks(plane, pos, mv, n, chroma, h_real, bit_depth=8, hc_off=0,
-              out=None, only=None, resi=None):
+              out=None, only=None, resi=None, dst=None):
     """Kernel C8 over B blocks of size n.
 
     plane [H, W] int32: the luma recon, or the stacked cb/cr recon
@@ -169,13 +176,14 @@ def mc_blocks(plane, pos, mv, n, chroma, h_real, bit_depth=8, hc_off=0,
       the blocks whose ``only`` is non-zero, leaves the others, and returns
       ``out``;
     - ``resi`` (plane-shaped int32): writes clip(pred + resi) into
-      ``plane`` at each block and returns None.
+      ``plane`` (or into ``dst``, a plane with the same row stride) at each
+      block, or at each block whose ``only`` is non-zero, and returns None.
     """
     if not plane.is_cuda:
         return mc_blocks_plain(plane, pos, mv, n, chroma, h_real, bit_depth,
-                               hc_off, out, only, resi)
+                               hc_off, out, only, resi, dst)
     return _mc_cuda(plane, pos, mv, n, chroma, h_real, bit_depth, hc_off,
-                    out, only, resi)
+                    out, only, resi, dst)
 
 
 def _check(t, dtype, name):
@@ -185,7 +193,7 @@ def _check(t, dtype, name):
 
 
 def _mc_cuda(plane, pos, mv, n, chroma, h_real, bit_depth, hc_off, out,
-             only, resi):
+             only, resi, dst):
     global LUMA_LAUNCHES, CHROMA_LAUNCHES
     b = pos.shape[0]
     _check(plane, torch.int32, "plane")
@@ -198,6 +206,14 @@ def _mc_cuda(plane, pos, mv, n, chroma, h_real, bit_depth, hc_off, out,
     ret = None
     if resi is not None:
         _check(resi, torch.int32, "resi")
+        if only is not None:
+            _check(only, torch.int32, "only")
+            if b % only.shape[0]:
+                raise ValueError("mc_blocks: only rows must divide B")
+        if dst is not None:
+            _check(dst, torch.int32, "dst")
+            if dst.stride(0) != plane.stride(0):
+                raise ValueError("mc_blocks: dst and plane share one stride")
     elif out is not None:
         _check(out, torch.int32, "out")
         _check(only, torch.int32, "only")
@@ -210,7 +226,7 @@ def _mc_cuda(plane, pos, mv, n, chroma, h_real, bit_depth, hc_off, out,
     if b == 0:
         return ret
     fn = _cuda.bind("interp", "hh_mc_blocks", "piii" "ppi" "iiiiii" "ppi"
-                    "pi" "p")
+                    "pip" "p")
     err = fn(plane.data_ptr(), plane.shape[0], plane.shape[1],
              plane.stride(0), pos.data_ptr(), mv.data_ptr(), mv.shape[0],
              b, n, int(chroma), h_real, hc_off, bit_depth,
@@ -218,7 +234,8 @@ def _mc_cuda(plane, pos, mv, n, chroma, h_real, bit_depth, hc_off, out,
              None if only is None else only.data_ptr(),
              0 if only is None else only.shape[0],
              None if resi is None else resi.data_ptr(),
-             0 if resi is None else resi.stride(0), _cuda.stream(plane))
+             0 if resi is None else resi.stride(0),
+             None if dst is None else dst.data_ptr(), _cuda.stream(plane))
     _cuda.check("interp", err)
     if chroma:
         CHROMA_LAUNCHES += 1

@@ -1,8 +1,9 @@
-"""Self-similarity full search and its MVD rates; kernel C9.
+"""Self-similarity and temporal full searches and their MVD rates; kernel
+C9.
 
 Counterpart of hevc_hop_tpu/models/ss_scan.py ``_mvd_bits``,
 ``_min_rate_bits``, ``_dyn_rate_map``, ``_ss_search`` (with its GT anchor
-ring) and ``ss_anchor_ok``, and of the search half of
+ring), ``_t_search`` and ``ss_anchor_ok``, and of the search half of
 hevc_hop_tpu/models/ss_partition.py ``_ss_rd_size`` (whose wrapper is in
 models/ss_partition.py).
 
@@ -16,7 +17,14 @@ whose whole 2n window (GT's, plus 2 samples of slack) is causal, with the
 same tie rule (the reference's lax.top_k with k = 1). The predictors
 come from the carried motion planes, gathered in the kernel
 (:func:`hevc_hop_torch.ops.inter_arms.gather_cands` is the plain form).
-The pre-pass entry's wrapper is models/ss_partition.py ``ss_rd_costs``.
+:func:`pss_search` is the same entry on a PSS picture: the SS search as
+above (the SS reference is L0's last entry, so its predictors are the
+neighbours that name it), and in the same launch the temporal search of
+the same blocks over the previous picture (``_t_search``): every
+displacement inside the picture is valid, the radius is ``radius_t`` and
+the predictors are the neighbours that name the temporal reference, and
+zero. The pre-pass entry's wrapper is models/ss_partition.py
+``ss_rd_costs``.
 
 Float forms. The reference computes the SSE map in float32 as org^2 +
 ref^2 - 2 corr, with corr and ref^2 from XLA:CPU's convolution and org^2
@@ -26,7 +34,11 @@ of 512 products, each block as two accumulators (even and odd products,
 each one rounded sum after another) added at its end, the blocks added in
 order; org^2 is :func:`block_sum`'s order (rows, then the row sums by
 halves). For 8-bit
-samples and n <= 16 every one of these sums is exact. The rate map lam *
+samples and n <= 16 every one of these sums is exact. The PSS program
+(``scan_encode_pss``) compiles both searches' convolutions otherwise
+(ROADMAP.md queue 3, F10): each sum runs over the kernel in row-major
+order, one rounded add after another (``seq``); org^2 keeps
+:func:`block_sum`'s order there. The rate map lam *
 (INTER_BITS + bits) is rounded on its own and then added to the SSE (in
 the compiled search it is a fusion of its own, unlike the refinement's
 cost, a fused multiply-add).
@@ -48,11 +60,14 @@ from hevc_hop_torch.ops.quant import argmin_first, seq_sum
 SEARCH_LAUNCHES = 0
 # launches of the scan entry that also found the GT anchor ring
 RING_LAUNCHES = 0
+# launches of the scan entry that also ran the temporal search (PSS)
+TEMPORAL_LAUNCHES = 0
 
 IFM = 4           # luma margin covering the chroma MC filter reach
 INTRA_BITS = 8.0  # flag + mode rate proxy for the SSE-domain tournament
 INTER_BITS = 6.0  # skip/merge/inter flags + refidx proxy
 HUGE_PRED = 1 << 19   # sentinel predictor coordinate: never wins a min
+SS_IDX_PSS = 1        # a PSS picture's L0: [previous picture, SS]
 BIG = 3.0e38
 # products per block of XLA:CPU's convolution sum (see the docstring)
 CONV_BLOCK = 512
@@ -101,32 +116,40 @@ def search_rate(lam: float, bits: torch.Tensor):
 # Plain version.
 # ---------------------------------------------------------------------------
 
-def conv_sum(win: torch.Tensor, ker: torch.Tensor, n: int, d: int):
+def conv_sum(win: torch.Tensor, ker: torch.Tensor, n: int, d: int,
+             seq: bool = False):
     """[B, d, d] float32 sums over the n x n kernel ker [B, n, n] of
     win[b, dy + ky, dx + kx] * ker[b, ky, kx] (non-negative integers), in
-    XLA:CPU's order. Where a sum stays below 2^24 every partial sum is an
-    exact integer in any order, so the exact float64 sum is taken; the
-    ordered float32 sums run only for the blocks that pass 2^24."""
+    XLA:CPU's order: F8's blocked order, or with ``seq`` the PSS program's
+    row-major sequential one. Where a sum stays below 2^24 every partial
+    sum is an exact integer in any order, so the exact float64 sum is
+    taken; the ordered float32 sums run only for the blocks that pass
+    2^24."""
     b = win.shape[0]
     exact = torch.nn.functional.conv2d(win.double()[None],
                                        ker.double()[:, None], groups=b)[0]
     out = exact.float()
     big = (exact >= 2.0 ** 24).flatten(1).any(1)
     if big.any():
-        out[big] = _conv_sum_ordered(win[big], ker[big], n, d)
+        out[big] = _conv_sum_ordered(win[big], ker[big], n, d,
+                                     n * n if seq else CONV_BLOCK,
+                                     1 if seq else 2)
     return out
 
 
-def _conv_sum_ordered(win, ker, n, d):
+def _conv_sum_ordered(win, ker, n, d, block, lanes):
     total = None
-    for k0 in range(0, n * n, CONV_BLOCK):
-        lanes = [None, None]
-        for k in range(k0, min(k0 + CONV_BLOCK, n * n)):
+    for k0 in range(0, n * n, block):
+        acc = [None] * lanes
+        for k in range(k0, min(k0 + block, n * n)):
             ky, kx = divmod(k, n)
             t = win[:, ky:ky + d, kx:kx + d] * ker[:, ky, kx, None, None]
-            j = k & 1
-            lanes[j] = t if lanes[j] is None else lanes[j] + t
-        s = lanes[0] if lanes[1] is None else lanes[0] + lanes[1]
+            j = (k - k0) % lanes
+            acc[j] = t if acc[j] is None else acc[j] + t
+        s = acc[0]
+        for a in acc[1:]:
+            if a is not None:
+                s = s + a
         total = s if total is None else total + s
     return total
 
@@ -172,30 +195,23 @@ def ss_anchor_ok(pos, zcur, zmax2n, disp, n, w, h):
     return inb2 & (zm2 < zcur)
 
 
-def ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n, radius,
-                    w, h, lam, zmax2n=None):
-    """Plain version of the search: (mv [B, 2] full-pel (x, y), cost [B],
-    pred [B, n, n] int32, sse [B]) float32, and with zmax2n the GT anchor
-    ring (anchor [B, 2] full pel, gt_rate [B] float32, gt_ok [B] bool)."""
+def _full_search(plane, org_plane, pos, mask, preds, n, radius, h, lam,
+                 seq):
+    """The masked full search over the window of plane around each block:
+    (mv [B, 2], cost [B], pred [B, n, n] int32, sse [B], the SSE map and
+    the rate map [B, D, D]); ``seq`` picks :func:`conv_sum`'s order."""
     b = pos.shape[0]
-    dev = recon.device
+    dev = plane.device
     d = 2 * radius + 1
-    dr = torch.arange(-radius, radius + 1, device=dev)
-    ty = pos[:, 1, None, None].long() + dr[None, :, None]
-    tx = pos[:, 0, None, None].long() + dr[None, None, :]
-    inb = (ty >= 0) & (tx >= 0) & (ty + n <= h) & (tx + n <= w)
-    zm = zmaxw[ty.clamp(0, h - n), tx.clamp(0, w - n)]
-    mask = inb & (zm < zcur[:, None, None])
-
-    win = _search_window(recon, pos, n, radius, h)
-    # the sums of a block with no causal displacement decide nothing
+    win = _search_window(plane, pos, n, radius, h)
+    # the sums of a block with no valid displacement decide nothing
     live = mask.flatten(1).any(1)
     wf = win[live].to(torch.float32)
     of = block_at(org_plane, pos[live], n).to(torch.float32)
     sse = torch.zeros((b, d, d), dtype=torch.float32, device=dev)
     if live.any():
-        corr = conv_sum(wf, of, n, d)
-        ref2 = conv_sum(wf * wf, torch.ones_like(of), n, d)
+        corr = conv_sum(wf, of, n, d, seq)
+        ref2 = conv_sum(wf * wf, torch.ones_like(of), n, d, seq)
         org2 = block_sum(of * of)[:, None, None]
         sse[live] = (org2 + ref2) - 2.0 * corr
     rate = search_rate(lam, rate_bits_map(preds, radius))
@@ -212,7 +228,32 @@ def ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n, radius,
     pry = (mvy + radius).long()[:, None, None] + ar[None, :, None]
     prx = (mvx + radius).long()[:, None, None] + ar[None, None, :]
     pred = win[torch.arange(b, device=dev)[:, None, None], pry, prx]
-    out = (torch.stack([mvx, mvy], -1), best, pred.to(torch.int32), sse_best)
+    return (torch.stack([mvx, mvy], -1), best, pred.to(torch.int32),
+            sse_best, sse, rate)
+
+
+def _targets(pos, n, radius, w, h):
+    """(ty, tx, in the picture) [B, D, D] of every displacement."""
+    dr = torch.arange(-radius, radius + 1, device=pos.device)
+    ty = pos[:, 1, None, None].long() + dr[None, :, None]
+    tx = pos[:, 0, None, None].long() + dr[None, None, :]
+    return ty, tx, (ty >= 0) & (tx >= 0) & (ty + n <= h) & (tx + n <= w)
+
+
+def ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n, radius,
+                    w, h, lam, zmax2n=None, seq=False):
+    """Plain version of the search: (mv [B, 2] full-pel (x, y), cost [B],
+    pred [B, n, n] int32, sse [B]) float32, and with zmax2n the GT anchor
+    ring (anchor [B, 2] full pel, gt_rate [B] float32, gt_ok [B] bool).
+    ``seq``: the PSS program's sum order (:func:`conv_sum`)."""
+    b = pos.shape[0]
+    d = 2 * radius + 1
+    ty, tx, inb = _targets(pos, n, radius, w, h)
+    zm = zmaxw[ty.clamp(0, h - n), tx.clamp(0, w - n)]
+    mask = inb & (zm < zcur[:, None, None])
+    *out, sse, rate = _full_search(recon, org_plane, pos, mask, preds, n,
+                                   radius, h, lam, seq)
+    out = tuple(out)
     if zmax2n is None:
         return out
     # the GT anchor ring: the least cost among the displacements whose
@@ -230,6 +271,18 @@ def ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n, radius,
     anchor = torch.stack([(idx2 % d).to(torch.int32) - radius,
                           (idx2 // d).to(torch.int32) - radius], -1)
     return out + (anchor, gt_rate, gt_ok)
+
+
+def t_search_plain(refp, org_plane, pos, preds, n, radius, w, h, lam,
+                   seq=True):
+    """Plain version of the temporal search (the reference's
+    ``_t_search``): every displacement whose block lies in the picture is
+    valid. Returns (mv [B, 2] full-pel, cost [B], pred [B, n, n] int32,
+    sse [B]) as :func:`ss_search_plain`; ``seq``: the sum order of the
+    PSS program (the default) or F8's (:func:`conv_sum`)."""
+    mask = _targets(pos, n, radius, w, h)[2]
+    return _full_search(refp, org_plane, pos, mask, preds, n, radius, h,
+                        lam, seq)[:4]
 
 
 # ---------------------------------------------------------------------------
@@ -268,15 +321,37 @@ def ss_search(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav, n,
         preds = gather_cands(*motion, pos, nbav, miav, n, mi_size)[3]
         return ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n,
                                radius, w, h, lam, zmax2n)
-    return _ss_search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav,
-                           miav, n, radius, w, h, lam, mi_size, zmax2n)
+    return _search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav,
+                        miav, n, radius, w, h, lam, mi_size, zmax2n)[0]
 
 
-def _ss_search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav,
-                    n, radius, w, h, lam, mi_size, zmax2n):
-    global SEARCH_LAUNCHES, RING_LAUNCHES
+def pss_search(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav, n,
+               radius, w, h, lam, mi_size, zmax2n, ref, radius_t):
+    """Kernel C9, scan entry, on a PSS picture (L0 = [ref, SS]): returns
+    (the SS search's tuple as :func:`ss_search` gives it, the temporal
+    search's (mv [B, 2] full-pel, cost [B], pred [B, n, n] int32, sse
+    [B])) of the blocks at pos, the temporal one over ref [h, W] int32
+    (the previous picture, rows of the same stride as org_plane) with
+    radius ``radius_t``."""
+    if not recon.is_cuda:
+        from hevc_hop_torch.ops.inter_arms import gather_cands
+        p_ss, p_t = gather_cands(*motion, pos, nbav, miav, n, mi_size,
+                                 SS_IDX_PSS)[3:]
+        return (ss_search_plain(recon, org_plane, pos, zcur, zmaxw, p_ss, n,
+                                radius, w, h, lam, zmax2n, seq=True),
+                t_search_plain(ref, org_plane, pos, p_t, n, radius_t, w, h,
+                               lam))
+    return _search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav,
+                        miav, n, radius, w, h, lam, mi_size, zmax2n, ref,
+                        radius_t)
+
+
+def _search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav, n,
+                 radius, w, h, lam, mi_size, zmax2n, ref=None, radius_t=0):
+    global SEARCH_LAUNCHES, RING_LAUNCHES, TEMPORAL_LAUNCHES
     b = pos.shape[0]
-    for t, nm in ((recon, "recon"), (org_plane, "org_plane")):
+    for t, nm in ((recon, "recon"), (org_plane, "org_plane"),
+                  *(() if ref is None else ((ref, "ref"),))):
         _check_plane(t, nm)
     for t, nm in ((pos, "pos"), (zcur, "zcur"), (zmaxw, "zmaxw"),
                   *((m, "motion") for m in motion)):
@@ -296,14 +371,23 @@ def _ss_search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav,
                 torch.empty(b, dtype=torch.float32, device=dev),
                 torch.empty(b, dtype=torch.bool, device=dev))
         out = out + ring
+    tout = None
+    if ref is not None:
+        tout = (torch.empty((b, 2), dtype=torch.int32, device=dev),
+                torch.empty(b, dtype=torch.float32, device=dev),
+                torch.empty((b, n, n), dtype=torch.int32, device=dev),
+                torch.empty(b, dtype=torch.float32, device=dev))
     if b == 0:
-        return out
+        return out, tout
     mvx4, mvy4, pi4, rf4 = motion
-    if recon.stride(0) != org_plane.stride(0):
-        raise ValueError("ss_search: recon and org_plane share one stride")
+    if any(t.stride(0) != org_plane.stride(0)
+           for t in (recon,) + (() if ref is None else (ref,))):
+        raise ValueError("ss_search: recon, ref and org_plane share one "
+                         "stride")
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = _cuda.bind("ss_search", "hh_ss_search",
-                    "ppi" "ppp" "ppppii" "pp" "iiiiiif" "pppp" "pppp" "p")
+                    "ppi" "ppp" "ppppii" "pp" "iiiiiif" "pppp" "pppp"
+                    "pii" "pppp" "p")
     err = fn(recon.data_ptr(), org_plane.data_ptr(), recon.stride(0),
              pos.data_ptr(), zcur.data_ptr(), zmaxw.data_ptr(),
              mvx4.data_ptr(), mvy4.data_ptr(), pi4.data_ptr(),
@@ -312,9 +396,13 @@ def _ss_search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav,
              b, n, radius, w, h, mi_size, f32(lam),
              mv.data_ptr(), cost.data_ptr(), pred.data_ptr(), sse.data_ptr(),
              ptr(zmax2n), *(ptr(t) for t in (ring or (None,) * 3)),
+             ptr(ref), radius_t, 0 if ref is None else SS_IDX_PSS,
+             *(ptr(t) for t in (tout or (None,) * 4)),
              _cuda.stream(recon))
     _cuda.check("ss_search", err)
     SEARCH_LAUNCHES += 1
     if ring is not None:
         RING_LAUNCHES += 1
-    return out
+    if ref is not None:
+        TEMPORAL_LAUNCHES += 1
+    return out, tout

@@ -16,10 +16,10 @@ TAppDecTop.cpp). Usage:
 From Python, ``main(argv, device="cpu")`` runs the same on the CPU (the
 kernels' plain versions); that is a keyword, not a command-line option.
 The holoscopic mode (-hi, e.g. with -c 3DHencoder_intra_main.cfg) codes
-one frame as an ISS picture with the quadtree pre-pass and, by default,
-the GT warp; two or more frames need PSS pictures, which are not ported
-yet and raise NotImplementedError (ROADMAP.md queue 1, slice 4). -g is
-read and unused, as in the reference.
+the frames as the low-delay holoscopic GOP (an ISS picture, then PSS
+pictures) with the quadtree pre-pass and, by default, the GT warp; its
+recon file holds each picture's recon. -g is read and unused, as in the
+reference.
 """
 from __future__ import annotations
 

@@ -115,13 +115,27 @@ def test_cli_holoscopic_matches_reference(tmp_path, capsys):
     assert outs[1][1] == outs[1][2]
 
 
-def test_cli_holoscopic_raises(tmp_path):
-    """-hi with two frames needs PSS pictures, not ported yet."""
+def test_cli_holoscopic_raises(tmp_path, capsys):
+    """-hi with two frames, once refused, codes an ISS and a PSS picture:
+    both CLIs give the same bitstream, recon file (each picture's own
+    recon: R1 is not on this path) and decoded file."""
     src = _lenslet_source(tmp_path, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main(["encode", "-c", HOLO_CFG, "-i", str(src), "-b",
-                  str(tmp_path / "o.bin"), "-wdt", "64", "-hgt", "64",
-                  "-f", "2", "-sr", "16"], device="cpu")
+    outs = []
+    for main, tag, kw in ((jcli.main, "jax", {}),
+                          (cli.main, "port", dict(device="cpu"))):
+        bs, rec, dec = (tmp_path / f"{tag}.{ext}" for ext in ("bin", "rec",
+                                                              "dec"))
+        assert main(["encode", "-c", HOLO_CFG, "-i", str(src), "-b",
+                     str(bs), "-o", str(rec), "-wdt", "64", "-hgt", "64",
+                     "-f", "2", "-sr", "16"], **kw) == 0
+        assert main(["decode", "-b", str(bs), "-o", str(dec)], **kw) == 0
+        assert "[OK]" in capsys.readouterr().out
+        outs.append((bs.read_bytes(), rec.read_bytes(), dec.read_bytes()))
+    for g, r, what in zip(outs[1], outs[0], ("bitstream", "recon",
+                                             "decoded")):
+        assert g == r, what
+    assert outs[1][1] == outs[1][2]
+    assert len(outs[1][1]) == 2 * 64 * 64 * 3 // 2
 
 
 def test_rate_control_matches_reference():

@@ -5,8 +5,8 @@ on warped content), and in the two regions of the search's float sums that
 F8 left untested (10-bit samples, search_range 40); the JAX scan's own
 decisions, GT ones included, fed to the port's level loop give the JAX
 recon and levels; the port's Decoder on those streams and on the committed
-JAX ISS fixtures, which its encoder also writes byte for byte; PSS
-pictures raise."""
+JAX ISS fixtures, which its encoder also writes byte for byte; and
+encode_sequence of an ISS and a PSS picture."""
 import hashlib
 import json
 import pathlib
@@ -236,12 +236,21 @@ def test_port_decodes_and_writes_reference_iss_fixture(name):
 
 
 def test_unported_lenslet_parts_raise():
-    """PSS pictures (slice 4) are not ported: encode_sequence refuses two
-    frames, naming ROADMAP.md (one frame is its ISS picture)."""
-    enc = HoloEncoder(HoloConfig(), device="cpu")
-    frame = synth_lenslet(64, 64, 13)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        enc.encode_sequence([frame, frame])
+    """PSS pictures, once refused here, are ported: encode_sequence of two
+    frames (the ISS picture, then a PSS one) writes the JAX encoder's
+    stream, with its recon history (tests/test_torch_e2e_pss.py holds the
+    PSS slice in depth)."""
+    y, cb, cr = synth_lenslet(64, 64, 13)
+    frames = [(y, cb, cr), (np.clip(y + 1, 0, 255), cb, cr)]
+    cfg = dict(width=64, height=64, mi_size=13, search_range=16,
+               search_range_t=8)
+    ref_enc = JaxEncoder(JaxConfig(**cfg))
+    ref = ref_enc.encode_sequence(frames)
+    enc = HoloEncoder(HoloConfig(**cfg), device="cpu")
+    assert enc.encode_sequence(frames) == ref
+    assert len(enc.recon_history) == 2
+    for got, want in zip(enc.recon_history, ref_enc.recon_history):
+        _same_pictures(got, want)
 
 
 # GT on (the reference's default): test_e2e_iss.py's GT configuration, the

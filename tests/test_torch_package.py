@@ -40,8 +40,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr + out.stdout
     assert len(mods) > 20
-    # the lenslet ISS slice's modules, the GT warp's among them
-    assert {"hevc_hop_torch.ops.interp", "hevc_hop_torch.ops.ss_search",
+    # the lenslet ISS and PSS slices' modules (PSS adds none of its own),
+    # the GT warp's among them
+    assert {"hevc_hop_torch.models.decoder", "hevc_hop_torch.utils.cli",
+            "hevc_hop_torch.ops.interp", "hevc_hop_torch.ops.ss_search",
             "hevc_hop_torch.ops.inter_arms", "hevc_hop_torch.models.ss_scan",
             "hevc_hop_torch.models.ss_partition",
             "hevc_hop_torch.models.ss_encoder", "hevc_hop_torch.ops.warp",

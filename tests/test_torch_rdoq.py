@@ -30,7 +30,7 @@ def _lam(qp, c_idx):
 
 
 @pytest.mark.parametrize("qp", [22, 30, 37])
-@pytest.mark.parametrize("init_type", [2, 3])
+@pytest.mark.parametrize("init_type", [2, 3, 4])
 @pytest.mark.parametrize("c_idx", [0, 1])
 @pytest.mark.parametrize("log2", [2, 3, 4, 5])
 def test_tables_match_reference(log2, c_idx, init_type, qp):
@@ -46,11 +46,12 @@ def test_tables_match_reference(log2, c_idx, init_type, qp):
 @pytest.mark.parametrize("c_idx", [0, 1])
 @pytest.mark.parametrize("log2", [2, 3, 4, 5])
 def test_rdoq_plain_matches_jitted_reference(log2, c_idx, bit_depth):
-    """Every class (all three MDCS scans where the class has them) at two
-    QPs and both init types, level for level."""
+    """Every class (all three MDCS scans where the class has them) at three
+    QPs and the three init types (I, ISS and PSS slices), level for
+    level."""
     n = 1 << log2
     b = {2: 1024, 3: 512, 4: 128, 5: 48}[log2]
-    for qp, init_type in ((22, 2), (37, 3)):
+    for qp, init_type in ((22, 2), (37, 3), (30, 4)):
         rng = np.random.default_rng(log2 * 100 + c_idx * 10 + bit_depth + qp)
         coef = rdoq_coefs(rng, b, n)
         scan = rng.integers(0, 3, b).astype(np.int32)

@@ -282,7 +282,8 @@ def test_merge_and_refine_match_reference(n):
         *motion, pos, nbav, miav, n, mi, 0)
     got_c = ia.gather_cands(*(T(m) for m in motion), T(pos), T(nbav),
                             T(miav), n, mi)
-    for g, r_ in zip(got_c, (want_c[0], want_c[1], want_c[2], want_c[3])):
+    assert len(got_c) == len(want_c)
+    for g, r_ in zip(got_c, want_c):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r_))
     cands, _, cvalid, p_ss = (np.asarray(a) for a in want_c[:4])
     merge = jax.jit(jss._merge_arms, static_argnums=(9, 10, 11, 12, 13, 14))(
@@ -290,7 +291,8 @@ def test_merge_and_refine_match_reference(n):
         cvalid, 0, n, w, h, 8, LAM)
     got_m = ia.merge_arms_plain(T(recon), T(of), T(pos), T(zcur), T(zmaxw),
                                 T(cands), T(cvalid), n, w, h, 8, LAM)
-    for g, r_ in zip(got_m, (merge[0], merge[1], merge[3])):
+    assert len(got_m) == len(merge)
+    for g, r_ in zip(got_m, merge):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r_))
     assert np.any(np.asarray(merge[0]) < 1e37)
     rate = jss._dyn_rate_map(jnp.asarray(p_ss), radius, LAM)

@@ -23,6 +23,12 @@ content:
 - jax_iss_gt_warped_1920x1088_qp37: the 96x64 GT configuration at full
   size on synth_warped_lenslet(1920, 1088, 16, seed=5), where GT takes
   2.4 %; about 50 s.
+- jax_pss_gt_1920x1088_qp32: bench.py's lenslet cell on a short low-delay
+  holoscopic sequence (HoloEncoder.encode_sequence: one ISS picture, then
+  two PSS pictures): lenslet_frame(1920, 1088, mi=16, seed=5) panned by one
+  sample per frame with +-2 noise (tests/test_e2e_iss.py
+  test_pss_sequence_roundtrip's motion model, :func:`pss_frames`); its
+  .json holds each picture's MD5.
 
 Each .json records the generator, seed, configuration and the per-plane MD5
 of the JAX decoder's output. Run from the repository root, with the names
@@ -132,6 +138,57 @@ def write_iss(name: str, w: int, h: int, seed: int, extra: dict) -> None:
         f.write("\n")
 
 
+def pss_frames(w: int, h: int, count: int = 3, seed: int = 5):
+    """test_pss_sequence_roundtrip's motion model on lenslet_frame(w, h,
+    mi=16, seed): frame t is the luma rolled by t samples plus
+    default_rng(7) noise in [-2, 2], clipped; the chroma rolled by t // 2."""
+    y0, cb0, cr0 = lenslet_frame(w, h, mi=16, seed=seed)
+    rng = np.random.default_rng(7)
+    frames = []
+    for t in range(count):
+        y = np.roll(y0, t, axis=1) + rng.integers(-2, 3, (h, w))
+        frames.append((y.clip(0, 255).astype(np.int32),
+                       np.roll(cb0, t // 2, axis=1).astype(np.int32),
+                       np.roll(cr0, t // 2, axis=1).astype(np.int32)))
+    return frames
+
+
+# name -> (width, height, seed, frames, HoloConfig fields beyond the size)
+PSS_FIXTURES = {
+    "jax_pss_gt_1920x1088_qp32": (1920, 1088, 5, 3, dict(
+        qp=32, quadtree=True, sao=True, rdoq=True, sbh=True, mi_size=16,
+        search_range=32, search_range_t=16, gt=True)),
+}
+
+
+def write_pss(name: str, w: int, h: int, seed: int, count: int,
+              extra: dict) -> None:
+    cfg = HoloConfig(width=w, height=h, **extra)
+    enc = HoloEncoder(cfg)
+    stream = enc.encode_sequence(pss_frames(w, h, count, seed))
+    dec = Decoder()
+    pics = dec.decode_stream(stream)
+    assert dec.hash_ok == [True] * count
+    for got, want in zip(pics, enc.recon_history):
+        assert all(np.array_equal(g, e) for g, e in zip(got, want))
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, name + ".bin"), "wb") as f:
+        f.write(stream)
+    meta = dict(
+        generator="tests/torch_fixtures/make_jax_fixture.py "
+                  "(hevc_hop_tpu HoloEncoder.encode_sequence, JAX on the "
+                  "CPU)",
+        content=f"make_jax_fixture.py pss_frames({w}, {h}, {count}, "
+                f"seed={seed}) on tools/bdrate.py lenslet_frame",
+        seed=seed, frames=count, config=dataclasses.asdict(cfg),
+        bytes=len(stream),
+        md5=[{"y": plane_md5(y), "cb": plane_md5(cb), "cr": plane_md5(cr)}
+             for (y, cb, cr) in pics])
+    with open(os.path.join(here, name + ".json"), "w") as f:
+        json.dump(meta, f, indent=1)
+        f.write("\n")
+
+
 def main(names) -> None:
     for name, (w, h, seed, extra) in FIXTURES.items():
         if not names or name in names:
@@ -139,6 +196,9 @@ def main(names) -> None:
     for name, (w, h, seed, extra) in ISS_FIXTURES.items():
         if not names or name in names:
             write_iss(name, w, h, seed, extra)
+    for name, (w, h, seed, count, extra) in PSS_FIXTURES.items():
+        if not names or name in names:
+            write_pss(name, w, h, seed, count, extra)
 
 
 if __name__ == "__main__":

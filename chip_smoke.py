@@ -66,6 +66,20 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      history, temporal prediction chosen (each PSS picture's share
      printed); then PSS_TIMED_TURNS more codings of the sequence, each PSS
      picture timed;
+   - mesh: hevc_hop_torch.parallel's MeshIntraEncoder (16x16 CUs, in-loop
+     RMD, RDOQ, SBH, deblocking, SAO off) on a virtual (2 frames, 2 bands)
+     mesh on the card over synth_class_b seeds 0 and 1, and
+     analysis_step_sharded at n = 16 on the two luma planes over a
+     virtual (2, 2) row mesh: both streams equal the single-device
+     encoder's and the committed JAX mesh fixture byte for byte, decode
+     with hash_ok to last_recons; one frame on a (1, 17) mesh (a halo
+     every second CTU row) writes the same stream; one more encode with
+     its C2 and C3 launches held against the plain bodies (the fullest
+     level and every eighth); C2's analysis entry held at n = 4 to 32;
+     MESH_TIMED_TURNS turns, each the mesh's two frames then the
+     single-device encoder on them, with the host probes; the bound of
+     both level loops (profiles of both and of the analysis come last,
+     with the other paths');
    and for the two GT paths the GT tool's share of the encode, each path's
    encoder against a gt=False twin on its frame, in turns in one process;
    then C9's pre-pass entry on every block of the lenslet luma against
@@ -130,7 +144,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    entries; and those of the PSS path, at its last picture's fullest
    32x32 level: C9's scan entry with the temporal search (a grouped
    conv2d of the temporal windows as its library yardstick), its pre-pass
-   entry with the temporal arm, C10's PSS forms and C12's PSS decide.
+   entry with the temporal arm, C10's PSS forms and C12's PSS decide;
+   and those of the mesh path: C2's RMD and C3's RDOQ arm at the fullest
+   level of the stacked (2, 2) mesh, and C2's analysis entry at n = 16.
 
 It prints the card's name and power limit, one JSON line for the kernels,
 one for the main paths, and as its last line
@@ -551,11 +567,14 @@ def _counters():
     temporal search; pre-pass, and among them those with the temporal
     arm), csrc/inter_arms.cu (arms, motion, and among each the PSS form),
     csrc/warp.cu (window, luma, chroma) and csrc/gt_search.cu (search,
-    decide, and among the latter the PSS form) count apart."""
+    decide, and among the latter the PSS form) count apart; C2's analysis
+    entry (parallel/mesh.py) counts apart from its other launches."""
     from hevc_hop_torch.models import partition, ss_partition
     from hevc_hop_torch.ops import (deblock, gt, hashes, inter_arms, interp,
                                     intra, rdoq, sao, ss_search, tq, warp)
+    from hevc_hop_torch.parallel import mesh
     return [("C1", hashes, "LAUNCHES"), ("C2", intra, "LAUNCHES"),
+            ("C2 analysis", mesh, "LAUNCHES"),
             ("C3 encode", tq, "ENCODE_LAUNCHES"),
             ("C3 encode (RDOQ)", tq, "ENCODE_RDOQ_LAUNCHES"),
             ("C3 decode", tq, "DECODE_LAUNCHES"),
@@ -696,6 +715,12 @@ def phase_main_path(name):
         require(dec2.hash_ok == [True], "a later decode's hash")
     stats = dict(enc.last_stats)
     sched = next(reversed(wavefront_scan._SCHEDULES.values()))
+    if name == "uniform":
+        # K6's floor: the bound of every C2 and C3 launch of its levels
+        extra_out = {"level_loop_bound_ms": level_loop_bound(sched.plans,
+                                                             False)}
+    else:
+        extra_out = {}
     levels = int(sum(np.any([p.cnt > 0 for p in sched.plans.values()], 0)))
     blocks = {int(lg): int(p.cnt.sum()) for lg, p in sched.plans.items()}
     enc_med, dec_med = float(np.median(enc_s)), float(np.median(dec_s))
@@ -708,7 +733,7 @@ def phase_main_path(name):
            "encode_fps": 1.0 / enc_med, "decode_fps": 1.0 / dec_med,
            "python_probe_ms": float(np.median([p[0] for p in probes])),
            "launch_probe_ms": float(np.median([p[1] for p in probes])),
-           "last_stats": stats, "launches": launches}
+           "last_stats": stats, "launches": launches, **extra_out}
     if name == "production":
         # distinct frames: each has its own partition, so its schedule is
         # built anew (the cache holds the frame above only)
@@ -3083,13 +3108,350 @@ def phase_pss_timing(ctxs, checks, launches):
     return _time_specs(specs, checks, launches)
 
 
+# ---------------------------------------------------------------------------
+# The mesh slice: MeshIntraEncoder (K19) and the sharded analysis (K20).
+
+# the mesh-intra-1080p cell: 16x16 CUs with in-loop RMD, RDOQ, SBH and
+# deblocking on, SAO off, two frames on a virtual (2 frames, 2 bands) mesh
+MESH_CONFIG = dict(qp=QP, cu_log2=4, sao=False)
+MESH_SHAPE = (2, 2)
+MESH_SEEDS = (0, 1)
+MESH_TIMED_TURNS = 3
+MESH_FIXTURE = "jax_mesh_1920x1088_qp32"
+# the analysis: n = 16 on the path, 4, 8 and 32 held once each
+ANALYSIS_N = 16
+
+
+def _mesh_fixture():
+    """(streams, meta) of the committed JAX mesh fixture: the .bin holds
+    the frames' streams one after the other, the .json their lengths."""
+    base = os.path.join(ROOT, "tests", "torch_fixtures", MESH_FIXTURE)
+    with open(base + ".bin", "rb") as f:
+        blob = f.read()
+    with open(base + ".json") as f:
+        meta = json.load(f)
+    cuts = np.cumsum([0] + meta["bytes"])
+    require(cuts[-1] == len(blob), f"{MESH_FIXTURE}: .bin length")
+    return [blob[a:b] for a, b in zip(cuts[:-1], cuts[1:])], meta
+
+
+def _hold_mesh_launches(enc, frames, checks, every=8):
+    """One more encode_frames of the mesh encoder with its C2 and C3
+    launches held against the plain bodies on the same inputs, at the
+    fullest level and every ``every``-th level (luma RMD, C3's encode in
+    its RDOQ arm, chroma with the luma mode, C3's chroma encode); the
+    encode goes on with the kernels' outputs. Returns (held launches per
+    form, the streams, and the fullest level's luma C2 and C3 arguments)."""
+    import torch
+    from hevc_hop_torch.models import wavefront_scan as ws
+    from hevc_hop_torch.ops import intra, tq
+    c2, c3 = checks["C2"], checks["C3"]
+    orig = (ws.intra_blocks, ws.tq_encode)
+    plans = enc._build()[1]
+    fullest = {p.n: int(p.cnt.max()) for p in plans.values()}
+    calls, held, box = {}, {}, {}
+
+    def pick(kind, n, b, c_idx):
+        # a chroma launch holds the cb and cr blocks of luma blocks of 2n
+        k = calls[(kind, n)] = calls.get((kind, n), -1) + 1
+        return b == (c_idx + 1) * fullest[n << c_idx] or k % every == 0
+
+    def c2_held(plane, pos, avail, modes, n, c_idx, bit_depth=8,
+                strong=True, org=None, resi=None):
+        got = intra.intra_blocks(plane, pos, avail, modes, n, c_idx,
+                                 bit_depth, strong, org=org, resi=resi)
+        if pick("C2", n, pos.shape[0], c_idx):
+            want = intra.intra_blocks_plain(plane, pos, avail, modes, n,
+                                            c_idx, bit_depth, strong,
+                                            org=org, resi=resi)
+            for g, w_, part in zip(got, want, ("prediction", "modes")):
+                if w_ is not None:
+                    c2.add(g, w_, f"C2 mesh c_idx {c_idx} {n}x{n} {part}")
+            what = "C2 luma RMD" if org is not None else "C2 chroma"
+            held[what] = held.get(what, 0) + 1
+            if org is not None and pos.shape[0] == fullest[n]:
+                box["c2"] = tuple(a.clone() if torch.is_tensor(a) else a
+                                  for a in (plane, pos, avail, modes, n,
+                                            c_idx, bit_depth, strong, org))
+        return got
+
+    def c3_held(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh, rdoq,
+                recon, coefp):
+        if not pick("C3", n, pos.shape[0], c_idx):
+            return tq.tq_encode(org, pred, pos, modes, n, c_idx, qp,
+                                bit_depth, sbh, rdoq, recon, coefp)
+        rp, cp = recon.clone(), coefp.clone()
+        if c_idx == 0 and pos.shape[0] == fullest[n]:
+            box["c3"] = (org.clone(), pred.clone(), pos.clone(),
+                         modes.clone(), n, c_idx, qp, bit_depth, sbh, rdoq)
+        want = tq.tq_encode_plain(org, pred, pos, modes, n, c_idx, qp,
+                                  bit_depth, sbh, rdoq, rp, cp)
+        got = tq.tq_encode(org, pred, pos, modes, n, c_idx, qp, bit_depth,
+                           sbh, rdoq, recon, coefp)
+        chk = checks["C7"] if rdoq else c3
+        for g, w_, part in ((got, want, "cbf"), (recon, rp, "recon"),
+                            (coefp, cp, "levels")):
+            chk.add(g, w_, f"C3 mesh c_idx {c_idx} {n}x{n} encode {part}")
+        what = f"C3 encode{' (RDOQ)' if rdoq else ''} " + (
+            "chroma" if c_idx else "luma")
+        held[what] = held.get(what, 0) + 1
+        return got
+
+    ws.intra_blocks, ws.tq_encode = c2_held, c3_held
+    try:
+        streams = enc.encode_frames(frames)
+        torch.cuda.synchronize()
+    finally:
+        ws.intra_blocks, ws.tq_encode = orig
+    return held, streams, box
+
+
+def level_loop_bound(plans, use_rdoq):
+    """Least time (ms) of a level loop's C2 and C3 launches: for every
+    level and size, the bound of its luma RMD, luma encode, chroma
+    prediction and chroma encode launches (each the larger of its bytes
+    and its operations, counted as the kernel rows count them), summed."""
+    total = 0.0
+    for p in plans.values():
+        n, nc = p.n, p.n // 2
+        for c in p.cnt[p.cnt > 0]:
+            c = int(c)
+            launches = [
+                (c * (4 * n * n * 2 + 4 * (4 * n + 1) + 4 * n + 1 + 16),
+                 c * rmd_ops(n)),
+                # chroma: one prediction, no reference smoothing
+                (2 * c * (4 * nc * nc + 4 * (4 * nc + 1) + 4 * nc + 1 + 12),
+                 2 * c * 5 * nc * nc)]
+            for b, m in ((c, n), (2 * c, nc)):
+                nbytes = b * (m * m * (4 + 4 + 4 + 2) + 16)
+                if use_rdoq:
+                    ri, rf = rdoq_ops(m)
+                    launches.append((nbytes, (b * (tq_encode_ops(m)
+                                                   - 7 * m * m + ri),
+                                              b * rf)))
+                else:
+                    launches.append((nbytes, b * tq_encode_ops(m)))
+            total += sum(bound(nb, ops)[0] for nb, ops in launches)
+    return total
+
+
+def phase_mesh(checks):
+    """The mesh-intra-1080p path: MeshIntraEncoder on a virtual (2, 2)
+    mesh on the card and analysis_step_sharded, with every launch count
+    set to 0 just before and read just after; checks, held launches, the
+    (1, 17) mesh, the timed turns against the single-device encoder, the
+    profiles and the analysis at every block size. Returns (path entry,
+    kernel specs' context)."""
+    import torch
+    from hevc_hop_torch.models.decoder import Decoder
+    from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+    from hevc_hop_torch.parallel import mesh as pmesh
+    from hevc_hop_torch.parallel import shard_encode
+    t_start = time.perf_counter()
+    cfg = EncoderConfig(width=W, height=H, **MESH_CONFIG)
+    frames = [synth_class_b(W, H, seed=s) for s in MESH_SEEDS]
+    mesh = shard_encode.make_mesh(MESH_SHAPE[0] * MESH_SHAPE[1],
+                                  band_par=MESH_SHAPE[1])
+    require(mesh.virtual and mesh.shape == MESH_SHAPE
+            and mesh.device.type == "cuda", f"mesh {mesh}")
+    enc = shard_encode.MeshIntraEncoder(cfg, mesh)
+    amesh = pmesh.make_mesh(4, row_par=2)
+    require(amesh.virtual and amesh.shape == (2, 2), f"analysis mesh")
+    aframes = torch.as_tensor(np.stack([f[0] for f in frames])).to(
+        amesh.device)
+    counters = _counters()
+    for _, m, attr in counters:
+        setattr(m, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    streams = enc.encode_frames(frames)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    cost, mode = pmesh.analysis_step_sharded(aframes, amesh, ANALYSIS_N)
+    torch.cuda.synchronize()
+    launches = {k: getattr(m, attr) for k, m, attr in counters}
+    log(f"mesh path launches: {launches}")
+    needed = ("C1", "C2", "C3 encode (RDOQ)", "C4", "C2 analysis")
+    require(all(launches[k] > 0 for k in needed),
+            f"a kernel was not launched on the mesh path: {launches}")
+    require(tuple(cost.shape) == (2, H // ANALYSIS_N, W // ANALYSIS_N)
+            and int(mode.min()) >= 0 and int(mode.max()) <= 34,
+            "analysis output")
+    recons = [tuple(p.cpu().numpy() for p in r) for r in enc.last_recons]
+    # the single-device encoder, the decoder and the JAX fixture
+    single = IntraEncoder(cfg)
+    fx, meta = _mesh_fixture()
+    require(meta["config"]["cu_log2"] == cfg.cu_log2
+            and meta["seeds"] == list(MESH_SEEDS)
+            and meta["mesh"] == list(MESH_SHAPE), "fixture configuration")
+    psnr = []
+    for f, frame in enumerate(frames):
+        require(single.encode_frame(*frame) == streams[f],
+                f"mesh frame {f}: differs from the single-device stream")
+        require(streams[f] == fx[f], f"mesh frame {f}: differs from "
+                f"{MESH_FIXTURE} ({len(streams[f])} and {len(fx[f])} bytes)")
+        dec = Decoder()
+        (pic,) = dec.decode_stream(streams[f])
+        require(dec.hash_ok == [True], f"mesh frame {f}: hash_ok")
+        md5 = {k: hashlib.md5(p.astype(np.uint8).tobytes()).hexdigest()
+               for k, p in zip(("y", "cb", "cr"), pic)}
+        require(md5 == meta["md5"][f], f"mesh frame {f}: MD5s {md5}")
+        for a, b, nm in zip(pic, recons[f], ("y", "cb", "cr")):
+            require(np.array_equal(a, b), f"mesh frame {f}: decoded {nm} "
+                    "!= last_recons")
+        psnr.append(float(10 * np.log10(255.0 ** 2 / max(np.mean(
+            (recons[f][0].astype(np.float64) - frame[0]) ** 2), 1e-9))))
+    log(f"mesh: both streams equal the single-device encoder's and "
+        f"{MESH_FIXTURE} byte for byte; decoded with hash_ok")
+    # a halo every second CTU row
+    m17 = shard_encode.make_mesh(17, band_par=17)
+    s17 = shard_encode.MeshIntraEncoder(cfg, m17).encode_frames(frames[:1])
+    require(s17[0] == streams[0], "the (1, 17) mesh's stream differs")
+    log("mesh: the (1, 17) mesh writes frame 0's stream")
+    # the held encode
+    held, again, box = _hold_mesh_launches(enc, frames, checks)
+    require(again == streams, "the held mesh encode's streams differ")
+    require(all(held.get(k, 0) > 0 for k in (
+        "C2 luma RMD", "C2 chroma", "C3 encode (RDOQ) luma",
+        "C3 encode (RDOQ) chroma")) and "c2" in box and "c3" in box,
+            f"mesh launch forms never held: {held}")
+    log(f"mesh: held launches {held}")
+    # the analysis at every block size, kernel against plain body
+    halo = pmesh.band_halos(aframes, H // 2, 8)
+    a_held = {}
+    for n in (4, 8, 16, 32):
+        got = pmesh.analysis_blocks(aframes, halo, H // 2, n)
+        want = pmesh.analysis_blocks_plain(aframes, halo, H // 2, n)
+        for g, w_, part in zip(got, want, ("cost", "mode")):
+            checks["C2"].add(g, w_, f"C2 analysis {n}x{n} {part}")
+        a_held[n] = int(got[0].numel())
+    log(f"mesh: C2's analysis entry held at n = 4-32 ({a_held} blocks)")
+    # timed turns: the mesh's two frames, then the single device's
+    mesh_s, single_s, probes = [], [], []
+    for _ in range(MESH_TIMED_TURNS):
+        probes.append(host_probes())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = enc.encode_frames(frames)
+        torch.cuda.synchronize()
+        mesh_s.append((time.perf_counter() - t0) / len(frames))
+        require(out == streams, "a later mesh encode differs")
+        for frame in frames:
+            t0 = time.perf_counter()
+            single.encode_frame(*frame)
+            torch.cuda.synchronize()
+            single_s.append(time.perf_counter() - t0)
+    lay, plans, _, nsteps, _ = enc._build()
+    sched = single._schedule(single._decide(None)[0])
+    out = {"frame": f"{W}x{H}", "qp": QP, "config": MESH_CONFIG,
+           "mesh": list(MESH_SHAPE), "frames": len(frames),
+           "content": [f"synth_class_b({W}, {H}, seed={s})"
+                       for s in MESH_SEEDS],
+           "wavefront_levels": nsteps,
+           "launches_per_level": launches["C2"] / nsteps,
+           "bytes": [len(s) for s in streams], "y_psnr_db": psnr,
+           "first_encode_s": first_s, "timed_turns": MESH_TIMED_TURNS,
+           "mesh_encode_s_per_frame": float(np.median(mesh_s)),
+           "mesh_encode_s_per_frame_max": max(mesh_s),
+           "single_encode_s_per_frame": float(np.median(single_s)),
+           "single_encode_s_per_frame_max": max(single_s),
+           "python_probe_ms": float(np.median([p[0] for p in probes])),
+           "launch_probe_ms": float(np.median([p[1] for p in probes])),
+           "held": held, "analysis_held_blocks": a_held,
+           "level_loop_bound_ms": {
+               "mesh_2_frames": level_loop_bound(plans, cfg.rdoq),
+               "single_frame": level_loop_bound(sched.plans, cfg.rdoq)},
+           "launches": launches,
+           "phase_s": time.perf_counter() - t_start}
+    log(f"mesh path: {json.dumps(out)}")
+    return out, dict(enc=enc, single=single, frames=frames, box=box,
+                     aframes=aframes, amesh=amesh, halo=halo)
+
+
+def phase_mesh_profile(ctx):
+    """torch.profiler over the mesh path, after the kernel rows' short
+    traces as the other paths' profiles: "encode" the mesh's two frames,
+    "single" the same two frames on the single-device encoder, "analysis"
+    analysis_step_sharded at n = 16."""
+    from hevc_hop_torch.parallel import mesh as pmesh
+    enc, single, frames = ctx["enc"], ctx["single"], ctx["frames"]
+    out = {"encode": _profile(lambda: enc.encode_frames(frames)),
+           "single": _profile(
+               lambda: [single.encode_frame(*f) for f in frames]),
+           "analysis": _profile(lambda: pmesh.analysis_step_sharded(
+               ctx["aframes"], ctx["amesh"], ANALYSIS_N))}
+    log(f"profile mesh: {json.dumps(out)}")
+    return out
+
+
+def phase_mesh_timing(ctx, checks, launches):
+    """Rows of the mesh path's kernels: C2's RMD and C3's encode (RDOQ arm)
+    at the fullest stacked level of the (2, 2) mesh (every frame and band
+    of the level in one launch), and C2's analysis entry on the two
+    frames at n = 16."""
+    import torch
+    from hevc_hop_torch.ops import intra, tq
+    from hevc_hop_torch.parallel import mesh as pmesh
+    specs = []
+    plane, pos, avail, modes, n, c_idx, bd, strong, org = ctx["box"]["c2"]
+    c = pos.shape[0]
+    specs.append(dict(
+        name="C2 intra (RMD, mesh)", counter="C2", path="mesh",
+        kernel="intra_kernel",
+        shape=f"{c} luma blocks of {n}x{n} of 2 frames x 2 bands, RMD",
+        source="hevc_hop_torch/csrc/intra.cu",
+        replaces="hevc_hop_tpu/parallel/shard_encode.py:106",
+        fn=lambda: intra.intra_blocks(plane, pos, avail, modes, n, 0, bd,
+                                      strong, org=org),
+        plain=lambda: intra.intra_blocks_plain(plane, pos, avail, modes, n,
+                                               0, bd, strong, org=org),
+        nbytes=c * (4 * n * n * 2 + 4 * (4 * n + 1) + 4 * n + 1 + 16),
+        ops=c * rmd_ops(n)))
+    a = ctx["box"]["c3"]
+    bufs = {k: (torch.zeros(a[0].shape, dtype=torch.int32,
+                            device=a[0].device),
+                torch.zeros(a[0].shape, dtype=torch.int16,
+                            device=a[0].device)) for k in ("k", "p")}
+    ri, rf = rdoq_ops(a[4])
+    c3n = a[2].shape[0]
+    specs.append(dict(
+        name="C3 tq (encode, RDOQ, mesh)", counter="C3 encode (RDOQ)",
+        path="mesh", kernel="tq_encode_rdoq_kernel",
+        shape=f"{c3n} luma blocks of {a[4]}x{a[4]} of 2 frames x 2 bands, "
+              "RDOQ arm",
+        source="hevc_hop_torch/csrc/tq.cu",
+        replaces="hevc_hop_tpu/parallel/shard_encode.py:106",
+        fn=lambda: (tq.tq_encode(*a, *bufs["k"]), *bufs["k"]),
+        plain=lambda: (tq.tq_encode_plain(*a, *bufs["p"]), *bufs["p"]),
+        nbytes=c3n * (a[4] * a[4] * (4 + 4 + 4 + 2) + 16),
+        ops=(c3n * (tq_encode_ops(a[4]) - 7 * a[4] * a[4] + ri),
+             c3n * rf)))
+    fr, halo = ctx["aframes"], ctx["halo"]
+    nb = fr.shape[0] * (H // ANALYSIS_N) * (W // ANALYSIS_N)
+    specs.append(dict(
+        name="C2 intra (analysis)", counter="C2 analysis", path="mesh",
+        kernel="analysis_kernel",
+        shape=f"2 frames of {W}x{H} in 2 row bands, {nb} blocks of "
+              f"{ANALYSIS_N}x{ANALYSIS_N}",
+        source="hevc_hop_torch/csrc/intra.cu",
+        replaces="hevc_hop_tpu/parallel/mesh.py:86",
+        fn=lambda: pmesh.analysis_blocks(fr, halo, H // 2, ANALYSIS_N),
+        plain=lambda: pmesh.analysis_blocks_plain(fr, halo, H // 2,
+                                                  ANALYSIS_N),
+        # a block's work is RMD's, on a chain read straight from the frame
+        nbytes=4 * fr.numel() + 4 * halo.numel() + 8 * nb,
+        ops=nb * rmd_ops(ANALYSIS_N)))
+    return _time_specs(specs, checks, launches)
+
+
 KERNELS = ("checksum_kernel", "intra_kernel", "tq_encode_kernel",
            "tq_encode_rdoq_kernel", "tq_decode_kernel", "rdoq_quant_kernel",
            "deblock_kernel", "partition_rd_kernel",
            "partition_decide_kernel", "sao_stats_kernel", "sao_apply_kernel",
            "mc_kernel", "ss_search_kernel", "ss_rd_kernel",
            "inter_arms_kernel", "motion_write_kernel", "warp_kernel",
-           "gt_pred_kernel", "gt_search_kernel", "gt_decide_kernel")
+           "gt_pred_kernel", "gt_search_kernel", "gt_decide_kernel",
+           "analysis_kernel")
 
 
 def _profile(fn):
@@ -3180,6 +3542,8 @@ def main() -> int:
         run = phase_pss_path if content == "panned" else phase_iss_path
         paths[name], ctxs[name] = run(name)
         log_host(f"{name} path timed")
+    paths["mesh"], mesh_ctx = phase_mesh(checks)
+    log_host("mesh path timed")
     gt_share = phase_gt_share(ctxs)
     log_host("gt share timed")
     iss_prepass = phase_iss_kernels(checks, ctxs)
@@ -3197,16 +3561,18 @@ def main() -> int:
     rows = (phase_timing(ctxs, ps, checks, launches)
             + phase_iss_timing(ctxs, checks, launches)
             + phase_gt_timing(ctxs, checks, launches)
-            + phase_pss_timing(ctxs, checks, launches))
-    for name in paths:
+            + phase_pss_timing(ctxs, checks, launches)
+            + phase_mesh_timing(mesh_ctx, checks, launches))
+    for name in ctxs:
         paths[name]["profile"] = phase_profile(name, ctxs[name])
+    paths["mesh"]["profile"] = phase_mesh_profile(mesh_ctx)
     for r in rows:
         # C7's frame time is that of the arm it runs in, transforms included
         k = r.get("frame_kernel", r["kernel"])
         r["frame_ms"] = {
             name: {side: prof[side]["kernel_ms"][k]
                    if prof[side]["device_busy_ms"] else None
-                   for side in ("encode", "decode")}
+                   for side in ("encode", "decode") if side in prof}
             for name, prof in ((n, paths[n]["profile"]) for n in paths)}
     log_host("end")
     log(card)

@@ -23,6 +23,9 @@ Layout (mirrors hevc_hop_tpu):
                sao.py     C6 sao.cu       (SAO statistics and apply)
   models/    wavefront level loop, IntraEncoder, Decoder, rate control,
              and partition.py C5 partition.cu (RD pre-pass and decision)
+  parallel/  frames x row-band meshes: MeshIntraEncoder and the sharded
+             mode analysis (C2's analysis entry), on one device or over
+             torch.distributed ranks
   utils/     the HM-style command line, its options and report (copied)
   convert.py configuration and constant tables from the reference
 

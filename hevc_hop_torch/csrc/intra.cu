@@ -31,6 +31,18 @@
 // mode. The blocks of one level are few (a wavefront level of 1080p holds
 // some tens), so the card is far from full; the level loop on the host is
 // the cost to attack next (a persistent kernel or a CUDA graph).
+//
+// Analysis entry (analysis_kernel): the dense 35-mode mode analysis of
+// hevc_hop_tpu/parallel/mesh.py analysis_costs and analysis_step_sharded
+// (_block_chains, predict_all_modes with strong=False, satd, then min and
+// argmin), over every n x n block of F frames cut into row bands of
+// band_h rows. One CTA per block builds the block's chain from the
+// original frame the reference's way: no substitution, mid-grey left of
+// column 0, the band's halo row (the row above the band, or mid-grey)
+// above its first row, the left column clipped at the band's last row and
+// the top row at the frame's last column. It then scores the 35 modes
+// against the block as the RMD loop above does and writes the lowest cost
+// and the first mode that reaches it. Bound: integer operations, as RMD.
 #include "intra.cuh"
 
 namespace {
@@ -155,6 +167,75 @@ __global__ void intra_kernel(int32_t *plane, int ph, int pw, int stride,
   if (tid == 0) best_out[b] = flag[1];
 }
 
+__global__ void analysis_kernel(const int32_t *frames, const int32_t *halo,
+                                int h, int w, int band_h, int n,
+                                int bit_depth, Tables t, int32_t *cost_out,
+                                int32_t *mode_out) {
+  extern __shared__ int32_t sm[];
+  const int L = 4 * n + 1, nn = n * n;
+  int32_t *cu = sm;            // [L]
+  int32_t *cf = cu + L;        // [L]
+  int32_t *O = cf + L;         // [nn] original minus candidate
+  int32_t *A = O + nn;         // [nn] Hadamard first stage
+  int32_t *H = A + nn;         // [64]
+  int32_t *tsum = H + 64;      // [16] per-tile sums
+
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int bx = w / n, per_frame = (h / n) * bx;
+  const long long blk = blockIdx.x;
+  const int f = (int)(blk / per_frame), rem = (int)(blk % per_frame);
+  const int px = (rem % bx) * n, py = (rem / bx) * n;
+  const int band = py / band_h, y0 = band * band_h;
+  const int32_t *fr = frames + (long long)f * h * w;
+  const int32_t *top = halo + ((long long)f * (h / band_h) + band) * w;
+  const int mid = 1 << (bit_depth - 1);
+  // ext coordinates of the reference: row 0 the halo, column 0 mid-grey
+  const int ys = py - y0 + 1, xs = px + 1;
+  for (int i = tid; i < L; i += nt) {
+    int ey, ex;
+    if (i < 2 * n) {
+      ey = min(ys + 2 * n - 1 - i, band_h);
+      ex = xs - 1;
+    } else if (i == 2 * n) {
+      ey = ys - 1;
+      ex = xs - 1;
+    } else {
+      ey = ys - 1;
+      ex = min(xs + i - 2 * n - 1, w);
+    }
+    cu[i] = ex == 0 ? mid
+                    : (ey == 0 ? top[ex - 1]
+                               : fr[(long long)(y0 + ey - 1) * w + ex - 1]);
+  }
+  const int k = n >= 8 ? 8 : 4;
+  for (int i = tid; i < k * k; i += nt) H[i] = t.had[i];
+  for (int i = tid; i < 16; i += nt) tsum[i] = 0;
+  __syncthreads();
+
+  const int use_filter = n > 4;
+  if (use_filter) filter_chain(cu, cf, n, bit_depth, 0);
+  const Refs r = make_refs(cu, use_filter ? cf : nullptr, n, 0, bit_depth);
+
+  int best_cost = 0x7fffffff, best_mode = 0;  // kept by thread 0
+  for (int m = 0; m < 35; ++m) {
+    for (int i = tid; i < nn; i += nt) {
+      const int x = i % n, y = i / n;
+      O[i] = fr[(long long)(py + y) * w + px + x] - predict_px(r, t, m, x, y);
+    }
+    __syncthreads();
+    const int cost = satd_cost(O, A, H, tsum, n);
+    if (tid == 0 && cost < best_cost) {
+      best_cost = cost;
+      best_mode = m;
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    cost_out[blk] = best_cost;
+    mode_out[blk] = best_mode;
+  }
+}
+
 }  // namespace
 
 // plane [ph, pw] int32 (row stride `stride`): chains are read from it; the
@@ -187,5 +268,33 @@ HH_EXPORT int hh_intra(void *plane, int ph, int pw, int stride,
       static_cast<const int32_t *>(modes), aper, mper, n, c_idx, bit_depth,
       strong, t, static_cast<int32_t *>(pred_out),
       static_cast<int32_t *>(best_out));
+  return (int)cudaGetLastError();
+}
+
+// frames [nf, h, w] int32 originals; halo [nf, h / band_h, w] int32, the
+// row above each band (mid-grey for a frame's first band); band_h a
+// multiple of n dividing h. cost_out and mode_out [nf, h / n, w / n].
+HH_EXPORT int hh_intra_analysis(const void *frames, const void *halo, int nf,
+                                int h, int w, int band_h, int n,
+                                int bit_depth, const void *ext_idx,
+                                const void *pred_idx, const void *fact,
+                                const void *is_hor, const void *filt,
+                                const void *had, void *cost_out,
+                                void *mode_out, void *stream) {
+  Tables t{static_cast<const int32_t *>(ext_idx),
+           static_cast<const int32_t *>(pred_idx),
+           static_cast<const int32_t *>(fact),
+           static_cast<const int32_t *>(is_hor),
+           static_cast<const int32_t *>(filt),
+           static_cast<const int32_t *>(had)};
+  const int nn = n * n;
+  const int threads = nn < 32 ? 32 : (nn > 256 ? 256 : nn);
+  const size_t smem = sizeof(int32_t) * (2 * (4 * n + 1) + 2 * nn + 64 + 16);
+  const unsigned blocks = (unsigned)nf * (unsigned)(h / n) * (unsigned)(w / n);
+  analysis_kernel<<<blocks, threads, smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t *>(frames), static_cast<const int32_t *>(halo),
+      h, w, band_h, n, bit_depth, t, static_cast<int32_t *>(cost_out),
+      static_cast<int32_t *>(mode_out));
   return (int)cudaGetLastError();
 }

@@ -259,7 +259,8 @@ def schedule(depth8: np.ndarray, tu4: np.ndarray, w: int, h: int,
 
 def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
                 bit_depth: int, strong: bool, sbh: bool, modes=None,
-                use_rdoq: bool = False, init_type: int = 2):
+                use_rdoq: bool = False, init_type: int = 2,
+                after_level=None):
     """Intra encode of every block, level by level.
 
     org_y [h+pad, w] and org_c (stacked cb/cr) int32 on the target device.
@@ -272,6 +273,8 @@ def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
     ``use_rdoq`` quantizes every block with RDOQ (slice class
     ``init_type``) at the reference's lambdas: full_lambda(qp) for luma,
     weighted by 2^((qp_c - qp) / 3) in float64 for chroma.
+    ``after_level(ry, rc)``, where given, runs after every level (the
+    mesh encoder's halo refresh, parallel/shard_encode.py).
     Returns (ry, rc, coef_y, coef_c, outs): recon and int16 level planes
     shaped like the originals, and outs[log2] = (best [T], cbf_y [T],
     cbf_c [2Tc]) in the packed order of ``plans``.
@@ -322,6 +325,8 @@ def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
             acc[log2][2].append(tq_encode(org_c, predc, cpos, cmode, nc, 1,
                                           qp_c, bit_depth, sbh, rcfg_c, rc,
                                           coef_c))
+        if after_level is not None:
+            after_level(ry, rc)
     outs = {}
     for log2, lists in acc.items():
         outs[log2] = tuple(torch.cat(v) if v else torch.zeros(

@@ -29,6 +29,12 @@ content:
   sample per frame with +-2 noise (tests/test_e2e_iss.py
   test_pss_sequence_roundtrip's motion model, :func:`pss_frames`); its
   .json holds each picture's MD5.
+- jax_mesh_1920x1088_qp32: the mesh-sharded intra encoder
+  (hevc_hop_tpu.parallel.shard_encode.MeshIntraEncoder) on a (2 frames,
+  2 bands) virtual CPU mesh, 16x16 CUs with in-loop RMD, RDOQ, SBH and
+  deblocking, SAO off, on synth_class_b(1920, 1088) seeds 0 and 1: the
+  .bin holds the two streams one after the other, the .json each one's
+  length and MD5s; about a minute on a CPU.
 
 Each .json records the generator, seed, configuration and the per-plane MD5
 of the JAX decoder's output. Run from the repository root, with the names
@@ -43,7 +49,15 @@ import json
 import os
 import sys
 
-import numpy as np
+# the mesh fixture's (2, 2) mesh needs four host devices, which XLA reads
+# when its CPU backend starts
+if "xla_force_host_platform_device_count" not in os.environ.get(
+        "XLA_FLAGS", ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=4"
+                               ).strip()
+
+import numpy as np  # noqa: E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -189,6 +203,45 @@ def write_pss(name: str, w: int, h: int, seed: int, count: int,
         f.write("\n")
 
 
+# name -> (width, height, seeds of the frames, mesh (frames, bands),
+# EncoderConfig fields beyond the size)
+MESH_FIXTURES = {
+    "jax_mesh_1920x1088_qp32": (1920, 1088, (0, 1), (2, 2), dict(
+        qp=32, cu_log2=4, sao=False)),
+}
+
+
+def write_mesh(name: str, w: int, h: int, seeds: tuple, shape: tuple,
+               extra: dict) -> None:
+    from hevc_hop_tpu.parallel import shard_encode
+    cfg = EncoderConfig(width=w, height=h, **extra)
+    mesh = shard_encode.make_mesh(shape[0] * shape[1], band_par=shape[1])
+    assert mesh.devices.shape == shape
+    streams = shard_encode.MeshIntraEncoder(cfg, mesh).encode_frames(
+        [synth_class_b(w, h, seed=s) for s in seeds])
+    md5 = []
+    for stream in streams:
+        dec = Decoder()
+        (y, cb, cr), = dec.decode_stream(stream)
+        assert dec.hash_ok == [True]
+        md5.append({"y": plane_md5(y), "cb": plane_md5(cb),
+                    "cr": plane_md5(cr)})
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, name + ".bin"), "wb") as f:
+        f.write(b"".join(streams))
+    meta = dict(
+        generator="tests/torch_fixtures/make_jax_fixture.py "
+                  "(hevc_hop_tpu MeshIntraEncoder, JAX on the CPU, "
+                  f"a ({shape[0]}, {shape[1]}) mesh of host devices)",
+        content=[f"bench.py synth_class_b({w}, {h}, seed={s})"
+                 for s in seeds],
+        seeds=list(seeds), mesh=list(shape), config=dataclasses.asdict(cfg),
+        bytes=[len(s) for s in streams], md5=md5)
+    with open(os.path.join(here, name + ".json"), "w") as f:
+        json.dump(meta, f, indent=1)
+        f.write("\n")
+
+
 def main(names) -> None:
     for name, (w, h, seed, extra) in FIXTURES.items():
         if not names or name in names:
@@ -199,6 +252,9 @@ def main(names) -> None:
     for name, (w, h, seed, count, extra) in PSS_FIXTURES.items():
         if not names or name in names:
             write_pss(name, w, h, seed, count, extra)
+    for name, (w, h, seeds, shape, extra) in MESH_FIXTURES.items():
+        if not names or name in names:
+            write_mesh(name, w, h, seeds, shape, extra)
 
 
 if __name__ == "__main__":

@@ -29,8 +29,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    just before it and read just after:
    - production: bench.py's production configuration, the all-intra
      encode of 1920x1088 frames with the RD pre-pass, NxN, the residual
-     quadtree, RDOQ (C7's device code in C3's RDOQ arm), SBH, deblocking,
-     SAO and the checksum SEI, and the decode of that stream; recon ==
+     quadtree, RDOQ, SBH, deblocking, SAO and the checksum SEI, and the
+     decode of that stream; the frame's wavefront runs as one launch of
+     kernel C13 each way (C2's and C3's device code, C7's in its RDOQ
+     arm), and no per-level C2 or C3 encode launch; recon ==
      decoded picture, hash_ok, every kernel of the path launched. Then
      TIMED_FRAMES more encodes and decodes, timed one by one (median and
      maximum) with two fixed pieces of host work timed beside each
@@ -41,6 +43,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    - quadtree: the same with RDOQ off, QUADTREE_TIMED_FRAMES timed frames;
    - uniform: uniform 16x16 CUs, in-loop RMD, SAO and RDOQ off,
      UNIFORM_TIMED_FRAMES timed frames;
+   - scan program: on each of the three paths' frames (and the noisy
+     frame of the production path), C13's encode entry held against the
+     level loop of C2 and C3 launches and against the level loop of their
+     plain versions, all on the card (recon, level planes, modes, cbfs),
+     and its decode entry on the encode's own dense residual against both
+     loops and against the encode's recon: 0 mismatches; the grid it
+     chose, and the three scans' times;
    - iss: the lenslet ISS encode (bench.py:88-100's cell with the GT warp
      off, at 1920x1088: quadtree pre-pass with C9's pre-pass entry,
      self-similarity search C9, merge arms, sub-pel refinement and the
@@ -146,7 +155,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    conv2d of the temporal windows as its library yardstick), its pre-pass
    entry with the temporal arm, C10's PSS forms and C12's PSS decide;
    and those of the mesh path: C2's RMD and C3's RDOQ arm at the fullest
-   level of the stacked (2, 2) mesh, and C2's analysis entry at n = 16.
+   level of the stacked (2, 2) mesh, and C2's analysis entry at n = 16;
+   and C13's encode entry on the production and uniform frames and its
+   decode entry on the production frame, whole frames, beside the bound
+   of the frame's work (scan_bound) and the plain loop's time.
 
 It prints the card's name and power limit, one JSON line for the kernels,
 one for the main paths, and as its last line
@@ -228,6 +240,8 @@ def phase_build():
     native.get_lib()
     log(f"build: {_cuda.sources()} and libhevc_hop.so in "
         f"{time.perf_counter() - t0:.1f} s")
+    log("ptxas, csrc/scan.cu (kernel C13):\n"
+        + _cuda.BUILD_LOGS.get("scan", "(built before this run)").strip())
 
 
 def _mismatch(a, b):
@@ -568,8 +582,9 @@ def _counters():
     arm), csrc/inter_arms.cu (arms, motion, and among each the PSS form),
     csrc/warp.cu (window, luma, chroma) and csrc/gt_search.cu (search,
     decide, and among the latter the PSS form) count apart; C2's analysis
-    entry (parallel/mesh.py) counts apart from its other launches."""
-    from hevc_hop_torch.models import partition, ss_partition
+    entry (parallel/mesh.py) counts apart from its other launches; C13's
+    two entries (csrc/scan.cu) count apart."""
+    from hevc_hop_torch.models import partition, ss_partition, wavefront_scan
     from hevc_hop_torch.ops import (deblock, gt, hashes, inter_arms, interp,
                                     intra, rdoq, sao, ss_search, tq, warp)
     from hevc_hop_torch.parallel import mesh
@@ -601,22 +616,27 @@ def _counters():
             ("C11 chroma", warp, "CHROMA_LAUNCHES"),
             ("C12 search", gt, "SEARCH_LAUNCHES"),
             ("C12 decide", gt, "DECIDE_LAUNCHES"),
-            ("C12 decide PSS", gt, "PSS_DECIDE_LAUNCHES")]
+            ("C12 decide PSS", gt, "PSS_DECIDE_LAUNCHES"),
+            ("C13 encode", wavefront_scan, "SCAN_ENCODE_LAUNCHES"),
+            ("C13 decode", wavefront_scan, "SCAN_DECODE_LAUNCHES")]
 
 
 PATHS = {
-    # bench.py's production configuration: RDOQ (C7's device code in C3's
-    # RDOQ arm) on every TU
+    # bench.py's production configuration: RDOQ (C7's device code, in
+    # C13) on every TU
     "production": (dict(sao=True), TIMED_FRAMES,
-                   ("C1", "C2", "C3 encode (RDOQ)", "C3 decode", "C4",
+                   ("C1", "C13 encode", "C13 decode", "C3 decode", "C4",
                     "C5 rd", "C5 decide", "C6 stats", "C6 apply")),
     # the same with RDOQ off
     "quadtree": (dict(sao=True, rdoq=False), QUADTREE_TIMED_FRAMES,
-                 ("C1", "C2", "C3 encode", "C3 decode", "C4", "C5 rd",
-                  "C5 decide", "C6 stats", "C6 apply")),
+                 ("C1", "C13 encode", "C13 decode", "C3 decode", "C4",
+                  "C5 rd", "C5 decide", "C6 stats", "C6 apply")),
     "uniform": (dict(cu_log2=4, rdoq=False), UNIFORM_TIMED_FRAMES,
-                ("C1", "C2", "C3 encode", "C3 decode", "C4")),
+                ("C1", "C13 encode", "C13 decode", "C3 decode", "C4")),
 }
+# the level loop's per-level launches, which C13 replaces on the
+# single-device intra paths
+LOOP_KERNELS = ("C2", "C3 encode", "C3 encode (RDOQ)")
 
 
 def host_probes():
@@ -692,6 +712,11 @@ def phase_main_path(name):
     log(f"{name} path launches: {launches}")
     require(all(launches[k] > 0 for k in needed),
             f"a kernel was not launched on the {name} path: {launches}")
+    require(launches["C13 encode"] == 1 and launches["C13 decode"] == 1,
+            f"the {name} frame did not launch C13 once each way: {launches}")
+    require(all(launches[k] == 0 for k in LOOP_KERNELS),
+            f"the {name} path launched the level loop's kernels: "
+            f"{launches}")
     y = frame[0]
     mse = np.mean((enc.recon_yuv[0].astype(np.float64) - y) ** 2)
     psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-9))
@@ -699,7 +724,7 @@ def phase_main_path(name):
 
     # timed: more frames each way, one after another (the first frame
     # built the schedule and loaded the kernels)
-    enc_s, dec_s, probes = [], [], []
+    enc_s, dec_s, probes, dec_stats = [], [], [], {}
     for _ in range(timed):
         probes.append(host_probes())
         t0 = time.perf_counter()
@@ -713,14 +738,15 @@ def phase_main_path(name):
         torch.cuda.synchronize()
         dec_s.append(time.perf_counter() - t0)
         require(dec2.hash_ok == [True], "a later decode's hash")
+        dec_stats = dict(dec2.last_stats)
     stats = dict(enc.last_stats)
     sched = next(reversed(wavefront_scan._SCHEDULES.values()))
-    if name == "uniform":
-        # K6's floor: the bound of every C2 and C3 launch of its levels
-        extra_out = {"level_loop_bound_ms": level_loop_bound(sched.plans,
-                                                             False)}
-    else:
-        extra_out = {}
+    # K6's floor: the bound of the frame's scan work, whole (C13's) and
+    # summed over the level loop's launches
+    extra_out = {"scan_bound_ms": scan_bound(
+                     sched.plans, enc.cfg.rdoq, name == "uniform")[0],
+                 "level_loop_bound_ms": level_loop_bound(
+                     sched.plans, enc.cfg.rdoq, name == "uniform")}
     levels = int(sum(np.any([p.cnt > 0 for p in sched.plans.values()], 0)))
     blocks = {int(lg): int(p.cnt.sum()) for lg, p in sched.plans.items()}
     enc_med, dec_med = float(np.median(enc_s)), float(np.median(dec_s))
@@ -733,7 +759,8 @@ def phase_main_path(name):
            "encode_fps": 1.0 / enc_med, "decode_fps": 1.0 / dec_med,
            "python_probe_ms": float(np.median([p[0] for p in probes])),
            "launch_probe_ms": float(np.median([p[1] for p in probes])),
-           "last_stats": stats, "launches": launches, **extra_out}
+           "last_stats": stats, "decode_last_stats": dec_stats,
+           "launches": launches, **extra_out}
     if name == "production":
         # distinct frames: each has its own partition, so its schedule is
         # built anew (the cache holds the frame above only)
@@ -758,6 +785,146 @@ def phase_main_path(name):
         log(f"{name} distinct frames: {json.dumps(fresh)}")
         enc.encode_frame(*frame)    # the profiled frame's recon and cache
     return out, dict(enc=enc, frame=frame, sched=sched)
+
+
+def _scan_inputs(enc, frame):
+    """The wavefront's inputs as IntraEncoder._stage1 builds them on the
+    card: (scan_encode's positional arguments, its keywords, the
+    schedule)."""
+    import torch
+    from hevc_hop_torch.common import rom
+    cfg = enc.cfg
+    pad = 1 << cfg.ctb_log2
+    hc, hc_off = H // 2, H // 2 + pad
+    dev = torch.device("cuda")
+    up = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    org_y = torch.zeros((H + pad, W), dtype=torch.int32, device=dev)
+    org_y[:H] = up(frame[0])
+    org_c = torch.zeros((2 * hc_off, W // 2), dtype=torch.int32, device=dev)
+    org_c[:hc] = up(frame[1])
+    org_c[hc_off:hc_off + hc] = up(frame[2])
+    depth8, mode4, tulog8 = enc._decide(org_y[:H], None)
+    sched = enc._schedule(depth8, tulog8)
+    modes = None if mode4 is None else enc._given_modes(sched, mode4)
+    args = (org_y, org_c, sched.plans, sched.nsteps, cfg.qp,
+            rom.chroma_qp_from_luma(cfg.qp), cfg.bit_depth,
+            cfg.strong_intra_smoothing, cfg.sbh, modes)
+    return args, dict(use_rdoq=cfg.rdoq, init_type=2), sched
+
+
+def _scan_decode_inputs(args, sched, encoded):
+    """The decoder's inputs to scan_decode for an encode's output: the
+    dense residual of its levels (kernel C3's decode entry, as
+    models/decoder.py builds it), its luma modes and its chroma modes."""
+    import torch
+    from hevc_hop_torch.ops import tq
+    org_y, org_c, plans = args[:3]
+    qp, qp_c, bd, modes = args[4], args[5], args[6], args[9]
+    _, _, coef_y, coef_c, outs = encoded
+    hc, hc_off = H // 2, org_c.shape[0] // 2
+    resi_y, resi_c = torch.zeros_like(org_y), torch.zeros_like(org_c)
+    luma_pos, chroma_pos = sched.tu_pos
+    for log2, pos in sorted(luma_pos.items()):
+        tq.tq_decode(coef_y[:H], pos, 1 << log2, qp, bd, log2 == 2,
+                     resi_y[:H])
+    for lo in (0, hc_off):
+        for log2, pos in sorted(chroma_pos.items()):
+            tq.tq_decode(coef_c[lo:lo + hc], pos, 1 << log2, qp_c, bd,
+                         False, resi_c[lo:lo + hc])
+    luma, chroma = {}, {}
+    for log2, p in plans.items():
+        luma[log2] = outs[log2][0]
+        given = modes[log2][1] if modes is not None else None
+        chroma[log2] = (given if given is not None else luma[log2][
+            torch.as_tensor(p.cidx, dtype=torch.long,
+                            device=org_y.device)].contiguous())
+    return resi_y, resi_c, luma, chroma
+
+
+def _hold_scan(chk, got, want, what):
+    """Two scan_encode results, plane by plane and output by output."""
+    for a, b, nm in zip(got[:4], want[:4], ("ry", "rc", "coef_y",
+                                            "coef_c")):
+        chk.add(a, b, f"{what}: {nm}")
+    require(set(got[4]) == set(want[4]), f"{what}: sizes")
+    for log2 in want[4]:
+        for a, b, nm in zip(got[4][log2], want[4][log2],
+                            ("best", "cbf_y", "cbf_c")):
+            chk.add(a, b, f"{what}: {nm} {1 << log2}x{1 << log2}")
+
+
+def phase_scan_program(ctxs, checks):
+    """Kernel C13 on each intra path's frame (and the production path's
+    noisy frame, whose partition goes down to 4x4): its encode entry
+    against the level loop of C2 and C3 launches and the level loop of
+    their plain versions, on the card; its decode entry, on the dense
+    residual of the encode's own levels, against both decode loops and
+    against the encode's recon. Returns (a record per frame, the inputs of
+    each path's main frame for its kernel rows)."""
+    import torch
+    from hevc_hop_torch.models import wavefront_scan as ws
+    chk = checks["C13"]
+    out, rows = [], {}
+    for name in PATHS:
+        enc = ctxs[name]["enc"]
+        frames = [("main", ctxs[name]["frame"])]
+        if name == "production":
+            frames.append(("noisy", synth_class_b(W, H, **NOISY)))
+        for what, frame in frames:
+            args, kws, sched = _scan_inputs(enc, frame)
+            work = sched.work
+            enc_runs = {
+                "C13": lambda: ws.scan_encode(*args, **kws, work=work),
+                "loop": lambda: ws.scan_encode_loop(*args, **kws),
+                "plain": lambda: ws.scan_encode_loop(*args, **kws,
+                                                     plain=True)}
+            res, secs = {}, {}
+            for route, fn in enc_runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[route] = fn()
+                torch.cuda.synchronize()
+                secs[f"encode_{route}_s"] = time.perf_counter() - t0
+                if route == "C13":
+                    grid = ws.LAST_LAUNCH
+            for other in ("loop", "plain"):
+                _hold_scan(chk, res["C13"], res[other],
+                           f"C13 encode, {name} {what} frame, against the "
+                           f"{other}")
+            dec_in = _scan_decode_inputs(args, sched, res["C13"])
+            dargs = (*dec_in[:2], sched.plans, sched.nsteps, *dec_in[2:],
+                     args[6], args[7])
+            dec_runs = {
+                "C13": lambda: ws.scan_decode(*dargs, work=work),
+                "loop": lambda: ws.scan_decode_loop(*dargs),
+                "plain": lambda: ws.scan_decode_loop(*dargs, plain=True)}
+            dec = {}
+            for route, fn in dec_runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dec[route] = fn()
+                torch.cuda.synchronize()
+                secs[f"decode_{route}_s"] = time.perf_counter() - t0
+            for other in ("loop", "plain"):
+                for a, b, nm in zip(dec["C13"], dec[other], ("ry", "rc")):
+                    chk.add(a, b, f"C13 decode, {name} {what} frame, "
+                            f"against the {other}: {nm}")
+            for a, b, nm in zip(dec["C13"], res["C13"][:2], ("ry", "rc")):
+                chk.add(a, b, f"C13 decode, {name} {what} frame, against "
+                        f"the encode's recon: {nm}")
+            rec = {"path": name, "frame": what,
+                   "blocks": len(work.host_items),
+                   "levels": len(work.host_off) - 1,
+                   "widest_level": work.widest,
+                   "grid_ctas_per_sm_smem_threads": grid, **secs}
+            log(f"scan program: {json.dumps(rec)}")
+            out.append(rec)
+            if what == "main":
+                rows[name] = dict(args=args, kws=kws, sched=sched,
+                                  dargs=dargs, secs=secs)
+    log(f"scan program: C13 held in {chk.cases} comparisons, "
+        f"{chk.mism} mismatching elements")
+    return out, rows
 
 
 def phase_cpu_parity():
@@ -1429,14 +1596,16 @@ PRODUCTION_FORMS = {(f.replace("C3 encode", "C3 encode (RDOQ)"), n)
                     for f, n in QUADTREE_FORMS}
 
 
-def phase_timing(ctxs, ps, checks, launches):
+def phase_timing(ctxs, ps, checks, launches, scan_rows):
     """First every launch form of both main paths is held against its
     plain version at the path's own shapes. Then each kernel, at the
     largest launch a main path gives it (C2 and C3 encode: the fullest
     wavefront level of the uniform path, 16x16 with RMD, and of the
     quadtree path, 32x32 with given modes; C3 decode, C4, C1, C5 and C6:
-    the whole frame), is held again and timed beside its plain version.
-    ``ps`` holds phase_partition_sao's inputs."""
+    the whole frame; C13: the whole frame), is held again and timed beside
+    its plain version. On these paths C2's, C3's and C7's device code runs
+    inside C13, so their rows count C13's launches. ``ps`` holds
+    phase_partition_sao's inputs, ``scan_rows`` phase_scan_program's."""
     import torch
     from hevc_hop_torch.models import partition
     from hevc_hop_torch.ops import deblock, hashes, intra, sao, tq
@@ -1471,11 +1640,14 @@ def phase_timing(ctxs, ps, checks, launches):
     specs = []
 
     def spec(name, counter, path, kernel, shape, source, replaces, fn, plain,
-             nbytes, ops):
+             nbytes, ops, **more):
         specs.append(dict(name=name, counter=counter, path=path,
                           kernel=kernel, shape=shape, source=source,
                           replaces=replaces, fn=fn, plain=plain,
-                          nbytes=nbytes, ops=ops))
+                          nbytes=nbytes, ops=ops, **more))
+
+    # C2's, C3's and C7's device code on the intra paths runs in C13
+    in_c13 = dict(launched_in="C13 encode", frame_kernel="scan_encode_kernel")
 
     def scan_level(path, p, luma_modes, pl, use_rdoq=False):
         """Rows of C2 and C3 encode at the fullest level of plan ``p``;
@@ -1506,7 +1678,7 @@ def phase_timing(ctxs, ps, checks, launches):
              lambda: intra.intra_blocks(pl, pos, avail, ask, n, 0, **kw),
              lambda: intra.intra_blocks_plain(pl, pos, avail, ask, n, 0,
                                               **kw),
-             c * c2bytes, c * c2ops)
+             c * c2bytes, c * c2ops, **in_c13)
 
         def tq_enc(fn, k):
             rec, cp, _ = bufs[k]
@@ -1518,7 +1690,8 @@ def phase_timing(ctxs, ps, checks, launches):
              "hevc_hop_torch/csrc/tq.cu", "hevc_hop_tpu/ops/quant.py:54",
              lambda: tq_enc(tq.tq_encode, "kernel"),
              lambda: tq_enc(tq.tq_encode_plain, "plain"),
-             c * (n * n * (4 + 4 + 4 + 2) + 16), c * tq_encode_ops(n))
+             c * (n * n * (4 + 4 + 4 + 2) + 16), c * tq_encode_ops(n),
+             **in_c13)
 
     def rdoq_rows(path, n, c, pos, pred, best):
         """C3's encode entry in its RDOQ arm, and C7 alone on the forward
@@ -1539,7 +1712,7 @@ def phase_timing(ctxs, ps, checks, launches):
              lambda: tq_enc(tq.tq_encode, "kernel"),
              lambda: tq_enc(tq.tq_encode_plain, "plain"),
              c * (n * n * (4 + 4 + 4 + 2) + 16),
-             (c * (tq_encode_ops(n) - 7 * n * n + ri), c * rf))
+             (c * (tq_encode_ops(n) - 7 * n * n + ri), c * rf), **in_c13)
         rows_, cols_ = intra.block_index(pos, n)
         coef = transform.fwd_transform(org[rows_, cols_] - pred, 8,
                                        False).contiguous()
@@ -1551,7 +1724,7 @@ def phase_timing(ctxs, ps, checks, launches):
              "hevc_hop_torch/csrc/rdoq.cu", "hevc_hop_tpu/ops/rdoq.py:214",
              lambda: rdoq.rdoq_quant(coef, sid, **kw),
              lambda: rdoq.rdoq_quant_plain(coef, sid, **kw),
-             c * (n * n * (4 + 4) + 4), (c * ri, c * rf))
+             c * (n * n * (4 + 4) + 4), (c * ri, c * rf), **in_c13)
 
     def decode_all(path, pos, n, levels):
         nb = pos.shape[0]
@@ -1591,6 +1764,35 @@ def phase_timing(ctxs, ps, checks, launches):
                               pst["recon"])[0], use_rdoq=True)
     decode_all("quadtree", qsched.tu_pos[0][5], 32,
                torch.as_tensor(qmaps.coef_y).to(dev))
+
+    # C13, whole frames: the production frame each way, the uniform one's
+    # encode (its in-loop RMD)
+    from hevc_hop_torch.models import wavefront_scan as ws
+    for path, side in (("production", "encode"), ("uniform", "encode"),
+                       ("production", "decode")):
+        r = scan_rows[path]
+        sc, cfg = r["sched"], ctxs[path]["enc"].cfg
+        work = sc.work
+        if side == "encode":
+            fn = (lambda a=r["args"], k=r["kws"], w_=work:
+                  ws.scan_encode(*a, **k, work=w_))
+        else:
+            fn = lambda a=r["dargs"], w_=work: ws.scan_decode(*a, work=w_)
+        nb, ops = scan_work(sc.plans, cfg.rdoq, path == "uniform",
+                            side == "decode")
+        form = ("in-loop RMD" if path == "uniform" else "given modes, "
+                + ("RDOQ" if cfg.rdoq else "dead-zone quantizer"))
+        spec(f"C13 scan ({side}, {path} frame)", f"C13 {side}", path,
+             f"scan_{side}_kernel",
+             f"{W}x{H} frame, {len(work.host_items)} blocks in "
+             f"{len(work.host_off) - 1} levels, one launch"
+             + (f", {form}" if side == "encode" else ""),
+             "hevc_hop_torch/csrc/scan.cu",
+             "hevc_hop_tpu/models/wavefront_scan.py:"
+             + ("217" if side == "encode" else "322"),
+             fn, None, nb, ops, held=True,
+             plain_ms=r["secs"][f"{side}_plain_s"] * 1e3,
+             loop_ms=r["secs"][f"{side}_loop_s"] * 1e3)
 
     npx = H * W * 3 // 2
     spec("C4 deblock", "C4", "uniform", "deblock_kernel",
@@ -1653,7 +1855,8 @@ def _time_specs(specs, checks, launches):
         name, counter, fn, plain = (sp[k] for k in ("name", "counter", "fn",
                                                     "plain"))
         check = checks[counter.split()[0]]
-        got, want = fn(), plain()
+        # a held spec was held against its plain version by its own phase
+        got, want = (((), ()) if sp.get("held") else (fn(), plain()))
         torch.cuda.synchronize()
         for g, w_ in zip(got if isinstance(got, tuple) else (got,),
                          want if isinstance(want, tuple) else (want,)):
@@ -1673,7 +1876,8 @@ def _time_specs(specs, checks, launches):
                            "C9 temporal", "C9 prepass temporal",
                            "C10 arms PSS", "C12 decide PSS")
         call_ms = time_ms(fn, reps=3 if slow else 7, inner=3 if slow else 10)
-        pms = time_ms(plain, reps=1 if slow else 5, inner=1)
+        pms = (sp["plain_ms"] if "plain_ms" in sp else
+               time_ms(plain, reps=1 if slow else 5, inner=1))
         # the kernel's own device time per call: a call of these small
         # launches is bound by the host, so call_ms is mostly Python. A
         # trace now and then lacks some of the launches' records, so one
@@ -1692,16 +1896,21 @@ def _time_specs(specs, checks, launches):
         require(ms is not None and ms > 0,
                 f"no complete trace of {sp['kernel']} in {traces} tries")
         b_ms, by = bound(sp["nbytes"], sp["ops"])
-        launched, fused = counter, {}
-        if counter == "C7":
-            # on the main paths C7's device code (rdoq_block) runs inside
-            # C3's RDOQ arm, so its launches there are that arm's; only
-            # this comparison launches the standalone entry
-            launched = "C3 encode (RDOQ)"
+        # on the main paths C7's device code (rdoq_block) runs inside C3's
+        # RDOQ arm, or inside C13, and C2's and C3's inside C13 on the
+        # intra paths: their launches there are that kernel's; only these
+        # comparisons launch the entries themselves
+        launched = sp.get("launched_in", "C3 encode (RDOQ)" if counter == "C7"
+                          else counter)
+        fused = {}
+        if launched != counter:
             fused = {"launched_in": launched,
-                     "frame_kernel": "tq_encode_rdoq_kernel",
+                     "frame_kernel": sp.get("frame_kernel",
+                                            "tq_encode_rdoq_kernel"),
                      "standalone_launches_by_path": {
                          k: v[counter] for k, v in launches.items()}}
+        if "loop_ms" in sp:
+            fused["level_loop_ms"] = sp["loop_ms"]
         rows.append({"name": name, "route": "cuda", "source": sp["source"],
                      "replaces": sp["replaces"], "path": sp["path"],
                      "kernel": sp["kernel"],
@@ -3206,33 +3415,79 @@ def _hold_mesh_launches(enc, frames, checks, every=8):
     return held, streams, box
 
 
-def level_loop_bound(plans, use_rdoq):
-    """Least time (ms) of a level loop's C2 and C3 launches: for every
-    level and size, the bound of its luma RMD, luma encode, chroma
-    prediction and chroma encode launches (each the larger of its bytes
-    and its operations, counted as the kernel rows count them), summed."""
-    total = 0.0
+def _scan_blocks(plans):
+    """(luma size, luma blocks, chroma size, chroma blocks of cb and cr)
+    of every level and size of a schedule's packed plans."""
     for p in plans.values():
-        n, nc = p.n, p.n // 2
-        for c in p.cnt[p.cnt > 0]:
-            c = int(c)
-            launches = [
-                (c * (4 * n * n * 2 + 4 * (4 * n + 1) + 4 * n + 1 + 16),
-                 c * rmd_ops(n)),
-                # chroma: one prediction, no reference smoothing
-                (2 * c * (4 * nc * nc + 4 * (4 * nc + 1) + 4 * nc + 1 + 12),
-                 2 * c * 5 * nc * nc)]
-            for b, m in ((c, n), (2 * c, nc)):
-                nbytes = b * (m * m * (4 + 4 + 4 + 2) + 16)
-                if use_rdoq:
-                    ri, rf = rdoq_ops(m)
-                    launches.append((nbytes, (b * (tq_encode_ops(m)
-                                                   - 7 * m * m + ri),
-                                              b * rf)))
-                else:
-                    launches.append((nbytes, b * tq_encode_ops(m)))
-            total += sum(bound(nb, ops)[0] for nb, ops in launches)
+        nc = 4 if p.n == 4 else p.n // 2
+        for c, cc in zip(p.cnt, p.ccnt):
+            if c:
+                yield p.n, int(c), nc, 2 * int(cc)
+
+
+def _tq_work(b, m, use_rdoq):
+    """(int32, float32) operations of C3's encode work on b blocks of m x m
+    (its RDOQ arm's, with ``use_rdoq``)."""
+    if not use_rdoq:
+        return b * tq_encode_ops(m), 0
+    ri, rf = rdoq_ops(m)
+    return b * (tq_encode_ops(m) - 7 * m * m + ri), b * rf
+
+
+def level_loop_bound(plans, use_rdoq, rmd=True):
+    """Least time (ms) of a level loop's C2 and C3 launches: for every
+    level and size, the bound of its luma prediction (RMD, or the given
+    mode), luma encode, chroma prediction and chroma encode launches
+    (each the larger of its bytes and its operations, counted as the
+    kernel rows count them), summed."""
+    total = 0.0
+    for n, c, nc, cc in _scan_blocks(plans):
+        launches = [
+            (c * (4 * n * n * 2 + 4 * (4 * n + 1) + 4 * n + 1 + 16),
+             c * rmd_ops(n)) if rmd else
+            (c * (4 * n * n + 4 * (4 * n + 1) + 4 * n + 1 + 12),
+             c * given_mode_ops(n)),
+            (c * (n * n * (4 + 4 + 4 + 2) + 16), _tq_work(c, n, use_rdoq))]
+        if cc:
+            # chroma: one prediction, no reference smoothing
+            launches += [
+                (cc * (4 * nc * nc + 4 * (4 * nc + 1) + 4 * nc + 1 + 12),
+                 cc * 5 * nc * nc),
+                (cc * (nc * nc * (4 + 4 + 4 + 2) + 16),
+                 _tq_work(cc, nc, use_rdoq))]
+        total += sum(bound(nb, ops)[0] for nb, ops in launches)
     return total
+
+
+def scan_bound(plans, use_rdoq, rmd=True, decode=False):
+    """(least ms, what bounds it) of kernel C13's whole frame."""
+    return bound(*scan_work(plans, use_rdoq, rmd, decode))
+
+
+def scan_work(plans, use_rdoq, rmd=True, decode=False):
+    """(bytes, (int32, float32) operations) of kernel C13's whole frame:
+    the bytes it must move (each original and residual sample read once, each recon
+    sample and level written once, each block's chain, availability,
+    position, mode and cbf once; the prediction never leaves the SM) and
+    the operations of its blocks' work, counted as level_loop_bound
+    counts them, in one sum each."""
+    nbytes, ops_i, ops_f = 0, 0, 0
+    for n, c, nc, cc in _scan_blocks(plans):
+        for b, m, luma in ((c, n, True), (cc, nc, False)):
+            if not b:
+                continue
+            chain = 4 * (4 * m + 1) + 4 * m + 1 + 16
+            nbytes += b * (m * m * (4 + 4 + (0 if decode else 2)) + chain)
+            if decode:
+                ops_i += b * (given_mode_ops(m) + 3 * m * m)
+                continue
+            if luma:
+                ops_i += b * (rmd_ops(m) if rmd else given_mode_ops(m))
+            else:
+                ops_i += b * 5 * m * m
+            ti, tf = _tq_work(b, m, use_rdoq)
+            ops_i, ops_f = ops_i + ti, ops_f + tf
+    return nbytes, (ops_i, ops_f)
 
 
 def phase_mesh(checks):
@@ -3451,7 +3706,7 @@ KERNELS = ("checksum_kernel", "intra_kernel", "tq_encode_kernel",
            "mc_kernel", "ss_search_kernel", "ss_rd_kernel",
            "inter_arms_kernel", "motion_write_kernel", "warp_kernel",
            "gt_pred_kernel", "gt_search_kernel", "gt_decide_kernel",
-           "analysis_kernel")
+           "analysis_kernel", "scan_encode_kernel", "scan_decode_kernel")
 
 
 def _profile(fn):
@@ -3527,7 +3782,8 @@ def main() -> int:
     phase_build()
     log_host("built")
     checks = {k: Check() for k in ("C1", "C2", "C3", "C4", "C5", "C6",
-                                   "C7", "C8", "C9", "C10", "C11", "C12")}
+                                   "C7", "C8", "C9", "C10", "C11", "C12",
+                                   "C13")}
     phase_kernels(checks)
     phase_rdoq(checks)
     phase_interp(checks)
@@ -3538,6 +3794,8 @@ def main() -> int:
     for name in PATHS:
         paths[name], ctxs[name] = phase_main_path(name)
         log_host(f"{name} path timed")
+    scan_program, scan_rows = phase_scan_program(ctxs, checks)
+    log_host("scan program held")
     for name, (*_, content) in ISS_PATHS.items():
         run = phase_pss_path if content == "panned" else phase_iss_path
         paths[name], ctxs[name] = run(name)
@@ -3558,7 +3816,7 @@ def main() -> int:
     bdrate = phase_bdrate()
     log_host("parity, fixtures, CLI and BD-rate done")
     launches = {k: v["launches"] for k, v in paths.items()}
-    rows = (phase_timing(ctxs, ps, checks, launches)
+    rows = (phase_timing(ctxs, ps, checks, launches, scan_rows)
             + phase_iss_timing(ctxs, checks, launches)
             + phase_gt_timing(ctxs, checks, launches)
             + phase_pss_timing(ctxs, checks, launches)
@@ -3579,7 +3837,7 @@ def main() -> int:
     log(json.dumps({"main_paths": paths, "cli_s": cli_s,
                     "cli_holo_s": cli_holo_s, "card": card,
                     "iss_prepass_check": iss_prepass, "bdrate": bdrate,
-                    "gt_share": gt_share,
+                    "gt_share": gt_share, "scan_program": scan_program,
                     "full_fixtures": full_fixtures}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -23,8 +23,11 @@ import threading
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "build")
+# ptxas reports each kernel's registers, shared memory and spills
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# compiler output of each library built by this process
+BUILD_LOGS: dict = {}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -67,6 +70,7 @@ def _finish_build(name: str, proc, tmp: str) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    BUILD_LOGS[name] = log
     os.replace(tmp, _lib_path(name))
 
 

@@ -7,14 +7,15 @@
 // and block scatter of hevc_hop_tpu/models/wavefront_scan.py
 // (_gather_chains, _enc_plane_ys's RMD, scan_decode's dec_plane).
 //
-// One CTA per block. The CTA gathers the block's 4N+1 reference chain from
-// the recon plane (coordinates clamped to the plane), substitutes the
-// unavailable samples (H.265 8.4.4.2.2), builds the 1-2-1 filtered chain and
-// the 32x32 strong-smoothed one, and predicts from the per-mode gather
-// tables of ops/intra.py static_tables. RMD predicts the 35 modes one after
-// another into shared memory and scores each with the 8x8 (4x4 at N = 4)
-// Hadamard SATD against the original; the lowest cost wins and ties go to
-// the lowest mode, as jnp.argmin does.
+// One CTA per block, whose work is intra_block (intra.cuh), the body that
+// kernel C13 (scan.cu) runs too. The CTA gathers the block's 4N+1
+// reference chain from the recon plane (coordinates clamped to the plane),
+// substitutes the unavailable samples (H.265 8.4.4.2.2), builds the 1-2-1
+// filtered chain and the 32x32 strong-smoothed one, and predicts from the
+// per-mode gather tables of ops/intra.py static_tables. RMD predicts the
+// 35 modes one after another into shared memory and scores each with the
+// 8x8 (4x4 at N = 4) Hadamard SATD against the original; the lowest cost
+// wins and ties go to the lowest mode, as jnp.argmin does.
 //
 // Every block handed to one launch is independent of the others (one
 // wavefront level): a block's chain only reads samples of earlier levels,
@@ -29,8 +30,9 @@
 // intermediate in shared memory, so device memory sees each input once and
 // each output once; the threads of the CTA share the per-pixel work of every
 // mode. The blocks of one level are few (a wavefront level of 1080p holds
-// some tens), so the card is far from full; the level loop on the host is
-// the cost to attack next (a persistent kernel or a CUDA graph).
+// some tens), so the card is far from full; the all-intra frame's levels
+// run inside one launch of kernel C13 (scan.cu), and C2 serves the level
+// loops that remain (the mesh, the ISS and PSS scans).
 //
 // Analysis entry (analysis_kernel): the dense 35-mode mode analysis of
 // hevc_hop_tpu/parallel/mesh.py analysis_costs and analysis_step_sharded
@@ -47,124 +49,20 @@
 
 namespace {
 
-__global__ void intra_kernel(int32_t *plane, int ph, int pw, int stride,
-                             const int32_t *org, int org_stride,
-                             const int32_t *resi, int resi_stride,
-                             const int32_t *pos, const uint8_t *avail,
-                             const int32_t *modes, int aper, int mper, int n,
-                             int c_idx, int bit_depth, int strong, Tables t,
+__global__ void intra_kernel(IntraPlane p, const int32_t *pos,
+                             const uint8_t *avail, const int32_t *modes,
+                             int aper, int mper, int n, int c_idx,
+                             int bit_depth, int strong, Tables t,
                              int32_t *pred_out, int32_t *best_out) {
   extern __shared__ int32_t sm[];
-  const int L = 4 * n + 1, nn = n * n;
-  int32_t *cu = sm;            // [L]
-  int32_t *cf = cu + L;        // [L]
-  int32_t *P = cf + L;         // [nn] candidate prediction
-  int32_t *B = P + nn;         // [nn] best prediction so far
-  int32_t *O = B + nn;         // [nn] original minus candidate
-  int32_t *A = O + nn;         // [nn] Hadamard first stage
-  int32_t *H = A + nn;         // [64]
-  int32_t *tsum = H + 64;      // [16] per-tile sums
-  int32_t *flag = tsum + 16;   // [2] improved, best mode
-
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int px = pos[2 * b], py = pos[2 * b + 1];
-  const int maxv = (1 << bit_depth) - 1;
-
-  // gather the chain (the reference's chain_coords, clamped to the plane)
-  for (int i = tid; i < L; i += nt) {
-    int x, y;
-    if (i < 2 * n) {
-      x = px - 1;
-      y = py + 2 * n - 1 - i;
-    } else if (i == 2 * n) {
-      x = px - 1;
-      y = py - 1;
-    } else {
-      x = px + i - 2 * n - 1;
-      y = py - 1;
-    }
-    x = clip3(0, pw - 1, x);
-    y = clip3(0, ph - 1, y);
-    cu[i] = plane[(long long)y * stride + x];
-  }
-  __syncthreads();
-
-  // substitution: last available sample at or before i, else the first
-  if (tid == 0) {
-    const uint8_t *av = avail + (long long)(b % aper) * L;
-    int first = -1;
-    for (int i = 0; i < L && first < 0; ++i)
-      if (av[i]) first = i;
-    if (first < 0) {
-      for (int i = 0; i < L; ++i) cu[i] = 1 << (bit_depth - 1);
-    } else {
-      int prev = -1;
-      for (int i = 0; i < L; ++i) {
-        if (av[i]) prev = i;
-        cu[i] = cu[prev >= 0 ? prev : first];
-      }
-    }
-  }
-  __syncthreads();
-
-  const int use_filter = (c_idx == 0 && n > 4);
-  if (use_filter) filter_chain(cu, cf, n, bit_depth, strong);
-  const Refs r = make_refs(cu, use_filter ? cf : nullptr, n, c_idx, bit_depth);
-
-  const int mode = modes[b % mper];
-  const long long ob = (long long)b * nn;
-
-  if (org == nullptr || mode >= 0) {
-    // one given mode: prediction, or the decode epilogue
-    for (int i = tid; i < nn; i += nt) {
-      const int x = i % n, y = i / n;
-      const int v = predict_px(r, t, mode, x, y);
-      if (resi != nullptr) {
-        const long long row = py + y;
-        plane[row * stride + px + x] =
-            clip3(0, maxv, v + resi[row * resi_stride + px + x]);
-      } else {
-        pred_out[ob + i] = v;
-      }
-    }
-    if (best_out != nullptr && tid == 0) best_out[b] = mode;
-    return;
-  }
-
-  // RMD: 35 candidates, Hadamard SATD against the original
-  const int k = n >= 8 ? 8 : 4;
-  for (int i = tid; i < k * k; i += nt) H[i] = t.had[i];
-  if (tid < 16) tsum[tid] = 0;
-  if (tid == 0) {
-    flag[0] = 0;
-    flag[1] = 0;
-  }
-  int best_cost = 0x7fffffff;  // kept by thread 0
-  __syncthreads();
-
-  for (int m = 0; m < 35; ++m) {
-    for (int i = tid; i < nn; i += nt) {
-      const int x = i % n, y = i / n;
-      const int v = predict_px(r, t, m, x, y);
-      P[i] = v;
-      O[i] = org[(long long)(py + y) * org_stride + px + x] - v;
-    }
-    __syncthreads();
-    const int cost = satd_cost(O, A, H, tsum, n);
-    if (tid == 0) {
-      flag[0] = cost < best_cost;
-      if (flag[0]) {
-        best_cost = cost;
-        flag[1] = m;
-      }
-    }
-    __syncthreads();
-    if (flag[0])
-      for (int i = tid; i < nn; i += nt) B[i] = P[i];
-    __syncthreads();
-  }
-  for (int i = tid; i < nn; i += nt) pred_out[ob + i] = B[i];
-  if (tid == 0) best_out[b] = flag[1];
+  const int b = blockIdx.x;
+  int32_t *pred =
+      pred_out != nullptr ? pred_out + (long long)b * n * n : nullptr;
+  const int mode = intra_block(p, t, pos[2 * b], pos[2 * b + 1],
+                               avail + (long long)(b % aper) * (4 * n + 1),
+                               modes[b % mper], n, c_idx, bit_depth, strong,
+                               sm, pred);
+  if (best_out != nullptr && threadIdx.x == 0) best_out[b] = mode;
 }
 
 __global__ void analysis_kernel(const int32_t *frames, const int32_t *halo,
@@ -259,15 +157,15 @@ HH_EXPORT int hh_intra(void *plane, int ph, int pw, int stride,
            static_cast<const int32_t *>(had)};
   const int nn = n * n;
   int threads = nn < 32 ? 32 : (nn > 256 ? 256 : nn);
-  const size_t smem = sizeof(int32_t) * (2 * (4 * n + 1) + 4 * nn + 64 + 18);
+  const size_t smem = sizeof(int32_t) * intra_scratch_words(n);
+  const IntraPlane p{static_cast<int32_t *>(plane), ph, pw, stride,
+                     static_cast<const int32_t *>(org), org_stride,
+                     static_cast<const int32_t *>(resi), resi_stride};
   intra_kernel<<<nblocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int32_t *>(plane), ph, pw, stride,
-      static_cast<const int32_t *>(org), org_stride,
-      static_cast<const int32_t *>(resi), resi_stride,
-      static_cast<const int32_t *>(pos), static_cast<const uint8_t *>(avail),
-      static_cast<const int32_t *>(modes), aper, mper, n, c_idx, bit_depth,
-      strong, t, static_cast<int32_t *>(pred_out),
-      static_cast<int32_t *>(best_out));
+      p, static_cast<const int32_t *>(pos),
+      static_cast<const uint8_t *>(avail), static_cast<const int32_t *>(modes),
+      aper, mper, n, c_idx, bit_depth, strong, t,
+      static_cast<int32_t *>(pred_out), static_cast<int32_t *>(best_out));
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,9 @@
-// Device functions of intra prediction shared by kernel C2 (intra.cu) and
-// kernel C5 (partition.cu): the per-mode prediction of one sample from a
-// reference chain, the chain's smoothing, its DC value, and the Hadamard
-// SATD of a difference block. All int32, bit-exact with H.265 8.4.4.2.
+// Device functions of intra prediction shared by kernel C2 (intra.cu),
+// kernel C5 (partition.cu) and kernel C13 (scan.cu): the per-mode
+// prediction of one sample from a reference chain, the chain's smoothing,
+// its DC value, the Hadamard SATD of a difference block, and C2's whole
+// work on one block (intra_block). All int32, bit-exact with H.265
+// 8.4.4.2.
 //
 // Chain layout (ops/intra.py): ref[4N+1], index 0..2N-1 the left column
 // bottom-to-top, 2N the corner, 2N+1..4N the top row left-to-right.
@@ -170,6 +172,151 @@ __device__ int satd_cost(const int32_t *O, int32_t *A, const int32_t *H,
     }
   }
   return cost;
+}
+
+
+// The plane a block's chain is read from, and what C2's forms read besides
+// it: the original (RMD) and the dense residual (the decode epilogue,
+// which writes the recon into the plane).
+struct IntraPlane {
+  int32_t *plane;
+  int ph, pw, stride;
+  const int32_t *org;
+  int org_stride;
+  const int32_t *resi;
+  int resi_stride;
+};
+
+// Shared scratch of intra_block for an n x n block, in int32 words.
+__host__ __device__ inline int intra_scratch_words(int n) {
+  return 2 * (4 * n + 1) + 4 * n * n + 64 + 18;
+}
+
+// Kernel C2's work on the n x n block at (px, py), by every thread of the
+// CTA. It gathers the block's 4N+1 reference chain from p.plane
+// (coordinates clamped to the plane; L2-coherent loads, since a
+// persistent caller reads recon that other SMs wrote after its L1 may
+// have cached the line), substitutes the samples that `av` marks
+// unavailable (H.265 8.4.4.2.2), builds the 1-2-1 filtered chain and the
+// 32x32 strong-smoothed one, and then:
+// - mode >= 0, or no original: predicts `mode` into pred [n*n], or, with
+//   p.resi, writes clip(prediction + residual) into the plane;
+// - else RMD: predicts the 35 modes one after another, scores each with
+//   the 8x8 (4x4 at N = 4) Hadamard SATD against the original, and writes
+//   the lowest cost's prediction into pred; ties go to the lowest mode,
+//   as jnp.argmin does.
+// Returns the mode, in every thread. sm holds intra_scratch_words(n);
+// pred may lie in shared or device memory. Ends with a barrier.
+__device__ int intra_block(const IntraPlane &p, const Tables &t, int px,
+                           int py, const uint8_t *av, int mode, int n,
+                           int c_idx, int bit_depth, int strong, int32_t *sm,
+                           int32_t *pred) {
+  const int L = 4 * n + 1, nn = n * n;
+  int32_t *cu = sm;            // [L]
+  int32_t *cf = cu + L;        // [L]
+  int32_t *P = cf + L;         // [nn] candidate prediction
+  int32_t *B = P + nn;         // [nn] best prediction so far
+  int32_t *O = B + nn;         // [nn] original minus candidate
+  int32_t *A = O + nn;         // [nn] Hadamard first stage
+  int32_t *H = A + nn;         // [64]
+  int32_t *tsum = H + 64;      // [16] per-tile sums
+  int32_t *flag = tsum + 16;   // [2] improved, best mode
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int maxv = (1 << bit_depth) - 1;
+
+  // gather the chain (the reference's chain_coords, clamped to the plane)
+  for (int i = tid; i < L; i += nt) {
+    int x, y;
+    if (i < 2 * n) {
+      x = px - 1;
+      y = py + 2 * n - 1 - i;
+    } else if (i == 2 * n) {
+      x = px - 1;
+      y = py - 1;
+    } else {
+      x = px + i - 2 * n - 1;
+      y = py - 1;
+    }
+    x = clip3(0, p.pw - 1, x);
+    y = clip3(0, p.ph - 1, y);
+    cu[i] = __ldcg(p.plane + (long long)y * p.stride + x);
+  }
+  __syncthreads();
+
+  // substitution: last available sample at or before i, else the first
+  if (tid == 0) {
+    int first = -1;
+    for (int i = 0; i < L && first < 0; ++i)
+      if (av[i]) first = i;
+    if (first < 0) {
+      for (int i = 0; i < L; ++i) cu[i] = 1 << (bit_depth - 1);
+    } else {
+      int prev = -1;
+      for (int i = 0; i < L; ++i) {
+        if (av[i]) prev = i;
+        cu[i] = cu[prev >= 0 ? prev : first];
+      }
+    }
+  }
+  __syncthreads();
+
+  const int use_filter = (c_idx == 0 && n > 4);
+  if (use_filter) filter_chain(cu, cf, n, bit_depth, strong);
+  const Refs r = make_refs(cu, use_filter ? cf : nullptr, n, c_idx, bit_depth);
+
+  if (p.org == nullptr || mode >= 0) {
+    // one given mode: prediction, or the decode epilogue
+    for (int i = tid; i < nn; i += nt) {
+      const int x = i % n, y = i / n;
+      const int v = predict_px(r, t, mode, x, y);
+      if (p.resi != nullptr) {
+        const long long row = py + y;
+        p.plane[row * p.stride + px + x] =
+            clip3(0, maxv, v + p.resi[row * p.resi_stride + px + x]);
+      } else {
+        pred[i] = v;
+      }
+    }
+    __syncthreads();
+    return mode;
+  }
+
+  // RMD: 35 candidates, Hadamard SATD against the original
+  const int k = n >= 8 ? 8 : 4;
+  for (int i = tid; i < k * k; i += nt) H[i] = t.had[i];
+  for (int i = tid; i < 16; i += nt) tsum[i] = 0;
+  if (tid == 0) {
+    flag[0] = 0;
+    flag[1] = 0;
+  }
+  int best_cost = 0x7fffffff;  // kept by thread 0
+  __syncthreads();
+
+  for (int m = 0; m < 35; ++m) {
+    for (int i = tid; i < nn; i += nt) {
+      const int x = i % n, y = i / n;
+      const int v = predict_px(r, t, m, x, y);
+      P[i] = v;
+      O[i] = p.org[(long long)(py + y) * p.org_stride + px + x] - v;
+    }
+    __syncthreads();
+    const int cost = satd_cost(O, A, H, tsum, n);
+    if (tid == 0) {
+      flag[0] = cost < best_cost;
+      if (flag[0]) {
+        best_cost = cost;
+        flag[1] = m;
+      }
+    }
+    __syncthreads();
+    if (flag[0])
+      for (int i = tid; i < nn; i += nt) B[i] = P[i];
+    __syncthreads();
+  }
+  const int best = flag[1];
+  for (int i = tid; i < nn; i += nt) pred[i] = B[i];
+  __syncthreads();
+  return best;
 }
 
 }  // namespace

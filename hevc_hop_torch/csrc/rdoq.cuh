@@ -1,6 +1,8 @@
 // Device code of kernel C7, RDOQ of one transform block by one CTA, shared
-// by its standalone entry (rdoq.cu) and by the RDOQ arm of kernel C3's
-// encode entry (tq.cu).
+// by its standalone entry (rdoq.cu) and by the RDOQ arm of tq_encode_block
+// (tq.cuh), which kernel C3's encode entry (tq.cu) and kernel C13 (scan.cu)
+// run. No sum's order depends on blockDim: the CG stages walk their 16
+// positions in one thread each, and the scalar sums run in thread 0.
 //
 // Replaces hevc_hop_tpu/ops/rdoq.py rdoq_quant (with _level_rate). The
 // stages follow the reference: the scan-order gather and round-half

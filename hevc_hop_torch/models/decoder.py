@@ -3,8 +3,8 @@
 Counterpart of hevc_hop_tpu/models/decoder.py. Native C++ parses the slice
 into dense maps; the residuals are dequantized and inverse-transformed by
 kernel C3's decode entry (one launch per TU size and plane). I slices:
-prediction runs as the wavefront level loop over kernel C2 with its
-add-residual epilogue (models/wavefront_scan.py). ISS and PSS slices:
+prediction plus residual runs as one launch of kernel C13's decode entry
+(models/wavefront_scan.py). ISS and PSS slices:
 the MV-aware level loop of models/ss_scan.py, kernel C2 for the intra CUs,
 kernel C8 for the self-similarity ones (and on a PSS slice for the
 temporal ones, out of the previous picture) and kernel C11 for the GT
@@ -14,10 +14,17 @@ appended to the pictures and recorded in ``concealed``. Deblocking is
 kernel C4 (with the inter boundary strengths on ISS and PSS slices),
 SAO's apply is kernel C6, and the checksum SEI is verified by kernel C1.
 Every stream the reference encoder writes decodes.
+
+``last_stats`` holds the last picture's stage times in seconds, each
+ending in a synchronize on the card: ``parse_s`` (CABAC into the dense
+maps), ``schedule_s``, ``residual_s`` (C3's dense residual), ``scan_s``
+(the prediction wavefront), ``loopfilter_s`` (C4, C6) and, once its SEI
+is read, ``checksum_s`` (C1).
 """
 from __future__ import annotations
 
 import collections
+import time
 
 import numpy as np
 import torch
@@ -67,6 +74,7 @@ class Decoder:
         self.hash_ok = []     # per decoded-picture-hash SEI verification
         self.concealed = []   # indices of synthesized lost references
         self.sei_log = []     # (payload_type, parsed-or-raw)
+        self.last_stats = {}  # stage seconds of the last picture
 
     @property
     def pictures_full(self) -> list:
@@ -121,6 +129,7 @@ class Decoder:
                     ("user_data",
                      seimod.parse_user_data_unregistered(msg.payload)))
             if msg.payload_type == seimod.PICTURE_HASH and self._pics_dev:
+                t0 = time.perf_counter()
                 if msg.payload[0] == seimod.HASH_CHECKSUM:
                     # kernel C1 on the device planes: 4 bytes per plane
                     # leave the card
@@ -131,8 +140,23 @@ class Decoder:
                     self.hash_ok.append(seimod.verify_picture_hash(
                         msg.payload, *self.pictures_full[-1],
                         self.sps.bit_depth))
+                self.last_stats["checksum_s"] = time.perf_counter() - t0
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _stage(self, key: str, t0: float) -> float:
+        """Records the stage that began at t0 (after a synchronize on the
+        card) and returns the time it ended."""
+        self._sync()
+        t1 = time.perf_counter()
+        self.last_stats[key] = self.last_stats.get(key, 0.0) + t1 - t0
+        return t1
 
     def _decode_slice(self, rbsp: bytes, nal_type: int) -> None:
+        self.last_stats = {}
+        t0 = time.perf_counter()
         sps, pps = self.sps, self.pps
         holo = bool(self.vps and self.vps.holo)
         sh = params.parse_slice_header(rbsp, sps, pps, nal_type, holo)
@@ -169,6 +193,7 @@ class Decoder:
                 max_hier_depth=sps.max_transform_hierarchy_depth_intra,
                 sao_on=int(sps.sao_enabled), sbh=int(pps.sign_data_hiding))
 
+        t0 = self._stage("parse_s", t0)
         # reconstruction structure = TRANSFORM blocks (prediction is per-TU)
         if holo_slice:
             sched = None
@@ -181,6 +206,8 @@ class Decoder:
             sched = wavefront_scan.schedule(maps.depth8, maps.tu4, w, h,
                                             sps.ctb_log2, self.device)
             luma_pos, chroma_pos = sched.tu_pos
+            sched.work    # C13's work list, built once per schedule
+        t0 = self._stage("schedule_s", t0)
         qp_c = rom.chroma_qp_from_luma(qp)
         pad = 1 << sps.ctb_log2
         hcp = h // 2 + pad
@@ -195,12 +222,14 @@ class Decoder:
                         resi_c[:h // 2])
         _dense_residual(maps.coef_cr, chroma_pos, qp_c, bd, False,
                         resi_c[hcp:hcp + h // 2])
+        self._stage("residual_s", t0)
         if sched is None:
             self._recon_ss(maps, leaves, qp, resi_y, resi_c, hcp)
         else:
             self._recon(maps, sched, qp, resi_y, resi_c, hcp)
 
     def _recon(self, maps, sched, qp, resi_y, resi_c, hcp) -> None:
+        t0 = time.perf_counter()
         sps = self.sps
         w, h, bd = sps.pic_width, sps.pic_height, sps.bit_depth
         plans, nsteps = sched.plans, sched.nsteps
@@ -222,7 +251,8 @@ class Decoder:
             modes[log2], cmodes[log2] = t(m), t(cmode)
         ry, rc = wavefront_scan.scan_decode(
             resi_y, resi_c, plans, nsteps, modes, cmodes, bd,
-            sps.strong_intra_smoothing)
+            sps.strong_intra_smoothing, work=sched.work)
+        t0 = self._stage("scan_s", t0)
         ry, rcb, rcr = ry[:h], rc[:h // 2], rc[hcp:hcp + h // 2]
         if not self.pps.deblocking_disabled:
             qp_c = rom.chroma_qp_from_luma(qp)
@@ -235,6 +265,7 @@ class Decoder:
             ry, rcb, rcr = sao.apply_sao_frame(
                 ry, rcb, rcr, maps.sao_type, maps.sao_off, maps.sao_band,
                 sps.ctb_log2, bd)
+        self._stage("loopfilter_s", t0)
         self._pics_dev.append((ry, rcb, rcr))
 
     def _recon_ss(self, maps, leaves, qp, resi_y, resi_c, hcp) -> None:
@@ -245,6 +276,7 @@ class Decoder:
         slack; a temporal CU reads the previous picture and waits on
         nothing), then deblocking with the inter boundary strengths and
         SAO."""
+        t0 = time.perf_counter()
         sps = self.sps
         w, h, bd = sps.pic_width, sps.pic_height, sps.bit_depth
         pss = maps.slice_type == int(SliceType.PSS)
@@ -278,6 +310,7 @@ class Decoder:
         else:
             _SS_PLANS.move_to_end(key)
         plans, nsteps = hit
+        t0 = self._stage("schedule_s", t0)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                       device=self.device)
         modes, cmodes, mvs, gts, tfs = {}, {}, {}, {}, {}
@@ -310,6 +343,7 @@ class Decoder:
             ry, rc = ss_scan.scan_decode_ss(
                 resi_y, resi_c, plans, nsteps, modes, cmodes, mvs, bd,
                 sps.strong_intra_smoothing, h, gt)
+        t0 = self._stage("scan_s", t0)
         ry, rcb, rcr = ry[:h], rc[:h // 2], rc[hcp:hcp + h // 2]
         if not self.pps.deblocking_disabled:
             dev = self.device
@@ -325,6 +359,7 @@ class Decoder:
             ry, rcb, rcr = sao.apply_sao_frame(
                 ry, rcb, rcr, maps.sao_type, maps.sao_off, maps.sao_band,
                 sps.ctb_log2, bd)
+        self._stage("loopfilter_s", t0)
         self._pics_dev.append((ry, rcb, rcr))
 
     def _reference(self, hcp: int):

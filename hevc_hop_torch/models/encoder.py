@@ -8,9 +8,11 @@ Counterpart of hevc_hop_tpu/models/encoder.py. The stages:
      ``mode_decision="rmd"``, a uniform CU grid whose modes are chosen
      inside the wavefront by 35-mode SATD. Then the wavefront schedule of
      the chosen transform blocks (host, cached per structure);
-  2. the level loop over kernels C2 (prediction) and C3 (transform, RDOQ
-     or the dead-zone quantizer, SBH, recon) for luma and the stacked
-     cb/cr plane (models/wavefront_scan.py);
+  2. the wavefront of every block, one launch of kernel C13 on the card
+     (models/wavefront_scan.py): per block C2's prediction and C3's
+     transform, RDOQ or the dead-zone quantizer, SBH and recon, for luma
+     and the stacked cb/cr plane (on the CPU, the level loop over their
+     plain versions);
   3. deblocking, kernel C4; SAO statistics, host RDO and apply, kernel C6
      (ops/sao.py); the checksum SEI, kernel C1;
   4. dense maps -> native C++ slice-data serializer -> NAL/AnnexB.
@@ -269,7 +271,7 @@ class IntraEncoder:
         ry, rc, coef_y, coef_c, outs = wavefront_scan.scan_encode(
             org_y_dev, org_c_dev, sched.plans, sched.nsteps, qp, qp_c,
             cfg.bit_depth, cfg.strong_intra_smoothing, cfg.sbh, modes,
-            use_rdoq=cfg.rdoq, init_type=int(SliceType.I))
+            use_rdoq=cfg.rdoq, init_type=int(SliceType.I), work=sched.work)
         self._sync()
         stats["scan_s"] = time.perf_counter() - t1
 

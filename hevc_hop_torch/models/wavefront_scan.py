@@ -1,12 +1,18 @@
-"""Whole-frame intra wavefront: a level loop over kernels C2 and C3.
+"""Whole-frame intra wavefront: kernel C13, one launch per frame.
 
 Counterpart of hevc_hop_tpu/models/wavefront_scan.py. The schedule is the
 reference's (:func:`build_schedule`, numpy, copied): topological levels of
 transform blocks, each level's blocks mutually independent. The reference
-runs the levels as one ``lax.scan``; here a Python loop launches, per level
-and block size, C2 then C3 for luma and C2 then C3 for the stacked cb/cr
-plane (encode), or C2 with its add-residual epilogue for each plane
-(decode). On the CPU the same loop runs the kernels' plain versions.
+runs the levels as one ``lax.scan``; on the card :func:`scan_encode` and
+:func:`scan_decode` run them as one cooperative launch of kernel C13
+(``csrc/scan.cu``), which walks the schedule's :class:`WorkList` level by
+level with a grid-wide barrier between levels. Their plain version is the
+level loop (:func:`scan_encode_loop`, :func:`scan_decode_loop`), which
+launches, per level and block size, C2 then C3 for luma and C2 then C3 for
+the stacked cb/cr plane (encode), or C2 with its add-residual epilogue for
+each plane (decode); on the CPU it runs the kernels' plain versions. The
+mesh encoder runs the loop on the card too, with its halo refresh after
+every level (``after_level``).
 
 :func:`pack_schedule` keeps only the real slots of each level, packed in
 level order, so no launch ever sees a dummy slot: the reference's dummies
@@ -17,16 +23,25 @@ The stacked chroma plane keeps the reference's layout: cb rows
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import functools
 
 import numpy as np
 import torch
 
+from hevc_hop_torch import _cuda
 from hevc_hop_torch.models import wavefront
 from hevc_hop_torch.models.partition import full_lambda
-from hevc_hop_torch.ops.intra import intra_blocks
-from hevc_hop_torch.ops.tq import tq_encode
+from hevc_hop_torch.ops import quant, rdoq as _rdoq
+from hevc_hop_torch.ops.intra import intra_blocks, intra_blocks_plain
+from hevc_hop_torch.ops.tq import tq_encode, tq_encode_plain
+
+# launches of kernel C13's two entries
+SCAN_ENCODE_LAUNCHES = 0
+SCAN_DECODE_LAUNCHES = 0
+# (grid, CTAs per SM, dynamic shared bytes, threads) of the last C13 launch
+LAST_LAUNCH = None
 
 
 def build_schedule(blocks, w: int, h: int, ctb_log2: int,
@@ -204,6 +219,52 @@ class Schedule:
     def tu_pos(self) -> tuple:
         return tu_positions(self.leaves, self.tu4_dev.device)
 
+    @functools.cached_property
+    def work(self) -> "WorkList":
+        return work_list(self.plans, self.tu4_dev.device)
+
+
+@dataclasses.dataclass
+class WorkList:
+    """Kernel C13's items: the blocks of every size, packed level by level
+    (within a level by size, then by packed row). Item i is
+    items[i] = (log2, luma row in that size's :class:`SizePlan`, chroma
+    row (of cavail and the chroma modes) or -1, cb row and cr row of
+    cpos or -1). Level s holds items level_off[s]:level_off[s + 1]; only
+    levels that hold items count, so the padded steps of
+    :func:`build_schedule` cost no barrier."""
+    items: torch.Tensor        # [N, 5] int32
+    level_off: torch.Tensor    # [S' + 1] int32
+    host_items: np.ndarray
+    host_off: np.ndarray
+    widest: int                # the most items of any level
+
+
+def work_list(plans: dict, device) -> WorkList:
+    """The :class:`WorkList` of a schedule's packed plans, on ``device``."""
+    rows = []
+    for log2, p in plans.items():
+        t = len(p.vpos)
+        tc = np.full(t, -1, np.int64)
+        tc[p.cidx] = np.arange(len(p.cidx))
+        cb = np.full(t, -1, np.int64)
+        cr = np.full(t, -1, np.int64)
+        has = tc >= 0
+        cb[has] = p.cb_rows[tc[has]]
+        cr[has] = p.cr_rows[tc[has]]
+        rows.append(np.stack([np.repeat(np.arange(len(p.cnt)), p.cnt),
+                              np.full(t, log2), np.arange(t), tc, cb, cr],
+                             -1))
+    a = np.concatenate(rows) if rows else np.zeros((0, 6), np.int64)
+    a = a[np.lexsort((a[:, 2], a[:, 1], a[:, 0]))]
+    _, counts = np.unique(a[:, 0], return_counts=True)
+    off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    items = np.ascontiguousarray(a[:, 1:], dtype=np.int32)
+    return WorkList(items=torch.as_tensor(items, device=device),
+                    level_off=torch.as_tensor(off, device=device),
+                    host_items=items, host_off=off,
+                    widest=int(counts.max(initial=0)))
+
 
 def tu_positions(lv: np.ndarray, device) -> tuple:
     """(luma, chroma): log2 -> [B, 2] int32 positions of the TUs of that
@@ -260,7 +321,26 @@ def schedule(depth8: np.ndarray, tu4: np.ndarray, w: int, h: int,
 def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
                 bit_depth: int, strong: bool, sbh: bool, modes=None,
                 use_rdoq: bool = False, init_type: int = 2,
-                after_level=None):
+                after_level=None, work: WorkList | None = None):
+    """Intra encode of every block of a frame: on CUDA tensors one launch
+    of kernel C13 over ``work`` (the schedule's :class:`WorkList`, built
+    here when not given); with ``after_level``, or on CPU tensors, the
+    level loop :func:`scan_encode_loop`, C13's plain version. Arguments and
+    results are :func:`scan_encode_loop`'s."""
+    if org_y.is_cuda and after_level is None:
+        return _scan_encode_c13(
+            org_y, org_c, plans,
+            work if work is not None else work_list(plans, org_y.device),
+            qp, qp_c, bit_depth, strong, sbh, modes, use_rdoq, init_type)
+    return scan_encode_loop(org_y, org_c, plans, nsteps, qp, qp_c, bit_depth,
+                            strong, sbh, modes, use_rdoq, init_type,
+                            after_level)
+
+
+def scan_encode_loop(org_y, org_c, plans: dict, nsteps: int, qp: int,
+                     qp_c: int, bit_depth: int, strong: bool, sbh: bool,
+                     modes=None, use_rdoq: bool = False, init_type: int = 2,
+                     after_level=None, plain: bool = False):
     """Intra encode of every block, level by level.
 
     org_y [h+pad, w] and org_c (stacked cb/cr) int32 on the target device.
@@ -275,10 +355,13 @@ def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
     weighted by 2^((qp_c - qp) / 3) in float64 for chroma.
     ``after_level(ry, rc)``, where given, runs after every level (the
     mesh encoder's halo refresh, parallel/shard_encode.py).
+    ``plain`` runs the kernels' plain versions whatever the device.
     Returns (ry, rc, coef_y, coef_c, outs): recon and int16 level planes
     shaped like the originals, and outs[log2] = (best [T], cbf_y [T],
     cbf_c [2Tc]) in the packed order of ``plans``.
     """
+    pred_fn = intra_blocks_plain if plain else intra_blocks
+    tq_fn = tq_encode_plain if plain else tq_encode
     dev = org_y.device
     lam = full_lambda(qp)
     rcfg_y = (init_type, lam) if use_rdoq else None
@@ -301,14 +384,14 @@ def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
             n = p.n
             pos = p.pos[o:o + c]
             if modes is None:
-                pred, best = intra_blocks(ry, pos, p.avail[o:o + c], rmd[:c],
-                                          n, 0, bit_depth, strong, org=org_y)
+                pred, best = pred_fn(ry, pos, p.avail[o:o + c], rmd[:c], n,
+                                     0, bit_depth, strong, org=org_y)
             else:
                 best = modes[log2][0][o:o + c]
-                pred, _ = intra_blocks(ry, pos, p.avail[o:o + c], best, n, 0,
-                                       bit_depth, strong)
-            cbf = tq_encode(org_y, pred, pos, best, n, 0, qp, bit_depth,
-                            sbh, rcfg_y, ry, coef_y)
+                pred, _ = pred_fn(ry, pos, p.avail[o:o + c], best, n, 0,
+                                  bit_depth, strong)
+            cbf = tq_fn(org_y, pred, pos, best, n, 0, qp, bit_depth, sbh,
+                        rcfg_y, ry, coef_y)
             acc[log2][0].append(best)
             acc[log2][1].append(cbf)
             cc = int(p.ccnt[s])
@@ -320,11 +403,10 @@ def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
                 cmode = modes[log2][1][co // 2:co // 2 + cc]
             nc = 4 if log2 == 2 else n // 2
             cpos = p.cpos[co:co + 2 * cc]
-            predc, _ = intra_blocks(rc, cpos, p.cavail[co // 2:co // 2 + cc],
-                                    cmode, nc, 1, bit_depth, strong)
-            acc[log2][2].append(tq_encode(org_c, predc, cpos, cmode, nc, 1,
-                                          qp_c, bit_depth, sbh, rcfg_c, rc,
-                                          coef_c))
+            predc, _ = pred_fn(rc, cpos, p.cavail[co // 2:co // 2 + cc],
+                               cmode, nc, 1, bit_depth, strong)
+            acc[log2][2].append(tq_fn(org_c, predc, cpos, cmode, nc, 1, qp_c,
+                                      bit_depth, sbh, rcfg_c, rc, coef_c))
         if after_level is not None:
             after_level(ry, rc)
     outs = {}
@@ -335,14 +417,33 @@ def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
 
 
 def scan_decode(resi_y, resi_c, plans: dict, nsteps: int, modes: dict,
-                cmodes: dict, bit_depth: int, strong: bool):
+                cmodes: dict, bit_depth: int, strong: bool,
+                work: WorkList | None = None):
+    """Intra decode of every block of a frame: on CUDA tensors one launch
+    of kernel C13's decode entry over ``work`` (built here when not
+    given); on CPU tensors the level loop :func:`scan_decode_loop`, its
+    plain version. Arguments and results are :func:`scan_decode_loop`'s."""
+    if resi_y.is_cuda:
+        return _scan_decode_c13(
+            resi_y, resi_c, plans,
+            work if work is not None else work_list(plans, resi_y.device),
+            modes, cmodes, bit_depth, strong)
+    return scan_decode_loop(resi_y, resi_c, plans, nsteps, modes, cmodes,
+                            bit_depth, strong)
+
+
+def scan_decode_loop(resi_y, resi_c, plans: dict, nsteps: int, modes: dict,
+                     cmodes: dict, bit_depth: int, strong: bool,
+                     plain: bool = False):
     """Intra decode of every block, level by level: prediction plus the
     dense residual, written in place into fresh recon planes.
 
     resi_y [h+pad, w] and resi_c (stacked cb/cr) int32; modes[log2] [T]
     and cmodes[log2] [Tc] int32 in the packed order of ``plans``.
+    ``plain`` runs C2's plain version whatever the device.
     Returns (ry, rc).
     """
+    pred_fn = intra_blocks_plain if plain else intra_blocks
     ry = torch.zeros_like(resi_y)
     rc = torch.zeros_like(resi_c)
     for s in range(nsteps):
@@ -351,16 +452,234 @@ def scan_decode(resi_y, resi_c, plans: dict, nsteps: int, modes: dict,
             if c == 0:
                 continue
             o = int(p.off[s])
-            intra_blocks(ry, p.pos[o:o + c], p.avail[o:o + c],
-                         modes[log2][o:o + c], p.n, 0, bit_depth, strong,
-                         resi=resi_y)
+            pred_fn(ry, p.pos[o:o + c], p.avail[o:o + c],
+                    modes[log2][o:o + c], p.n, 0, bit_depth, strong,
+                    resi=resi_y)
             cc = int(p.ccnt[s])
             if cc == 0:
                 continue
             co = int(p.coff[s])
-            intra_blocks(rc, p.cpos[co:co + 2 * cc],
-                         p.cavail[co // 2:co // 2 + cc],
-                         cmodes[log2][co // 2:co // 2 + cc],
-                         4 if log2 == 2 else p.n // 2, 1, bit_depth, strong,
-                         resi=resi_c)
+            pred_fn(rc, p.cpos[co:co + 2 * cc],
+                    p.cavail[co // 2:co // 2 + cc],
+                    cmodes[log2][co // 2:co // 2 + cc],
+                    4 if log2 == 2 else p.n // 2, 1, bit_depth, strong,
+                    resi=resi_c)
+    return ry, rc
+
+
+# ---------------------------------------------------------------------------
+# Kernel C13's launches. The structures mirror csrc/scan.cu's ScanArgs
+# (with csrc/intra.cuh's Tables and IntraPlane and csrc/tq.cuh's TqClass),
+# field for field.
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+class _Tables(ctypes.Structure):
+    _fields_ = [(k, _P) for k in ("ext_idx", "pred_idx", "fact", "is_hor",
+                                   "filt", "had")]
+
+
+class _TqClass(ctypes.Structure):
+    _fields_ = ([("mat", _P), ("scan", _P)]
+                + [(k, _I) for k in ("n", "c_idx", "bit_depth", "maxv", "qs",
+                                     "qbits", "qoff", "dqs", "dqsh", "sbh",
+                                     "rd")]
+                + [("lamc", ctypes.c_float), ("r", _rdoq.RdoqArgs)])
+
+
+class _ClassArgs(ctypes.Structure):
+    _fields_ = [("t", _Tables), ("tq", _TqClass)]
+
+
+class _IntraPlane(ctypes.Structure):
+    _fields_ = [("plane", _P), ("ph", _I), ("pw", _I), ("stride", _I),
+                ("org", _P), ("org_stride", _I), ("resi", _P),
+                ("resi_stride", _I)]
+
+
+class _SizeArgs(ctypes.Structure):
+    _fields_ = [(k, _P) for k in ("pos", "avail", "cpos", "cavail", "modes_y",
+                                   "modes_c", "best", "cbf_y", "cbf_c")]
+
+
+class _ScanArgs(ctypes.Structure):
+    _fields_ = [("items", _P), ("level_off", _P), ("levels", _I),
+                ("y", _IntraPlane), ("c", _IntraPlane), ("coef_y", _P),
+                ("coef_c", _P), ("coef_y_stride", _I),
+                ("coef_c_stride", _I), ("bit_depth", _I), ("strong", _I),
+                ("rmd", _I), ("nmax", _I), ("size", _SizeArgs * 4),
+                ("cls", _ClassArgs * 8)]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(t, dtype, name):
+    if not (t.is_cuda and t.dtype == dtype and t.is_contiguous()):
+        raise ValueError(f"scan: {name} must be a contiguous CUDA {dtype} "
+                         "tensor")
+
+
+def _plane(plane, org=None, resi=None) -> _IntraPlane:
+    return _IntraPlane(plane.data_ptr(), plane.shape[0], plane.shape[1],
+                       plane.stride(0), _ptr(org),
+                       0 if org is None else org.stride(0), _ptr(resi),
+                       0 if resi is None else resi.stride(0))
+
+
+def _intra_tables(dev, n: int) -> _Tables:
+    """C2's tables for an n x n block, as ops/intra.py hands them to C2."""
+    from hevc_hop_torch.convert import device_tables
+    tab = device_tables(dev)
+    k = f"intra{n}"
+    return _Tables(*(tab[k + f].data_ptr() for f in (
+        "_ext_idx", "_pred_idx", "_fact", "_is_hor", "_filt")),
+        tab["hadamard4" if n == 4 else "hadamard8"].data_ptr())
+
+
+def _class_args(dev, c_idx, log2, qp, bit_depth, sbh, rcfg) -> _ClassArgs:
+    """C2's tables and C3's class scalars for TU class (c_idx, log2), as
+    ops/intra.py and ops/tq.py hand them to C2 and C3 (RDOQ's only where
+    ``rcfg`` is given)."""
+    from hevc_hop_torch.convert import device_tables
+    tab = device_tables(dev)
+    n = 1 << log2
+    qs, qbits, qoff = quant.quant_params(qp, log2, bit_depth)
+    dqs, dqsh = quant.dequant_params(qp, log2, bit_depth)
+    lam = rcfg[1] if rcfg else 0.0
+    lamc = float(np.float32(lam * (4.0 ** (15 - bit_depth - log2))))
+    r = (_rdoq.kernel_args(log2, c_idx, qp, bit_depth, rcfg[0], rcfg[1], dev)
+         if rcfg else _rdoq.RdoqArgs())
+    mat = tab["dst4" if n == 4 and c_idx == 0 else f"dct{n}"]
+    return _ClassArgs(_intra_tables(dev, n), _TqClass(
+        mat.data_ptr(), tab[f"scan{log2}"].data_ptr(), n, c_idx, bit_depth,
+        (1 << bit_depth) - 1, qs, qbits, qoff, dqs, dqsh, int(sbh), 1, lamc,
+        r))
+
+
+def _chroma_log2(log2: int) -> int:
+    return 2 if log2 == 2 else log2 - 1
+
+
+def _scan_args(work, plans, y, c, bit_depth, strong, classes):
+    """ScanArgs of ``work`` on the planes y and c; classes: (c_idx, log2)
+    -> _ClassArgs."""
+    a = _ScanArgs()
+    a.items, a.level_off = work.items.data_ptr(), work.level_off.data_ptr()
+    a.levels = len(work.host_off) - 1
+    a.y, a.c = y, c
+    a.bit_depth, a.strong = bit_depth, int(strong)
+    a.nmax = max((p.n for p in plans.values() if len(p.vpos)), default=4)
+    for (c_idx, log2), ca in classes.items():
+        a.cls[c_idx * 4 + log2 - 2] = ca
+    return a
+
+
+def _plan_check(p):
+    for t, dt, name in ((p.pos, torch.int32, "pos"),
+                        (p.avail, torch.bool, "avail"),
+                        (p.cpos, torch.int32, "cpos"),
+                        (p.cavail, torch.bool, "cavail")):
+        _check(t, dt, name)
+
+
+def _launch(entry, sig, a, *extra, like):
+    """One launch of C13's ``entry`` (ctypes signature ``sig``); records
+    its shape in LAST_LAUNCH."""
+    global LAST_LAUNCH
+    info = (ctypes.c_int * 4)()
+    fn = _cuda.bind("scan", entry, sig)
+    err = fn(ctypes.addressof(a), *extra, _cuda.stream(like), info)
+    _cuda.check("scan", err)
+    LAST_LAUNCH = tuple(info)
+
+
+def _scan_encode_c13(org_y, org_c, plans, work, qp, qp_c, bit_depth, strong,
+                     sbh, modes, use_rdoq, init_type):
+    global SCAN_ENCODE_LAUNCHES
+    _check(org_y, torch.int32, "org_y")
+    _check(org_c, torch.int32, "org_c")
+    dev = org_y.device
+    ry = torch.zeros_like(org_y)
+    rc = torch.zeros_like(org_c)
+    coef_y = torch.zeros(org_y.shape, dtype=torch.int16, device=dev)
+    coef_c = torch.zeros(org_c.shape, dtype=torch.int16, device=dev)
+    lam = full_lambda(qp)
+    rcfg = {0: (init_type, lam) if use_rdoq else None,
+            1: ((init_type, lam * 2.0 ** ((qp_c - qp) / 3.0)) if use_rdoq
+                else None)}
+    classes, outs = {}, {}
+    for log2, p in plans.items():
+        _plan_check(p)
+        classes[0, log2] = _class_args(dev, 0, log2, qp, bit_depth, sbh,
+                                       rcfg[0])
+        if len(p.cidx):
+            lc = _chroma_log2(log2)
+            classes[1, lc] = _class_args(dev, 1, lc, qp_c, bit_depth, sbh,
+                                         rcfg[1])
+    a = _scan_args(work, plans, _plane(ry, org=org_y),
+                   _plane(rc, org=org_c), bit_depth, strong, classes)
+    a.coef_y, a.coef_c = coef_y.data_ptr(), coef_c.data_ptr()
+    a.coef_y_stride, a.coef_c_stride = coef_y.stride(0), coef_c.stride(0)
+    a.rmd = int(modes is None)
+    for log2, p in plans.items():
+        t, tc = len(p.vpos), len(p.cidx)
+        out = tuple(torch.empty(k, dtype=torch.int32, device=dev)
+                    for k in (t, t, 2 * tc))
+        outs[log2] = out
+        my = mc = None
+        if modes is not None:
+            my, mc = modes[log2]
+            _check(my, torch.int32, "luma modes")
+            if my.shape[0] != t:
+                raise ValueError("scan_encode: modes[log2][0] must be [T]")
+            if mc is not None:
+                _check(mc, torch.int32, "chroma modes")
+                if mc.shape[0] != tc:
+                    raise ValueError("scan_encode: modes[log2][1] must be "
+                                     "[Tc]")
+        a.size[log2 - 2] = _SizeArgs(
+            p.pos.data_ptr(), p.avail.data_ptr(), p.cpos.data_ptr(),
+            p.cavail.data_ptr(), _ptr(my), _ptr(mc), *(o.data_ptr()
+                                                       for o in out))
+    if work.widest:
+        _launch("hh_scan_encode", "piipp", a, int(use_rdoq), work.widest,
+                like=org_y)
+        SCAN_ENCODE_LAUNCHES += 1
+    return ry, rc, coef_y, coef_c, outs
+
+
+def _scan_decode_c13(resi_y, resi_c, plans, work, modes, cmodes, bit_depth,
+                     strong):
+    global SCAN_DECODE_LAUNCHES
+    _check(resi_y, torch.int32, "resi_y")
+    _check(resi_c, torch.int32, "resi_c")
+    dev = resi_y.device
+    ry = torch.zeros_like(resi_y)
+    rc = torch.zeros_like(resi_c)
+    classes = {}
+    for log2, p in plans.items():
+        _plan_check(p)
+        classes[0, log2] = _ClassArgs(_intra_tables(dev, p.n))
+        if len(p.cidx):
+            lc = _chroma_log2(log2)
+            classes[1, lc] = _ClassArgs(_intra_tables(dev, 1 << lc))
+    a = _scan_args(work, plans, _plane(ry, resi=resi_y),
+                   _plane(rc, resi=resi_c), bit_depth, strong, classes)
+    for log2, p in plans.items():
+        my, mc = modes[log2], cmodes[log2]
+        _check(my, torch.int32, "luma modes")
+        _check(mc, torch.int32, "chroma modes")
+        if my.shape[0] != len(p.vpos) or mc.shape[0] != len(p.cidx):
+            raise ValueError("scan_decode: modes must be [T], cmodes [Tc]")
+        a.size[log2 - 2] = _SizeArgs(
+            p.pos.data_ptr(), p.avail.data_ptr(), p.cpos.data_ptr(),
+            p.cavail.data_ptr(), my.data_ptr(), mc.data_ptr(), None, None,
+            None)
+    if work.widest:
+        _launch("hh_scan_decode", "pipp", a, work.widest, like=resi_y)
+        SCAN_DECODE_LAUNCHES += 1
     return ry, rc

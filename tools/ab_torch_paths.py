@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Compare the end-to-end times of two trees of hevc_hop_torch on one card.
 
-    python3 tools/ab_torch_paths.py PARENT_TREE CHANGED_TREE [uniform|quadtree]
+    python3 tools/ab_torch_paths.py PARENT_TREE CHANGED_TREE \
+        [uniform|quadtree|production]
 
 Each tree is a checkout of the repository (the parent unpacked with
 ``git archive`` beside the working tree). The host sets most of a frame's
@@ -10,10 +11,13 @@ in turns, one process each: parent, change, change, parent, twice over.
 Every process builds its tree's kernels if they are stale, encodes and
 decodes one 1920x1088 frame to warm up, then times 10 encodes and 10
 decodes of it, each ending in a synchronize, and prints one JSON line with
-the medians, beside the medians of chip_smoke.host_probes() (two fixed
-pieces of host work, where the tree's chip_smoke.py has them). The last line holds, per tree, the median over its four
-processes. ``uniform`` is cu_log2=4 with RDOQ off (a path both trees of any
-pair have); ``quadtree`` is the RD pre-pass with SAO and RDOQ off.
+the medians (with the encoder's ``scan_s`` and ``entropy_s`` and, where the
+tree's decoder keeps stage times, the decoder's ``scan_s``), beside the
+medians of chip_smoke.host_probes() (two fixed pieces of host work, where
+the tree's chip_smoke.py has them). The last line holds, per tree, the
+median over its four processes. ``uniform`` is cu_log2=4 with RDOQ off (a
+path both trees of any pair have); ``quadtree`` is the RD pre-pass with SAO
+and RDOQ off; ``production`` is bench.py's configuration (SAO and RDOQ on).
 """
 from __future__ import annotations
 
@@ -26,7 +30,8 @@ import time
 import numpy as np
 
 PATHS = {"uniform": dict(cu_log2=4, rdoq=False),
-         "quadtree": dict(sao=True, rdoq=False)}
+         "quadtree": dict(sao=True, rdoq=False),
+         "production": dict(sao=True)}
 TIMED = 10
 
 
@@ -48,7 +53,7 @@ def one_process(tree: str, path: str) -> None:
     stream = enc.encode_frame(*frame)
     Decoder().decode_stream(stream)
     torch.cuda.synchronize()
-    enc_s, dec_s, ent_s, probes = [], [], [], []
+    enc_s, dec_s, ent_s, scan_s, dscan_s, probes = [], [], [], [], [], []
     for _ in range(TIMED):
         if hasattr(chip_smoke, "host_probes"):
             probes.append(chip_smoke.host_probes())
@@ -58,11 +63,13 @@ def one_process(tree: str, path: str) -> None:
         torch.cuda.synchronize()
         enc_s.append(time.perf_counter() - t0)
         ent_s.append(enc.last_stats["entropy_s"])
+        scan_s.append(enc.last_stats["scan_s"])
         t0 = time.perf_counter()
         dec = Decoder()
         dec.decode_stream(stream)
         torch.cuda.synchronize()
         dec_s.append(time.perf_counter() - t0)
+        dscan_s.append(getattr(dec, "last_stats", {}).get("scan_s"))
         if dec.hash_ok != [True]:
             raise SystemExit("the decoded picture's hash does not verify")
     print(json.dumps({"tree": tree, "path": path,
@@ -70,6 +77,9 @@ def one_process(tree: str, path: str) -> None:
                       "encode_s": float(np.median(enc_s)),
                       "decode_s": float(np.median(dec_s)),
                       "entropy_s": float(np.median(ent_s)),
+                      "scan_s": float(np.median(scan_s)),
+                      "decode_scan_s": (float(np.median(dscan_s))
+                                        if None not in dscan_s else None),
                       "python_probe_ms": float(np.median(
                           [p[0] for p in probes])) if probes else None,
                       "launch_probe_ms": float(np.median(
@@ -99,7 +109,8 @@ def main() -> int:
         runs[tree].append(json.loads(line))
     med = lambda rs, k: float(np.median([r[k] for r in rs]))
     print(json.dumps({name: {k: med(runs[tree], k)
-                             for k in ("encode_s", "decode_s", "entropy_s")}
+                             for k in ("encode_s", "decode_s", "entropy_s",
+                                       "scan_s")}
                       for name, tree in (("parent", parent),
                                          ("change", change))}))
     return 0

@@ -55,7 +55,10 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      self-similarity search C9, merge arms, sub-pel refinement and the
      tournament C10, chroma MC C8, RDOQ, SAO, deblocking with the inter
      boundary strengths) of a copy of tools/bdrate.py's lenslet frame and
-     its decode, ISS_TIMED_FRAMES timed frames;
+     its decode, ISS_TIMED_FRAMES timed frames; the picture's wavefront
+     runs as one launch of kernel C14 each way (the device code of C2,
+     C3, C7, C8, C9, C10, C11 and C12), and the ISS paths fail on any
+     per-level launch of those kernels;
    - iss-uniform: the same with uniform 16x16 CUs and in-loop RMD, one
      timed frame;
    - iss-gt: bench.py:88-100's lenslet cell whole, the GT warp on (C9's
@@ -64,6 +67,15 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    - iss-gt-warped: tests/test_e2e_iss.py's GT configuration (16x16 CUs,
      QP 37) on a copy of its warped lenslet content at 1920x1088, where
      GT engages (the run fails if it never does), two timed frames;
+   - ss scan program: on the four ISS paths' frames, C14's encode entry
+     held against the level loop of the card's kernels (recon, level
+     planes, every per-CU output) and its decode entry, on the decoder's
+     own inputs for the path's stream, against the decode loop and the
+     encode's recon; then C14 and the loop in turns in this process
+     (encode s, scan_s, decode s); the grid it chose; in the traced part
+     at the end C14's device ms per picture each way; and last of all
+     both entries against the plain loop on a SS_PLAIN_W x SS_PLAIN_H
+     corner of each frame and, at full size, on PLAIN_FULL's pictures;
    - pss-gt: the iss-gt configuration (search_range_t 16) on a low-delay
      holoscopic sequence of PSS_FRAMES pictures through
      HoloEncoder.encode_sequence, an ISS picture then PSS ones whose L0 is
@@ -74,7 +86,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
      sample per frame): every picture hash_ok and equal to the recon
      history, temporal prediction chosen (each PSS picture's share
      printed); then PSS_TIMED_TURNS more codings of the sequence, each PSS
-     picture timed;
+     picture timed; the ISS picture is one C14 launch each way, the PSS
+     pictures the level loop;
    - mesh: hevc_hop_torch.parallel's MeshIntraEncoder (16x16 CUs, in-loop
      RMD, RDOQ, SBH, deblocking, SAO off) on a virtual (2 frames, 2 bands)
      mesh on the card over synth_class_b seeds 0 and 1, and
@@ -95,7 +108,8 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    its plain body (in chunks), with the temporal arm on every block of
    the pss-gt path's second picture, and one more encode and decode of
    each ISS path with its C8, C9, C10 and C4 launches held against the
-   plain bodies (the fullest level of each size and every eighth level),
+   plain bodies (the ISS pictures through the level loop, whose stream
+   must equal C14's; the fullest level of each size and every eighth level),
    and on the GT paths every launch of C9 (with its ring), C12 and C11;
    on the pss-gt path every launch of its PSS pictures' forms (C9's SS
    and temporal searches and its pre-pass, C10, C12) and every C8 and C11
@@ -142,9 +156,11 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    holds every launch's record) beside the least time the card could
    take for the work its function needs (bytes, or int32 and float32
    operations by the algorithms HM uses), and the wrapper's and the
-   plain version's time per call (CUDA events); then torch.profiler over
-   one more encode and one more decode of each path for each kernel's
-   device time per frame and the card's idle share. The kernels of the
+   plain version's time per call (CUDA events); before them
+   torch.profiler over one more encode and one more decode of each path
+   for each kernel's device time per frame and the card's idle share (a
+   trace must hold the frame's C13 or C14 record; every trace of the run
+   comes in this last part). The kernels of the
    ISS paths get rows the same way: C9's scan entry (with a grouped
    float32 conv2d of the same windows as its library yardstick), its
    pre-pass entry, C10's two entries, C8's two forms and C4 with the ISS
@@ -158,7 +174,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    level of the stacked (2, 2) mesh, and C2's analysis entry at n = 16;
    and C13's encode entry on the production and uniform frames and its
    decode entry on the production frame, whole frames, beside the bound
-   of the frame's work (scan_bound) and the plain loop's time.
+   of the frame's work (scan_bound) and the plain loop's time; and C14's
+   encode entry on the iss picture and its decode entry on the
+   iss-gt-warped one, whole pictures, beside the bound of the picture's
+   work (ss_encode_work, ss_decode_work), the plain loop's time and the
+   card's loop's. On the ISS paths C8's to C12's device code runs inside
+   C14, so their rows there count C14's launches.
 
 It prints the card's name and power limit, one JSON line for the kernels,
 one for the main paths, and as its last line
@@ -166,6 +187,7 @@ one for the main paths, and as its last line
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import os
@@ -240,8 +262,9 @@ def phase_build():
     native.get_lib()
     log(f"build: {_cuda.sources()} and libhevc_hop.so in "
         f"{time.perf_counter() - t0:.1f} s")
-    log("ptxas, csrc/scan.cu (kernel C13):\n"
-        + _cuda.BUILD_LOGS.get("scan", "(built before this run)").strip())
+    for name, kernel in (("scan", "C13"), ("ss_scan", "C14")):
+        log(f"ptxas, csrc/{name}.cu (kernel {kernel}):\n"
+            + _cuda.BUILD_LOGS.get(name, "(built before this run)").strip())
 
 
 def _mismatch(a, b):
@@ -583,8 +606,9 @@ def _counters():
     csrc/warp.cu (window, luma, chroma) and csrc/gt_search.cu (search,
     decide, and among the latter the PSS form) count apart; C2's analysis
     entry (parallel/mesh.py) counts apart from its other launches; C13's
-    two entries (csrc/scan.cu) count apart."""
-    from hevc_hop_torch.models import partition, ss_partition, wavefront_scan
+    two entries (csrc/scan.cu) and C14's (csrc/ss_scan.cu) count apart."""
+    from hevc_hop_torch.models import (partition, ss_partition, ss_scan,
+                                       wavefront_scan)
     from hevc_hop_torch.ops import (deblock, gt, hashes, inter_arms, interp,
                                     intra, rdoq, sao, ss_search, tq, warp)
     from hevc_hop_torch.parallel import mesh
@@ -618,7 +642,9 @@ def _counters():
             ("C12 decide", gt, "DECIDE_LAUNCHES"),
             ("C12 decide PSS", gt, "PSS_DECIDE_LAUNCHES"),
             ("C13 encode", wavefront_scan, "SCAN_ENCODE_LAUNCHES"),
-            ("C13 decode", wavefront_scan, "SCAN_DECODE_LAUNCHES")]
+            ("C13 decode", wavefront_scan, "SCAN_DECODE_LAUNCHES"),
+            ("C14 encode", ss_scan, "SCAN_ISS_ENCODE_LAUNCHES"),
+            ("C14 decode", ss_scan, "SCAN_ISS_DECODE_LAUNCHES")]
 
 
 PATHS = {
@@ -1872,6 +1898,7 @@ def _time_specs(specs, checks, launches):
                 check.add(g, w_, f"{name} at the main path's shape")
         # the plain bodies of these take seconds
         slow = counter in ("C5 rd", "C9 prepass", "C9 search", "C9 ring",
+                           "C14 encode",
                            "C10 arms", "C12 search", "C12 decide",
                            "C9 temporal", "C9 prepass temporal",
                            "C10 arms PSS", "C12 decide PSS")
@@ -1929,16 +1956,26 @@ def _time_specs(specs, checks, launches):
 
 
 # ---------------------------------------------------------------------------
-# The lenslet ISS slice: kernels C8, C9, C10 and C4's inter arm.
+# The lenslet ISS slice: kernels C8, C9, C10, C11, C12 and C4's inter arm;
+# an ISS picture's wavefront as one launch of kernel C14 each way.
 
 # bench.py:88-100's lenslet cell at 1920x1088 with the GT warp off
 ISS_CONFIG = dict(qp=QP, mi_size=16, search_range=32, quadtree=True,
                   sao=True, rdoq=True, sbh=True, gt=False)
 ISS_TIMED_FRAMES = 3
-_ISS_KERNELS = ("C1", "C2", "C3 encode (RDOQ)", "C3 decode", "C4", "C8 luma",
-                "C8 chroma", "C9 search", "C10 arms", "C10 motion")
-_GT_KERNELS = ("C9 ring", "C11 luma", "C11 chroma", "C12 search",
-               "C12 decide")
+# an ISS picture: C14 each way (C2's, C3's, C7's, C8's, C9's, C10's, C11's
+# and C12's device code), C3's decode entry, C4, C1
+_ISS_KERNELS = ("C1", "C3 decode", "C4", "C14 encode", "C14 decode")
+# the level loop's per-level launches, which C14 replaces on an ISS picture
+ISS_LOOP_KERNELS = ("C2", "C3 encode", "C3 encode (RDOQ)", "C8 luma",
+                    "C8 chroma", "C9 search", "C9 ring", "C10 arms",
+                    "C10 motion", "C11 luma", "C11 chroma", "C12 search",
+                    "C12 decide")
+# the PSS pictures' level loop with the GT on (no PSS CU of the path codes
+# the GT, so C11's luma decode form does not run)
+_PSS_LOOP_KERNELS = ("C2", "C3 encode (RDOQ)", "C8 luma", "C8 chroma",
+                     "C9 search", "C9 ring", "C10 arms", "C10 motion",
+                     "C11 chroma", "C12 search", "C12 decide")
 _PREPASS_KERNELS = ("C5 rd", "C5 decide", "C6 stats", "C6 apply",
                     "C9 prepass")
 _PSS_KERNELS = ("C9 temporal", "C9 prepass temporal", "C10 arms PSS",
@@ -1957,20 +1994,20 @@ ISS_PATHS = {
                     1, _ISS_KERNELS, "lenslet"),
     # bench.py:88-100's lenslet cell whole, the GT warp on
     "iss-gt": (dict(ISS_CONFIG, gt=True), ISS_TIMED_FRAMES,
-               _ISS_KERNELS + _PREPASS_KERNELS + _GT_KERNELS, "lenslet"),
+               _ISS_KERNELS + _PREPASS_KERNELS, "lenslet"),
     # tests/test_e2e_iss.py's GT configuration (test_gt_roundtrip_and_
     # engages: 16x16 CUs, QP 37, SAO off) at full size on its warped
     # lenslet content, where the GT arm wins 24 times the area
     "iss-gt-warped": (dict(qp=37, cu_log2=4, search_range=32, mi_size=16,
-                           gt=True), 2, _ISS_KERNELS + _GT_KERNELS,
-                      "warped"),
+                           gt=True), 2, _ISS_KERNELS, "warped"),
     # bench.py:88-100's lenslet cell whole on a low-delay holoscopic
     # sequence (HoloEncoder.encode_sequence: an ISS picture, then PSS ones
     # whose L0 is [the previous picture, the SS reference]): a plenoptic
     # video camera panning one sample per frame (pss_frames)
     "pss-gt": (dict(ISS_CONFIG, gt=True, search_range_t=16),
                PSS_TIMED_TURNS,
-               _ISS_KERNELS + _PREPASS_KERNELS + _GT_KERNELS + _PSS_KERNELS,
+               _ISS_KERNELS + _PREPASS_KERNELS + _PSS_LOOP_KERNELS
+               + _PSS_KERNELS,
                "panned"),
 }
 
@@ -2247,6 +2284,12 @@ def phase_iss_path(name):
     log(f"{name} path launches: {launches}")
     require(all(launches[k] > 0 for k in needed),
             f"a kernel was not launched on the {name} path: {launches}")
+    require(launches["C14 encode"] == 1 and launches["C14 decode"] == 1,
+            f"the {name} picture did not launch C14 once each way: "
+            f"{launches}")
+    require(all(launches[k] == 0 for k in ISS_LOOP_KERNELS),
+            f"the {name} picture launched the level loop's kernels: "
+            f"{launches}")
     maps = enc.last_maps
     inter_share = float((maps.pred4 == 0).mean())
     require(inter_share > 0, f"{name}: no SS or merge CU")
@@ -2305,9 +2348,11 @@ def phase_pss_path(name):
     """The PSS main path on the card: the launch counts of one
     encode_sequence of the PSS_FRAMES pictures and its decode (set to 0
     just before, read just after); every picture hash_ok and equal to the
-    encoder's recon history; temporal prediction chosen. Then the sequence
-    coded PSS_TIMED_TURNS more times picture by picture, each PSS picture
-    timed (host_probes beside it), and its decode timed."""
+    encoder's recon history; temporal prediction chosen; the ISS picture
+    one C14 launch each way. Then the sequence coded PSS_TIMED_TURNS more
+    times picture by picture, each PSS picture timed (host_probes beside
+    it), and its decode timed; the first turn's ISS picture alone launches
+    C14 and none of the level loop's kernels."""
     import torch
     from hevc_hop_torch.models.decoder import Decoder
     from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
@@ -2346,12 +2391,23 @@ def phase_pss_path(name):
     # share and GT CUs, and its time
     pss_s, iss_s, dec_s, probes, share, gt_cus, stats = ([] for _ in
                                                          range(7))
-    for _ in range(turns):
+    require(launches["C14 encode"] == 1 and launches["C14 decode"] == 1,
+            f"{name}: the ISS picture did not launch C14 once each way: "
+            f"{launches}")
+    for turn in range(turns):
+        for _, m, attr in counters:
+            setattr(m, attr, 0)
         torch.cuda.synchronize()
         t0_ = time.perf_counter()
         out = [enc.encode_frame(*frames[0])]
         torch.cuda.synchronize()
         iss_s.append(time.perf_counter() - t0_)
+        if turn == 0:
+            # the ISS picture alone: one C14, no level loop
+            alone = {k: getattr(m, attr) for k, m, attr in counters}
+            require(alone["C14 encode"] == 1 and all(
+                alone[k] == 0 for k in ISS_LOOP_KERNELS),
+                f"{name}: the ISS picture's launches {alone}")
         for poc in range(1, PSS_FRAMES):
             probes.append(host_probes())
             t0_ = time.perf_counter()
@@ -2392,6 +2448,244 @@ def phase_pss_path(name):
     log(f"{name} path: {json.dumps(out)}")
     return out, dict(enc=enc, frames=frames, frame=frames[1],
                      stream=stream, content=PSS_CONTENT)
+
+
+# kernel C14's comparison with the plain loop runs on this corner of each
+# ISS path's frame (the plain loop takes seconds at this size on the card);
+# at full size the plain loop holds C14 on PLAIN_FULL's encodes and
+# decodes (the kernels line's plain times), the card's loop on all four
+SS_PLAIN_W, SS_PLAIN_H = 256, 192
+PLAIN_FULL = {"encode": "iss", "decode": "iss-gt-warped"}
+SS_PATHS = ("iss", "iss-uniform", "iss-gt", "iss-gt-warped")
+
+
+def _ss_scan_inputs(enc, frame):
+    """The ISS scan's inputs as HoloEncoder._encode_picture builds them on
+    the card: (scan_encode_iss's positional arguments, the work list)."""
+    from hevc_hop_torch.common import rom
+    cfg = enc.cfg
+    org_y, org_c = enc._upload(*frame)
+    (plans, nsteps, zmaxw, zmax2n, work), mode4 = enc._frame_prep(
+        org_y[:cfg.height])
+    modes = None if mode4 is None else enc._xs_with_modes(plans, mode4)
+    return (org_y, org_c, plans, nsteps, zmaxw, cfg.qp,
+            rom.chroma_qp_from_luma(cfg.qp), cfg.bit_depth,
+            cfg.strong_intra_smoothing, cfg.width, cfg.height,
+            cfg.search_range, cfg.mi_size, cfg.rdoq, cfg.sbh, modes,
+            zmax2n), work
+
+
+def _ss_decode_inputs(stream):
+    """The decoder's own call of scan_decode_ss on a one-picture stream:
+    (its arguments, its work list)."""
+    from hevc_hop_torch.models import ss_scan
+    from hevc_hop_torch.models.decoder import Decoder
+    seen = {}
+    orig = ss_scan.scan_decode_ss
+
+    def record(*a, work):
+        seen["args"], seen["work"] = a, work
+        return orig(*a, work=work)
+
+    ss_scan.scan_decode_ss = record
+    try:
+        dec = Decoder()
+        dec.decode_stream(stream)
+    finally:
+        ss_scan.scan_decode_ss = orig
+    require(dec.hash_ok == [True], "the decode of the held stream")
+    return seen["args"], seen["work"]
+
+
+def _hold_ss_scan(chk, got, want, what):
+    """Two scan_encode_iss results, plane by plane and output by output."""
+    for a, b, nm in zip(got[:4], want[:4], ("ry", "rc", "coef_y",
+                                            "coef_c")):
+        chk.add(a, b, f"{what}: {nm}")
+    require(set(got[4]) == set(want[4]), f"{what}: sizes")
+    for lg in want[4]:
+        for a, b, nm in zip(got[4][lg], want[4][lg],
+                            ("inter", "mv", "imode", "cbf_y", "cbf_cb",
+                             "cbf_cr", "gtflag", "gtc")):
+            chk.add(a, b, f"{what}: {nm} {1 << lg}x{1 << lg}")
+
+
+class _LevelLoop:
+    """Within it, the encoder and the decoder run an ISS picture through
+    the level loop (C14's plain version's form, on the card's kernels)."""
+
+    def __enter__(self):
+        from hevc_hop_torch.models import ss_scan
+        self.saved = (ss_scan.scan_encode_iss, ss_scan.scan_decode_ss)
+        ss_scan.scan_encode_iss = (lambda *a, work, **k:
+                                   ss_scan.scan_encode_iss_loop(*a, **k))
+        ss_scan.scan_decode_ss = (lambda *a, work, **k:
+                                  ss_scan.scan_decode_ss_loop(*a, **k))
+
+    def __exit__(self, *exc):
+        from hevc_hop_torch.models import ss_scan
+        ss_scan.scan_encode_iss, ss_scan.scan_decode_ss = self.saved
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_ss_scan_plain(ctxs, ss_rows, checks):
+    """Kernel C14 against the plain loop (the kernels' plain versions on
+    the card): on a SS_PLAIN_W x SS_PLAIN_H corner of each ISS path's frame
+    both entries, and at full size PLAIN_FULL's picture each way, whose
+    times are the C14 rows' plain times. It runs last, after every
+    trace. Returns the plain loop's seconds per path."""
+    from hevc_hop_torch.models import ss_scan
+    from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
+    chk = checks["C14"]
+    out = {}
+    for name in SS_PATHS:
+        r, frame = ss_rows[name], ctxs[name]["frame"]
+        args, dargs, c14, dec = r["args"], r["dargs"], r["c14"], r["dec"]
+        secs = r["secs"]
+        if PLAIN_FULL["encode"] == name:
+            plain, secs["encode_plain_s"] = _timed(
+                lambda: ss_scan.scan_encode_iss_loop(*args, plain=True))
+            _hold_ss_scan(chk, c14, plain, f"C14 encode, {name} frame, "
+                          "against the plain loop")
+        if PLAIN_FULL["decode"] == name:
+            dplain, secs["decode_plain_s"] = _timed(
+                lambda: ss_scan.scan_decode_ss_loop(*dargs, plain=True))
+            for a, b, nm in zip(dec, dplain, ("ry", "rc")):
+                chk.add(a, b, f"C14 decode, {name} frame, against the "
+                        f"plain loop: {nm}")
+        # the plain loop on a corner of the frame, each way
+        small = (frame[0][:SS_PLAIN_H, :SS_PLAIN_W],
+                 frame[1][:SS_PLAIN_H // 2, :SS_PLAIN_W // 2],
+                 frame[2][:SS_PLAIN_H // 2, :SS_PLAIN_W // 2])
+        small = tuple(np.ascontiguousarray(p) for p in small)
+        senc = HoloEncoder(HoloConfig(width=SS_PLAIN_W, height=SS_PLAIN_H,
+                                      **ISS_PATHS[name][0]))
+        sargs, swork = _ss_scan_inputs(senc, small)
+        s14 = ss_scan.scan_encode_iss(*sargs, work=swork)
+        splain, secs["small_encode_plain_s"] = _timed(
+            lambda: ss_scan.scan_encode_iss_loop(*sargs, plain=True))
+        _hold_ss_scan(chk, s14, splain, f"C14 encode, {name} "
+                      f"{SS_PLAIN_W}x{SS_PLAIN_H} corner, against the plain "
+                      "loop")
+        sdargs, sdwork = _ss_decode_inputs(senc.encode_frame(*small))
+        sdec = ss_scan.scan_decode_ss(*sdargs, work=sdwork)
+        sdplain, secs["small_decode_plain_s"] = _timed(
+            lambda: ss_scan.scan_decode_ss_loop(*sdargs, plain=True))
+        for a, b, nm in zip(sdec, sdplain, ("ry", "rc")):
+            chk.add(a, b, f"C14 decode, {name} {SS_PLAIN_W}x{SS_PLAIN_H} "
+                    f"corner, against the plain loop: {nm}")
+        out[name] = {k: v for k, v in secs.items() if "plain" in k}
+    log(f"ss scan plain: {json.dumps(out)}; C14 held in {chk.cases} "
+        f"comparisons, {chk.mism} mismatching elements")
+    return out
+
+
+def _device_ms(fn, kernel, tries=3):
+    """Device ms of the one launch of ``kernel`` that fn makes, from the
+    first of ``tries`` profiler traces that holds its record; the run fails
+    if none does."""
+    for t in range(1, tries + 1):
+        prof = _profile(fn)
+        if prof["kernel_calls"][kernel] == 1:
+            return prof["kernel_ms"][kernel]
+        log(f"{kernel}: trace {t} holds {prof['kernel_calls'][kernel]} "
+            "records of its one launch; traced again")
+    require(False, f"no complete trace of {kernel} in {tries} tries")
+
+
+def phase_ss_scan_device(ss_program, ss_rows):
+    """C14's device ms per picture on each ISS path, each way, from the
+    profiler, into the path's record."""
+    from hevc_hop_torch.models import ss_scan
+    for name, r in ss_rows.items():
+        rec = ss_program[name]
+        rec["c14_encode_device_ms"] = _device_ms(
+            lambda: ss_scan.scan_encode_iss(*r["args"], work=r["work"]),
+            "ss_scan_encode_kernel")
+        rec["c14_decode_device_ms"] = _device_ms(
+            lambda: ss_scan.scan_decode_ss(*r["dargs"], work=r["dwork"]),
+            "ss_scan_decode_kernel")
+        log(f"ss scan device: {name}: encode "
+            f"{rec['c14_encode_device_ms']} ms, decode "
+            f"{rec['c14_decode_device_ms']} ms a picture")
+
+
+def phase_ss_scan_program(ctxs, checks):
+    """Kernel C14 on each ISS path's frame: its encode entry against the
+    level loop of the card's kernels (every output), its decode entry on
+    the decoder's own inputs for the path's stream against the decode loop
+    and the encode's recon. Then C14 and the loop in turns (C14, loop,
+    loop, C14) through the encoder and the decoder: encode s, scan_s,
+    decode s. C14's device ms (phase_ss_scan_device) and the plain loop
+    (phase_ss_scan_plain) come after the timing phases. Returns (a record
+    per path, the inputs of the kernels line's C14 rows and of those
+    phases)."""
+    import torch
+    from hevc_hop_torch.models import ss_scan
+    from hevc_hop_torch.models.decoder import Decoder
+    from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
+    chk = checks["C14"]
+    out, rows = {}, {}
+    for name in SS_PATHS:
+        ctx = ctxs[name]
+        enc, frame, stream = ctx["enc"], ctx["frame"], ctx["stream"]
+        args, work = _ss_scan_inputs(enc, frame)
+        secs = {}
+        c14, secs["encode_C14_s"] = _timed(
+            lambda: ss_scan.scan_encode_iss(*args, work=work))
+        grid = ss_scan.LAST_LAUNCH
+        loop, secs["encode_loop_s"] = _timed(
+            lambda: ss_scan.scan_encode_iss_loop(*args))
+        _hold_ss_scan(chk, c14, loop, f"C14 encode, {name} frame, against "
+                      "the level loop")
+        dargs, dwork = _ss_decode_inputs(stream)
+        dec, secs["decode_C14_s"] = _timed(
+            lambda: ss_scan.scan_decode_ss(*dargs, work=dwork))
+        dloop, secs["decode_loop_s"] = _timed(
+            lambda: ss_scan.scan_decode_ss_loop(*dargs))
+        for a, b, c_, nm in zip(dec, dloop, c14[:2], ("ry", "rc")):
+            chk.add(a, b, f"C14 decode, {name} frame, against the loop: "
+                    f"{nm}")
+            chk.add(a, c_, f"C14 decode, {name} frame, against the "
+                    f"encode's recon: {nm}")
+        # turns through the encoder and the decoder
+        turns = {"C14": [], "loop": []}
+        for route in ("C14", "loop", "loop", "C14"):
+            with (_LevelLoop() if route == "loop"
+                  else contextlib.nullcontext()):
+                again, e_s = _timed(lambda: enc.encode_frame(*frame))
+                require(again == stream, f"{name}: the {route} turn's "
+                        "stream differs")
+                d = Decoder()
+                _, d_s = _timed(lambda: d.decode_stream(stream))
+                require(d.hash_ok == [True], f"{name}: a turn's decode")
+                turns[route].append((e_s, enc.last_stats["scan_s"], d_s,
+                                     d.last_stats["scan_s"]))
+        med = {r: np.median(np.array(v), axis=0) for r, v in turns.items()}
+        gts = sum(int(o[6].sum()) for o in c14[4].values())
+        rec = {"path": name, "groups": len(work.host_groups),
+               "cus": len(work.host_items), "widest_group": work.widest,
+               "gt_cus": gts, "decode_groups": len(dwork.host_groups),
+               "grid_ctas_per_sm_smem_threads": grid,
+               "turns": turns, **secs,
+               **{f"{k}_{r}": float(med[r][i]) for r in med
+                  for i, k in enumerate(("encode_s", "scan_s", "decode_s",
+                                         "decode_scan_s"))}}
+        log(f"ss scan program: {json.dumps(rec)}")
+        out[name] = rec
+        rows[name] = dict(args=args, work=work, dargs=dargs, dwork=dwork,
+                          secs=secs, c14=c14, dec=dec)
+    log(f"ss scan program: C14 held in {chk.cases} comparisons, "
+        f"{chk.mism} mismatching elements")
+    return out, rows
 
 
 GT_SHARE_TURNS = 1
@@ -2445,7 +2739,10 @@ def _hold_iss_launches(enc, frames, stream, checks, every=8):
     C9's temporal forms (scan and pre-pass), C10's PSS forms, C12's PSS
     decide and C8 (from the previous picture too), its ISS picture's C9 ring and C12 launches
     sampled as the other forms. The encode goes on with the kernels'
-    outputs."""
+    outputs. An ISS picture runs here through the level loop
+    (scan_encode_iss_loop, scan_decode_ss_loop), whose launches C14
+    replaces on the main paths; the held stream must equal the path's,
+    which C14 wrote."""
     import torch
     from hevc_hop_torch.models import ss_scan
     from hevc_hop_torch.models.decoder import Decoder
@@ -2653,11 +2950,12 @@ def _hold_iss_launches(enc, frames, stream, checks, every=8):
     ss_scan.gt_step, ss_scan.gt_pred_blocks = gt_step, gt_pred
     ss_encoder.deblock.deblock_frame = deblock_both
     try:
-        got = (enc.encode_frame(*frames[0]) if len(frames) == 1
-               else enc.encode_sequence(frames))
-        calls.clear()
-        dec = Decoder()
-        dec.decode_stream(got)
+        with _LevelLoop():
+            got = (enc.encode_frame(*frames[0]) if len(frames) == 1
+                   else enc.encode_sequence(frames))
+            calls.clear()
+            dec = Decoder()
+            dec.decode_stream(got)
     finally:
         ss_scan.mc_blocks, ss_scan.ss_search = orig["mc"], orig["ss"]
         ss_scan.pss_search, ss_partition.ss_rd_costs = orig["ps"], orig["rd"]
@@ -2754,8 +3052,8 @@ def phase_iss_kernels(checks, ctxs):
 
 
 def _last_prep(enc):
-    """(plans, nsteps, zmaxw, zmax2n) of the partition the encoder coded
-    last."""
+    """(plans, nsteps, zmaxw, zmax2n, C14's work list) of the partition the
+    encoder coded last."""
     return enc._prep_cache[next(reversed(enc._prep_cache))]
 
 
@@ -2782,6 +3080,126 @@ def mc_ops(n, taps):
     return 2 * taps * n * (n + taps - 1) + 2 * taps * n * n + 4 * n * n
 
 
+# the standalone entries whose device code C14 runs on an ISS picture, and
+# the side it runs them on: their rows on the ISS paths count C14's
+# launches (the pss-gt path's PSS pictures launch the entries themselves,
+# standalone_launches_by_path)
+IN_C14 = {"C9 search": "encode", "C9 ring": "encode", "C10 arms": "encode",
+          "C10 motion": "encode", "C8 chroma": "encode",
+          "C12 search": "encode", "C12 decide": "encode",
+          "C11 chroma": "encode", "C8 luma": "decode", "C11 luma": "decode"}
+
+
+def _in_c14(kw):
+    """A kernel row's spec, marked as run inside C14 where it is."""
+    side = IN_C14.get(kw["counter"])
+    if side is None or kw["path"] not in SS_PATHS:
+        return kw
+    return dict(kw, launched_in=f"C14 {side}",
+                frame_kernel=f"ss_scan_{side}_kernel")
+
+
+def _causal_counts(pos, zcur, zmaxw, n, radius):
+    """[B] the causal displacements of each block (search_ops's count), in
+    chunks of blocks."""
+    import torch
+    d = torch.arange(-radius, radius + 1, device=pos.device)
+    out = []
+    for i in range(0, pos.shape[0], 512):
+        p, z = pos[i:i + 512], zcur[i:i + 512]
+        ty = p[:, 1, None, None].long() + d[None, :, None]
+        tx = p[:, 0, None, None].long() + d[None, None, :]
+        inb = (ty >= 0) & (tx >= 0) & (ty + n <= H) & (tx + n <= W)
+        zm = zmaxw[ty.clamp(0, H - n), tx.clamp(0, W - n)]
+        out.append((inb & (zm < z[:, None, None])).flatten(1).sum(1))
+    return torch.cat(out)
+
+
+def ss_encode_work(args, outs):
+    """(bytes, (int32, float32) operations) of kernel C14's encode of one
+    ISS picture, counted on this run's data: each original sample read
+    once and each recon sample and level written once, each CU's outputs;
+    per CU C2's RMD or given mode, C9's sums over its causal displacements
+    (search_ops), C10's 16 sub-pel MCs and their SSEs where a displacement
+    was causal and the intra SSE, C12's 79 warps for a CU that codes the
+    GT (at least one anchor searched), the chroma prediction, and C3's
+    luma and chroma work (RDOQ's where on). Merge candidates and the
+    anchors no GT CU kept are not counted: a floor."""
+    (_, _, plans, _, zmaxw, _, _, _, _, _, _, radius, _, rdoq, _, modes,
+     _) = args
+    nbytes, oi, of = 0, 0, 0
+    for lg, p in plans.items():
+        n, m, t = p.n, p.n // 2, len(p.vpos)
+        causal = _causal_counts(p.pos, p.zcur, zmaxw[lg], n, radius)
+        live = int((causal > 0).sum())
+        oi += t * (given_mode_ops(n) if modes is not None else rmd_ops(n))
+        of += int(causal.sum()) * (4 * n * n + 80)
+        oi += live * 16 * mc_ops(n, 8)
+        of += (t + 16 * live) * 3 * n * n
+        oi += int(outs[lg][6].sum()) * 79 * warp_ops(n)
+        oi += 2 * t * 5 * m * m
+        for b, k in ((t, n), (2 * t, m)):
+            ti, tf = _tq_work(b, k, rdoq)
+            oi, of = oi + ti, of + tf
+        nbytes += t * (n * n * 10 + 2 * m * m * 10 + 64)
+    return nbytes, (oi, of)
+
+
+def ss_decode_work(dargs):
+    """(bytes, int32 operations) of kernel C14's decode of one ISS picture:
+    each residual sample read and each recon sample written once, each
+    CU's mode, MV and corners; per CU its prediction (C2's given mode, C8's
+    MC or C11's warp with its chroma interpolation) and the clipped
+    add."""
+    plans, gt = dargs[2], dargs[10]
+    nbytes, ops = 0, 0
+    for lg, p in plans.items():
+        n, m, t = p.n, p.n // 2, len(p.vpos)
+        intra = int(p.cnt_a.sum())
+        gts = 0 if gt is None else int(gt[lg][0].sum())
+        ops += intra * (given_mode_ops(n) + 2 * 5 * m * m)
+        ops += (t - intra - gts) * (mc_ops(n, 8) + 2 * mc_ops(m, 4))
+        ops += gts * (warp_ops(n) + 2 * (mc_ops(2 * m, 4) + warp_ops(m)))
+        ops += t * 3 * (n * n + 2 * m * m)
+        nbytes += t * (8 * (n * n + 2 * m * m) + 40)
+    return nbytes, ops
+
+
+def phase_ss_scan_timing(ss_rows, checks, launches):
+    """Rows of the kernels line for C14: its encode entry on PLAIN_FULL's
+    encode frame and its decode entry on PLAIN_FULL's decode frame, whole
+    pictures, held by phase_ss_scan_program, beside the bound of the
+    picture's work and the card's loop's time (the plain loop's comes
+    from phase_ss_scan_plain, at the end)."""
+    from hevc_hop_torch.models import ss_scan
+    specs = []
+    for side, path in PLAIN_FULL.items():
+        r = ss_rows[path]
+        if side == "encode":
+            fn = (lambda a=r["args"], w_=r["work"]:
+                  ss_scan.scan_encode_iss(*a, work=w_))
+            nbytes, ops = ss_encode_work(r["args"], r["c14"][4])
+            shape = (f"{W}x{H} picture, {len(r['work'].host_items)} CUs in "
+                     f"{len(r['work'].host_groups)} groups, one launch")
+        else:
+            fn = (lambda a=r["dargs"], w_=r["dwork"]:
+                  ss_scan.scan_decode_ss(*a, work=w_))
+            nbytes, ops = ss_decode_work(r["dargs"])
+            shape = (f"{W}x{H} picture, {len(r['dwork'].host_items)} CUs "
+                     f"in {len(r['dwork'].host_groups)} groups, one launch")
+        specs.append(dict(
+            name=f"C14 ss_scan ({side}, {path} frame)",
+            counter=f"C14 {side}", path=path,
+            kernel=f"ss_scan_{side}_kernel", shape=shape,
+            source="hevc_hop_torch/csrc/ss_scan.cu",
+            replaces="hevc_hop_tpu/models/ss_scan.py:"
+                     + ("714" if side == "encode" else "1060"),
+            fn=fn, plain=None, held=True, nbytes=nbytes, ops=ops,
+            plain_ms=None,
+            loop_ms=r["secs"][f"{side}_loop_s"] * 1e3))
+    return _time_specs(specs, checks, launches)
+
+
 def phase_iss_timing(ctxs, checks, launches):
     """Rows of the kernels line for C8, C9, C10 and C4's inter arm, each at
     the largest launch the iss path gives it, held once more and timed
@@ -2804,7 +3222,7 @@ def phase_iss_timing(ctxs, checks, launches):
     specs = []
 
     def spec(**kw):
-        specs.append(kw)
+        specs.append(_in_c14(kw))
 
     lg = 4
     p = plans[lg]
@@ -3004,7 +3422,7 @@ def phase_gt_timing(ctxs, checks, launches):
 
     def level(path):
         enc, frame = ctxs[path]["enc"], ctxs[path]["frame"]
-        plans, _, zmaxws, zmax2ns = _last_prep(enc)
+        plans, _, zmaxws, zmax2ns = _last_prep(enc)[:4]
         p = plans[4]
         s = int(np.argmax(p.cnt))
         o, c = int(p.off[s]), int(p.cnt[s])
@@ -3033,7 +3451,7 @@ def phase_gt_timing(ctxs, checks, launches):
              L["nbav"], L["miav"], n, 32, W, H, L["lam"], 16)
     ops, causal = search_ops(L["pos"], L["zcur"], L["zmaxw"], n, 32)
     wsz = n + 64
-    spec = lambda **kw: specs.append(kw)
+    spec = lambda **kw: specs.append(_in_c14(kw))
     spec(name=f"C9 ss_search (scan, GT ring, {n}x{n})", counter="C9 ring",
          path="iss-gt", kernel="ss_search_kernel",
          shape=f"{c} CUs of {n}x{n}, radius 32, {causal} causal "
@@ -3158,7 +3576,7 @@ def phase_pss_timing(ctxs, checks, launches):
     dev = torch.device("cuda")
     ctx = ctxs["pss-gt"]
     enc = ctx["enc"]
-    plans, _, zmaxws, zmax2ns = _last_prep(enc)
+    plans, _, zmaxws, zmax2ns = _last_prep(enc)[:4]
     lg = 5 if 5 in plans else max(plans)
     p = plans[lg]
     n = p.n
@@ -3624,17 +4042,21 @@ def phase_mesh(checks):
 
 
 def phase_mesh_profile(ctx):
-    """torch.profiler over the mesh path, after the kernel rows' short
-    traces as the other paths' profiles: "encode" the mesh's two frames,
-    "single" the same two frames on the single-device encoder, "analysis"
+    """torch.profiler over the mesh path, with the other paths' profiles,
+    each after a warm-up trace: "encode" the mesh's two frames, "single"
+    the same two frames on the single-device encoder, "analysis"
     analysis_step_sharded at n = 16."""
     from hevc_hop_torch.parallel import mesh as pmesh
     enc, single, frames = ctx["enc"], ctx["single"], ctx["frames"]
+    _profile(lambda: enc.encode_frames(frames))    # warms the tracer up
     out = {"encode": _profile(lambda: enc.encode_frames(frames)),
-           "single": _profile(
-               lambda: [single.encode_frame(*f) for f in frames]),
-           "analysis": _profile(lambda: pmesh.analysis_step_sharded(
-               ctx["aframes"], ctx["amesh"], ANALYSIS_N))}
+           "single": _profile_holding(
+               lambda: [single.encode_frame(*f) for f in frames],
+               "scan_encode_kernel", len(frames), "mesh single"),
+           "analysis": _profile_holding(
+               lambda: pmesh.analysis_step_sharded(
+                   ctx["aframes"], ctx["amesh"], ANALYSIS_N),
+               "analysis_kernel", 1, "mesh analysis")}
     log(f"profile mesh: {json.dumps(out)}")
     return out
 
@@ -3706,7 +4128,16 @@ KERNELS = ("checksum_kernel", "intra_kernel", "tq_encode_kernel",
            "mc_kernel", "ss_search_kernel", "ss_rd_kernel",
            "inter_arms_kernel", "motion_write_kernel", "warp_kernel",
            "gt_pred_kernel", "gt_search_kernel", "gt_decide_kernel",
-           "analysis_kernel", "scan_encode_kernel", "scan_decode_kernel")
+           "analysis_kernel", "scan_encode_kernel", "scan_decode_kernel",
+           "ss_scan_encode_kernel", "ss_scan_decode_kernel")
+
+
+def _is_kernel(key, name):
+    """Whether a profiler key names the kernel ``name``: it holds the name,
+    and no longer name of KERNELS that holds this one (C13's
+    scan_encode_kernel is a part of C14's ss_scan_encode_kernel)."""
+    return name in key and not any(
+        o != name and name in o and o in key for o in KERNELS)
 
 
 def _profile(fn):
@@ -3737,7 +4168,7 @@ def _profile(fn):
             dt = getattr(e, "self_cuda_time_total", 0.0)
         busy += dt
         for k in per:
-            if k in e.key:
+            if _is_kernel(e.key, k):
                 per[k] += dt
                 calls[k] += e.count
     return {"wall_ms": wall * 1e3, "device_busy_ms": busy / 1e3,
@@ -3747,23 +4178,45 @@ def _profile(fn):
             "kernel_calls": calls}
 
 
+def _profile_holding(fn, kernel, n, what, tries=3):
+    """_profile(fn) from the first of ``tries`` traces, after a warm-up
+    one, that holds the ``n`` records of ``kernel`` fn launches (a frame's
+    scan kernel, whose record the idle share needs); the run fails if none
+    does. (The first trace of a kernel pays the tracer's set-up for it,
+    which can triple a frame's wall time.)"""
+    _profile(fn)
+    for t in range(1, tries + 1):
+        prof = _profile(fn)
+        if prof["kernel_calls"][kernel] == n:
+            return prof
+        log(f"profile {what}: trace {t} holds {prof['kernel_calls'][kernel]}"
+            f" of {n} records of {kernel}; traced again")
+    require(False, f"profile {what}: no complete trace in {tries} tries")
+
+
 def phase_profile(name, ctx):
     """One encode and one decode of a main path's frame, each under
     torch.profiler: the card's idle share of each, and each kernel's
     device time (C2's sums every C2 launch: RMD, chroma, decode). On the
     PSS path the encode is its first PSS picture's (after the ISS one,
-    untraced) and the decode the whole sequence's."""
+    untraced) and the decode the whole sequence's. A trace must hold the
+    record of the frame's scan kernel (C13's or C14's launch)."""
     from hevc_hop_torch.models.decoder import Decoder
     enc, frame = ctx["enc"], ctx["frame"]
+    stem = "scan" if name in PATHS else "ss_scan"
     box = {}
     if "frames" in ctx:
-        enc.encode_frame(*ctx["frames"][0])
-        out = {"encode": _profile(lambda: enc._encode_pss(*frame, 1))}
+        for _ in range(2):    # the first trace warms the tracer up
+            enc.encode_frame(*ctx["frames"][0])
+            out = {"encode": _profile(lambda: enc._encode_pss(*frame, 1))}
         box["s"] = ctx["stream"]
     else:
-        out = {"encode": _profile(
-            lambda: box.setdefault("s", enc.encode_frame(*frame)))}
-    out["decode"] = _profile(lambda: Decoder().decode_stream(box["s"]))
+        out = {"encode": _profile_holding(
+            lambda: box.setdefault("s", enc.encode_frame(*frame)),
+            f"{stem}_encode_kernel", 1, f"{name} encode")}
+    out["decode"] = _profile_holding(
+        lambda: Decoder().decode_stream(box["s"]), f"{stem}_decode_kernel",
+        1, f"{name} decode")
     log(f"profile {name}: {json.dumps(out)}")
     return out
 
@@ -3783,7 +4236,7 @@ def main() -> int:
     log_host("built")
     checks = {k: Check() for k in ("C1", "C2", "C3", "C4", "C5", "C6",
                                    "C7", "C8", "C9", "C10", "C11", "C12",
-                                   "C13")}
+                                   "C13", "C14")}
     phase_kernels(checks)
     phase_rdoq(checks)
     phase_interp(checks)
@@ -3800,6 +4253,8 @@ def main() -> int:
         run = phase_pss_path if content == "panned" else phase_iss_path
         paths[name], ctxs[name] = run(name)
         log_host(f"{name} path timed")
+    ss_scan_program, ss_rows = phase_ss_scan_program(ctxs, checks)
+    log_host("ss scan program held")
     paths["mesh"], mesh_ctx = phase_mesh(checks)
     log_host("mesh path timed")
     gt_share = phase_gt_share(ctxs)
@@ -3815,15 +4270,28 @@ def main() -> int:
     log_host("CLI done")
     bdrate = phase_bdrate()
     log_host("parity, fixtures, CLI and BD-rate done")
+    # Every profiler trace comes from here on. A trace taken long after a
+    # process's first one, with many launches between, can lack kernel
+    # records, so the traces come last and together, the frames' profiles
+    # and C14's device times first.
+    for name in ctxs:
+        paths[name]["profile"] = phase_profile(name, ctxs[name])
+    paths["mesh"]["profile"] = phase_mesh_profile(mesh_ctx)
+    phase_ss_scan_device(ss_scan_program, ss_rows)
+    log_host("profiles taken")
     launches = {k: v["launches"] for k, v in paths.items()}
     rows = (phase_timing(ctxs, ps, checks, launches, scan_rows)
             + phase_iss_timing(ctxs, checks, launches)
             + phase_gt_timing(ctxs, checks, launches)
             + phase_pss_timing(ctxs, checks, launches)
+            + phase_ss_scan_timing(ss_rows, checks, launches)
             + phase_mesh_timing(mesh_ctx, checks, launches))
-    for name in ctxs:
-        paths[name]["profile"] = phase_profile(name, ctxs[name])
-    paths["mesh"]["profile"] = phase_mesh_profile(mesh_ctx)
+    log_host("kernel rows timed")
+    ss_plain = phase_ss_scan_plain(ctxs, ss_rows, checks)
+    for r in rows:
+        if r["kernel"].startswith("ss_scan_"):
+            side = "encode" if "encode" in r["kernel"] else "decode"
+            r["plain_ms"] = ss_plain[r["path"]][f"{side}_plain_s"] * 1e3
     for r in rows:
         # C7's frame time is that of the arm it runs in, transforms included
         k = r.get("frame_kernel", r["kernel"])
@@ -3838,6 +4306,8 @@ def main() -> int:
                     "cli_holo_s": cli_holo_s, "card": card,
                     "iss_prepass_check": iss_prepass, "bdrate": bdrate,
                     "gt_share": gt_share, "scan_program": scan_program,
+                    "ss_scan_program": ss_scan_program,
+                    "ss_scan_plain": ss_plain,
                     "full_fixtures": full_fixtures}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

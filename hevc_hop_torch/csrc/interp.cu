@@ -7,7 +7,8 @@
 // scan_encode_pss and scan_decode_pss between the recon and the previous
 // picture).
 //
-// One CTA per block (interp.cuh mc_block): the CTA stages the clamped
+// One CTA per block (interp.cuh mc_write_block, which kernel C14 runs too,
+// around mc_block): the CTA stages the clamped
 // (n+7)^2 luma or (n+3)^2 chroma window in shared memory, runs the
 // horizontal stage into a second shared buffer and the vertical stage into
 // the output, in int32 with the reference's shifts, offsets and clip. The
@@ -38,24 +39,11 @@ __global__ void mc_kernel(Src src, int hc_off, int h_real, const int32_t *pos,
   extern __shared__ int32_t sm[];
   const int b = blockIdx.x;
   if (only != nullptr && only[b % oper] == 0) return;
-  const int px = pos[2 * b], py = pos[2 * b + 1];
-  Src s = src;
-  s.row_lo = (chroma && py >= hc_off) ? hc_off : 0;
-  s.row_hi = s.row_lo + h_real - 1;
   const int m = b % mper;
-  int32_t *pred = sm + mc_smem_words(n, chroma);
-  mc_block(s, px, py, mv[2 * m], mv[2 * m + 1], n, chroma, bit_depth, sm,
-           pred);
-  const int nn = n * n, maxv = (1 << bit_depth) - 1;
-  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-    if (resi != nullptr) {
-      const long long y = py + i / n, x = px + i % n;
-      dst[y * src.stride + x] =
-          clip3(0, maxv, pred[i] + resi[y * resi_stride + x]);
-    } else {
-      out[(long long)b * nn + i] = pred[i];
-    }
-  }
+  mc_write_block(src, hc_off, h_real, pos[2 * b], pos[2 * b + 1], mv[2 * m],
+                 mv[2 * m + 1], n, chroma, bit_depth,
+                 out == nullptr ? nullptr : out + (long long)b * n * n, resi,
+                 resi_stride, dst, sm);
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
-// Device code of motion compensation shared by kernel C8 (interp.cu) and
-// kernel C10 (inter_arms.cu): the 8-tap quarter-pel luma and 4-tap
-// eighth-pel chroma filters of H.265 8.5.3.3.3 as two separable int32
-// stages with 14-bit intermediates, run unconditionally (phase 0 is the
-// identity through both stages), bit-exact with
-// hevc_hop_tpu/ops/interp.py filter_2d.
+// Device code of motion compensation shared by kernel C8 (interp.cu),
+// kernel C10 (inter_arms.cu), kernels C11 and C12 (warp.cuh) and kernel
+// C14 (ss_scan.cu): the 8-tap quarter-pel luma and 4-tap eighth-pel chroma
+// filters of H.265 8.5.3.3.3 as two separable int32 stages with 14-bit
+// intermediates, run unconditionally (phase 0 is the identity through both
+// stages), bit-exact with hevc_hop_tpu/ops/interp.py filter_2d; and C8's
+// work on one block with its epilogues (mc_write_block).
 #pragma once
 
 #include "common.cuh"
@@ -35,8 +36,10 @@ __host__ __device__ __forceinline__ int mc_smem_words(int n, int chroma) {
 
 // The n x n prediction of the block at (px, py) with the quarter-pel luma
 // MV (mvx, mvy), by the CTA's threads, into out (row stride n). scratch
-// holds mc_smem_words(n, chroma) words of shared memory. Ends with a
-// barrier, so out may be read at once.
+// holds mc_smem_words(n, chroma) words of shared memory. The window is read
+// with L2-coherent loads: a persistent caller (kernel C14) reads recon that
+// CTAs on other SMs wrote earlier in the same launch. Ends with a barrier,
+// so out may be read at once.
 __device__ void mc_block(const Src &s, int px, int py, int mvx, int mvy,
                          int n, int chroma, int bit_depth, int32_t *scratch,
                          int32_t *out) {
@@ -58,7 +61,7 @@ __device__ void mc_block(const Src &s, int px, int py, int mvx, int mvy,
   for (int i = tid; i < W * W; i += nt) {
     const int y = clip3(s.row_lo, s.row_hi, y0 + i / W);
     const int x = clip3(0, s.w - 1, x0 + i % W);
-    win[i] = s.p[(long long)y * s.stride + x];
+    win[i] = __ldcg(s.p + (long long)y * s.stride + x);
   }
   __syncthreads();
   for (int i = tid; i < W * n; i += nt) {
@@ -77,6 +80,36 @@ __device__ void mc_block(const Src &s, int px, int py, int mvx, int mvy,
       acc += mid[(r + k) * n + c] *
              (chroma ? kChromaTaps[fy][k] : kLumaTaps[fy][k]);
     out[i] = clip3(0, maxv, (acc + off2) >> shift2);
+  }
+  __syncthreads();
+}
+
+// Kernel C8's work on one block at (px, py) of src with the quarter-pel
+// luma MV (mvx, mvy): rows clamped to the block's own picture (on the
+// stacked chroma plane, a block at or below hc_off reads [hc_off, hc_off +
+// h_real), others [0, h_real)), the prediction written to out [n*n], or,
+// with resi, clip(prediction + residual) written into dst (src's row
+// stride). sm holds mc_smem_words(n, chroma) + n * n words. Ends with a
+// barrier.
+__device__ void mc_write_block(const Src &src, int hc_off, int h_real,
+                               int px, int py, int mvx, int mvy, int n,
+                               int chroma, int bit_depth, int32_t *out,
+                               const int32_t *resi, int resi_stride,
+                               int32_t *dst, int32_t *sm) {
+  Src s = src;
+  s.row_lo = (chroma && py >= hc_off) ? hc_off : 0;
+  s.row_hi = s.row_lo + h_real - 1;
+  int32_t *pred = sm + mc_smem_words(n, chroma);
+  mc_block(s, px, py, mvx, mvy, n, chroma, bit_depth, sm, pred);
+  const int nn = n * n, maxv = (1 << bit_depth) - 1;
+  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+    if (resi != nullptr) {
+      const long long y = py + i / n, x = px + i % n;
+      dst[y * src.stride + x] =
+          clip3(0, maxv, pred[i] + resi[y * resi_stride + x]);
+    } else {
+      out[i] = pred[i];
+    }
   }
   __syncthreads();
 }

@@ -1,10 +1,10 @@
-// Device code shared by kernel C9 (ss_search.cu) and kernel C10
-// (inter_arms.cu), and by kernel C12 (gt_search.cu): the MVD rate of
-// hevc_hop_tpu/models/ss_scan.py _mvd_bits and _min_rate_bits, the
-// validity tests of a displacement (in the picture; causal for its MC
-// window and for its GT window, ss_anchor_ok), and _gather_cands (merge
-// candidates with their reference indices, and the SS and temporal AMVP
-// predictors, from the carried 4x4 motion planes).
+// Device code shared by kernel C9 (ss_search.cu), kernel C10
+// (inter_arms.cu), kernel C12 (gt_search.cu) and kernel C14 (ss_scan.cu):
+// the MVD rate of hevc_hop_tpu/models/ss_scan.py _mvd_bits and
+// _min_rate_bits, the validity tests of a displacement (in the picture;
+// causal for its MC window and for its GT window, ss_anchor_ok), and
+// _gather_cands (merge candidates with their reference indices, and the SS
+// and temporal AMVP predictors, from the carried 4x4 motion planes).
 #pragma once
 
 #include "common.cuh"
@@ -69,7 +69,8 @@ struct Cands {
 };
 
 // _gather_cands with the SS reference at index ss_idx (0 on ISS slices,
-// L0's last on PSS ones)
+// L0's last on PSS ones). The motion planes are read with L2-coherent loads:
+// kernel C14 reads cells that CTAs on other SMs wrote earlier in its launch.
 __device__ void gather_cands(const Motion &m, int px, int py, int n,
                              const uint8_t *nbav, const uint8_t *miav,
                              int mi_size, int ss_idx, Cands &c) {
@@ -79,10 +80,10 @@ __device__ void gather_cands(const Motion &m, int px, int py, int n,
     const int gy = clip3(0, m.hp * 4 - 1, ny[k]) / 4;
     const int gx = clip3(0, m.wp * 4 - 1, nx[k]) / 4;
     const long long o = (long long)gy * m.wp + gx;
-    c.mv[k][0] = m.mvx4[o];
-    c.mv[k][1] = m.mvy4[o];
-    c.ref[k] = m.rf4[o];
-    c.valid[k] = nbav[k] && m.pi4[o] == 1;
+    c.mv[k][0] = __ldcg(m.mvx4 + o);
+    c.mv[k][1] = __ldcg(m.mvy4 + o);
+    c.ref[k] = __ldcg(m.rf4 + o);
+    c.valid[k] = nbav[k] && __ldcg(m.pi4 + o) == 1;
   }
   const int dmi = mi_size ? -(((n + mi_size - 1) / mi_size) * mi_size) * 4
                           : 0;

@@ -1,0 +1,582 @@
+// Kernel C14: the lenslet ISS wavefront of one picture, encode and decode,
+// as one cooperative launch per picture.
+//
+// Replaces hevc_hop_tpu/models/ss_scan.py scan_encode_iss (one
+// jax.lax.scan over the levels, :714) and scan_decode_ss (:1060), which
+// the port ran as a Python loop launching, per level and CU size, kernels
+// C2, C9, C10, C12, C3, C10's motion write, C2, C8, C11 and C3 again
+// (encode) or C2, C8 and C11 (decode) (models/ss_scan.py
+// scan_encode_iss_loop and scan_decode_ss_loop, which stay the plain
+// version).
+//
+// The work list (models/ss_scan.py ss_work_list) holds one group per
+// (level, CU size) in the reference's order (the sizes of a level one
+// after another, smallest first), each group's CUs packed: items[i] =
+// (log2, row of the CU in its size's plan, cb row, cr row of cpos), groups
+// [g] = (first item, items, items of its first part: the decoder's intra
+// CUs). A persistent grid of CTAs strides over a phase's items;
+// cooperative_groups' grid sync separates the phases.
+//
+// Encode, two phases per group, as the reference's step orders its reads
+// and writes (ss_scan.py:745-869: every decision reads the luma recon and
+// the motion planes, then ry and the motion planes are written; chroma is
+// predicted from rc, then rc is written):
+// - read phase, one CTA per CU: luma intra (intra.cuh: RMD against the
+//   original, or the given mode), C9's search with the GT anchor ring
+//   (ss_search.cuh), C10's merge arms, refinement and tournament
+//   (inter_arms.cuh), C12's two anchors one after the other and its
+//   decision (gt_search.cuh), then the chroma prediction of cb and cr from
+//   rc and the CU's own decision: C11's warp for a GT CU (warp.cuh), C8's
+//   MC for another inter CU (interp.cuh), C2's DM intra otherwise. The
+//   predictions go to device scratch, the decisions straight into their
+//   packed output slots;
+// - write phase, one CTA per CU: C3 (tq.cuh, the RDOQ arm of C7 where
+//   asked) on the luma prediction into ry and coef_y, C10's motion write
+//   into the 4x4 motion planes, C3 on cb and cr into rc and coef_c.
+// No read phase writes a plane that a read phase reads (ry, rc and the
+// motion planes are written in write phases only), and a write phase reads
+// only the original and its own CU's scratch, so the items of a phase may
+// run in any order; the syncs order every write before the reads of later
+// groups.
+//
+// Decode, one phase per group: each CU's prediction plus its dense
+// residual written into the recon, luma, cb and cr: C2's add-residual form
+// for an intra CU, C11's for a GT CU, C8's for another inter CU. The
+// reference predicts a whole group from the recon before writing any of
+// it; here a CU writes at once. That is the same result because the
+// decoder's schedule (build_schedule_ss with each inter CU's dependency
+// rectangle: its MC window with the filter margin, a GT CU's 2n window with
+// its slack) puts every block that a CU's prediction reads (its intra
+// neighbours, its MC or GT window) at an earlier level than the CU, so no
+// CU reads samples that another CU of its group writes
+// (tests/test_torch_ss_scan_program.py holds this on every case). The loop
+// ran a GT CU through C8 and then C11; C11 overwrites all of it, so the
+// CU runs C11 alone.
+//
+// Coherence: the recon planes and the motion planes are read after grid
+// syncs with L2-coherent loads (__ldcg) in every body (intra.cuh's chain,
+// ss_search.cuh's window, ss_common.cuh's candidate gather, interp.cuh's
+// and warp.cuh's windows, gt_search.cuh's window), never through L1 or the
+// read-only path; a write phase reads its CU's scratch so too. Scratch
+// written and read within one phase is the same CTA's (barriers order it).
+// Every CTA reaches every sync.
+//
+// Integers and floats equal C2's, C3's, C7's, C8's, C9's, C10's, C11's and
+// C12's: the CTA runs their device functions with the same blockDim
+// (kThreads = 256, theirs); no float sum of theirs depends on blockDim or
+// on a grid dimension (C9's per-displacement sums run in one thread, its
+// reductions keep the first index among equals; C10's and C12's SSEs are
+// integer sums below 2^24 and block_sum's order in thread 0 above; C3's
+// and C7's float sums are in one thread), and C12's (block, anchor) CTAs
+// run here one anchor after the other.
+//
+// Bound: the chain of groups. A group holds a few tens of CUs on 132 SMs,
+// and one CTA's latency per CU (an RMD, a search of (2r+1)^2
+// displacements, 25 MCs, two GT diamond searches of 79 warps, C3 with
+// RDOQ, two chroma blocks) sets the picture's time. The design removes the
+// host from the chain: one launch instead of some 4000 per encode.
+#include <cooperative_groups.h>
+
+#include "gt_search.cuh"
+#include "inter_arms.cuh"
+#include "intra.cuh"
+#include "ss_search.cuh"
+#include "tq.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+static_assert(kThreads == kSearchThreads && kThreads == kArmsThreads,
+              "the bodies' reductions are sized for kThreads");
+
+// One TU class: C2's tables and C3's class (models/wavefront_scan.py
+// _ClassArgs, as kernel C13 takes them).
+struct ClassArgs {
+  Tables t;
+  TqClass tq;
+};
+
+// One CU size's packed plan (models/ss_scan.py SSPlan), its scratch and
+// its outputs, as the wrapper hands them over. Mirrored by ctypes in
+// models/ss_scan.py.
+struct SsSizeIn {
+  const int32_t *pos, *cpos, *zcur, *zmaxw, *zmax2n;
+  const uint8_t *avail, *cavail, *nbav, *miav;
+  const int32_t *modes;   // encode: given luma modes or null; decode: modes
+  const int32_t *cmodes, *mvs, *gtf, *gtv;   // decode
+  // encode scratch: C2's luma prediction (the chosen one after C10 and
+  // C12), C9's results and ring, C10's scan mode and costs, C12's per
+  // (block, anchor) results, the chroma predictions [2T, m, m]
+  int32_t *ipred, *pred0, *mv_i;
+  float *cost, *sse;
+  int32_t *anchor;
+  float *gt_rate;
+  uint8_t *gt_ok;
+  int32_t *smode;
+  float *costs;
+  int32_t *s_gtc, *s_pred;
+  float *s_cost;
+  int32_t *s_amv, *s_ok, *cpred;
+  // encode outputs
+  int32_t *inter, *mv, *imode, *cbf_y, *cbf_cb, *cbf_cr, *gtflag, *gtc;
+  ClassArgs ly, lc;   // luma n and chroma n / 2
+};
+
+struct SsScanIn {
+  const int32_t *items, *groups;
+  int ngroups;
+  int32_t *ry, *rc;
+  int y_rows, c_rows, w, wc, stride_y, stride_c;
+  const int32_t *src_y, *src_c;   // the originals (encode), residuals
+  int16_t *coef_y, *coef_c;
+  int32_t *mvx4, *mvy4, *pi4, *rf4;
+  int hp, wp;
+  int h, bit_depth, strong, radius, mi_size;
+  float lam, lam_i, mrate[9];
+  SsSizeIn size[3];   // log2 - 3
+};
+
+// What a CTA reads per CU size, built once per launch on the host.
+struct SizeK {
+  int n;
+  const int32_t *pos, *cpos, *zcur;
+  const uint8_t *avail, *cavail, *nbav, *miav;
+  const int32_t *modes, *cmodes, *mvs, *gtf, *gtv;
+  int32_t *ipred, *cpred, *smode, *inter, *mv, *imode, *gtflag, *gtc;
+  int32_t *cbf_y, *cbf_cb, *cbf_cr;
+  Search search;
+  Found found;
+  int32_t *anchor;
+  float *gt_rate;
+  uint8_t *gt_ok;
+  Arms arms;
+  GtSearch gts;
+  GtDecide gtd;
+  int gt;
+  ClassArgs ly, lc;
+};
+
+struct ScanK {
+  const int32_t *items, *groups;
+  int ngroups;
+  IntraPlane y, c;
+  TqPlanes ty, tc;
+  Motion m;
+  int32_t *mvx4, *mvy4, *pi4;
+  int wp;
+  Src ysrc, csrc;
+  int32_t *ry, *rc;
+  const int32_t *resi_y, *resi_c;
+  int stride_y, stride_c;
+  int h, hc, hc_off, bit_depth, strong, mi_size;
+  SizeK size[3];
+};
+
+// The read phase of CU item w: every decision and prediction into scratch
+// and the packed outputs.
+__device__ void encode_read(const ScanK &a, const int32_t *w, int32_t *sm) {
+  const int log2 = w[0], row = w[1];
+  const SizeK &z = a.size[log2 - 3];
+  const int n = z.n, nn = n * n, m = n / 2, mm = m * m, tid = threadIdx.x;
+  const int px = z.pos[2 * row], py = z.pos[2 * row + 1], zc = z.zcur[row];
+  const int ask = z.modes != nullptr ? z.modes[row] : -1;
+  const int imode = intra_block(
+      a.y, z.ly.t, px, py, z.avail + (long long)row * (4 * n + 1), ask, n, 0,
+      a.bit_depth, a.strong, sm, z.ipred + (long long)row * nn);
+  if (tid == 0) z.imode[row] = imode;
+  __syncthreads();
+  search_entry_block(z.search, a.m, row, px, py, zc, z.nbav + 5 * row,
+                     z.miav + 3 * row, a.mi_size, 0, false, z.found,
+                     z.anchor, z.gt_rate, z.gt_ok,
+                     reinterpret_cast<float *>(sm));
+  inter_arms_block(z.arms, row, px, py, zc, sm);
+  if (z.gt) {
+    gt_search_block(z.gts, row, 0, sm);
+    gt_search_block(z.gts, row, 1, sm);
+    gt_decide_block(z.gtd, row, sm);
+  } else if (tid == 0) {
+    z.gtflag[row] = 0;
+    for (int k = 0; k < 6; ++k) z.gtc[6 * row + k] = 0;
+  }
+  __syncthreads();
+  const int inter = z.inter[row], gtf = z.gtflag[row];
+  const int mvx = z.mv[2 * row], mvy = z.mv[2 * row + 1];
+  for (int k = 2; k <= 3; ++k) {
+    const int r = w[k];
+    const int cx = z.cpos[2 * r], cy = z.cpos[2 * r + 1];
+    int32_t *out = z.cpred + (long long)r * mm;
+    if (gtf)
+      gt_pred_block(a.csrc, a.hc_off, a.hc, cx, cy, mvx >> 2, mvy >> 2,
+                    z.gtc + 6 * row, m, 1, a.bit_depth, out, nullptr, 0,
+                    nullptr, sm);
+    else if (inter)
+      mc_write_block(a.csrc, a.hc_off, a.hc, cx, cy, mvx, mvy, m, 1,
+                     a.bit_depth, out, nullptr, 0, nullptr, sm);
+    else
+      intra_block(a.c, z.lc.t, cx, cy,
+                  z.cavail + (long long)row * (4 * m + 1), imode, m, 1,
+                  a.bit_depth, a.strong, sm, out);
+  }
+}
+
+// The write phase of CU item w: C3 on luma, the motion write, C3 on cb and
+// cr, from the read phase's scratch.
+template <bool kRdoq>
+__device__ void encode_write(const ScanK &a, const int32_t *w, int32_t *sm) {
+  const int log2 = w[0], row = w[1];
+  const SizeK &z = a.size[log2 - 3];
+  const int n = z.n, nn = n * n, m = n / 2, mm = m * m;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int px = z.pos[2 * row], py = z.pos[2 * row + 1];
+  int32_t *pred = sm, *work = sm + nn;
+  const int32_t *ip = z.ipred + (long long)row * nn;
+  for (int i = tid; i < nn; i += nt) pred[i] = __ldcg(ip + i);
+  const int smode = __ldcg(z.smode + row);
+  __syncthreads();
+  const int cbf = tq_encode_block<kRdoq>(z.ly.tq, a.ty, px, py, smode, pred,
+                                         work);
+  if (tid == 0) z.cbf_y[row] = cbf;
+  const int on = __ldcg(z.inter + row) != 0;
+  const int mvx = __ldcg(z.mv + 2 * row), mvy = __ldcg(z.mv + 2 * row + 1);
+  const int u = n / 4;
+  for (int cell = tid; cell < u * u; cell += nt)
+    motion_cell(a.mvx4, a.mvy4, a.pi4, nullptr, a.wp, py / 4 + cell / u,
+                px / 4 + cell % u, on, mvx, mvy, 0);
+  for (int k = 2; k <= 3; ++k) {
+    const int r = w[k];
+    const int32_t *cp = z.cpred + (long long)r * mm;
+    for (int i = tid; i < mm; i += nt) pred[i] = __ldcg(cp + i);
+    __syncthreads();
+    const int cbf_c = tq_encode_block<kRdoq>(
+        z.lc.tq, a.tc, z.cpos[2 * r], z.cpos[2 * r + 1], smode, pred,
+        sm + mm);
+    if (tid == 0) (k == 2 ? z.cbf_cb : z.cbf_cr)[row] = cbf_c;
+  }
+}
+
+template <bool kRdoq>
+__global__ void __launch_bounds__(kThreads)
+    ss_scan_encode_kernel(const ScanK *ap) {
+  extern __shared__ __align__(16) int32_t sm[];
+  const ScanK &a = *ap;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  for (int g = 0; g < a.ngroups; ++g) {
+    const int first = a.groups[3 * g], end = first + a.groups[3 * g + 1];
+    for (int it = first + blockIdx.x; it < end; it += gridDim.x)
+      encode_read(a, a.items + 4LL * it, sm);
+    grid.sync();
+    for (int it = first + blockIdx.x; it < end; it += gridDim.x)
+      encode_write<kRdoq>(a, a.items + 4LL * it, sm);
+    if (g + 1 < a.ngroups) grid.sync();
+  }
+}
+
+// One CU of the decode: its prediction plus the residual into the recon.
+__device__ void decode_item(const ScanK &a, const int32_t *w, bool intra,
+                            int32_t *sm) {
+  const int log2 = w[0], row = w[1];
+  const SizeK &z = a.size[log2 - 3];
+  const int n = z.n, m = n / 2;
+  const int px = z.pos[2 * row], py = z.pos[2 * row + 1];
+  if (intra) {
+    intra_block(a.y, z.ly.t, px, py, z.avail + (long long)row * (4 * n + 1),
+                z.modes[row], n, 0, a.bit_depth, a.strong, sm, nullptr);
+    for (int k = 2; k <= 3; ++k)
+      intra_block(a.c, z.lc.t, z.cpos[2 * w[k]], z.cpos[2 * w[k] + 1],
+                  z.cavail + (long long)row * (4 * m + 1), z.cmodes[row], m,
+                  1, a.bit_depth, a.strong, sm, nullptr);
+    return;
+  }
+  const int mvx = z.mvs[2 * row], mvy = z.mvs[2 * row + 1];
+  if (z.gtf != nullptr && z.gtf[row] != 0) {
+    const int32_t *gtc = z.gtv + 6 * row;
+    gt_pred_block(a.ysrc, 0, a.h, px, py, mvx >> 2, mvy >> 2, gtc, n, 0,
+                  a.bit_depth, nullptr, a.resi_y, a.stride_y, a.ry, sm);
+    for (int k = 2; k <= 3; ++k)
+      gt_pred_block(a.csrc, a.hc_off, a.hc, z.cpos[2 * w[k]],
+                    z.cpos[2 * w[k] + 1], mvx >> 2, mvy >> 2, gtc, m, 1,
+                    a.bit_depth, nullptr, a.resi_c, a.stride_c, a.rc, sm);
+    return;
+  }
+  mc_write_block(a.ysrc, 0, a.h, px, py, mvx, mvy, n, 0, a.bit_depth,
+                 nullptr, a.resi_y, a.stride_y, a.ry, sm);
+  for (int k = 2; k <= 3; ++k)
+    mc_write_block(a.csrc, a.hc_off, a.hc, z.cpos[2 * w[k]],
+                   z.cpos[2 * w[k] + 1], mvx, mvy, m, 1, a.bit_depth,
+                   nullptr, a.resi_c, a.stride_c, a.rc, sm);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    ss_scan_decode_kernel(const ScanK *ap) {
+  extern __shared__ __align__(16) int32_t sm[];
+  const ScanK &a = *ap;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  for (int g = 0; g < a.ngroups; ++g) {
+    const int first = a.groups[3 * g], end = first + a.groups[3 * g + 1];
+    const int intra_end = first + a.groups[3 * g + 2];
+    for (int it = first + blockIdx.x; it < end; it += gridDim.x)
+      decode_item(a, a.items + 4LL * it, it < intra_end, sm);
+    if (g + 1 < a.ngroups) grid.sync();
+  }
+}
+
+size_t max_of(size_t a, size_t b) { return a > b ? a : b; }
+
+// The kernel's view of the wrapper's arguments; smem <- the dynamic shared
+// bytes the largest body needs.
+ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
+  ScanK k{};
+  k.items = in.items;
+  k.groups = in.groups;
+  k.ngroups = in.ngroups;
+  k.ry = in.ry;
+  k.rc = in.rc;
+  k.stride_y = in.stride_y;
+  k.stride_c = in.stride_c;
+  k.h = in.h;
+  k.hc = in.h / 2;
+  k.hc_off = in.c_rows / 2;
+  k.bit_depth = in.bit_depth;
+  k.strong = in.strong;
+  k.mi_size = in.mi_size;
+  const int32_t *org_y = encode ? in.src_y : nullptr;
+  k.resi_y = encode ? nullptr : in.src_y;
+  k.resi_c = encode ? nullptr : in.src_c;
+  // C2's planes: the luma chain with the original for RMD, or with the
+  // residual for the decode epilogue; chroma DM predicts a given mode
+  k.y = IntraPlane{in.ry, in.y_rows, in.w, in.stride_y, org_y, in.stride_y,
+                   k.resi_y, in.stride_y};
+  k.c = IntraPlane{in.rc, in.c_rows, in.wc, in.stride_c, nullptr, 0,
+                   k.resi_c, in.stride_c};
+  k.ty = TqPlanes{in.src_y, in.stride_y, in.ry, in.stride_y, in.coef_y,
+                  in.stride_y};
+  k.tc = TqPlanes{in.src_c, in.stride_c, in.rc, in.stride_c, in.coef_c,
+                  in.stride_c};
+  k.m = Motion{in.mvx4, in.mvy4, in.pi4, in.rf4, in.hp, in.wp};
+  k.mvx4 = in.mvx4;
+  k.mvy4 = in.mvy4;
+  k.pi4 = in.pi4;
+  k.wp = in.wp;
+  k.ysrc = Src{in.ry, in.stride_y, 0, in.h - 1, in.w};
+  k.csrc = Src{in.rc, in.stride_c, 0, k.hc - 1, in.wc};
+  size_t words = 0;
+  for (int s = 0; s < 3; ++s) {
+    const SsSizeIn &z = in.size[s];
+    SizeK &o = k.size[s];
+    const int n = 8 << s, m = n / 2;
+    o.n = n;
+    o.pos = z.pos;
+    o.cpos = z.cpos;
+    o.zcur = z.zcur;
+    o.avail = z.avail;
+    o.cavail = z.cavail;
+    o.nbav = z.nbav;
+    o.miav = z.miav;
+    o.modes = z.modes;
+    o.cmodes = z.cmodes;
+    o.mvs = z.mvs;
+    o.gtf = z.gtf;
+    o.gtv = z.gtv;
+    o.ipred = z.ipred;
+    o.cpred = z.cpred;
+    o.smode = z.smode;
+    o.inter = z.inter;
+    o.mv = z.mv;
+    o.imode = z.imode;
+    o.gtflag = z.gtflag;
+    o.gtc = z.gtc;
+    o.cbf_y = z.cbf_y;
+    o.cbf_cb = z.cbf_cb;
+    o.cbf_cr = z.cbf_cr;
+    o.ly = z.ly;
+    o.lc = z.lc;
+    o.gt = encode && z.zmax2n != nullptr;
+    if (z.pos == nullptr) continue;   // no CU of this size
+    if (encode) {
+      o.search = Search{in.ry, in.src_y, in.stride_y, z.zmaxw, n, in.radius,
+                        in.w, in.h, in.lam, z.zmax2n, 0};
+      o.found = Found{z.mv_i, z.pred0, z.cost, z.sse};
+      o.anchor = z.anchor;
+      o.gt_rate = z.gt_rate;
+      o.gt_ok = z.gt_ok;
+      Arms &r = o.arms;
+      r.recon = Src{in.ry, in.stride_y, 0, in.h - 1, in.w};
+      r.ref = Src{nullptr, in.stride_y, 0, in.h - 1, in.w};
+      r.org = in.src_y;
+      r.zmaxw = z.zmaxw;
+      r.m = k.m;
+      r.nbav = z.nbav;
+      r.miav = z.miav;
+      r.mv_i = z.mv_i;
+      r.pred0 = z.pred0;
+      r.sse0 = z.sse;
+      r.ipred = z.ipred;
+      r.imode = z.imode;
+      r.n = n;
+      r.w = in.w;
+      r.h = in.h;
+      r.bit_depth = in.bit_depth;
+      r.mi_size = in.mi_size;
+      r.lam = in.lam;
+      r.lam_i = in.lam_i;
+      for (int i = 0; i < 9; ++i) r.mrate[i] = in.mrate[i];
+      r.inter = z.inter;
+      r.mv = z.mv;
+      r.smode = z.smode;
+      r.costs = z.costs;
+      GtSearch &g = o.gts;
+      g.recon = in.ry;
+      g.org = in.src_y;
+      g.stride = in.stride_y;
+      g.pos = z.pos;
+      g.zcur = z.zcur;
+      g.zmax2n = z.zmax2n;
+      g.m = k.m;
+      g.nbav = z.nbav;
+      g.miav = z.miav;
+      g.anchor = z.anchor;
+      g.gt_rate = z.gt_rate;
+      g.gt_ok = z.gt_ok;
+      g.n = n;
+      g.w = in.w;
+      g.h = in.h;
+      g.bit_depth = in.bit_depth;
+      g.mi_size = in.mi_size;
+      g.ss_idx = 0;
+      g.lam = in.lam;
+      g.s_gtc = z.s_gtc;
+      g.s_pred = z.s_pred;
+      g.s_cost = z.s_cost;
+      g.s_amv = z.s_amv;
+      g.s_ok = z.s_ok;
+      GtDecide &d = o.gtd;
+      d.rc = k.csrc;
+      d.hc_off = k.hc_off;
+      d.n = n;
+      d.bit_depth = in.bit_depth;
+      d.pos = z.pos;
+      d.s_gtc = z.s_gtc;
+      d.s_pred = z.s_pred;
+      d.s_cost = z.s_cost;
+      d.s_amv = z.s_amv;
+      d.s_ok = z.s_ok;
+      d.costs = z.costs;
+      d.pred = z.ipred;
+      d.inter = z.inter;
+      d.mv = z.mv;
+      d.smode = z.smode;
+      d.flag = z.gtflag;
+      d.gtc = z.gtc;
+      d.refsel = nullptr;
+      d.ss_idx = 0;
+      // read phase: every body in turn; write phase: the prediction in
+      // shared memory beside C3's scratch
+      words = max_of(words, intra_scratch_words(n));
+      words = max_of(words, search_words(n, in.radius));
+      words = max_of(words, (arms_smem_bytes(n, false) + 3) / 4);
+      if (o.gt) {
+        words = max_of(words, gt_search_words(n));
+        words = max_of(words, gt_decide_words(n));
+        words = max_of(words, gt_pred_words(m, 1));
+      }
+      words = max_of(words, intra_scratch_words(m));
+      words = max_of(words, mc_smem_words(m, 1) + m * m);
+      words = max_of(words, n * n + (tq_scratch_bytes(n, rdoq) + 3) / 4);
+      words = max_of(words, m * m + (tq_scratch_bytes(m, rdoq) + 3) / 4);
+    } else {
+      words = max_of(words, intra_scratch_words(n));
+      words = max_of(words, mc_smem_words(n, 0) + n * n);
+      words = max_of(words, mc_smem_words(m, 1) + m * m);
+      if (z.gtf != nullptr) {
+        words = max_of(words, gt_pred_words(n, 0));
+        words = max_of(words, gt_pred_words(m, 1));
+      }
+    }
+  }
+  *smem = sizeof(int32_t) * words;
+  return k;
+}
+
+// The cooperative launch of `kernel` over min(co-resident CTAs, widest)
+// CTAs with the kernel's arguments copied to args_dev; info <- (grid, CTAs
+// per SM, dynamic shared bytes, threads). A grid that cannot be co-resident
+// is an error, never a smaller launch.
+template <class Kernel>
+int launch(Kernel kernel, const ScanK &k, void *args_dev, size_t smem,
+           int widest, cudaStream_t st, int *info) {
+  cudaError_t e;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (!coop) return (int)cudaErrorNotSupported;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                    kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  int grid = per_sm * sms < widest ? per_sm * sms : widest;
+  if (grid < 1) grid = 1;
+  info[0] = grid;
+  info[1] = per_sm;
+  info[2] = (int)smem;
+  info[3] = kThreads;
+  // from pageable memory: the copy is staged before the call returns
+  e = cudaMemcpyAsync(args_dev, &k, sizeof(ScanK), cudaMemcpyHostToDevice,
+                      st);
+  if (e != cudaSuccess) return (int)e;
+  const ScanK *ap = static_cast<const ScanK *>(args_dev);
+  void *params[] = {&ap};
+  e = cudaLaunchCooperativeKernel((const void *)kernel, dim3(grid),
+                                  dim3(kThreads), params, smem, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Sizes the wrapper checks its mirror and its device buffer against:
+// (sizeof SsScanIn, sizeof of the kernel's argument block).
+HH_EXPORT int hh_ss_scan_sizes(int *out) {
+  out[0] = (int)sizeof(SsScanIn);
+  out[1] = (int)sizeof(ScanK);
+  return 0;
+}
+
+// Encode entry: every group of one ISS picture. args: the SsScanIn,
+// mirrored by ctypes in models/ss_scan.py; ry and rc zero on entry, src_y
+// and src_c the originals, the motion planes zero; args_dev: device bytes
+// for the kernel's arguments (hh_ss_scan_sizes); rdoq selects the RDOQ
+// arm; widest: the most items of any group; info [4] receives the launch's
+// shape.
+HH_EXPORT int hh_ss_scan_encode(const void *args, void *args_dev, int rdoq,
+                                int widest, void *stream, int *info) {
+  size_t smem = 0;
+  const ScanK k =
+      build(*static_cast<const SsScanIn *>(args), true, rdoq != 0, &smem);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return rdoq ? launch(ss_scan_encode_kernel<true>, k, args_dev, smem,
+                       widest, st, info)
+              : launch(ss_scan_encode_kernel<false>, k, args_dev, smem,
+                       widest, st, info);
+}
+
+// Decode entry: every group of one ISS picture, prediction plus the dense
+// residual. ry and rc zero on entry, src_y and src_c the residuals; per
+// size modes, cmodes and mvs given, gtf and gtv too where the picture has
+// GT CUs (null otherwise).
+HH_EXPORT int hh_ss_scan_decode(const void *args, void *args_dev, int widest,
+                                void *stream, int *info) {
+  size_t smem = 0;
+  const ScanK k =
+      build(*static_cast<const SsScanIn *>(args), false, false, &smem);
+  return launch(ss_scan_decode_kernel, k, args_dev, smem, widest,
+                static_cast<cudaStream_t>(stream), info);
+}

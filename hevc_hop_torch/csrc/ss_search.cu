@@ -6,7 +6,9 @@
 // entry, hh_ss_search), and hevc_hop_tpu/models/ss_partition.py
 // _ss_rd_size, its SS arm and its temporal one (pre-pass entry, hh_ss_rd).
 //
-// One CTA per block. The CTA stages the clamped (n+2r)^2 search window of
+// One CTA per block; the scan entry's work on a block (search_entry_block,
+// and the search itself, search_block) is in ss_search.cuh, which kernel C14
+// (ss_scan.cu) runs too. The CTA stages the clamped (n+2r)^2 search window of
 // the recon (the original plane in the pre-pass) and the block's original
 // in shared memory as float32, and gathers the block's AMVP predictors from
 // the carried motion planes (ss_common.cuh gather_cands; the pre-pass takes
@@ -51,170 +53,12 @@
 // memory, so device memory sees each sample of it once per block; threads
 // of a warp take neighbouring dx, so their shared-memory reads fall in
 // distinct banks. Tensor-core correlation is later work.
-#include "ss_common.cuh"
+#include "ss_search.cuh"
 #include "tq.cuh"
 
 namespace {
 
-constexpr int kConvBlock = 512;
-constexpr int kThreads = 256;
-
-struct Search {
-  const int32_t *src;  // searched plane (recon, original, previous picture)
-  const int32_t *org;  // original plane
-  int stride;
-  const int32_t *zmaxw;   // causality plane; null: the temporal search
-  int n, radius, w, h;
-  float lam;
-  const int32_t *zmax2n;  // the GT window's causality plane, or null
-  int seq;                // the PSS program's sequential sums (F10)
-};
-
-struct Best {
-  int mvx, mvy;
-  float cost, sse;
-  int amvx, amvy, aok;  // the GT anchor ring (with zmax2n)
-  float arate;
-};
-
-// Shared-memory words of the search (block original + reduction + window)
-__host__ __device__ __forceinline__ int search_words(int n, int radius) {
-  const int W = n + 2 * radius;
-  return n * n + 5 * kThreads + W * W;
-}
-
-
-// The masked full search of the block at (px, py) over the CTA. sm holds
-// search_words(n, r) words: of [nn] float, reduction [5 * nt], window
-// [W * W] float. Returns the winner to every thread.
-__device__ Best search_block(const Search &s, int px, int py, int zcur,
-                             const int *preds, int np, float *sm) {
-  const int n = s.n, r = s.radius, nn = n * n, W = n + 2 * r, D = 2 * r + 1;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  float *of = sm;
-  float *red_cost = of + nn;
-  int *red_idx = reinterpret_cast<int *>(red_cost + kThreads);
-  float *red_sse = reinterpret_cast<float *>(red_idx + kThreads);
-  float *red_cost2 = red_sse + kThreads;
-  int *red_idx2 = reinterpret_cast<int *>(red_cost2 + kThreads);
-  float *win = reinterpret_cast<float *>(red_idx2 + kThreads);
-  __shared__ float org2_s;
-  for (int i = tid; i < W * W; i += nt) {
-    const int y = clip3(0, s.h - 1, py - r + i / W);
-    const int x = clip3(0, s.w - 1, px - r + i % W);
-    win[i] = (float)s.src[(long long)y * s.stride + x];
-  }
-  for (int i = tid; i < nn; i += nt)
-    of[i] = (float)s.org[(long long)(py + i / n) * s.stride + px + i % n];
-  __syncthreads();
-  if (tid == 0)
-    org2_s = block_sum(n, [&](int i) { return __fmul_rn(of[i], of[i]); });
-  __syncthreads();
-  const float org2 = org2_s;
-  const int rows_per_block = kConvBlock / n < n ? kConvBlock / n : n;
-  float bc = kBig, bs = 0.0f, bc2 = kBig;
-  int bi = D * D, bi2 = D * D;
-  for (int d = tid; d < D * D; d += nt) {
-    const int dy = d / D, dx = d % D;
-    const int ty = py + dy - r, tx = px + dx - r;
-    if (s.zmaxw != nullptr ? !causal(s.zmaxw, tx, ty, n, s.w, s.h, zcur)
-                           : !in_picture(tx, ty, n, s.w, s.h)) {
-      if (bi == D * D) bi = d;   // a masked first entry, as argmin sees it
-      continue;
-    }
-    float corr = 0.0f, ref2 = 0.0f;
-    // F10: one accumulator over the whole kernel (the products are exact,
-    // so each fmaf is the rounded add)
-    for (int ky = 0; s.seq && ky < n; ++ky) {
-      const float *wr = win + (dy + ky) * W + dx;
-      const float *orow = of + ky * n;
-      for (int kx = 0; kx < n; ++kx) {
-        corr = fmaf(wr[kx], orow[kx], corr);
-        ref2 = fmaf(wr[kx], wr[kx], ref2);
-      }
-    }
-    for (int y0 = 0; !s.seq && y0 < n; y0 += rows_per_block) {
-      float c0 = 0.0f, c1 = 0.0f, q0 = 0.0f, q1 = 0.0f;
-      for (int ky = y0; ky < y0 + rows_per_block; ++ky) {
-        const float *wr = win + (dy + ky) * W + dx;
-        const float *orow = of + ky * n;
-        for (int kx = 0; kx < n; kx += 2) {
-          const float w0 = wr[kx], w1 = wr[kx + 1];
-          c0 = fmaf(w0, orow[kx], c0);
-          c1 = fmaf(w1, orow[kx + 1], c1);
-          q0 = fmaf(w0, w0, q0);
-          q1 = fmaf(w1, w1, q1);
-        }
-      }
-      const float cs = __fadd_rn(c0, c1), qs = __fadd_rn(q0, q1);
-      corr = y0 == 0 ? cs : __fadd_rn(corr, cs);
-      ref2 = y0 == 0 ? qs : __fadd_rn(ref2, qs);
-    }
-    const float sse = __fsub_rn(__fadd_rn(org2, ref2), __fmul_rn(2.0f, corr));
-    const float bits = min_rate_bits(4 * (dx - r), 4 * (dy - r), preds, np);
-    // the rate map is rounded on its own, then added (the reference's
-    // compiled search)
-    const float cost =
-        __fadd_rn(sse, __fmul_rn(s.lam, __fadd_rn(bits, kInterBits)));
-    if (cost < bc || (cost == bc && d < bi)) {
-      bc = cost;
-      bi = d;
-      bs = sse;
-    }
-    if (s.zmax2n != nullptr &&
-        anchor_causal(s.zmax2n, tx, ty, n, s.w, s.h, zcur) &&
-        (cost < bc2 || (cost == bc2 && d < bi2))) {
-      bc2 = cost;
-      bi2 = d;
-    }
-  }
-  red_cost[tid] = bc;
-  red_idx[tid] = bi;
-  red_sse[tid] = bs;
-  red_cost2[tid] = bc2;
-  red_idx2[tid] = bi2;
-  __syncthreads();
-  __shared__ Best best_s;
-  if (tid == 0) {
-    float c = red_cost[0], e = red_sse[0];
-    int i = red_idx[0];
-    for (int t = 1; t < nt; ++t)
-      if (red_cost[t] < c || (red_cost[t] == c && red_idx[t] < i)) {
-        c = red_cost[t];
-        i = red_idx[t];
-        e = red_sse[t];
-      }
-    if (i >= D * D) i = 0;   // nothing causal: argmin of all-3e38 is 0
-    best_s.mvx = i % D - r;
-    best_s.mvy = i / D - r;
-    best_s.cost = c;
-    best_s.sse = c < 1e37f ? e : kBig;
-    if (s.zmax2n != nullptr) {
-      float c2 = red_cost2[0];
-      int i2 = red_idx2[0];
-      for (int t = 1; t < nt; ++t)
-        if (red_cost2[t] < c2 || (red_cost2[t] == c2 && red_idx2[t] < i2)) {
-          c2 = red_cost2[t];
-          i2 = red_idx2[t];
-        }
-      if (i2 >= D * D) i2 = 0;   // no causal GT window: top_k's index 0
-      best_s.amvx = i2 % D - r;
-      best_s.amvy = i2 / D - r;
-      best_s.aok = c2 < 1e37f;
-      best_s.arate = __fmul_rn(
-          s.lam, __fadd_rn(min_rate_bits(4 * best_s.amvx, 4 * best_s.amvy,
-                                         preds, np),
-                           kInterBits));
-    }
-  }
-  __syncthreads();
-  return best_s;
-}
-
-struct Found {
-  int32_t *mv, *pred;
-  float *cost, *sse;
-};
+constexpr int kThreads = kSearchThreads;
 
 __global__ void ss_search_kernel(Search s, Search st, const int32_t *pos,
                                  const int32_t *zcur, Motion m,
@@ -225,35 +69,9 @@ __global__ void ss_search_kernel(Search s, Search st, const int32_t *pos,
   extern __shared__ float sm[];
   const int b = blockIdx.x;
   const bool temporal = blockIdx.y == 1;
-  const Search &q = temporal ? st : s;
-  const Found &o = temporal ? ft : f;
-  const int px = pos[2 * b], py = pos[2 * b + 1];
-  __shared__ Cands c;
-  if (threadIdx.x == 0)
-    gather_cands(m, px, py, q.n, nbav + 5 * b, miav + 3 * b, mi_size, ss_idx,
-                 c);
-  __syncthreads();
-  const Best best =
-      temporal ? search_block(q, px, py, 0, &c.tpreds[0][0], 3, sm)
-               : search_block(q, px, py, zcur[b], &c.preds[0][0], 6, sm);
-  const int n = q.n, W = n + 2 * q.radius;
-  const float *win = sm + search_words(n, q.radius) - W * W;
-  for (int i = threadIdx.x; i < n * n; i += blockDim.x)
-    o.pred[(long long)b * n * n + i] =
-        (int32_t)win[(best.mvy + q.radius + i / n) * W + best.mvx + q.radius +
-                     i % n];
-  if (threadIdx.x == 0) {
-    o.mv[2 * b] = best.mvx;
-    o.mv[2 * b + 1] = best.mvy;
-    o.cost[b] = best.cost;
-    o.sse[b] = best.sse;
-    if (q.zmax2n != nullptr) {
-      anchor[2 * b] = best.amvx;
-      anchor[2 * b + 1] = best.amvy;
-      gt_rate[b] = best.arate;
-      gt_ok[b] = best.aok;
-    }
-  }
+  search_entry_block(temporal ? st : s, m, b, pos[2 * b], pos[2 * b + 1],
+                     zcur[b], nbav + 5 * b, miav + 3 * b, mi_size, ss_idx,
+                     temporal, temporal ? ft : f, anchor, gt_rate, gt_ok, sm);
 }
 
 struct Tq {

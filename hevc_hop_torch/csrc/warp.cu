@@ -6,7 +6,9 @@
 // gt_pred_chroma with their window gathers (plane entry, hh_gt_pred), as
 // scan_encode_iss's chroma and scan_decode_ss use them.
 //
-// One CTA per block. The window entry stages the block's [2n, 2n] window in
+// One CTA per block; the plane entry's work on a block is warp.cuh
+// gt_pred_block, which kernel C14 (ss_scan.cu) runs too. The window entry
+// stages the block's [2n, 2n] window in
 // shared memory and warps it (warp.cuh warp_sample), one thread per output
 // sample; a block-wide OR of the knife-edge flags gives `safe`. The plane
 // entry stages the window itself: for luma the clamped [2n, 2n] samples
@@ -23,7 +25,6 @@
 // 4 samples per output sample read once: near the card's bytes-per-
 // operation line, and far from either bound at a level's tens of blocks,
 // whose launch is one short wave on 132 SMs.
-#include "interp.cuh"
 #include "warp.cuh"
 
 namespace {
@@ -56,42 +57,12 @@ __global__ void gt_pred_kernel(Src src, int hc_off, int h_real,
   extern __shared__ int32_t sm[];
   const int b = blockIdx.x, m = b % per;
   if (only != nullptr && only[m] == 0) return;
-  const int px = pos[2 * b], py = pos[2 * b + 1];
-  const int vx = mv[2 * m] >> 2, vy = mv[2 * m + 1] >> 2;   // full pel
-  const int ws = 2 * n, nn = n * n;
-  int32_t *win = sm;
-  Src s = src;
-  if (chroma) {
-    s.row_lo = py >= hc_off ? hc_off : 0;
-    s.row_hi = s.row_lo + h_real - 1;
-    // the (2n+3)^2 window at the chroma phase of the full-pel luma MV:
-    // 4 * v in eighth-pel chroma units
-    mc_block(s, px - n / 2, py - n / 2, 4 * vx, 4 * vy, ws, 1, bit_depth,
-             sm + ws * ws, win);
-  } else {
-    const int x0 = px + vx - n / 2, y0 = py + vy - n / 2;
-    for (int i = threadIdx.x; i < ws * ws; i += blockDim.x) {
-      const int y = clip3(0, h_real - 1, y0 + i / ws);
-      const int x = clip3(0, s.w - 1, x0 + i % ws);
-      win[i] = s.p[(long long)y * s.stride + x];
-    }
-    __syncthreads();
-  }
-  int c4[8];
-  gt4(gtc + 6 * m, c4);
-  const WarpGeom g = warp_geom(n, c4, chroma);
-  const int maxv = (1 << bit_depth) - 1;
-  int knife = 0;
-  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
-    const int v = warp_sample(g, win, ws, i, maxv, knife);
-    if (resi != nullptr) {
-      const long long y = py + i / n, x = px + i % n;
-      plane[y * src.stride + x] =
-          clip3(0, maxv, v + resi[y * resi_stride + x]);
-    } else {
-      out[(long long)b * nn + i] = v;
-    }
-  }
+  // the anchor: the full-pel part of the quarter-pel MV
+  gt_pred_block(src, hc_off, h_real, pos[2 * b], pos[2 * b + 1],
+                mv[2 * m] >> 2, mv[2 * m + 1] >> 2, gtc + 6 * m, n, chroma,
+                bit_depth,
+                out == nullptr ? nullptr : out + (long long)b * n * n, resi,
+                resi_stride, plane, sm);
 }
 
 }  // namespace
@@ -121,9 +92,7 @@ HH_EXPORT int hh_gt_pred(void *plane, int pw, int stride, const void *pos,
                          const void *resi, int resi_stride, void *stream) {
   const Src src{static_cast<const int32_t *>(plane), stride, 0, h_real - 1,
                 pw};
-  const int ws = 2 * n;
-  const size_t smem =
-      sizeof(int32_t) * (ws * ws + (chroma ? mc_smem_words(ws, 1) : 0));
+  const size_t smem = sizeof(int32_t) * gt_pred_words(n, chroma);
   gt_pred_kernel<<<b, 256, smem, static_cast<cudaStream_t>(stream)>>>(
       src, hc_off, h_real, static_cast<const int32_t *>(pos),
       static_cast<const int32_t *>(mv), static_cast<const int32_t *>(gtc),

@@ -1,6 +1,7 @@
-// Device code of the GT corner warp, shared by kernel C11 (warp.cu) and
-// kernel C12 (gt_search.cu): hevc_hop_tpu/ops/warp.py warp_blocks and
-// _trunc_div_tz, bit-exact.
+// Device code of the GT corner warp, shared by kernel C11 (warp.cu),
+// kernel C12 (gt_search.cu) and kernel C14 (ss_scan.cu):
+// hevc_hop_tpu/ops/warp.py warp_blocks and _trunc_div_tz, bit-exact; and
+// C11's plane-entry work on one block (gt_pred_block).
 //
 // The warp is affine: every map coordinate is an exact rational ax / d with
 // d = 2 (2n - 1), so one output sample is a handful of int32 products, a
@@ -9,7 +10,7 @@
 // n = 32 and 10 bit, far below 2^31.
 #pragma once
 
-#include "common.cuh"
+#include "interp.cuh"
 
 namespace {
 
@@ -75,6 +76,64 @@ __device__ __forceinline__ int warp_sample(const WarpGeom &g,
       (qn == 0 && (ay < 0 || yu <= -g.nssg || yu >= g.lim)) || t % dd2 == 0)
     knife = 1;
   return t / dd2;
+}
+
+// Shared-memory words of gt_pred_block for an n x n block
+__host__ __device__ inline int gt_pred_words(int n, int chroma) {
+  const int ws = 2 * n;
+  return ws * ws + (chroma ? mc_smem_words(ws, 1) : 0);
+}
+
+// Kernel C11's plane-entry work on one block at (px, py) of src with the
+// full-pel anchor (vx, vy) and the coded corners gtc [6]: the window
+// staged (luma: the clamped [2n, 2n] samples around the anchor, rows
+// [0, h_real); chroma: the (2n+3)^2 samples of the block's own picture of
+// the stacked plane interpolated at the anchor's chroma phase), warped, and
+// the prediction written to out [n*n], or, with resi, clip(prediction +
+// residual) written into plane (src's row stride). Window loads are
+// L2-coherent. sm holds gt_pred_words(n, chroma) words. Ends with a
+// barrier.
+__device__ void gt_pred_block(const Src &src, int hc_off, int h_real,
+                              int px, int py, int vx, int vy,
+                              const int32_t *gtc, int n, int chroma,
+                              int bit_depth, int32_t *out,
+                              const int32_t *resi, int resi_stride,
+                              int32_t *plane, int32_t *sm) {
+  const int ws = 2 * n, nn = n * n;
+  int32_t *win = sm;
+  Src s = src;
+  if (chroma) {
+    s.row_lo = py >= hc_off ? hc_off : 0;
+    s.row_hi = s.row_lo + h_real - 1;
+    // the (2n+3)^2 window at the chroma phase of the full-pel luma MV:
+    // 4 * v in eighth-pel chroma units
+    mc_block(s, px - n / 2, py - n / 2, 4 * vx, 4 * vy, ws, 1, bit_depth,
+             sm + ws * ws, win);
+  } else {
+    const int x0 = px + vx - n / 2, y0 = py + vy - n / 2;
+    for (int i = threadIdx.x; i < ws * ws; i += blockDim.x) {
+      const int y = clip3(0, h_real - 1, y0 + i / ws);
+      const int x = clip3(0, s.w - 1, x0 + i % ws);
+      win[i] = __ldcg(s.p + (long long)y * s.stride + x);
+    }
+    __syncthreads();
+  }
+  int c4[8];
+  gt4(gtc, c4);
+  const WarpGeom g = warp_geom(n, c4, chroma);
+  const int maxv = (1 << bit_depth) - 1;
+  int knife = 0;
+  for (int i = threadIdx.x; i < nn; i += blockDim.x) {
+    const int v = warp_sample(g, win, ws, i, maxv, knife);
+    if (resi != nullptr) {
+      const long long y = py + i / n, x = px + i % n;
+      plane[y * src.stride + x] =
+          clip3(0, maxv, v + resi[y * resi_stride + x]);
+    } else {
+      out[i] = v;
+    }
+  }
+  __syncthreads();
 }
 
 }  // namespace

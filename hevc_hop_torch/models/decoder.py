@@ -4,11 +4,12 @@ Counterpart of hevc_hop_tpu/models/decoder.py. Native C++ parses the slice
 into dense maps; the residuals are dequantized and inverse-transformed by
 kernel C3's decode entry (one launch per TU size and plane). I slices:
 prediction plus residual runs as one launch of kernel C13's decode entry
-(models/wavefront_scan.py). ISS and PSS slices:
-the MV-aware level loop of models/ss_scan.py, kernel C2 for the intra CUs,
-kernel C8 for the self-similarity ones (and on a PSS slice for the
-temporal ones, out of the previous picture) and kernel C11 for the GT
-(corner-warped) ones among them. A PSS slice with no picture before it
+(models/wavefront_scan.py). ISS slices: the MV-aware wavefront as one
+launch of kernel C14's decode entry (models/ss_scan.py). PSS slices: the
+MV-aware level loop of models/ss_scan.py, kernel C2 for the intra CUs,
+kernel C8 for the self-similarity and the temporal ones (those out of the
+previous picture) and kernel C11 for the GT (corner-warped) ones among
+them. A PSS slice with no picture before it
 (its reference lost) is decoded against a mid-grey picture, which is
 appended to the pictures and recorded in ``concealed``. Deblocking is
 kernel C4 (with the inter boundary strengths on ISS and PSS slices),
@@ -269,7 +270,7 @@ class Decoder:
         self._pics_dev.append((ry, rcb, rcr))
 
     def _recon_ss(self, maps, leaves, qp, resi_y, resi_c, hcp) -> None:
-        """ISS and PSS reconstruction: the level loop over intra, SS,
+        """ISS and PSS reconstruction: the wavefront over intra, SS,
         temporal and GT CUs, scheduled by the coded MVs' dependency
         rectangles (the reference's ``_recon_ss``: an SS CU's n window plus
         the interpolation margin, a GT CU's 2n window plus 2 samples of
@@ -302,14 +303,15 @@ class Decoder:
                 leaves, w, h, sps.ctb_log2, radius=0, mv_rect=rects)
             inter = lambda log2, pos: maps.pred4[pos[:, 1] // 4,
                                                  pos[:, 0] // 4] == 0
-            hit = (ss_scan.pack_ss(sizes, data, hcp, self.device, None,
-                                   inter), nsteps)
+            plans = ss_scan.pack_ss(sizes, data, hcp, self.device, None,
+                                    inter)
+            hit = (plans, nsteps, ss_scan.ss_work_list(plans, self.device))
             _SS_PLANS[key] = hit
             while len(_SS_PLANS) > 8:
                 _SS_PLANS.popitem(last=False)
         else:
             _SS_PLANS.move_to_end(key)
-        plans, nsteps = hit
+        plans, nsteps, work = hit
         t0 = self._stage("schedule_s", t0)
         t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
                                       device=self.device)
@@ -342,7 +344,7 @@ class Decoder:
         else:
             ry, rc = ss_scan.scan_decode_ss(
                 resi_y, resi_c, plans, nsteps, modes, cmodes, mvs, bd,
-                sps.strong_intra_smoothing, h, gt)
+                sps.strong_intra_smoothing, h, gt, work=work)
         t0 = self._stage("scan_s", t0)
         ry, rcb, rcr = ry[:h], rc[:h // 2], rc[hcp:hcp + h // 2]
         if not self.pps.deblocking_disabled:

@@ -11,8 +11,9 @@ timed in ``last_stats``:
   1. ``decide_s``: the quadtree pre-pass (models/ss_partition.py, kernels
      C5 and C9, on a PSS picture with the temporal arm) or the uniform CU
      grid; then the wavefront schedule (host, cached per partition);
-  2. ``scan_s``: the level loop over kernels C2, C9, C10, C12 (GT on), C3,
-     C8 and C11 (GT on) (models/ss_scan.py);
+  2. ``scan_s``: on an ISS picture one launch of kernel C14, the whole
+     wavefront; on a PSS picture the level loop over kernels C2, C9, C10,
+     C12 (GT on), C3, C8 and C11 (GT on) (models/ss_scan.py);
   3. ``loopfilter_s``: deblocking with the inter boundary strengths, C4;
   4. ``fetch_s``, ``maps_s``: level planes and per-block outputs to the
      host, the dense syntax maps;
@@ -127,9 +128,10 @@ class HoloEncoder:
         return b"".join(out)
 
     def _prep(self, leaves=None, key=None):
-        """Schedule, packed plans and causality planes of a partition,
-        cached (bounded, least recently used out). leaves None: the uniform
-        cu_log2 grid."""
+        """Schedule, packed plans, causality planes and kernel C14's work
+        list of a partition: (plans, nsteps, zmaxw, zmax2n, work), cached
+        (bounded, least recently used out). leaves None: the uniform cu_log2
+        grid."""
         if key in self._prep_cache:
             self._prep_cache.move_to_end(key)
             return self._prep_cache[key]
@@ -153,7 +155,8 @@ class HoloEncoder:
         zmax2n = ({lg: ss_scan.zmax_plane(w, h, cfg.ctb_log2, 2 << lg,
                                           self.device, ifm=2)
                    for lg in sizes} if cfg.gt else None)
-        prep = (plans, nsteps, zmaxw, zmax2n)
+        prep = (plans, nsteps, zmaxw, zmax2n,
+                ss_scan.ss_work_list(plans, self.device))
         self._prep_cache[key] = prep
         while len(self._prep_cache) > 4:
             self._prep_cache.popitem(last=False)
@@ -278,7 +281,7 @@ class HoloEncoder:
         stats["upload_s"] = time.perf_counter() - t0
 
         t1 = time.perf_counter()
-        (plans, nsteps, zmaxw, zmax2n), mode4 = self._frame_prep(
+        (plans, nsteps, zmaxw, zmax2n, work), mode4 = self._frame_prep(
             org_y[:h], None if ref is None else ref[0])
         modes = None if mode4 is None else self._xs_with_modes(plans, mode4)
         self._sync()
@@ -293,7 +296,7 @@ class HoloEncoder:
                 org_y, org_c, *ref, *args, cfg.search_range_t, *tail)
         else:
             ry, rc, coef_y, coef_c, outs = ss_scan.scan_encode_iss(
-                org_y, org_c, *args, *tail)
+                org_y, org_c, *args, *tail, work=work)
         self._sync()
         stats["scan_s"] = time.perf_counter() - t1
 

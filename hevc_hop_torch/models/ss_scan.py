@@ -7,8 +7,13 @@ and without the GT warp. The schedule is the reference's
 numpy, copied): topological levels of CUs such that every z-earlier block
 within the search reach sits at an earlier level (encoder), or such that
 every block that the coded MV reads sits at an earlier level (decoder).
-The reference runs the levels as one ``lax.scan``; here a Python loop
-launches, per level and CU size:
+The reference runs the levels as one ``lax.scan``. On the card an ISS
+picture's levels run as one cooperative launch of kernel C14
+(``csrc/ss_scan.cu``) each way, :func:`scan_encode_iss` and
+:func:`scan_decode_ss`, over the schedule's :class:`SSWorkList` (one group
+per level and CU size, with a grid-wide barrier between phases). Their
+plain version, and the PSS scans, are the level loop, which launches, per
+level and CU size:
 
 - encode: C2 (intra prediction: the pre-pass's mode, or 35-mode RMD), C9
   (full search, with the GT anchor ring when the GT is on, and on a PSS
@@ -31,22 +36,34 @@ cb rows [0, h/2), cr rows [hc_off, hc_off + h/2).
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
+import types
 
 import numpy as np
 import torch
 from numpy.lib.stride_tricks import sliding_window_view
 
+from hevc_hop_torch import _cuda
 from hevc_hop_torch.models import wavefront
+from hevc_hop_torch.models import wavefront_scan as _ws
 from hevc_hop_torch.models.partition import full_lambda
-from hevc_hop_torch.ops.gt import gt_step
-from hevc_hop_torch.ops.inter_arms import inter_arms, motion_write
-from hevc_hop_torch.ops.interp import mc_blocks
-from hevc_hop_torch.ops.intra import intra_blocks
-from hevc_hop_torch.ops.ss_search import IFM, pss_search, ss_search
-from hevc_hop_torch.ops.tq import tq_encode
+from hevc_hop_torch.ops.gt import gt_pred_blocks_plain, gt_step, gt_step_plain
+from hevc_hop_torch.ops.inter_arms import (inter_arms, inter_arms_plain,
+                                           motion_write, motion_write_plain)
+from hevc_hop_torch.ops.interp import mc_blocks, mc_blocks_plain
+from hevc_hop_torch.ops.intra import intra_blocks, intra_blocks_plain
+from hevc_hop_torch.ops.ss_search import (IFM, INTRA_BITS, f32, pss_search,
+                                          ss_search, ss_search_motion_plain)
+from hevc_hop_torch.ops.tq import tq_encode, tq_encode_plain
 from hevc_hop_torch.ops.warp import gt_pred_blocks
+
+# launches of kernel C14's two entries
+SCAN_ISS_ENCODE_LAUNCHES = 0
+SCAN_ISS_DECODE_LAUNCHES = 0
+# (grid, CTAs per SM, dynamic shared bytes, threads) of the last C14 launch
+LAST_LAUNCH = None
 
 
 def zmax_win_px(zaddr4: np.ndarray, n: int, ifm: int = IFM) -> np.ndarray:
@@ -163,7 +180,7 @@ class SSPlan:
     pos: torch.Tensor      # [T, 2] int32
     avail: torch.Tensor    # [T, 4n+1] bool
     cpos: torch.Tensor     # [2T, 2] int32
-    cavail: torch.Tensor   # [T, n+1] bool
+    cavail: torch.Tensor   # [T, 2n+1] bool
     zcur: torch.Tensor     # [T] int32
     nbav: torch.Tensor     # [T, 5] bool
     miav: torch.Tensor     # [T, 3] bool
@@ -213,25 +230,109 @@ def pack_ss(sizes, data, hc_off: int, device, miav: dict | None,
     return plans
 
 
+@dataclasses.dataclass
+class SSWorkList:
+    """Kernel C14's items: one group per (level, CU size) with CUs, in the
+    reference's order (level by level, within a level by size, smallest
+    first), each group's CUs in their packed order. Item i is items[i] =
+    (log2, row in that size's :class:`SSPlan`, cb row, cr row of its
+    cpos); group g is groups[g] = (first item, items, items of the first
+    part: the decoder's intra CUs, all of them in the encoder's plans).
+    Only groups that hold CUs count, so the padded steps of
+    :func:`build_schedule_ss` cost no barrier."""
+    items: torch.Tensor       # [N, 4] int32
+    groups: torch.Tensor      # [G, 3] int32
+    host_items: np.ndarray
+    host_groups: np.ndarray
+    widest: int               # the most items of any group
+
+
+def ss_work_list(plans: dict, device) -> SSWorkList:
+    """The :class:`SSWorkList` of an ISS schedule's packed plans (as
+    :func:`pack_ss` gives them), on ``device``."""
+    rows = []
+    for log2, p in plans.items():
+        t = len(p.vpos)
+        lvl = np.repeat(np.arange(len(p.cnt)), p.cnt)
+        r = np.arange(t) - p.off[lvl]
+        ca, c = p.cnt_a[lvl], p.cnt[lvl]
+        first = r < ca
+        cb = np.where(first, 2 * p.off[lvl] + r, 2 * p.off[lvl] + ca + r)
+        cr = cb + np.where(first, ca, c - ca)
+        rows.append(np.stack([lvl, np.full(t, log2), np.arange(t), cb, cr,
+                              first], -1))
+    a = np.concatenate(rows) if rows else np.zeros((0, 6), np.int64)
+    a = a[np.lexsort((a[:, 2], a[:, 1], a[:, 0]))]
+    _, start, counts = np.unique(a[:, 0] * 8 + a[:, 1], return_index=True,
+                                 return_counts=True)
+    order = np.argsort(start)
+    start, counts = start[order], counts[order]
+    firsts = np.add.reduceat(a[:, 5], start) if len(a) else start
+    groups = np.ascontiguousarray(np.stack([start, counts, firsts], -1),
+                                  dtype=np.int32).reshape(-1, 3)
+    items = np.ascontiguousarray(a[:, 1:5], dtype=np.int32)
+    return SSWorkList(items=torch.as_tensor(items, device=device),
+                      groups=torch.as_tensor(groups, device=device),
+                      host_items=items, host_groups=groups,
+                      widest=int(counts.max(initial=0)))
+
+
+def _bodies(plain: bool):
+    """The step bodies of the level loops: the kernels' wrappers, looked
+    up when the loop starts (so that a caller may wrap them), or with
+    ``plain`` (the ISS loops only) their plain versions on any device."""
+    if not plain:
+        return types.SimpleNamespace(
+            intra=intra_blocks, search=ss_search, psearch=pss_search,
+            arms=inter_arms, gt=gt_step, tq=tq_encode, motion=motion_write,
+            mc=mc_blocks, gtp=gt_pred_blocks)
+    return types.SimpleNamespace(
+        intra=intra_blocks_plain, search=ss_search_motion_plain,
+        arms=inter_arms_plain, gt=gt_step_plain, tq=tq_encode_plain,
+        motion=motion_write_plain, mc=mc_blocks_plain,
+        gtp=gt_pred_blocks_plain)
+
+
 def scan_encode_iss(org_y, org_c, plans: dict, nsteps: int, zmaxw: dict,
                     qp: int, qp_c: int, bit_depth: int, strong: bool,
                     w: int, h: int, radius: int, mi_size: int = 0,
                     use_rdoq: bool = False, sbh: bool = False, modes=None,
-                    zmax2n: dict | None = None):
+                    zmax2n: dict | None = None, *, work: SSWorkList):
+    """ISS encode of every CU: on CUDA tensors one launch of kernel C14
+    over ``work`` (the schedule's :class:`SSWorkList`; ``nsteps`` is the
+    loop's alone); on CPU tensors the level loop
+    :func:`scan_encode_iss_loop`, C14's plain version. Arguments and
+    results are the loop's."""
+    if org_y.is_cuda:
+        return _scan_encode_c14(org_y, org_c, plans, work, zmaxw, qp, qp_c,
+                                bit_depth, strong, w, h, radius, mi_size,
+                                use_rdoq, sbh, modes, zmax2n)
+    return scan_encode_iss_loop(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c,
+                                bit_depth, strong, w, h, radius, mi_size,
+                                use_rdoq, sbh, modes, zmax2n)
+
+
+def scan_encode_iss_loop(org_y, org_c, plans: dict, nsteps: int,
+                         zmaxw: dict, qp: int, qp_c: int, bit_depth: int,
+                         strong: bool, w: int, h: int, radius: int,
+                         mi_size: int = 0, use_rdoq: bool = False,
+                         sbh: bool = False, modes=None,
+                         zmax2n: dict | None = None, plain: bool = False):
     """ISS encode of every CU, level by level.
 
     org_y [h+pad, w] and org_c (stacked cb/cr) int32 on the target device;
     zmaxw[log2] the causality plane of each size; ``modes`` None for
     in-loop RMD, else modes[log2] [T] the pre-pass's intra modes in the
     packed order; zmax2n None for the GT off, else zmax2n[log2] the GT
-    window's causality plane of each size. Returns (ry, rc, coef_y, coef_c,
+    window's causality plane of each size. ``plain`` runs the kernels'
+    plain versions whatever the device. Returns (ry, rc, coef_y, coef_c,
     outs) with outs[log2] = (inter [T], mv [T, 2] quarter-pel, imode [T],
     cbf_y [T], cbf_cb [T], cbf_cr [T], gtflag [T], gtc [T, 6]) in the
     packed order of ``plans`` (gtflag 0 and gtc 0 with the GT off).
     """
     return _scan_encode(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c,
                         bit_depth, strong, w, h, radius, mi_size, use_rdoq,
-                        sbh, modes, zmax2n)
+                        sbh, modes, zmax2n, plain=plain)
 
 
 def scan_encode_pss(org_y, org_c, ref_y, ref_c, plans: dict, nsteps: int,
@@ -241,11 +342,11 @@ def scan_encode_pss(org_y, org_c, ref_y, ref_c, plans: dict, nsteps: int,
                     sbh: bool = False, modes=None,
                     zmax2n: dict | None = None):
     """PSS encode of every CU, level by level: L0 = [the previous picture,
-    the SS reference (the recon carry), last]. As :func:`scan_encode_iss`,
-    with ref_y [h, w] and ref_c (stacked cb/cr, org_c's layout) int32 the
-    previous picture's filtered recon, searched with radius ``radius_t``.
-    outs[log2] = (inter, refsel [T] (0 temporal, 1 SS), mv, imode, cbf_y,
-    cbf_cb, cbf_cr, gtflag, gtc)."""
+    the SS reference (the recon carry), last]. As
+    :func:`scan_encode_iss_loop`, with ref_y [h, w] and ref_c (stacked
+    cb/cr, org_c's layout) int32 the previous picture's filtered recon,
+    searched with radius ``radius_t``. outs[log2] = (inter, refsel [T] (0
+    temporal, 1 SS), mv, imode, cbf_y, cbf_cb, cbf_cr, gtflag, gtc)."""
     return _scan_encode(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c,
                         bit_depth, strong, w, h, radius, mi_size, use_rdoq,
                         sbh, modes, zmax2n, (ref_y, ref_c), radius_t)
@@ -253,7 +354,8 @@ def scan_encode_pss(org_y, org_c, ref_y, ref_c, plans: dict, nsteps: int,
 
 def _scan_encode(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c, bit_depth,
                  strong, w, h, radius, mi_size, use_rdoq, sbh, modes, zmax2n,
-                 ref=None, radius_t=0):
+                 ref=None, radius_t=0, plain=False):
+    f = _bodies(plain)
     dev = org_y.device
     lam = full_lambda(qp)
     init_type = 3 if ref is None else 4               # ISS, PSS
@@ -284,12 +386,12 @@ def _scan_encode(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c, bit_depth,
             sl = slice(o, o + c)
             pos, zcur = p.pos[sl], p.zcur[sl]
             if modes is None:
-                ipred, imode = intra_blocks(ry, pos, p.avail[sl], rmd[:c], n,
-                                            0, bit_depth, strong, org=org_y)
+                ipred, imode = f.intra(ry, pos, p.avail[sl], rmd[:c], n, 0,
+                                       bit_depth, strong, org=org_y)
             else:
                 imode = modes[log2][sl]
-                ipred, _ = intra_blocks(ry, pos, p.avail[sl], imode, n, 0,
-                                        bit_depth, strong)
+                ipred, _ = f.intra(ry, pos, p.avail[sl], imode, n, 0,
+                                   bit_depth, strong)
             z2 = None if zmax2n is None else zmax2n[log2]
             sargs = (ry, org_y, pos, zcur, zmaxw[log2], motion, p.nbav[sl],
                      p.miav[sl], n, radius, w, h, lam, mi_size, z2)
@@ -297,14 +399,14 @@ def _scan_encode(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c, bit_depth,
                      p.miav[sl])
             tail = (n, w, h, bit_depth, lam, mi_size)
             if ref is None:
-                mv_i, _, pred0, sse0, *ring = ss_search(*sargs)
-                inter, mv, smode, costs = inter_arms(
+                mv_i, _, pred0, sse0, *ring = f.search(*sargs)
+                inter, mv, smode, costs = f.arms(
                     *aargs, mv_i, pred0, sse0, ipred, imode, *tail)
                 refsel = None
             else:
                 (mv_i, _, pred0, sse0, *ring), (mv_t, _, tpred0, tsse0) = \
-                    pss_search(*sargs, ref[0], radius_t)
-                inter, mv, smode, costs, refsel = inter_arms(
+                    f.psearch(*sargs, ref[0], radius_t)
+                inter, mv, smode, costs, refsel = f.arms(
                     *aargs, mv_i, pred0, sse0, ipred, imode, *tail,
                     pss=(ref[0], mv_t, tpred0, tsse0))
             if z2 is None:
@@ -312,32 +414,32 @@ def _scan_encode(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c, bit_depth,
                 gtc = torch.zeros((c, 6), dtype=torch.int32, device=dev)
             else:
                 # GT overrides C10's choice where it wins, in place
-                gtflag, gtc = gt_step(
+                gtflag, gtc = f.gt(
                     ry, org_y, rc, pos, zcur, z2, motion, p.nbav[sl],
                     p.miav[sl], ring, costs, ipred, inter, mv, smode, n, w,
                     h, hc_off, bit_depth, lam, mi_size, refsel)
-            cbf = tq_encode(org_y, ipred, pos, smode, n, 0, qp, bit_depth,
-                            sbh, rcfg_y, ry, coef_y)
-            motion_write(*motion[:3], pos, inter, mv, n, motion[3], refsel)
+            cbf = f.tq(org_y, ipred, pos, smode, n, 0, qp, bit_depth, sbh,
+                       rcfg_y, ry, coef_y)
+            f.motion(*motion[:3], pos, inter, mv, n, motion[3], refsel)
             cpos = p.cpos[2 * o:2 * o + 2 * c]
-            cpred, _ = intra_blocks(rc, cpos, p.cavail[sl], imode, m, 1,
-                                    bit_depth, strong)
+            cpred, _ = f.intra(rc, cpos, p.cavail[sl], imode, m, 1,
+                               bit_depth, strong)
             if ref is None:
-                mc_blocks(rc, cpos, mv, m, True, hc, bit_depth, hc_off,
-                          out=cpred, only=inter)
+                f.mc(rc, cpos, mv, m, True, hc, bit_depth, hc_off, out=cpred,
+                     only=inter)
             else:
                 # SS blocks (GT ones too) read the recon, temporal ones the
                 # previous picture
                 use_ss = inter * refsel
-                mc_blocks(rc, cpos, mv, m, True, hc, bit_depth, hc_off,
-                          out=cpred, only=use_ss)
-                mc_blocks(ref[1], cpos, mv, m, True, hc, bit_depth, hc_off,
-                          out=cpred, only=inter - use_ss)
+                f.mc(rc, cpos, mv, m, True, hc, bit_depth, hc_off, out=cpred,
+                     only=use_ss)
+                f.mc(ref[1], cpos, mv, m, True, hc, bit_depth, hc_off,
+                     out=cpred, only=inter - use_ss)
             if z2 is not None:
-                gt_pred_blocks(rc, cpos, mv, gtc, m, True, hc, bit_depth,
-                               hc_off, out=cpred, only=gtflag)
-            cbf_c = tq_encode(org_c, cpred, cpos, smode, m, 1, qp_c,
-                              bit_depth, sbh, rcfg_c, rc, coef_c)
+                f.gtp(rc, cpos, mv, gtc, m, True, hc, bit_depth, hc_off,
+                      out=cpred, only=gtflag)
+            cbf_c = f.tq(org_c, cpred, cpos, smode, m, 1, qp_c, bit_depth,
+                         sbh, rcfg_c, rc, coef_c)
             for k, v in zip(names, (inter, refsel, mv, imode, cbf, cbf_c,
                                     gtflag, gtc)):
                 if v is not None:
@@ -367,7 +469,22 @@ def _chroma_rows(p: SSPlan):
 
 def scan_decode_ss(resi_y, resi_c, plans: dict, nsteps: int, modes: dict,
                    cmodes: dict, mvs: dict, bit_depth: int, strong: bool,
-                   h: int, gt: dict | None = None):
+                   h: int, gt: dict | None = None, *, work: SSWorkList):
+    """ISS decode of every CU: on CUDA tensors one launch of kernel C14's
+    decode entry over ``work`` (``nsteps`` is the loop's alone); on CPU
+    tensors the level loop :func:`scan_decode_ss_loop`, its plain version.
+    Arguments and results are the loop's."""
+    if resi_y.is_cuda:
+        return _scan_decode_c14(resi_y, resi_c, plans, work, modes, cmodes,
+                                mvs, bit_depth, strong, h, gt)
+    return scan_decode_ss_loop(resi_y, resi_c, plans, nsteps, modes, cmodes,
+                               mvs, bit_depth, strong, h, gt)
+
+
+def scan_decode_ss_loop(resi_y, resi_c, plans: dict, nsteps: int,
+                        modes: dict, cmodes: dict, mvs: dict, bit_depth: int,
+                        strong: bool, h: int, gt: dict | None = None,
+                        plain: bool = False):
     """ISS decode of every CU, level by level: each level's intra blocks
     (the first group of the plans) through C2's add-residual epilogue, its
     inter blocks through C8's and, among them, the GT blocks through
@@ -375,28 +492,30 @@ def scan_decode_ss(resi_y, resi_c, plans: dict, nsteps: int, modes: dict,
     int32 and mvs[log2] [T, 2] quarter-pel, in the packed order of
     ``plans``; gt None (no GT block) or gt[log2] = (gtf [T] int32, gtv
     [T, 6] int32, the GT flag and coded corners in the same order, and
-    levels [nsteps] bool, the levels that hold a GT block). Returns (ry,
-    rc)."""
+    levels [nsteps] bool, the levels that hold a GT block). ``plain`` runs
+    the kernels' plain versions whatever the device. Returns (ry, rc)."""
     return _scan_decode(resi_y, resi_c, plans, nsteps, modes, cmodes, mvs,
-                        bit_depth, strong, h, gt)
+                        bit_depth, strong, h, gt, plain=plain)
 
 
 def scan_decode_pss(resi_y, resi_c, ref_y, ref_c, plans: dict, nsteps: int,
                     modes: dict, cmodes: dict, mvs: dict, tf: dict,
                     bit_depth: int, strong: bool, h: int,
                     gt: dict | None = None):
-    """PSS decode of every CU, level by level, as :func:`scan_decode_ss`;
-    the temporal blocks (tf[log2] = (tflag [T] int32, 1 where the inter
-    block reads the previous picture, and its complement ssf [T] int32, 1
-    where it reads the recon, and their levels [nsteps] bool each)) read
-    ref_y [h, w] and ref_c (the stacked layout of resi_c), the previous
-    picture, through C8 and write the recon. Returns (ry, rc)."""
+    """PSS decode of every CU, level by level, as
+    :func:`scan_decode_ss_loop`; the temporal blocks (tf[log2] = (tflag
+    [T] int32, 1 where the inter block reads the previous picture, and its
+    complement ssf [T] int32, 1 where it reads the recon, and their levels
+    [nsteps] bool each)) read ref_y [h, w] and ref_c (the stacked layout of
+    resi_c), the previous picture, through C8 and write the recon. Returns
+    (ry, rc)."""
     return _scan_decode(resi_y, resi_c, plans, nsteps, modes, cmodes, mvs,
                         bit_depth, strong, h, gt, (ref_y, ref_c), tf)
 
 
 def _scan_decode(resi_y, resi_c, plans, nsteps, modes, cmodes, mvs,
-                 bit_depth, strong, h, gt, ref=None, tf=None):
+                 bit_depth, strong, h, gt, ref=None, tf=None, plain=False):
+    f = _bodies(plain)
     ry = torch.zeros_like(resi_y)
     rc = torch.zeros_like(resi_c)
     hc_off = resi_c.shape[0] // 2
@@ -409,11 +528,11 @@ def _scan_decode(resi_y, resi_c, plans, nsteps, modes, cmodes, mvs,
             co = 2 * o
             if ca:
                 a = slice(o, o + ca)
-                intra_blocks(ry, p.pos[a], p.avail[a], modes[log2][a], n, 0,
-                             bit_depth, strong, resi=resi_y)
-                intra_blocks(rc, p.cpos[co:co + 2 * ca], p.cavail[a],
-                             cmodes[log2][a], n // 2, 1, bit_depth, strong,
-                             resi=resi_c)
+                f.intra(ry, p.pos[a], p.avail[a], modes[log2][a], n, 0,
+                        bit_depth, strong, resi=resi_y)
+                f.intra(rc, p.cpos[co:co + 2 * ca], p.cavail[a],
+                        cmodes[log2][a], n // 2, 1, bit_depth, strong,
+                        resi=resi_c)
             if ca < c:
                 b = slice(o + ca, o + c)
                 cb = p.cpos[co + 2 * ca:co + 2 * c]
@@ -424,16 +543,227 @@ def _scan_decode(resi_y, resi_c, plans, nsteps, modes, cmodes, mvs,
                     srcs = ([(ry, rc, ssf[b])] if ss_lv[s] else []) + (
                         [(ref[0], ref[1], tflag[b])] if t_lv[s] else [])
                 for sy, sc, only in srcs:
-                    mc_blocks(sy, p.pos[b], mvs[log2][b], n, False, h,
-                              bit_depth, resi=resi_y, only=only, dst=ry)
-                    mc_blocks(sc, cb, mvs[log2][b], n // 2, True, h // 2,
-                              bit_depth, hc_off, resi=resi_c, only=only,
-                              dst=rc)
+                    f.mc(sy, p.pos[b], mvs[log2][b], n, False, h, bit_depth,
+                         resi=resi_y, only=only, dst=ry)
+                    f.mc(sc, cb, mvs[log2][b], n // 2, True, h // 2,
+                         bit_depth, hc_off, resi=resi_c, only=only, dst=rc)
                 if gt is not None and gt[log2][2][s]:
                     gtf, gtv = gt[log2][0][b], gt[log2][1][b]
-                    gt_pred_blocks(ry, p.pos[b], mvs[log2][b], gtv, n, False,
-                                   h, bit_depth, resi=resi_y, only=gtf)
-                    gt_pred_blocks(rc, cb, mvs[log2][b], gtv, n // 2, True,
-                                   h // 2, bit_depth, hc_off, resi=resi_c,
-                                   only=gtf)
+                    f.gtp(ry, p.pos[b], mvs[log2][b], gtv, n, False, h,
+                          bit_depth, resi=resi_y, only=gtf)
+                    f.gtp(rc, cb, mvs[log2][b], gtv, n // 2, True, h // 2,
+                          bit_depth, hc_off, resi=resi_c, only=gtf)
+    return ry, rc
+
+
+# ---------------------------------------------------------------------------
+# Kernel C14's launches. The structures mirror csrc/ss_scan.cu's SsSizeIn
+# and SsScanIn field for field (with csrc/scan.cu's ClassArgs, as
+# models/wavefront_scan.py builds it for kernel C13).
+# ---------------------------------------------------------------------------
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+class _SsSizeIn(ctypes.Structure):
+    _fields_ = ([(k, _P) for k in (
+        "pos", "cpos", "zcur", "zmaxw", "zmax2n", "avail", "cavail", "nbav",
+        "miav", "modes", "cmodes", "mvs", "gtf", "gtv", "ipred", "pred0",
+        "mv_i", "cost", "sse", "anchor", "gt_rate", "gt_ok", "smode",
+        "costs", "s_gtc", "s_pred", "s_cost", "s_amv", "s_ok", "cpred",
+        "inter", "mv", "imode", "cbf_y", "cbf_cb", "cbf_cr", "gtflag",
+        "gtc")]
+        + [("ly", _ws._ClassArgs), ("lc", _ws._ClassArgs)])
+
+
+class _SsScanIn(ctypes.Structure):
+    _fields_ = ([("items", _P), ("groups", _P), ("ngroups", _I),
+                 ("ry", _P), ("rc", _P)]
+                + [(k, _I) for k in ("y_rows", "c_rows", "w", "wc",
+                                     "stride_y", "stride_c")]
+                + [(k, _P) for k in ("src_y", "src_c", "coef_y", "coef_c",
+                                     "mvx4", "mvy4", "pi4", "rf4")]
+                + [(k, _I) for k in ("hp", "wp", "h", "bit_depth", "strong",
+                                     "radius", "mi_size")]
+                + [("lam", _F), ("lam_i", _F), ("mrate", _F * 9),
+                   ("size", _SsSizeIn * 3)])
+
+
+_SIZES = {}
+
+
+def _arg_bytes() -> int:
+    """Bytes of C14's argument block on the card, after checking that
+    _SsScanIn mirrors csrc/ss_scan.cu's SsScanIn."""
+    if "k" not in _SIZES:
+        out = (ctypes.c_int * 2)()
+        _cuda.bind("ss_scan", "hh_ss_scan_sizes", "p")(out)
+        if out[0] != ctypes.sizeof(_SsScanIn):
+            raise RuntimeError(
+                f"ss_scan: SsScanIn is {out[0]} bytes in csrc/ss_scan.cu, "
+                f"{ctypes.sizeof(_SsScanIn)} in its ctypes mirror")
+        _SIZES["k"] = out[1]
+    return _SIZES["k"]
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check(t, dtype, name):
+    if not (t.is_cuda and t.dtype == dtype and t.is_contiguous()):
+        raise ValueError(f"ss_scan: {name} must be a contiguous CUDA {dtype} "
+                         "tensor")
+
+
+def _plan_check(p: SSPlan):
+    for t, dt, name in ((p.pos, torch.int32, "pos"),
+                        (p.cpos, torch.int32, "cpos"),
+                        (p.zcur, torch.int32, "zcur"),
+                        (p.avail, torch.bool, "avail"),
+                        (p.cavail, torch.bool, "cavail"),
+                        (p.nbav, torch.bool, "nbav"),
+                        (p.miav, torch.bool, "miav")):
+        _check(t, dt, name)
+    if p.n not in (8, 16, 32):
+        raise ValueError(f"ss_scan: kernel C14 takes 8x8 to 32x32 CUs, not "
+                         f"{p.n}x{p.n}")
+
+
+def _scan_args(work, ry, rc, src_y, src_c, h, bit_depth, strong):
+    """SsScanIn of ``work`` over the recon planes and their originals or
+    residuals."""
+    a = _SsScanIn()
+    a.items, a.groups = work.items.data_ptr(), work.groups.data_ptr()
+    a.ngroups = len(work.host_groups)
+    a.ry, a.rc = ry.data_ptr(), rc.data_ptr()
+    a.y_rows, a.w, a.stride_y = ry.shape[0], ry.shape[1], ry.stride(0)
+    a.c_rows, a.wc, a.stride_c = rc.shape[0], rc.shape[1], rc.stride(0)
+    a.src_y, a.src_c = src_y.data_ptr(), src_c.data_ptr()
+    a.h, a.bit_depth, a.strong = h, bit_depth, int(strong)
+    return a
+
+
+def _launch(entry, sig, a, *extra, like):
+    """One launch of C14's ``entry`` (ctypes signature ``sig``), its
+    argument block in a fresh device buffer; records its shape in
+    LAST_LAUNCH."""
+    global LAST_LAUNCH
+    args_dev = torch.empty(_arg_bytes(), dtype=torch.uint8,
+                           device=like.device)
+    info = (ctypes.c_int * 4)()
+    fn = _cuda.bind("ss_scan", entry, sig)
+    err = fn(ctypes.addressof(a), args_dev.data_ptr(), *extra,
+             _cuda.stream(like), info)
+    _cuda.check("ss_scan", err)
+    LAST_LAUNCH = tuple(info)
+
+
+def _scan_encode_c14(org_y, org_c, plans, work, zmaxw, qp, qp_c, bit_depth,
+                     strong, w, h, radius, mi_size, use_rdoq, sbh, modes,
+                     zmax2n):
+    global SCAN_ISS_ENCODE_LAUNCHES
+    _check(org_y, torch.int32, "org_y")
+    _check(org_c, torch.int32, "org_c")
+    dev = org_y.device
+    ry = torch.zeros_like(org_y)
+    rc = torch.zeros_like(org_c)
+    coef_y = torch.zeros(org_y.shape, dtype=torch.int16, device=dev)
+    coef_c = torch.zeros(org_c.shape, dtype=torch.int16, device=dev)
+    motion = [torch.zeros((org_y.shape[0] // 4, w // 4), dtype=torch.int32,
+                          device=dev) for _ in range(4)]
+    lam = full_lambda(qp)
+    rcfg_y = (3, lam) if use_rdoq else None            # ISS
+    rcfg_c = (3, lam * 2.0 ** ((qp_c - qp) / 3.0)) if use_rdoq else None
+    a = _scan_args(work, ry, rc, org_y, org_c, h, bit_depth, strong)
+    a.coef_y, a.coef_c = coef_y.data_ptr(), coef_c.data_ptr()
+    a.mvx4, a.mvy4, a.pi4, a.rf4 = (t.data_ptr() for t in motion)
+    a.hp, a.wp = motion[0].shape
+    a.radius, a.mi_size = radius, mi_size
+    lam32 = f32(lam)
+    a.lam, a.lam_i = lam32, f32(lam * INTRA_BITS)
+    for i in range(9):
+        a.mrate[i] = f32(lam32 * (4.0 + min(i + 1, 4)))
+    i32 = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)
+    f32t = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    # every size's scratch must live until the launch has been queued
+    outs, scratches = {}, []
+    for log2, p in plans.items():
+        _plan_check(p)
+        t, n = len(p.vpos), p.n
+        m = n // 2
+        z2 = None if zmax2n is None else zmax2n[log2]
+        for pl, nm in ((zmaxw[log2], "zmaxw"), (z2, "zmax2n")):
+            if pl is not None:
+                _check(pl, torch.int32, nm)
+        my = None
+        if modes is not None:
+            my = modes[log2]
+            _check(my, torch.int32, "modes")
+            if my.shape[0] != t:
+                raise ValueError("scan_encode_iss: modes[log2] must be [T]")
+        out = (i32(t), i32(t, 2), i32(t), i32(t), i32(t), i32(t), i32(t),
+               i32(t, 6))
+        scratch = dict(
+            ipred=i32(t, n, n), pred0=i32(t, n, n), mv_i=i32(t, 2),
+            cost=f32t(t), sse=f32t(t), smode=i32(t), costs=f32t(t, 3),
+            cpred=i32(2 * t, m, m))
+        if z2 is not None:
+            scratch.update(
+                anchor=i32(t, 2), gt_rate=f32t(t),
+                gt_ok=torch.empty(t, dtype=torch.bool, device=dev),
+                s_gtc=i32(t, 2, 6), s_pred=i32(t, 2, n, n),
+                s_cost=f32t(t, 2), s_amv=i32(t, 2, 2), s_ok=i32(t, 2))
+        scratches.append(scratch)
+        outs[log2] = out
+        z = a.size[log2 - 3]
+        for k in ("pos", "cpos", "zcur", "avail", "cavail", "nbav", "miav"):
+            setattr(z, k, getattr(p, k).data_ptr())
+        z.zmaxw, z.zmax2n, z.modes = zmaxw[log2].data_ptr(), _ptr(z2), \
+            _ptr(my)
+        for k, v in scratch.items():
+            setattr(z, k, v.data_ptr())
+        for k, v in zip(("inter", "mv", "imode", "cbf_y", "cbf_cb", "cbf_cr",
+                         "gtflag", "gtc"), out):
+            setattr(z, k, v.data_ptr())
+        z.ly = _ws._class_args(dev, 0, log2, qp, bit_depth, sbh, rcfg_y)
+        z.lc = _ws._class_args(dev, 1, log2 - 1, qp_c, bit_depth, sbh,
+                               rcfg_c)
+    if work.widest:
+        _launch("hh_ss_scan_encode", "ppiipp", a, int(use_rdoq),
+                work.widest, like=org_y)
+        SCAN_ISS_ENCODE_LAUNCHES += 1
+    return ry, rc, coef_y, coef_c, outs
+
+
+def _scan_decode_c14(resi_y, resi_c, plans, work, modes, cmodes, mvs,
+                     bit_depth, strong, h, gt):
+    global SCAN_ISS_DECODE_LAUNCHES
+    _check(resi_y, torch.int32, "resi_y")
+    _check(resi_c, torch.int32, "resi_c")
+    dev = resi_y.device
+    ry = torch.zeros_like(resi_y)
+    rc = torch.zeros_like(resi_c)
+    a = _scan_args(work, ry, rc, resi_y, resi_c, h, bit_depth, strong)
+    for log2, p in plans.items():
+        _plan_check(p)
+        t = len(p.vpos)
+        given = [(modes[log2], "modes", (t,)), (cmodes[log2], "cmodes", (t,)),
+                 (mvs[log2], "mvs", (t, 2))]
+        if gt is not None:
+            given += [(gt[log2][0], "gtf", (t,)), (gt[log2][1], "gtv", (t, 6))]
+        z = a.size[log2 - 3]
+        for v, nm, shape in given:
+            _check(v, torch.int32, nm)
+            if tuple(v.shape) != shape:
+                raise ValueError(f"scan_decode_ss: {nm}[log2] must be "
+                                 f"{list(shape)}")
+            setattr(z, nm, v.data_ptr())
+        for k in ("pos", "cpos", "avail", "cavail"):
+            setattr(z, k, getattr(p, k).data_ptr())
+        z.ly = _ws._ClassArgs(_ws._intra_tables(dev, p.n))
+        z.lc = _ws._ClassArgs(_ws._intra_tables(dev, p.n // 2))
+    if work.widest:
+        _launch("hh_ss_scan_decode", "ppipp", a, work.widest, like=resi_y)
+        SCAN_ISS_DECODE_LAUNCHES += 1
     return ry, rc

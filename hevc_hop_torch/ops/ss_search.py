@@ -317,12 +317,22 @@ def ss_search(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav, n,
     [B, 2] full pel, gt_rate [B] float32, gt_ok [B] bool).
     """
     if not recon.is_cuda:
-        from hevc_hop_torch.ops.inter_arms import gather_cands
-        preds = gather_cands(*motion, pos, nbav, miav, n, mi_size)[3]
-        return ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n,
-                               radius, w, h, lam, zmax2n)
+        return ss_search_motion_plain(recon, org_plane, pos, zcur, zmaxw,
+                                      motion, nbav, miav, n, radius, w, h,
+                                      lam, mi_size, zmax2n)
     return _search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav,
                         miav, n, radius, w, h, lam, mi_size, zmax2n)[0]
+
+
+def ss_search_motion_plain(recon, org_plane, pos, zcur, zmaxw, motion, nbav,
+                           miav, n, radius, w, h, lam, mi_size, zmax2n=None):
+    """Plain version of :func:`ss_search` (same arguments and results) on
+    any device: the predictors gathered from the motion planes, then
+    :func:`ss_search_plain`."""
+    from hevc_hop_torch.ops.inter_arms import gather_cands
+    preds = gather_cands(*motion, pos, nbav, miav, n, mi_size)[3]
+    return ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n,
+                           radius, w, h, lam, zmax2n)
 
 
 def pss_search(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav, n,

@@ -79,15 +79,33 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    - pss-gt: the iss-gt configuration (search_range_t 16) on a low-delay
      holoscopic sequence of PSS_FRAMES pictures through
      HoloEncoder.encode_sequence, an ISS picture then PSS ones whose L0 is
-     [the previous picture, the SS reference] (C9's temporal search in
-     its scan launches, its pre-pass with the temporal arm, C10's and
-     C12's PSS forms, C8 out of the previous picture), on a copy of
+     [the previous picture, the SS reference] (C9's temporal search, its
+     pre-pass with the temporal arm, C10's and C12's PSS forms, C8 out of
+     the previous picture), on a copy of
      make_jax_fixture.py's pss_frames (the lenslet frame panned one
      sample per frame): every picture hash_ok and equal to the recon
      history, temporal prediction chosen (each PSS picture's share
      printed); then PSS_TIMED_TURNS more codings of the sequence, each PSS
-     picture timed; the ISS picture is one C14 launch each way, the PSS
-     pictures the level loop;
+     picture timed; the ISS picture is one C14 launch each way, each PSS
+     picture one launch of C14's PSS form each way (C9's, C10's, C12's
+     and C8's device code inside it), and the path fails on any per-level
+     C2, C3, C8, C9, C10, C11 or C12 launch;
+   - pss scan program: on both PSS pictures of the pss-gt sequence, C14's
+     PSS form held against the PSS level loop of the card's kernels
+     (recon, level planes, every per-CU output with the reference index)
+     and its decode entry, on the decoder's own inputs, against the
+     decode loop and the encode's recon; C14 and the loop in turns in
+     this process (the PSS picture's encode s and scan_s, the sequence's
+     decode s); in the traced part at the end its device ms per PSS
+     picture each way; and last of all both entries against the plain
+     loop on the last PSS picture at full size and on a SS_PLAIN_W x
+     SS_PLAIN_H corner of the sequence's first two pictures. Every CU of
+     pss-gt's PSS pictures is temporal, so C14's PSS form is also held on
+     a two-picture sequence whose PSS picture holds temporal, SS, GT and
+     intra CUs (mixed_frames: the warped lenslet content with chroma made
+     from its luma, panned MIXED_PAN samples, MIXED_CONFIG), each kind
+     required: at full size against the card's loop, and at MIXED_PLAIN's
+     sizes against the card's loop and the plain loop, each way;
    - mesh: hevc_hop_torch.parallel's MeshIntraEncoder (16x16 CUs, in-loop
      RMD, RDOQ, SBH, deblocking, SAO off) on a virtual (2 frames, 2 bands)
      mesh on the card over synth_class_b seeds 0 and 1, and
@@ -111,8 +129,9 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    plain bodies (the ISS pictures through the level loop, whose stream
    must equal C14's; the fullest level of each size and every eighth level),
    and on the GT paths every launch of C9 (with its ring), C12 and C11;
-   on the pss-gt path every launch of its PSS pictures' forms (C9's SS
-   and temporal searches and its pre-pass, C10, C12) and every C8 and C11
+   on the pss-gt path (the sequence through the level loop, whose stream
+   must equal C14's) every launch of its PSS pictures' forms (C9's SS and
+   temporal searches and its pre-pass, C10, C12) and every C8 and C11
    launch of the sequence, its ISS picture's other launches sampled as
    above;
 4. cpu: small frames on the card and on the CPU (the path the CPU tests
@@ -178,8 +197,12 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    encode entry on the iss picture and its decode entry on the
    iss-gt-warped one, whole pictures, beside the bound of the picture's
    work (ss_encode_work, ss_decode_work), the plain loop's time and the
-   card's loop's. On the ISS paths C8's to C12's device code runs inside
-   C14, so their rows there count C14's launches.
+   card's loop's; and C14's PSS form each way on the pss-gt path's last
+   PSS picture, beside the bound of its work (the temporal search
+   counted), the card's loop's time and the plain loop's.
+   On the ISS paths C8's to C12's device code runs inside C14, and on the
+   PSS pictures inside its PSS form, so their rows there count C14's
+   launches. The run's total seconds are printed.
 
 It prints the card's name and power limit, one JSON line for the kernels,
 one for the main paths, and as its last line
@@ -198,6 +221,8 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+# the run's start, for its total seconds
+T_START = time.perf_counter()
 sys.path.insert(0, ROOT)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, and int32 operations
@@ -606,7 +631,8 @@ def _counters():
     csrc/warp.cu (window, luma, chroma) and csrc/gt_search.cu (search,
     decide, and among the latter the PSS form) count apart; C2's analysis
     entry (parallel/mesh.py) counts apart from its other launches; C13's
-    two entries (csrc/scan.cu) and C14's (csrc/ss_scan.cu) count apart."""
+    two entries (csrc/scan.cu) and C14's (csrc/ss_scan.cu), its ISS and
+    PSS forms, count apart."""
     from hevc_hop_torch.models import (partition, ss_partition, ss_scan,
                                        wavefront_scan)
     from hevc_hop_torch.ops import (deblock, gt, hashes, inter_arms, interp,
@@ -644,7 +670,9 @@ def _counters():
             ("C13 encode", wavefront_scan, "SCAN_ENCODE_LAUNCHES"),
             ("C13 decode", wavefront_scan, "SCAN_DECODE_LAUNCHES"),
             ("C14 encode", ss_scan, "SCAN_ISS_ENCODE_LAUNCHES"),
-            ("C14 decode", ss_scan, "SCAN_ISS_DECODE_LAUNCHES")]
+            ("C14 decode", ss_scan, "SCAN_ISS_DECODE_LAUNCHES"),
+            ("C14 PSS encode", ss_scan, "SCAN_PSS_ENCODE_LAUNCHES"),
+            ("C14 PSS decode", ss_scan, "SCAN_PSS_DECODE_LAUNCHES")]
 
 
 PATHS = {
@@ -1898,7 +1926,7 @@ def _time_specs(specs, checks, launches):
                 check.add(g, w_, f"{name} at the main path's shape")
         # the plain bodies of these take seconds
         slow = counter in ("C5 rd", "C9 prepass", "C9 search", "C9 ring",
-                           "C14 encode",
+                           "C14 encode", "C14 PSS encode",
                            "C10 arms", "C12 search", "C12 decide",
                            "C9 temporal", "C9 prepass temporal",
                            "C10 arms PSS", "C12 decide PSS")
@@ -1967,19 +1995,18 @@ ISS_TIMED_FRAMES = 3
 # and C12's device code), C3's decode entry, C4, C1
 _ISS_KERNELS = ("C1", "C3 decode", "C4", "C14 encode", "C14 decode")
 # the level loop's per-level launches, which C14 replaces on an ISS picture
+# and, in its PSS form, on a PSS one (the PSS forms of C9, C10 and C12
+# count among these too)
 ISS_LOOP_KERNELS = ("C2", "C3 encode", "C3 encode (RDOQ)", "C8 luma",
                     "C8 chroma", "C9 search", "C9 ring", "C10 arms",
                     "C10 motion", "C11 luma", "C11 chroma", "C12 search",
                     "C12 decide")
-# the PSS pictures' level loop with the GT on (no PSS CU of the path codes
-# the GT, so C11's luma decode form does not run)
-_PSS_LOOP_KERNELS = ("C2", "C3 encode (RDOQ)", "C8 luma", "C8 chroma",
-                     "C9 search", "C9 ring", "C10 arms", "C10 motion",
-                     "C11 chroma", "C12 search", "C12 decide")
 _PREPASS_KERNELS = ("C5 rd", "C5 decide", "C6 stats", "C6 apply",
                     "C9 prepass")
-_PSS_KERNELS = ("C9 temporal", "C9 prepass temporal", "C10 arms PSS",
-                "C10 motion PSS", "C12 decide PSS")
+# a PSS picture: C14's PSS form each way (C9's temporal search, C10's and
+# C12's PSS forms, C8 from the previous picture inside it) and the
+# pre-pass's temporal arm
+_PSS_KERNELS = ("C14 PSS encode", "C14 PSS decode", "C9 prepass temporal")
 # the PSS path's sequence: an ISS picture, then PSS ones; the sequence is
 # coded PSS_TIMED_TURNS more times for its timing
 PSS_FRAMES = 3
@@ -2006,8 +2033,7 @@ ISS_PATHS = {
     # video camera panning one sample per frame (pss_frames)
     "pss-gt": (dict(ISS_CONFIG, gt=True, search_range_t=16),
                PSS_TIMED_TURNS,
-               _ISS_KERNELS + _PREPASS_KERNELS + _PSS_LOOP_KERNELS
-               + _PSS_KERNELS,
+               _ISS_KERNELS + _PREPASS_KERNELS + _PSS_KERNELS,
                "panned"),
 }
 
@@ -2349,10 +2375,12 @@ def phase_pss_path(name):
     encode_sequence of the PSS_FRAMES pictures and its decode (set to 0
     just before, read just after); every picture hash_ok and equal to the
     encoder's recon history; temporal prediction chosen; the ISS picture
-    one C14 launch each way. Then the sequence coded PSS_TIMED_TURNS more
-    times picture by picture, each PSS picture timed (host_probes beside
-    it), and its decode timed; the first turn's ISS picture alone launches
-    C14 and none of the level loop's kernels."""
+    one C14 launch each way, each PSS picture one launch of C14's PSS form
+    each way, and no launch of the level loop's kernels. Then the sequence
+    coded PSS_TIMED_TURNS more times picture by picture, each PSS picture
+    timed (host_probes beside it), and its decode timed; in the first
+    turn each picture alone launches its C14 form once and none of the
+    level loop's kernels."""
     import torch
     from hevc_hop_torch.models.decoder import Decoder
     from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
@@ -2394,6 +2422,13 @@ def phase_pss_path(name):
     require(launches["C14 encode"] == 1 and launches["C14 decode"] == 1,
             f"{name}: the ISS picture did not launch C14 once each way: "
             f"{launches}")
+    require(launches["C14 PSS encode"] == PSS_FRAMES - 1
+            and launches["C14 PSS decode"] == PSS_FRAMES - 1,
+            f"{name}: the PSS pictures did not launch C14's PSS form once "
+            f"each way each: {launches}")
+    require(all(launches[k] == 0 for k in ISS_LOOP_KERNELS),
+            f"{name}: the sequence launched the level loop's kernels: "
+            f"{launches}")
     for turn in range(turns):
         for _, m, attr in counters:
             setattr(m, attr, 0)
@@ -2410,10 +2445,18 @@ def phase_pss_path(name):
                 f"{name}: the ISS picture's launches {alone}")
         for poc in range(1, PSS_FRAMES):
             probes.append(host_probes())
+            for _, m, attr in counters:
+                setattr(m, attr, 0)
             t0_ = time.perf_counter()
             out.append(enc._encode_pss(*frames[poc], poc))
             torch.cuda.synchronize()
             pss_s.append(time.perf_counter() - t0_)
+            if turn == 0:
+                # the PSS picture alone: one launch of C14's PSS form
+                alone = {k: getattr(m, attr) for k, m, attr in counters}
+                require(alone["C14 PSS encode"] == 1 and all(
+                    alone[k] == 0 for k in ISS_LOOP_KERNELS),
+                    f"{name}: PSS picture {poc}'s launches {alone}")
             share.append(_temporal_share(enc.last_maps))
             gt_cus.append(int(enc.last_maps.gt8.sum()))
             stats.append(dict(enc.last_stats))
@@ -2457,6 +2500,53 @@ def phase_pss_path(name):
 SS_PLAIN_W, SS_PLAIN_H = 256, 192
 PLAIN_FULL = {"encode": "iss", "decode": "iss-gt-warped"}
 SS_PATHS = ("iss", "iss-uniform", "iss-gt", "iss-gt-warped")
+# Every CU of pss-gt's PSS pictures is temporal. C14's PSS form is also
+# held on a two-picture sequence whose PSS picture holds temporal, SS, GT
+# and intra CUs alike (tests/test_torch_pss_scan_program.py's gt-cu16-qp37
+# case: iss-gt-warped's configuration with a temporal search radius of 4,
+# its warped lenslet content panned MIXED_PAN samples a picture, here with
+# chroma made from the luma so that a chroma prediction's source shows):
+# at full size against the card's loop, and at MIXED_PLAIN's sizes against
+# the card's loop and the plain loop
+MIXED_CONFIG = dict(qp=37, cu_log2=4, search_range=32, search_range_t=4,
+                    mi_size=16, gt=True)
+MIXED_PAN = 8
+MIXED_PLAIN = ((SS_PLAIN_W, SS_PLAIN_H), (512, 384))
+MIXED_CONTENT = ("synth_warped_lenslet(w, h, 16, seed=5), cb = 64 + y/2, "
+                 f"cr = 191 - y/2, panned {MIXED_PAN} samples, noise +-2")
+SS_REF = 1     # a PSS picture's L0 = [previous picture, SS]
+
+
+def mixed_frames(w, h):
+    """The mixed sequence's two pictures: synth_warped_lenslet(w, h, 16)
+    with chroma made from its luma (64 + y // 2 and 191 - y // 2 at the
+    chroma sites), then it rolled by MIXED_PAN samples (the chroma by half
+    as many); each luma plus default_rng(7) noise in [-2, 2], clipped."""
+    y0, _, _ = synth_warped_lenslet(w, h, 16, seed=5)
+    cb0 = (64 + y0[::2, ::2] // 2).astype(np.int32)
+    cr0 = (191 - y0[::2, ::2] // 2).astype(np.int32)
+    rng = np.random.default_rng(7)
+    frames = []
+    for t in range(2):
+        y = np.roll(y0, t * MIXED_PAN, axis=1) + rng.integers(-2, 3, (h, w))
+        frames.append((y.clip(0, 255).astype(np.int32),
+                       np.roll(cb0, t * MIXED_PAN // 2, axis=1),
+                       np.roll(cr0, t * MIXED_PAN // 2, axis=1)))
+    return frames
+
+
+def _cu_kinds(outs):
+    """The count of each kind of CU among a PSS picture's per-CU outputs
+    (scan_encode_pss's outs): temporal (inter, reference index 0), SS
+    (inter, the SS index), GT and intra."""
+    k = dict(temporal_cus=0, ss_cus=0, gt_cus=0, intra_cus=0)
+    for o in outs.values():
+        inter, gt = o[0] != 0, o[7] != 0
+        k["temporal_cus"] += int((inter & (o[1] == 0) & ~gt).sum())
+        k["ss_cus"] += int((inter & (o[1] == SS_REF) & ~gt).sum())
+        k["gt_cus"] += int(gt.sum())
+        k["intra_cus"] += int((~inter & ~gt).sum())
+    return k
 
 
 def _ss_scan_inputs(enc, frame):
@@ -2497,34 +2587,49 @@ def _ss_decode_inputs(stream):
     return seen["args"], seen["work"]
 
 
+# the per-CU outputs of an ISS picture's encode scan; a PSS picture's add
+# the reference index after the inter flag
+SS_OUT_NAMES = ("inter", "mv", "imode", "cbf_y", "cbf_cb", "cbf_cr",
+                "gtflag", "gtc")
+PSS_OUT_NAMES = ("inter", "refsel") + SS_OUT_NAMES[1:]
+
+
 def _hold_ss_scan(chk, got, want, what):
-    """Two scan_encode_iss results, plane by plane and output by output."""
+    """Two scan_encode_iss or scan_encode_pss results, plane by plane and
+    output by output."""
     for a, b, nm in zip(got[:4], want[:4], ("ry", "rc", "coef_y",
                                             "coef_c")):
         chk.add(a, b, f"{what}: {nm}")
     require(set(got[4]) == set(want[4]), f"{what}: sizes")
     for lg in want[4]:
-        for a, b, nm in zip(got[4][lg], want[4][lg],
-                            ("inter", "mv", "imode", "cbf_y", "cbf_cb",
-                             "cbf_cr", "gtflag", "gtc")):
+        names = PSS_OUT_NAMES if len(want[4][lg]) == 9 else SS_OUT_NAMES
+        require(len(got[4][lg]) == len(names), f"{what}: outputs")
+        for a, b, nm in zip(got[4][lg], want[4][lg], names):
             chk.add(a, b, f"{what}: {nm} {1 << lg}x{1 << lg}")
 
 
 class _LevelLoop:
-    """Within it, the encoder and the decoder run an ISS picture through
-    the level loop (C14's plain version's form, on the card's kernels)."""
+    """Within it, the encoder and the decoder run ISS and PSS pictures
+    through the level loop (C14's plain version's form, on the card's
+    kernels)."""
 
     def __enter__(self):
         from hevc_hop_torch.models import ss_scan
-        self.saved = (ss_scan.scan_encode_iss, ss_scan.scan_decode_ss)
+        self.saved = (ss_scan.scan_encode_iss, ss_scan.scan_decode_ss,
+                      ss_scan.scan_encode_pss, ss_scan.scan_decode_pss)
         ss_scan.scan_encode_iss = (lambda *a, work, **k:
                                    ss_scan.scan_encode_iss_loop(*a, **k))
         ss_scan.scan_decode_ss = (lambda *a, work, **k:
                                   ss_scan.scan_decode_ss_loop(*a, **k))
+        ss_scan.scan_encode_pss = (lambda *a, work, **k:
+                                   ss_scan.scan_encode_pss_loop(*a, **k))
+        ss_scan.scan_decode_pss = (lambda *a, work, **k:
+                                   ss_scan.scan_decode_pss_loop(*a, **k))
 
     def __exit__(self, *exc):
         from hevc_hop_torch.models import ss_scan
-        ss_scan.scan_encode_iss, ss_scan.scan_decode_ss = self.saved
+        (ss_scan.scan_encode_iss, ss_scan.scan_decode_ss,
+         ss_scan.scan_encode_pss, ss_scan.scan_decode_pss) = self.saved
 
 
 def _timed(fn):
@@ -2540,8 +2645,9 @@ def phase_ss_scan_plain(ctxs, ss_rows, checks):
     """Kernel C14 against the plain loop (the kernels' plain versions on
     the card): on a SS_PLAIN_W x SS_PLAIN_H corner of each ISS path's frame
     both entries, and at full size PLAIN_FULL's picture each way, whose
-    times are the C14 rows' plain times. It runs last, after every
-    trace. Returns the plain loop's seconds per path."""
+    times are the C14 rows' plain times; its PSS form as _pss_plain says.
+    It runs last, after every trace. Returns the plain loop's seconds per
+    path."""
     from hevc_hop_torch.models import ss_scan
     from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
     chk = checks["C14"]
@@ -2583,8 +2689,54 @@ def phase_ss_scan_plain(ctxs, ss_rows, checks):
             chk.add(a, b, f"C14 decode, {name} {SS_PLAIN_W}x{SS_PLAIN_H} "
                     f"corner, against the plain loop: {nm}")
         out[name] = {k: v for k, v in secs.items() if "plain" in k}
+    out.update(_pss_plain(ss_rows["pss-gt"], ctxs["pss-gt"]["frames"], chk))
     log(f"ss scan plain: {json.dumps(out)}; C14 held in {chk.cases} "
         f"comparisons, {chk.mism} mismatching elements")
+    return out
+
+
+def _pss_plain(row, frames, chk):
+    """C14's PSS form against the plain loop, each way: on the pss-gt
+    path's last PSS picture at full size (``row``, as
+    phase_pss_scan_program held it; its times are the C14 PSS rows' plain
+    times), on a SS_PLAIN_W x SS_PLAIN_H corner of the path's first two
+    pictures (a temporal CU required) and on the mixed sequence at
+    MIXED_PLAIN's sizes (each kind of CU required), the last two against
+    the card's loop too. Returns the plain loop's seconds by picture."""
+    from hevc_hop_torch.models import ss_scan
+    from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
+    at = f"pss-gt picture {row['poc']}"
+    secs = {}
+    plain, secs["encode_plain_s"] = _timed(
+        lambda: ss_scan.scan_encode_pss_loop(*row["args"], plain=True))
+    _hold_ss_scan(chk, row["c14"], plain, f"C14 PSS encode, {at}, against "
+                  "the plain loop")
+    dplain, secs["decode_plain_s"] = _timed(
+        lambda: ss_scan.scan_decode_pss_loop(*row["dargs"], plain=True))
+    for a, b, nm in zip(row["dec"], dplain, ("ry", "rc")):
+        chk.add(a, b, f"C14 PSS decode, {at}, against the plain loop: {nm}")
+    small = [tuple(np.ascontiguousarray(p) for p in (
+        f[0][:SS_PLAIN_H, :SS_PLAIN_W],
+        f[1][:SS_PLAIN_H // 2, :SS_PLAIN_W // 2],
+        f[2][:SS_PLAIN_H // 2, :SS_PLAIN_W // 2])) for f in frames[:2]]
+    senc = HoloEncoder(HoloConfig(width=SS_PLAIN_W, height=SS_PLAIN_H,
+                                  **ISS_PATHS["pss-gt"][0]))
+    corner = f"pss-gt {SS_PLAIN_W}x{SS_PLAIN_H} corner"
+    held, = _hold_pss(chk, _pss_calls(senc, small), corner, plain=True)
+    require(_cu_kinds(held["c14"][4])["temporal_cus"] > 0,
+            f"{corner}: no temporal CU")
+    for side in ("encode", "decode"):
+        secs[f"small_{side}_plain_s"] = held["secs"][f"{side}_plain_s"]
+    out = {"pss-gt": secs}
+    for w, h in MIXED_PLAIN:
+        what = f"mixed {w}x{h}"
+        menc = HoloEncoder(HoloConfig(width=w, height=h, **MIXED_CONFIG))
+        held, = _hold_pss(chk, _pss_calls(menc, mixed_frames(w, h)), what,
+                          plain=True)
+        kinds = _cu_kinds(held["c14"][4])
+        require(all(kinds.values()), f"{what}: a kind of CU is missing: "
+                f"{kinds}")
+        out[what] = dict(kinds, **held["secs"])
     return out
 
 
@@ -2602,17 +2754,24 @@ def _device_ms(fn, kernel, tries=3):
 
 
 def phase_ss_scan_device(ss_program, ss_rows):
-    """C14's device ms per picture on each ISS path, each way, from the
-    profiler, into the path's record."""
+    """C14's device ms per picture on each ISS path, and on the pss-gt
+    path's last PSS picture, each way, from the profiler, into the path's
+    record."""
     from hevc_hop_torch.models import ss_scan
     for name, r in ss_rows.items():
         rec = ss_program[name]
+        if r.get("pss"):
+            enc_fn, dec_fn = ss_scan.scan_encode_pss, ss_scan.scan_decode_pss
+            form = "ss_scan_pss"
+        else:
+            enc_fn, dec_fn = ss_scan.scan_encode_iss, ss_scan.scan_decode_ss
+            form = "ss_scan"
         rec["c14_encode_device_ms"] = _device_ms(
-            lambda: ss_scan.scan_encode_iss(*r["args"], work=r["work"]),
-            "ss_scan_encode_kernel")
+            lambda: enc_fn(*r["args"], work=r["work"]),
+            f"{form}_encode_kernel")
         rec["c14_decode_device_ms"] = _device_ms(
-            lambda: ss_scan.scan_decode_ss(*r["dargs"], work=r["dwork"]),
-            "ss_scan_decode_kernel")
+            lambda: dec_fn(*r["dargs"], work=r["dwork"]),
+            f"{form}_decode_kernel")
         log(f"ss scan device: {name}: encode "
             f"{rec['c14_encode_device_ms']} ms, decode "
             f"{rec['c14_decode_device_ms']} ms a picture")
@@ -2688,6 +2847,150 @@ def phase_ss_scan_program(ctxs, checks):
     return out, rows
 
 
+def _recorded(name, run):
+    """The calls of ss_scan.<name> that run() makes, as [(its positional
+    arguments, its work list)]."""
+    from hevc_hop_torch.models import ss_scan
+    seen = []
+    orig = getattr(ss_scan, name)
+
+    def record(*a, work):
+        seen.append((a, work))
+        return orig(*a, work=work)
+
+    setattr(ss_scan, name, record)
+    try:
+        run()
+    finally:
+        setattr(ss_scan, name, orig)
+    return seen
+
+
+def _pss_calls(enc, frames, stream=None):
+    """``enc`` codes the sequence ``frames`` (into ``stream``, where given)
+    and the decoder decodes it: the encoder's own scan_encode_pss calls and
+    the decoder's own scan_decode_pss calls, [((arguments, work list),
+    (arguments, work list))], one pair per PSS picture."""
+    from hevc_hop_torch.models.decoder import Decoder
+    got = []
+    encs = _recorded("scan_encode_pss",
+                     lambda: got.append(enc.encode_sequence(frames)))
+    require(stream is None or got[0] == stream, "the held sequence's "
+            "stream differs")
+    dec = Decoder()
+    decs = _recorded("scan_decode_pss", lambda: dec.decode_stream(got[0]))
+    require(dec.hash_ok == [True] * len(frames) and dec.concealed == [],
+            f"the held sequence's decode: hash_ok {dec.hash_ok}")
+    require(len(encs) == len(decs) == len(frames) - 1,
+            f"{len(encs)} PSS encodes, {len(decs)} PSS decodes")
+    return list(zip(encs, decs))
+
+
+def _hold_pss(chk, calls, what, plain=False):
+    """C14's PSS form on each PSS picture's recorded inputs (``calls``,
+    from _pss_calls), each way, against the level loop of the card's
+    kernels and, with ``plain``, the plain loop: recon, level planes and
+    every per-CU output, the reference index too; its decode against the
+    encode's recon as well. Returns, per picture, its inputs, C14's
+    results, the seconds each way and C14's grid."""
+    from hevc_hop_torch.models import ss_scan
+    routes = (("level", False), ("plain", True))[:2 if plain else 1]
+    out = []
+    for poc, ((args, work), (dargs, dwork)) in enumerate(calls, start=1):
+        at = f"{what} picture {poc}"
+        secs = {}
+        c14, secs["encode_C14_s"] = _timed(
+            lambda: ss_scan.scan_encode_pss(*args, work=work))
+        grid = ss_scan.LAST_LAUNCH
+        dec, secs["decode_C14_s"] = _timed(
+            lambda: ss_scan.scan_decode_pss(*dargs, work=dwork))
+        for a, b, nm in zip(dec, c14[:2], ("ry", "rc")):
+            chk.add(a, b, f"C14 PSS decode, {at}, against the encode's "
+                    f"recon: {nm}")
+        for route, p in routes:
+            key = "plain" if p else "loop"
+            loop, secs[f"encode_{key}_s"] = _timed(
+                lambda: ss_scan.scan_encode_pss_loop(*args, plain=p))
+            _hold_ss_scan(chk, c14, loop, f"C14 PSS encode, {at}, against "
+                          f"the {route} loop")
+            dloop, secs[f"decode_{key}_s"] = _timed(
+                lambda: ss_scan.scan_decode_pss_loop(*dargs, plain=p))
+            for a, b, nm in zip(dec, dloop, ("ry", "rc")):
+                chk.add(a, b, f"C14 PSS decode, {at}, against the {route} "
+                        f"loop: {nm}")
+        out.append(dict(args=args, work=work, dargs=dargs, dwork=dwork,
+                        c14=c14, dec=dec, secs=secs, grid=grid, pss=True,
+                        poc=poc))
+    return out
+
+
+def _pss_record(r):
+    """What phase_pss_scan_program prints of a held PSS picture."""
+    return {"poc": r["poc"], "groups": len(r["work"].host_groups),
+            "cus": len(r["work"].host_items),
+            "widest_group": r["work"].widest, **_cu_kinds(r["c14"][4]),
+            "decode_groups": len(r["dwork"].host_groups),
+            "grid_ctas_per_sm_smem_threads": r["grid"], **r["secs"]}
+
+
+def phase_pss_scan_program(ctxs, checks):
+    """Kernel C14's PSS form on every PSS picture of the pss-gt sequence,
+    at full size, on the encoder's and the decoder's own inputs (the
+    sequence coded and decoded again, its stream unchanged): its encode
+    entry against the level loop of the card's kernels (recon, level
+    planes and every per-CU output, the reference index too), its decode
+    entry against the decode loop and the encode's recon: 0 mismatches.
+    Then C14 and the loop in turns (C14, loop, loop, C14) through the
+    encoder (the ISS picture, then the first PSS one, which is timed) and
+    the decoder (the sequence). Every CU of those pictures is temporal, so
+    the mixed sequence's PSS picture (temporal, SS, GT and intra CUs, each
+    kind required) is held at full size the same way. Its device ms
+    (phase_ss_scan_device) and the plain loop (_pss_plain) come at the
+    end. Returns (a record, the last PSS picture's inputs and results for
+    those phases and the kernels line's C14 PSS rows)."""
+    from hevc_hop_torch.models.decoder import Decoder
+    from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
+    chk = checks["C14"]
+    ctx = ctxs["pss-gt"]
+    enc, frames, stream = ctx["enc"], ctx["frames"], ctx["stream"]
+    held = _hold_pss(chk, _pss_calls(enc, frames, stream), "pss-gt")
+    pics = [_pss_record(r) for r in held]
+    # turns through the encoder and the decoder
+    turns = {"C14": [], "loop": []}
+    for route in ("C14", "loop", "loop", "C14"):
+        with (_LevelLoop() if route == "loop"
+              else contextlib.nullcontext()):
+            first = enc.encode_frame(*frames[0])
+            again, e_s = _timed(lambda: enc._encode_pss(*frames[1], 1))
+            require(stream.startswith(first + again),
+                    f"pss-gt: the {route} turn's stream differs")
+            scan_s = enc.last_stats["scan_s"]
+            d = Decoder()
+            _, d_s = _timed(lambda: d.decode_stream(stream))
+            require(d.hash_ok == [True] * PSS_FRAMES,
+                    "pss-gt: a turn's decode")
+            turns[route].append((e_s, scan_s, d_s, d.last_stats["scan_s"]))
+    med = {r: np.median(np.array(v), axis=0) for r, v in turns.items()}
+    # the mixed sequence at full size
+    what = f"mixed {W}x{H}"
+    menc = HoloEncoder(HoloConfig(width=W, height=H, **MIXED_CONFIG))
+    mixed, = _hold_pss(chk, _pss_calls(menc, mixed_frames(W, H)), what)
+    mixed = dict(_pss_record(mixed), frame=f"{W}x{H}", config=MIXED_CONFIG,
+                 content=MIXED_CONTENT)
+    require(all(mixed[k] > 0 for k in _cu_kinds({})),
+            f"{what}: a kind of CU is missing: {mixed}")
+    rec = {"path": "pss-gt", "pictures": pics, "turns": turns,
+           "mixed": mixed,
+           **{f"{k}_{r}": float(med[r][i]) for r in med
+              for i, k in enumerate(("pss_encode_s", "pss_scan_s",
+                                     "decode_sequence_s",
+                                     "pss_decode_scan_s"))}}
+    log(f"pss scan program: {json.dumps(rec)}")
+    log(f"pss scan program: C14 held in {chk.cases} comparisons, "
+        f"{chk.mism} mismatching elements")
+    return rec, held[-1]
+
+
 GT_SHARE_TURNS = 1
 
 
@@ -2739,10 +3042,10 @@ def _hold_iss_launches(enc, frames, stream, checks, every=8):
     C9's temporal forms (scan and pre-pass), C10's PSS forms, C12's PSS
     decide and C8 (from the previous picture too), its ISS picture's C9 ring and C12 launches
     sampled as the other forms. The encode goes on with the kernels'
-    outputs. An ISS picture runs here through the level loop
-    (scan_encode_iss_loop, scan_decode_ss_loop), whose launches C14
-    replaces on the main paths; the held stream must equal the path's,
-    which C14 wrote."""
+    outputs. Every picture runs here through the level loop
+    (scan_encode_iss_loop, scan_decode_ss_loop and their PSS forms),
+    whose launches C14 replaces on the main paths; the held stream must
+    equal the path's, which C14 wrote."""
     import torch
     from hevc_hop_torch.models import ss_scan
     from hevc_hop_torch.models.decoder import Decoder
@@ -2822,14 +3125,10 @@ def _hold_iss_launches(enc, frames, stream, checks, every=8):
 
     def psearch(recon, org, pos, zcur, zmaxw, motion, nbav, miav, n, radius,
                 w, h, lam, mi, zmax2n, ref, radius_t):
-        got = orig["ps"](recon, org, pos, zcur, zmaxw, motion, nbav, miav,
-                         n, radius, w, h, lam, mi, zmax2n, ref, radius_t)
-        p_ss, p_t = ia.gather_cands(*motion, pos, nbav, miav, n, mi,
-                                    ss.SS_IDX_PSS)[3:]
-        want = (ss.ss_search_plain(recon, org, pos, zcur, zmaxw, p_ss, n,
-                                   radius, w, h, lam, zmax2n, seq=True),
-                ss.t_search_plain(ref, org, pos, p_t, n, radius_t, w, h,
-                                  lam))
+        sargs = (recon, org, pos, zcur, zmaxw, motion, nbav, miav, n, radius,
+                 w, h, lam, mi, zmax2n, ref, radius_t)
+        got = orig["ps"](*sargs)
+        want = ss.pss_search_plain(*sargs)
         for side, g_, w_ in zip(("SS", "temporal"), got, want):
             for g, w2, nm in zip(g_, w_, ("mv", "cost", "pred", "sse",
                                           "anchor", "gt_rate", "gt_ok")):
@@ -3115,18 +3414,38 @@ def _causal_counts(pos, zcur, zmaxw, n, radius):
     return torch.cat(out)
 
 
-def ss_encode_work(args, outs):
+def _in_picture_counts(pos, n, radius):
+    """[B] the displacements within radius whose n x n block lies in the
+    picture (the temporal search's, which has no causal test)."""
+    import torch
+    d = torch.arange(-radius, radius + 1, device=pos.device)
+    ty = pos[:, 1, None, None].long() + d[None, :, None]
+    tx = pos[:, 0, None, None].long() + d[None, None, :]
+    inb = (ty >= 0) & (tx >= 0) & (ty + n <= H) & (tx + n <= W)
+    return inb.flatten(1).sum(1)
+
+
+def ss_encode_work(args, outs, pss=False):
     """(bytes, (int32, float32) operations) of kernel C14's encode of one
-    ISS picture, counted on this run's data: each original sample read
-    once and each recon sample and level written once, each CU's outputs;
-    per CU C2's RMD or given mode, C9's sums over its causal displacements
-    (search_ops), C10's 16 sub-pel MCs and their SSEs where a displacement
-    was causal and the intra SSE, C12's 79 warps for a CU that codes the
-    GT (at least one anchor searched), the chroma prediction, and C3's
-    luma and chroma work (RDOQ's where on). Merge candidates and the
-    anchors no GT CU kept are not counted: a floor."""
-    (_, _, plans, _, zmaxw, _, _, _, _, _, _, radius, _, rdoq, _, modes,
-     _) = args
+    ISS picture (``args`` scan_encode_iss's) or, with ``pss``, one PSS
+    picture (``args`` scan_encode_pss's), counted on this run's data: each
+    original sample (and on a PSS picture each previous-picture sample)
+    read once and each recon sample and level written once, each CU's
+    outputs; per CU C2's RMD or given mode, C9's sums over its causal
+    displacements (search_ops) and on a PSS picture over the temporal
+    search's displacements in the picture, C10's 16 sub-pel MCs and their
+    SSEs where a displacement was causal (and the temporal refinement's 16)
+    and the intra SSE, C12's 79 warps for a CU that codes the GT (at least
+    one anchor searched), the chroma prediction, and C3's luma and chroma
+    work (RDOQ's where on). Merge candidates and the anchors no GT CU kept
+    are not counted: a floor."""
+    if pss:
+        (_, _, _, _, plans, _, zmaxw, _, _, _, _, _, _, radius, radius_t, _,
+         rdoq, _, modes, _) = args
+    else:
+        (_, _, plans, _, zmaxw, _, _, _, _, _, _, radius, _, rdoq, _, modes,
+         _) = args
+    gi = 7 if pss else 6        # the GT flag among the outputs
     nbytes, oi, of = 0, 0, 0
     for lg, p in plans.items():
         n, m, t = p.n, p.n // 2, len(p.vpos)
@@ -3136,7 +3455,13 @@ def ss_encode_work(args, outs):
         of += int(causal.sum()) * (4 * n * n + 80)
         oi += live * 16 * mc_ops(n, 8)
         of += (t + 16 * live) * 3 * n * n
-        oi += int(outs[lg][6].sum()) * 79 * warp_ops(n)
+        if pss:
+            inpic = _in_picture_counts(p.pos, n, radius_t)
+            of += int(inpic.sum()) * (4 * n * n + 80)
+            oi += t * 16 * mc_ops(n, 8)
+            of += 16 * t * 3 * n * n
+            nbytes += t * ((n * n + 2 * m * m) * 4 + 4)
+        oi += int(outs[lg][gi].sum()) * 79 * warp_ops(n)
         oi += 2 * t * 5 * m * m
         for b, k in ((t, n), (2 * t, m)):
             ti, tf = _tq_work(b, k, rdoq)
@@ -3145,13 +3470,15 @@ def ss_encode_work(args, outs):
     return nbytes, (oi, of)
 
 
-def ss_decode_work(dargs):
-    """(bytes, int32 operations) of kernel C14's decode of one ISS picture:
-    each residual sample read and each recon sample written once, each
-    CU's mode, MV and corners; per CU its prediction (C2's given mode, C8's
-    MC or C11's warp with its chroma interpolation) and the clipped
-    add."""
-    plans, gt = dargs[2], dargs[10]
+def ss_decode_work(dargs, pss=False):
+    """(bytes, int32 operations) of kernel C14's decode of one ISS picture
+    (``dargs`` scan_decode_ss's) or, with ``pss``, one PSS picture
+    (scan_decode_pss's): each residual sample read and each recon sample
+    written once, each CU's mode, MV and corners, and each
+    previous-picture sample a temporal CU predicts from; per CU its
+    prediction (C2's given mode, C8's MC or C11's warp with its chroma
+    interpolation) and the clipped add."""
+    plans, gt = (dargs[4], dargs[13]) if pss else (dargs[2], dargs[10])
     nbytes, ops = 0, 0
     for lg, p in plans.items():
         n, m, t = p.n, p.n // 2, len(p.vpos)
@@ -3162,40 +3489,51 @@ def ss_decode_work(dargs):
         ops += gts * (warp_ops(n) + 2 * (mc_ops(2 * m, 4) + warp_ops(m)))
         ops += t * 3 * (n * n + 2 * m * m)
         nbytes += t * (8 * (n * n + 2 * m * m) + 40)
+        if pss:
+            nbytes += int(dargs[9][lg][0].sum()) * 4 * (n * n + 2 * m * m)
     return nbytes, ops
 
 
 def phase_ss_scan_timing(ss_rows, checks, launches):
     """Rows of the kernels line for C14: its encode entry on PLAIN_FULL's
-    encode frame and its decode entry on PLAIN_FULL's decode frame, whole
-    pictures, held by phase_ss_scan_program, beside the bound of the
-    picture's work and the card's loop's time (the plain loop's comes
-    from phase_ss_scan_plain, at the end)."""
+    encode frame and its decode entry on PLAIN_FULL's decode frame, and
+    its PSS form each way on the pss-gt path's last PSS picture, whole
+    pictures, held by phase_ss_scan_program and phase_pss_scan_program,
+    beside the bound of the picture's work and the card's loop's time (the
+    plain loop's, at full size, comes from phase_ss_scan_plain, at the
+    end)."""
     from hevc_hop_torch.models import ss_scan
     specs = []
-    for side, path in PLAIN_FULL.items():
+    sides = list(PLAIN_FULL.items()) + [("encode", "pss-gt"),
+                                        ("decode", "pss-gt")]
+    for side, path in sides:
         r = ss_rows[path]
-        if side == "encode":
-            fn = (lambda a=r["args"], w_=r["work"]:
-                  ss_scan.scan_encode_iss(*a, work=w_))
-            nbytes, ops = ss_encode_work(r["args"], r["c14"][4])
-            shape = (f"{W}x{H} picture, {len(r['work'].host_items)} CUs in "
-                     f"{len(r['work'].host_groups)} groups, one launch")
+        pss = bool(r.get("pss"))
+        if pss:
+            fns = (ss_scan.scan_encode_pss, ss_scan.scan_decode_pss)
+            form, tag, lines = "ss_scan_pss", "PSS ", (879, 1124)
+            where = f"picture {r['poc']}"
+            what = f"PSS {where}"
         else:
-            fn = (lambda a=r["dargs"], w_=r["dwork"]:
-                  ss_scan.scan_decode_ss(*a, work=w_))
-            nbytes, ops = ss_decode_work(r["dargs"])
-            shape = (f"{W}x{H} picture, {len(r['dwork'].host_items)} CUs "
-                     f"in {len(r['dwork'].host_groups)} groups, one launch")
+            fns = (ss_scan.scan_encode_iss, ss_scan.scan_decode_ss)
+            form, tag, lines = "ss_scan", "", (714, 1060)
+            where, what = "frame", "picture"
+        if side == "encode":
+            fn, a, work, line = fns[0], r["args"], r["work"], lines[0]
+            nbytes, ops = ss_encode_work(a, r["c14"][4], pss)
+        else:
+            fn, a, work, line = fns[1], r["dargs"], r["dwork"], lines[1]
+            nbytes, ops = ss_decode_work(a, pss)
         specs.append(dict(
-            name=f"C14 ss_scan ({side}, {path} frame)",
-            counter=f"C14 {side}", path=path,
-            kernel=f"ss_scan_{side}_kernel", shape=shape,
+            name=f"C14 ss_scan {tag}({side}, {path} {where})",
+            counter=f"C14 {tag}{side}", path=path,
+            kernel=f"{form}_{side}_kernel",
+            shape=(f"{W}x{H} {what}, {len(work.host_items)} CUs in "
+                   f"{len(work.host_groups)} groups, one launch"),
             source="hevc_hop_torch/csrc/ss_scan.cu",
-            replaces="hevc_hop_tpu/models/ss_scan.py:"
-                     + ("714" if side == "encode" else "1060"),
-            fn=fn, plain=None, held=True, nbytes=nbytes, ops=ops,
-            plain_ms=None,
+            replaces=f"hevc_hop_tpu/models/ss_scan.py:{line}",
+            fn=lambda fn=fn, a=a, w_=work: fn(*a, work=w_), plain=None,
+            held=True, nbytes=nbytes, ops=ops, plain_ms=None,
             loop_ms=r["secs"][f"{side}_loop_s"] * 1e3))
     return _time_specs(specs, checks, launches)
 
@@ -3566,7 +3904,9 @@ def phase_pss_timing(ctxs, checks, launches):
     timed beside its plain version, its bound and, for C9, a library
     call: C9's scan entry with the temporal search (one launch, the SS and
     temporal CTAs), its pre-pass entry with the temporal arm, C10's PSS
-    forms and C12 with its PSS decide."""
+    forms and C12 with its PSS decide. On the path a PSS picture runs the
+    scan entry's, C10's and C12's device code inside C14's PSS form, whose
+    launches those rows count; the pre-pass entry launches on its own."""
     import torch
     import torch.nn.functional as F
     from hevc_hop_torch.models import partition, ss_partition, wavefront
@@ -3598,7 +3938,10 @@ def phase_pss_timing(ctxs, checks, launches):
     lam = partition.full_lambda(QP)
     zmaxw, zmax2n = zmaxws[lg], zmax2ns[lg]
     specs = []
-    spec = lambda **kw: specs.append(kw)
+    in_c14 = dict(launched_in="C14 PSS encode",
+                  frame_kernel="ss_scan_pss_encode_kernel")
+    spec = lambda **kw: specs.append(
+        kw if kw["counter"] == "C9 prepass temporal" else dict(kw, **in_c14))
     sargs = (ry, oy, pos, zcur, zmaxw, motion, nbav, miav, n, 32, W, H, lam,
              16, zmax2n, ref, 16)
     ops_s, causal = search_ops(pos, zcur, zmaxw, n, 32)
@@ -3611,11 +3954,8 @@ def phase_pss_timing(ctxs, checks, launches):
     ws, wt = n + 64, n + 32
 
     def plain_search():
-        p_ss, p_t = ia.gather_cands(*motion, pos, nbav, miav, n, 16,
-                                    ss.SS_IDX_PSS)[3:]
-        return (ss.ss_search_plain(ry, oy, pos, zcur, zmaxw, p_ss, n, 32, W,
-                                   H, lam, zmax2n, seq=True)
-                + ss.t_search_plain(ref, oy, pos, p_t, n, 16, W, H, lam))
+        r = ss.pss_search_plain(*sargs)
+        return r[0] + r[1]
 
     spec(name=f"C9 ss_search (scan, PSS: SS with the ring + temporal, "
               f"{n}x{n})", counter="C9 temporal", path="pss-gt",
@@ -4129,7 +4469,8 @@ KERNELS = ("checksum_kernel", "intra_kernel", "tq_encode_kernel",
            "inter_arms_kernel", "motion_write_kernel", "warp_kernel",
            "gt_pred_kernel", "gt_search_kernel", "gt_decide_kernel",
            "analysis_kernel", "scan_encode_kernel", "scan_decode_kernel",
-           "ss_scan_encode_kernel", "ss_scan_decode_kernel")
+           "ss_scan_encode_kernel", "ss_scan_decode_kernel",
+           "ss_scan_pss_encode_kernel", "ss_scan_pss_decode_kernel")
 
 
 def _is_kernel(key, name):
@@ -4206,9 +4547,18 @@ def phase_profile(name, ctx):
     stem = "scan" if name in PATHS else "ss_scan"
     box = {}
     if "frames" in ctx:
-        for _ in range(2):    # the first trace warms the tracer up
+        # the first trace warms the tracer up; a trace must hold the record
+        # of the PSS picture's C14 launch
+        for t in range(4):
             enc.encode_frame(*ctx["frames"][0])
             out = {"encode": _profile(lambda: enc._encode_pss(*frame, 1))}
+            calls = out["encode"]["kernel_calls"]["ss_scan_pss_encode_kernel"]
+            if t and calls == 1:
+                break
+            log(f"profile {name} encode: trace {t} holds {calls} records of "
+                "ss_scan_pss_encode_kernel")
+        else:
+            require(False, f"profile {name} encode: no complete trace")
         box["s"] = ctx["stream"]
     else:
         out = {"encode": _profile_holding(
@@ -4255,6 +4605,9 @@ def main() -> int:
         log_host(f"{name} path timed")
     ss_scan_program, ss_rows = phase_ss_scan_program(ctxs, checks)
     log_host("ss scan program held")
+    ss_scan_program["pss-gt"], ss_rows["pss-gt"] = phase_pss_scan_program(
+        ctxs, checks)
+    log_host("pss scan program held")
     paths["mesh"], mesh_ctx = phase_mesh(checks)
     log_host("mesh path timed")
     gt_share = phase_gt_share(ctxs)
@@ -4302,7 +4655,9 @@ def main() -> int:
             for name, prof in ((n, paths[n]["profile"]) for n in paths)}
     log_host("end")
     log(card)
-    log(json.dumps({"main_paths": paths, "cli_s": cli_s,
+    total_s = time.perf_counter() - T_START
+    log(f"chip_smoke: {total_s:.1f} s in all")
+    log(json.dumps({"main_paths": paths, "total_s": total_s, "cli_s": cli_s,
                     "cli_holo_s": cli_holo_s, "card": card,
                     "iss_prepass_check": iss_prepass, "bdrate": bdrate,
                     "gt_share": gt_share, "scan_program": scan_program,

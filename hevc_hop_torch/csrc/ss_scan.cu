@@ -1,12 +1,14 @@
-// Kernel C14: the lenslet ISS wavefront of one picture, encode and decode,
-// as one cooperative launch per picture.
+// Kernel C14: the lenslet ISS or PSS wavefront of one picture, encode and
+// decode, as one cooperative launch per picture.
 //
 // Replaces hevc_hop_tpu/models/ss_scan.py scan_encode_iss (one
-// jax.lax.scan over the levels, :714) and scan_decode_ss (:1060), which
-// the port ran as a Python loop launching, per level and CU size, kernels
-// C2, C9, C10, C12, C3, C10's motion write, C2, C8, C11 and C3 again
-// (encode) or C2, C8 and C11 (decode) (models/ss_scan.py
-// scan_encode_iss_loop and scan_decode_ss_loop, which stay the plain
+// jax.lax.scan over the levels, :714), scan_decode_ss (:1060),
+// scan_encode_pss (:879, its scan at :1052) and scan_decode_pss (:1124,
+// its scan at :1186), which the port ran as a Python loop launching, per
+// level and CU size, kernels C2, C9, C10, C12, C3, C10's motion write, C2,
+// C8, C11 and C3 again (encode) or C2, C8 and C11 (decode)
+// (models/ss_scan.py scan_encode_iss_loop, scan_decode_ss_loop,
+// scan_encode_pss_loop and scan_decode_pss_loop, which stay the plain
 // version).
 //
 // The work list (models/ss_scan.py ss_work_list) holds one group per
@@ -61,6 +63,25 @@
 // written and read within one phase is the same CTA's (barriers order it).
 // Every CTA reaches every sync.
 //
+// PSS form (a previous picture given; L0 = [previous picture, SS], the SS
+// reference at index 1; its own instantiation, ss_scan_pss_encode_kernel
+// and ss_scan_pss_decode_kernel, so that the ISS form's registers and
+// shared bytes stay its own). The read phase runs, after the SS search, C9's
+// temporal search over the previous picture with radius radius_t in the
+// same CTA; both searches take F10's sequential sums (Search::seq), as C9's
+// PSS launches do. C10 runs its PSS tournament (merge candidates read the
+// plane their reference index names), C12 its PSS decision (GT must beat
+// the temporal cost too, and sets the reference index to the SS one), and
+// the chroma prediction of an inter CU reads rc where its reference index
+// is the SS one and the previous picture otherwise. The write phase writes
+// the reference index into rf4 beside the MV. The previous picture is
+// never written during the launch. In the decode a temporal CU (tflag) runs
+// C8's add-residual form from the previous picture; it reads no recon
+// sample, so the decoder's schedule gives it no dependency rectangle and
+// the one-phase argument above holds as it stands; the priority is GT,
+// then SS, then temporal, then intra, as in the reference
+// (ss_scan.py:1151-1154).
+//
 // Integers and floats equal C2's, C3's, C7's, C8's, C9's, C10's, C11's and
 // C12's: the CTA runs their device functions with the same blockDim
 // (kThreads = 256, theirs); no float sum of theirs depends on blockDim or
@@ -73,8 +94,10 @@
 // Bound: the chain of groups. A group holds a few tens of CUs on 132 SMs,
 // and one CTA's latency per CU (an RMD, a search of (2r+1)^2
 // displacements, 25 MCs, two GT diamond searches of 79 warps, C3 with
-// RDOQ, two chroma blocks) sets the picture's time. The design removes the
-// host from the chain: one launch instead of some 4000 per encode.
+// RDOQ, two chroma blocks; on a PSS picture a second search of
+// (2r_t+1)^2 displacements and 41 MCs) sets the picture's time. The design
+// removes the host from the chain: one launch instead of some 4000 per
+// ISS encode and some 1900 per PSS one.
 #include <cooperative_groups.h>
 
 #include "gt_search.cuh"
@@ -119,6 +142,12 @@ struct SsSizeIn {
   int32_t *s_amv, *s_ok, *cpred;
   // encode outputs
   int32_t *inter, *mv, *imode, *cbf_y, *cbf_cb, *cbf_cr, *gtflag, *gtc;
+  // PSS: C9's temporal search (encode scratch), C10's reference index
+  // (encode output), each CU's temporal flag (decode)
+  int32_t *mv_t, *tpred0;
+  float *tsse0, *tcost;
+  int32_t *refsel;
+  const int32_t *tflag;
   ClassArgs ly, lc;   // luma n and chroma n / 2
 };
 
@@ -133,6 +162,11 @@ struct SsScanIn {
   int hp, wp;
   int h, bit_depth, strong, radius, mi_size;
   float lam, lam_i, mrate[9];
+  // PSS: the previous picture (luma with the recon's row stride and h rows,
+  // stacked chroma in rc's layout), null on an ISS picture; the temporal
+  // search's radius
+  const int32_t *ref_y, *ref_c;
+  int radius_t;
   SsSizeIn size[3];   // log2 - 3
 };
 
@@ -153,6 +187,11 @@ struct SizeK {
   GtSearch gts;
   GtDecide gtd;
   int gt;
+  // PSS: the temporal search, C10's reference index, the decode's flags
+  Search tsearch;
+  Found tfound;
+  int32_t *refsel;
+  const int32_t *tflag;
   ClassArgs ly, lc;
 };
 
@@ -162,9 +201,10 @@ struct ScanK {
   IntraPlane y, c;
   TqPlanes ty, tc;
   Motion m;
-  int32_t *mvx4, *mvy4, *pi4;
+  int32_t *mvx4, *mvy4, *pi4, *rf4;
   int wp;
   Src ysrc, csrc;
+  Src rysrc, rcsrc;   // PSS: the previous picture
   int32_t *ry, *rc;
   const int32_t *resi_y, *resi_c;
   int stride_y, stride_c;
@@ -174,6 +214,7 @@ struct ScanK {
 
 // The read phase of CU item w: every decision and prediction into scratch
 // and the packed outputs.
+template <bool kPss>
 __device__ void encode_read(const ScanK &a, const int32_t *w, int32_t *sm) {
   const int log2 = w[0], row = w[1];
   const SizeK &z = a.size[log2 - 3];
@@ -185,10 +226,16 @@ __device__ void encode_read(const ScanK &a, const int32_t *w, int32_t *sm) {
       a.bit_depth, a.strong, sm, z.ipred + (long long)row * nn);
   if (tid == 0) z.imode[row] = imode;
   __syncthreads();
+  const int ss_idx = kPss ? 1 : 0;
   search_entry_block(z.search, a.m, row, px, py, zc, z.nbav + 5 * row,
-                     z.miav + 3 * row, a.mi_size, 0, false, z.found,
+                     z.miav + 3 * row, a.mi_size, ss_idx, false, z.found,
                      z.anchor, z.gt_rate, z.gt_ok,
                      reinterpret_cast<float *>(sm));
+  if (kPss)
+    search_entry_block(z.tsearch, a.m, row, px, py, zc, z.nbav + 5 * row,
+                       z.miav + 3 * row, a.mi_size, ss_idx, true, z.tfound,
+                       nullptr, nullptr, nullptr,
+                       reinterpret_cast<float *>(sm));
   inter_arms_block(z.arms, row, px, py, zc, sm);
   if (z.gt) {
     gt_search_block(z.gts, row, 0, sm);
@@ -201,6 +248,9 @@ __device__ void encode_read(const ScanK &a, const int32_t *w, int32_t *sm) {
   __syncthreads();
   const int inter = z.inter[row], gtf = z.gtflag[row];
   const int mvx = z.mv[2 * row], mvy = z.mv[2 * row + 1];
+  // an SS CU (GT ones too) reads the recon, a temporal one the previous
+  // picture
+  const bool from_rc = !kPss || z.refsel[row] == ss_idx;
   for (int k = 2; k <= 3; ++k) {
     const int r = w[k];
     const int cx = z.cpos[2 * r], cy = z.cpos[2 * r + 1];
@@ -210,8 +260,9 @@ __device__ void encode_read(const ScanK &a, const int32_t *w, int32_t *sm) {
                     z.gtc + 6 * row, m, 1, a.bit_depth, out, nullptr, 0,
                     nullptr, sm);
     else if (inter)
-      mc_write_block(a.csrc, a.hc_off, a.hc, cx, cy, mvx, mvy, m, 1,
-                     a.bit_depth, out, nullptr, 0, nullptr, sm);
+      mc_write_block(from_rc ? a.csrc : a.rcsrc, a.hc_off, a.hc, cx, cy,
+                     mvx, mvy, m, 1, a.bit_depth, out, nullptr, 0, nullptr,
+                     sm);
     else
       intra_block(a.c, z.lc.t, cx, cy,
                   z.cavail + (long long)row * (4 * m + 1), imode, m, 1,
@@ -221,7 +272,7 @@ __device__ void encode_read(const ScanK &a, const int32_t *w, int32_t *sm) {
 
 // The write phase of CU item w: C3 on luma, the motion write, C3 on cb and
 // cr, from the read phase's scratch.
-template <bool kRdoq>
+template <bool kRdoq, bool kPss>
 __device__ void encode_write(const ScanK &a, const int32_t *w, int32_t *sm) {
   const int log2 = w[0], row = w[1];
   const SizeK &z = a.size[log2 - 3];
@@ -238,10 +289,11 @@ __device__ void encode_write(const ScanK &a, const int32_t *w, int32_t *sm) {
   if (tid == 0) z.cbf_y[row] = cbf;
   const int on = __ldcg(z.inter + row) != 0;
   const int mvx = __ldcg(z.mv + 2 * row), mvy = __ldcg(z.mv + 2 * row + 1);
+  const int ref = kPss ? __ldcg(z.refsel + row) : 0;
   const int u = n / 4;
   for (int cell = tid; cell < u * u; cell += nt)
-    motion_cell(a.mvx4, a.mvy4, a.pi4, nullptr, a.wp, py / 4 + cell / u,
-                px / 4 + cell % u, on, mvx, mvy, 0);
+    motion_cell(a.mvx4, a.mvy4, a.pi4, kPss ? a.rf4 : nullptr, a.wp,
+                py / 4 + cell / u, px / 4 + cell % u, on, mvx, mvy, ref);
   for (int k = 2; k <= 3; ++k) {
     const int r = w[k];
     const int32_t *cp = z.cpred + (long long)r * mm;
@@ -254,24 +306,38 @@ __device__ void encode_write(const ScanK &a, const int32_t *w, int32_t *sm) {
   }
 }
 
-template <bool kRdoq>
-__global__ void __launch_bounds__(kThreads)
-    ss_scan_encode_kernel(const ScanK *ap) {
-  extern __shared__ __align__(16) int32_t sm[];
-  const ScanK &a = *ap;
+// Every group of the picture: a read phase, a grid sync, a write phase, a
+// grid sync.
+template <bool kRdoq, bool kPss>
+__device__ __forceinline__ void encode_groups(const ScanK &a, int32_t *sm) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   for (int g = 0; g < a.ngroups; ++g) {
     const int first = a.groups[3 * g], end = first + a.groups[3 * g + 1];
     for (int it = first + blockIdx.x; it < end; it += gridDim.x)
-      encode_read(a, a.items + 4LL * it, sm);
+      encode_read<kPss>(a, a.items + 4LL * it, sm);
     grid.sync();
     for (int it = first + blockIdx.x; it < end; it += gridDim.x)
-      encode_write<kRdoq>(a, a.items + 4LL * it, sm);
+      encode_write<kRdoq, kPss>(a, a.items + 4LL * it, sm);
     if (g + 1 < a.ngroups) grid.sync();
   }
 }
 
+template <bool kRdoq>
+__global__ void __launch_bounds__(kThreads)
+    ss_scan_encode_kernel(const ScanK *ap) {
+  extern __shared__ __align__(16) int32_t sm[];
+  encode_groups<kRdoq, false>(*ap, sm);
+}
+
+template <bool kRdoq>
+__global__ void __launch_bounds__(kThreads)
+    ss_scan_pss_encode_kernel(const ScanK *ap) {
+  extern __shared__ __align__(16) int32_t sm[];
+  encode_groups<kRdoq, true>(*ap, sm);
+}
+
 // One CU of the decode: its prediction plus the residual into the recon.
+template <bool kPss>
 __device__ void decode_item(const ScanK &a, const int32_t *w, bool intra,
                             int32_t *sm) {
   const int log2 = w[0], row = w[1];
@@ -298,33 +364,51 @@ __device__ void decode_item(const ScanK &a, const int32_t *w, bool intra,
                     a.bit_depth, nullptr, a.resi_c, a.stride_c, a.rc, sm);
     return;
   }
-  mc_write_block(a.ysrc, 0, a.h, px, py, mvx, mvy, n, 0, a.bit_depth,
-                 nullptr, a.resi_y, a.stride_y, a.ry, sm);
+  // a temporal CU (PSS) reads the previous picture, written into the recon
+  // (the planes share their row strides)
+  const bool temporal = kPss && z.tflag[row] != 0;
+  mc_write_block(temporal ? a.rysrc : a.ysrc, 0, a.h, px, py, mvx, mvy, n,
+                 0, a.bit_depth, nullptr, a.resi_y, a.stride_y, a.ry, sm);
   for (int k = 2; k <= 3; ++k)
-    mc_write_block(a.csrc, a.hc_off, a.hc, z.cpos[2 * w[k]],
-                   z.cpos[2 * w[k] + 1], mvx, mvy, m, 1, a.bit_depth,
-                   nullptr, a.resi_c, a.stride_c, a.rc, sm);
+    mc_write_block(temporal ? a.rcsrc : a.csrc, a.hc_off, a.hc,
+                   z.cpos[2 * w[k]], z.cpos[2 * w[k] + 1], mvx, mvy, m, 1,
+                   a.bit_depth, nullptr, a.resi_c, a.stride_c, a.rc, sm);
 }
 
-__global__ void __launch_bounds__(kThreads)
-    ss_scan_decode_kernel(const ScanK *ap) {
-  extern __shared__ __align__(16) int32_t sm[];
-  const ScanK &a = *ap;
+template <bool kPss>
+__device__ __forceinline__ void decode_groups(const ScanK &a, int32_t *sm) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   for (int g = 0; g < a.ngroups; ++g) {
     const int first = a.groups[3 * g], end = first + a.groups[3 * g + 1];
     const int intra_end = first + a.groups[3 * g + 2];
     for (int it = first + blockIdx.x; it < end; it += gridDim.x)
-      decode_item(a, a.items + 4LL * it, it < intra_end, sm);
+      decode_item<kPss>(a, a.items + 4LL * it, it < intra_end, sm);
     if (g + 1 < a.ngroups) grid.sync();
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+    ss_scan_decode_kernel(const ScanK *ap) {
+  extern __shared__ __align__(16) int32_t sm[];
+  decode_groups<false>(*ap, sm);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    ss_scan_pss_decode_kernel(const ScanK *ap) {
+  extern __shared__ __align__(16) int32_t sm[];
+  decode_groups<true>(*ap, sm);
+}
+
 size_t max_of(size_t a, size_t b) { return a > b ? a : b; }
 
-// The kernel's view of the wrapper's arguments; smem <- the dynamic shared
-// bytes the largest body needs.
+// The kernel's view of the wrapper's arguments (the PSS form where a
+// previous picture is given); smem <- the dynamic shared bytes the largest
+// body of that form needs.
 ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
+  const bool pss = in.ref_y != nullptr;
+  const int ss_idx = pss ? 1 : 0;
+  // the search window of the larger of the two searches
+  const int rmax = pss && in.radius_t > in.radius ? in.radius_t : in.radius;
   ScanK k{};
   k.items = in.items;
   k.groups = in.groups;
@@ -356,9 +440,12 @@ ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
   k.mvx4 = in.mvx4;
   k.mvy4 = in.mvy4;
   k.pi4 = in.pi4;
+  k.rf4 = in.rf4;
   k.wp = in.wp;
   k.ysrc = Src{in.ry, in.stride_y, 0, in.h - 1, in.w};
   k.csrc = Src{in.rc, in.stride_c, 0, k.hc - 1, in.wc};
+  k.rysrc = Src{in.ref_y, in.stride_y, 0, in.h - 1, in.w};
+  k.rcsrc = Src{in.ref_c, in.stride_c, 0, k.hc - 1, in.wc};
   size_t words = 0;
   for (int s = 0; s < 3; ++s) {
     const SsSizeIn &z = in.size[s];
@@ -391,17 +478,27 @@ ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
     o.ly = z.ly;
     o.lc = z.lc;
     o.gt = encode && z.zmax2n != nullptr;
+    o.refsel = z.refsel;
+    o.tflag = z.tflag;
     if (z.pos == nullptr) continue;   // no CU of this size
     if (encode) {
       o.search = Search{in.ry, in.src_y, in.stride_y, z.zmaxw, n, in.radius,
-                        in.w, in.h, in.lam, z.zmax2n, 0};
+                        in.w, in.h, in.lam, z.zmax2n, pss ? 1 : 0};
       o.found = Found{z.mv_i, z.pred0, z.cost, z.sse};
+      // the temporal search: every displacement in the picture, no ring
+      o.tsearch = Search{in.ref_y, in.src_y, in.stride_y, nullptr, n,
+                         in.radius_t, in.w, in.h, in.lam, nullptr, 1};
+      o.tfound = Found{z.mv_t, z.tpred0, z.tcost, z.tsse0};
       o.anchor = z.anchor;
       o.gt_rate = z.gt_rate;
       o.gt_ok = z.gt_ok;
       Arms &r = o.arms;
       r.recon = Src{in.ry, in.stride_y, 0, in.h - 1, in.w};
-      r.ref = Src{nullptr, in.stride_y, 0, in.h - 1, in.w};
+      r.ref = Src{in.ref_y, in.stride_y, 0, in.h - 1, in.w};
+      r.mv_t = z.mv_t;
+      r.tpred0 = z.tpred0;
+      r.tsse0 = z.tsse0;
+      r.refsel = z.refsel;
       r.org = in.src_y;
       r.zmaxw = z.zmaxw;
       r.m = k.m;
@@ -442,7 +539,7 @@ ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
       g.h = in.h;
       g.bit_depth = in.bit_depth;
       g.mi_size = in.mi_size;
-      g.ss_idx = 0;
+      g.ss_idx = ss_idx;
       g.lam = in.lam;
       g.s_gtc = z.s_gtc;
       g.s_pred = z.s_pred;
@@ -467,13 +564,13 @@ ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
       d.smode = z.smode;
       d.flag = z.gtflag;
       d.gtc = z.gtc;
-      d.refsel = nullptr;
-      d.ss_idx = 0;
+      d.refsel = pss ? z.refsel : nullptr;
+      d.ss_idx = ss_idx;
       // read phase: every body in turn; write phase: the prediction in
       // shared memory beside C3's scratch
       words = max_of(words, intra_scratch_words(n));
-      words = max_of(words, search_words(n, in.radius));
-      words = max_of(words, (arms_smem_bytes(n, false) + 3) / 4);
+      words = max_of(words, search_words(n, rmax));
+      words = max_of(words, (arms_smem_bytes(n, pss) + 3) / 4);
       if (o.gt) {
         words = max_of(words, gt_search_words(n));
         words = max_of(words, gt_decide_words(n));
@@ -550,33 +647,43 @@ HH_EXPORT int hh_ss_scan_sizes(int *out) {
   return 0;
 }
 
-// Encode entry: every group of one ISS picture. args: the SsScanIn,
+// Encode entry: every group of one ISS or PSS picture. args: the SsScanIn,
 // mirrored by ctypes in models/ss_scan.py; ry and rc zero on entry, src_y
-// and src_c the originals, the motion planes zero; args_dev: device bytes
-// for the kernel's arguments (hh_ss_scan_sizes); rdoq selects the RDOQ
-// arm; widest: the most items of any group; info [4] receives the launch's
-// shape.
+// and src_c the originals, the motion planes zero; on a PSS picture ref_y
+// and ref_c the previous picture and, per size, the temporal search's
+// scratch and refsel; args_dev: device bytes for the kernel's arguments
+// (hh_ss_scan_sizes); rdoq selects the RDOQ arm; widest: the most items of
+// any group; info [4] receives the launch's shape.
 HH_EXPORT int hh_ss_scan_encode(const void *args, void *args_dev, int rdoq,
                                 int widest, void *stream, int *info) {
+  const SsScanIn &in = *static_cast<const SsScanIn *>(args);
   size_t smem = 0;
-  const ScanK k =
-      build(*static_cast<const SsScanIn *>(args), true, rdoq != 0, &smem);
+  const ScanK k = build(in, true, rdoq != 0, &smem);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in.ref_y != nullptr)
+    return rdoq ? launch(ss_scan_pss_encode_kernel<true>, k, args_dev, smem,
+                         widest, st, info)
+                : launch(ss_scan_pss_encode_kernel<false>, k, args_dev,
+                         smem, widest, st, info);
   return rdoq ? launch(ss_scan_encode_kernel<true>, k, args_dev, smem,
                        widest, st, info)
               : launch(ss_scan_encode_kernel<false>, k, args_dev, smem,
                        widest, st, info);
 }
 
-// Decode entry: every group of one ISS picture, prediction plus the dense
-// residual. ry and rc zero on entry, src_y and src_c the residuals; per
-// size modes, cmodes and mvs given, gtf and gtv too where the picture has
-// GT CUs (null otherwise).
+// Decode entry: every group of one ISS or PSS picture, prediction plus the
+// dense residual. ry and rc zero on entry, src_y and src_c the residuals;
+// per size modes, cmodes and mvs given, gtf and gtv too where the picture
+// has GT CUs (null otherwise); on a PSS picture ref_y and ref_c the
+// previous picture and per size tflag.
 HH_EXPORT int hh_ss_scan_decode(const void *args, void *args_dev, int widest,
                                 void *stream, int *info) {
+  const SsScanIn &in = *static_cast<const SsScanIn *>(args);
   size_t smem = 0;
-  const ScanK k =
-      build(*static_cast<const SsScanIn *>(args), false, false, &smem);
-  return launch(ss_scan_decode_kernel, k, args_dev, smem, widest,
-                static_cast<cudaStream_t>(stream), info);
+  const ScanK k = build(in, false, false, &smem);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in.ref_y != nullptr)
+    return launch(ss_scan_pss_decode_kernel, k, args_dev, smem, widest, st,
+                  info);
+  return launch(ss_scan_decode_kernel, k, args_dev, smem, widest, st, info);
 }

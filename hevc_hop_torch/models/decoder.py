@@ -340,7 +340,7 @@ class Decoder:
             ref_y, ref_c = self._reference(hcp)
             ry, rc = ss_scan.scan_decode_pss(
                 resi_y, resi_c, ref_y, ref_c, plans, nsteps, modes, cmodes,
-                mvs, tfs, bd, sps.strong_intra_smoothing, h, gt)
+                mvs, tfs, bd, sps.strong_intra_smoothing, h, gt, work=work)
         else:
             ry, rc = ss_scan.scan_decode_ss(
                 resi_y, resi_c, plans, nsteps, modes, cmodes, mvs, bd,

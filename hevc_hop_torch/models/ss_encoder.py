@@ -293,7 +293,8 @@ class HoloEncoder:
         tail = (cfg.mi_size, cfg.rdoq, cfg.sbh, modes, zmax2n)
         if pss:
             ry, rc, coef_y, coef_c, outs = ss_scan.scan_encode_pss(
-                org_y, org_c, *ref, *args, cfg.search_range_t, *tail)
+                org_y, org_c, *ref, *args, cfg.search_range_t, *tail,
+                work=work)
         else:
             ry, rc, coef_y, coef_c, outs = ss_scan.scan_encode_iss(
                 org_y, org_c, *args, *tail, work=work)

@@ -7,13 +7,14 @@ and without the GT warp. The schedule is the reference's
 numpy, copied): topological levels of CUs such that every z-earlier block
 within the search reach sits at an earlier level (encoder), or such that
 every block that the coded MV reads sits at an earlier level (decoder).
-The reference runs the levels as one ``lax.scan``. On the card an ISS
+The reference runs the levels as one ``lax.scan``. On the card a
 picture's levels run as one cooperative launch of kernel C14
 (``csrc/ss_scan.cu``) each way, :func:`scan_encode_iss` and
-:func:`scan_decode_ss`, over the schedule's :class:`SSWorkList` (one group
-per level and CU size, with a grid-wide barrier between phases). Their
-plain version, and the PSS scans, are the level loop, which launches, per
-level and CU size:
+:func:`scan_decode_ss` on an ISS picture, :func:`scan_encode_pss` and
+:func:`scan_decode_pss` (C14's PSS form) on a PSS one, over the schedule's
+:class:`SSWorkList` (one group per level and CU size, with a grid-wide
+barrier between phases). Their plain version is the level loop, which
+launches, per level and CU size:
 
 - encode: C2 (intra prediction: the pre-pass's mode, or 35-mode RMD), C9
   (full search, with the GT anchor ring when the GT is on, and on a PSS
@@ -55,13 +56,16 @@ from hevc_hop_torch.ops.inter_arms import (inter_arms, inter_arms_plain,
 from hevc_hop_torch.ops.interp import mc_blocks, mc_blocks_plain
 from hevc_hop_torch.ops.intra import intra_blocks, intra_blocks_plain
 from hevc_hop_torch.ops.ss_search import (IFM, INTRA_BITS, f32, pss_search,
-                                          ss_search, ss_search_motion_plain)
+                                          pss_search_plain, ss_search,
+                                          ss_search_motion_plain)
 from hevc_hop_torch.ops.tq import tq_encode, tq_encode_plain
 from hevc_hop_torch.ops.warp import gt_pred_blocks
 
-# launches of kernel C14's two entries
+# launches of kernel C14's two entries, ISS and PSS forms apart
 SCAN_ISS_ENCODE_LAUNCHES = 0
 SCAN_ISS_DECODE_LAUNCHES = 0
+SCAN_PSS_ENCODE_LAUNCHES = 0
+SCAN_PSS_DECODE_LAUNCHES = 0
 # (grid, CTAs per SM, dynamic shared bytes, threads) of the last C14 launch
 LAST_LAUNCH = None
 
@@ -280,7 +284,7 @@ def ss_work_list(plans: dict, device) -> SSWorkList:
 def _bodies(plain: bool):
     """The step bodies of the level loops: the kernels' wrappers, looked
     up when the loop starts (so that a caller may wrap them), or with
-    ``plain`` (the ISS loops only) their plain versions on any device."""
+    ``plain`` their plain versions on any device."""
     if not plain:
         return types.SimpleNamespace(
             intra=intra_blocks, search=ss_search, psearch=pss_search,
@@ -288,8 +292,8 @@ def _bodies(plain: bool):
             mc=mc_blocks, gtp=gt_pred_blocks)
     return types.SimpleNamespace(
         intra=intra_blocks_plain, search=ss_search_motion_plain,
-        arms=inter_arms_plain, gt=gt_step_plain, tq=tq_encode_plain,
-        motion=motion_write_plain, mc=mc_blocks_plain,
+        psearch=pss_search_plain, arms=inter_arms_plain, gt=gt_step_plain,
+        tq=tq_encode_plain, motion=motion_write_plain, mc=mc_blocks_plain,
         gtp=gt_pred_blocks_plain)
 
 
@@ -340,7 +344,29 @@ def scan_encode_pss(org_y, org_c, ref_y, ref_c, plans: dict, nsteps: int,
                     strong: bool, w: int, h: int, radius: int,
                     radius_t: int, mi_size: int = 0, use_rdoq: bool = False,
                     sbh: bool = False, modes=None,
-                    zmax2n: dict | None = None):
+                    zmax2n: dict | None = None, *, work: SSWorkList):
+    """PSS encode of every CU: on CUDA tensors one launch of kernel C14's
+    PSS form over ``work`` (``nsteps`` is the loop's alone); on CPU
+    tensors the level loop :func:`scan_encode_pss_loop`, its plain
+    version. Arguments and results are the loop's."""
+    if org_y.is_cuda:
+        return _scan_encode_c14(org_y, org_c, plans, work, zmaxw, qp, qp_c,
+                                bit_depth, strong, w, h, radius, mi_size,
+                                use_rdoq, sbh, modes, zmax2n, (ref_y, ref_c),
+                                radius_t)
+    return scan_encode_pss_loop(org_y, org_c, ref_y, ref_c, plans, nsteps,
+                                zmaxw, qp, qp_c, bit_depth, strong, w, h,
+                                radius, radius_t, mi_size, use_rdoq, sbh,
+                                modes, zmax2n)
+
+
+def scan_encode_pss_loop(org_y, org_c, ref_y, ref_c, plans: dict,
+                         nsteps: int, zmaxw: dict, qp: int, qp_c: int,
+                         bit_depth: int, strong: bool, w: int, h: int,
+                         radius: int, radius_t: int, mi_size: int = 0,
+                         use_rdoq: bool = False, sbh: bool = False,
+                         modes=None, zmax2n: dict | None = None,
+                         plain: bool = False):
     """PSS encode of every CU, level by level: L0 = [the previous picture,
     the SS reference (the recon carry), last]. As
     :func:`scan_encode_iss_loop`, with ref_y [h, w] and ref_c (stacked
@@ -349,7 +375,8 @@ def scan_encode_pss(org_y, org_c, ref_y, ref_c, plans: dict, nsteps: int,
     temporal, 1 SS), mv, imode, cbf_y, cbf_cb, cbf_cr, gtflag, gtc)."""
     return _scan_encode(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c,
                         bit_depth, strong, w, h, radius, mi_size, use_rdoq,
-                        sbh, modes, zmax2n, (ref_y, ref_c), radius_t)
+                        sbh, modes, zmax2n, (ref_y, ref_c), radius_t,
+                        plain=plain)
 
 
 def _scan_encode(org_y, org_c, plans, nsteps, zmaxw, qp, qp_c, bit_depth,
@@ -501,16 +528,35 @@ def scan_decode_ss_loop(resi_y, resi_c, plans: dict, nsteps: int,
 def scan_decode_pss(resi_y, resi_c, ref_y, ref_c, plans: dict, nsteps: int,
                     modes: dict, cmodes: dict, mvs: dict, tf: dict,
                     bit_depth: int, strong: bool, h: int,
-                    gt: dict | None = None):
+                    gt: dict | None = None, *, work: SSWorkList):
+    """PSS decode of every CU: on CUDA tensors one launch of kernel C14's
+    PSS decode over ``work`` (``nsteps`` is the loop's alone); on CPU
+    tensors the level loop :func:`scan_decode_pss_loop`, its plain
+    version. Arguments and results are the loop's."""
+    if resi_y.is_cuda:
+        return _scan_decode_c14(resi_y, resi_c, plans, work, modes, cmodes,
+                                mvs, bit_depth, strong, h, gt, (ref_y, ref_c),
+                                tf)
+    return scan_decode_pss_loop(resi_y, resi_c, ref_y, ref_c, plans, nsteps,
+                                modes, cmodes, mvs, tf, bit_depth, strong, h,
+                                gt)
+
+
+def scan_decode_pss_loop(resi_y, resi_c, ref_y, ref_c, plans: dict,
+                         nsteps: int, modes: dict, cmodes: dict, mvs: dict,
+                         tf: dict, bit_depth: int, strong: bool, h: int,
+                         gt: dict | None = None, plain: bool = False):
     """PSS decode of every CU, level by level, as
     :func:`scan_decode_ss_loop`; the temporal blocks (tf[log2] = (tflag
     [T] int32, 1 where the inter block reads the previous picture, and its
     complement ssf [T] int32, 1 where it reads the recon, and their levels
     [nsteps] bool each)) read ref_y [h, w] and ref_c (the stacked layout of
-    resi_c), the previous picture, through C8 and write the recon. Returns
-    (ry, rc)."""
+    resi_c), the previous picture, through C8 and write the recon.
+    ``plain`` runs the kernels' plain versions whatever the device.
+    Returns (ry, rc)."""
     return _scan_decode(resi_y, resi_c, plans, nsteps, modes, cmodes, mvs,
-                        bit_depth, strong, h, gt, (ref_y, ref_c), tf)
+                        bit_depth, strong, h, gt, (ref_y, ref_c), tf,
+                        plain=plain)
 
 
 def _scan_decode(resi_y, resi_c, plans, nsteps, modes, cmodes, mvs,
@@ -557,9 +603,10 @@ def _scan_decode(resi_y, resi_c, plans, nsteps, modes, cmodes, mvs,
 
 
 # ---------------------------------------------------------------------------
-# Kernel C14's launches. The structures mirror csrc/ss_scan.cu's SsSizeIn
-# and SsScanIn field for field (with csrc/scan.cu's ClassArgs, as
-# models/wavefront_scan.py builds it for kernel C13).
+# Kernel C14's launches, its ISS and PSS forms. The structures mirror
+# csrc/ss_scan.cu's SsSizeIn and SsScanIn field for field (with
+# csrc/scan.cu's ClassArgs, as models/wavefront_scan.py builds it for
+# kernel C13).
 # ---------------------------------------------------------------------------
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -572,7 +619,7 @@ class _SsSizeIn(ctypes.Structure):
         "mv_i", "cost", "sse", "anchor", "gt_rate", "gt_ok", "smode",
         "costs", "s_gtc", "s_pred", "s_cost", "s_amv", "s_ok", "cpred",
         "inter", "mv", "imode", "cbf_y", "cbf_cb", "cbf_cr", "gtflag",
-        "gtc")]
+        "gtc", "mv_t", "tpred0", "tsse0", "tcost", "refsel", "tflag")]
         + [("ly", _ws._ClassArgs), ("lc", _ws._ClassArgs)])
 
 
@@ -586,6 +633,7 @@ class _SsScanIn(ctypes.Structure):
                 + [(k, _I) for k in ("hp", "wp", "h", "bit_depth", "strong",
                                      "radius", "mi_size")]
                 + [("lam", _F), ("lam_i", _F), ("mrate", _F * 9),
+                   ("ref_y", _P), ("ref_c", _P), ("radius_t", _I),
                    ("size", _SsSizeIn * 3)])
 
 
@@ -630,9 +678,10 @@ def _plan_check(p: SSPlan):
                          f"{p.n}x{p.n}")
 
 
-def _scan_args(work, ry, rc, src_y, src_c, h, bit_depth, strong):
+def _scan_args(work, ry, rc, src_y, src_c, h, bit_depth, strong, ref):
     """SsScanIn of ``work`` over the recon planes and their originals or
-    residuals."""
+    residuals; ``ref`` (ref_y [>= h, w], ref_c in rc's layout) the
+    previous picture of a PSS picture, or None."""
     a = _SsScanIn()
     a.items, a.groups = work.items.data_ptr(), work.groups.data_ptr()
     a.ngroups = len(work.host_groups)
@@ -641,6 +690,16 @@ def _scan_args(work, ry, rc, src_y, src_c, h, bit_depth, strong):
     a.c_rows, a.wc, a.stride_c = rc.shape[0], rc.shape[1], rc.stride(0)
     a.src_y, a.src_c = src_y.data_ptr(), src_c.data_ptr()
     a.h, a.bit_depth, a.strong = h, bit_depth, int(strong)
+    if ref is not None:
+        ref_y, ref_c = ref
+        _check(ref_y, torch.int32, "ref_y")
+        _check(ref_c, torch.int32, "ref_c")
+        # C14 reads the previous picture with the recon's row strides
+        if (ref_y.shape[0] < h or ref_y.shape[1:] != ry.shape[1:]
+                or ref_c.shape != rc.shape):
+            raise ValueError("ss_scan: ref_y must be [>= h, w] and ref_c in "
+                             "the stacked chroma plane's layout")
+        a.ref_y, a.ref_c = ref_y.data_ptr(), ref_c.data_ptr()
     return a
 
 
@@ -661,10 +720,11 @@ def _launch(entry, sig, a, *extra, like):
 
 def _scan_encode_c14(org_y, org_c, plans, work, zmaxw, qp, qp_c, bit_depth,
                      strong, w, h, radius, mi_size, use_rdoq, sbh, modes,
-                     zmax2n):
-    global SCAN_ISS_ENCODE_LAUNCHES
+                     zmax2n, ref=None, radius_t=0):
+    global SCAN_ISS_ENCODE_LAUNCHES, SCAN_PSS_ENCODE_LAUNCHES
     _check(org_y, torch.int32, "org_y")
     _check(org_c, torch.int32, "org_c")
+    pss = ref is not None
     dev = org_y.device
     ry = torch.zeros_like(org_y)
     rc = torch.zeros_like(org_c)
@@ -673,13 +733,15 @@ def _scan_encode_c14(org_y, org_c, plans, work, zmaxw, qp, qp_c, bit_depth,
     motion = [torch.zeros((org_y.shape[0] // 4, w // 4), dtype=torch.int32,
                           device=dev) for _ in range(4)]
     lam = full_lambda(qp)
-    rcfg_y = (3, lam) if use_rdoq else None            # ISS
-    rcfg_c = (3, lam * 2.0 ** ((qp_c - qp) / 3.0)) if use_rdoq else None
-    a = _scan_args(work, ry, rc, org_y, org_c, h, bit_depth, strong)
+    init_type = 4 if pss else 3                        # PSS, ISS
+    rcfg_y = (init_type, lam) if use_rdoq else None
+    rcfg_c = ((init_type, lam * 2.0 ** ((qp_c - qp) / 3.0)) if use_rdoq
+              else None)
+    a = _scan_args(work, ry, rc, org_y, org_c, h, bit_depth, strong, ref)
     a.coef_y, a.coef_c = coef_y.data_ptr(), coef_c.data_ptr()
     a.mvx4, a.mvy4, a.pi4, a.rf4 = (t.data_ptr() for t in motion)
     a.hp, a.wp = motion[0].shape
-    a.radius, a.mi_size = radius, mi_size
+    a.radius, a.mi_size, a.radius_t = radius, mi_size, radius_t if pss else 0
     lam32 = f32(lam)
     a.lam, a.lam_i = lam32, f32(lam * INTRA_BITS)
     for i in range(9):
@@ -701,19 +763,25 @@ def _scan_encode_c14(org_y, org_c, plans, work, zmaxw, qp, qp_c, bit_depth,
             my = modes[log2]
             _check(my, torch.int32, "modes")
             if my.shape[0] != t:
-                raise ValueError("scan_encode_iss: modes[log2] must be [T]")
-        out = (i32(t), i32(t, 2), i32(t), i32(t), i32(t), i32(t), i32(t),
-               i32(t, 6))
+                raise ValueError("ss_scan: modes[log2] must be [T]")
+        # (inter, refsel on PSS, mv, imode, cbf_y, cbf_cb, cbf_cr, gtflag,
+        # gtc)
+        out = ((i32(t),) + ((i32(t),) if pss else ())
+               + (i32(t, 2), i32(t), i32(t), i32(t), i32(t), i32(t),
+                  i32(t, 6)))
         scratch = dict(
             ipred=i32(t, n, n), pred0=i32(t, n, n), mv_i=i32(t, 2),
-            cost=f32t(t), sse=f32t(t), smode=i32(t), costs=f32t(t, 3),
-            cpred=i32(2 * t, m, m))
+            cost=f32t(t), sse=f32t(t), smode=i32(t),
+            costs=f32t(t, 4 if pss else 3), cpred=i32(2 * t, m, m))
         if z2 is not None:
             scratch.update(
                 anchor=i32(t, 2), gt_rate=f32t(t),
                 gt_ok=torch.empty(t, dtype=torch.bool, device=dev),
                 s_gtc=i32(t, 2, 6), s_pred=i32(t, 2, n, n),
                 s_cost=f32t(t, 2), s_amv=i32(t, 2, 2), s_ok=i32(t, 2))
+        if pss:
+            scratch.update(mv_t=i32(t, 2), tpred0=i32(t, n, n),
+                           tsse0=f32t(t), tcost=f32t(t))
         scratches.append(scratch)
         outs[log2] = out
         z = a.size[log2 - 3]
@@ -723,8 +791,10 @@ def _scan_encode_c14(org_y, org_c, plans, work, zmaxw, qp, qp_c, bit_depth,
             _ptr(my)
         for k, v in scratch.items():
             setattr(z, k, v.data_ptr())
-        for k, v in zip(("inter", "mv", "imode", "cbf_y", "cbf_cb", "cbf_cr",
-                         "gtflag", "gtc"), out):
+        names = (("inter",) + (("refsel",) if pss else ())
+                 + ("mv", "imode", "cbf_y", "cbf_cb", "cbf_cr", "gtflag",
+                    "gtc"))
+        for k, v in zip(names, out):
             setattr(z, k, v.data_ptr())
         z.ly = _ws._class_args(dev, 0, log2, qp, bit_depth, sbh, rcfg_y)
         z.lc = _ws._class_args(dev, 1, log2 - 1, qp_c, bit_depth, sbh,
@@ -732,19 +802,23 @@ def _scan_encode_c14(org_y, org_c, plans, work, zmaxw, qp, qp_c, bit_depth,
     if work.widest:
         _launch("hh_ss_scan_encode", "ppiipp", a, int(use_rdoq),
                 work.widest, like=org_y)
-        SCAN_ISS_ENCODE_LAUNCHES += 1
+        if pss:
+            SCAN_PSS_ENCODE_LAUNCHES += 1
+        else:
+            SCAN_ISS_ENCODE_LAUNCHES += 1
     return ry, rc, coef_y, coef_c, outs
 
 
 def _scan_decode_c14(resi_y, resi_c, plans, work, modes, cmodes, mvs,
-                     bit_depth, strong, h, gt):
-    global SCAN_ISS_DECODE_LAUNCHES
+                     bit_depth, strong, h, gt, ref=None, tf=None):
+    global SCAN_ISS_DECODE_LAUNCHES, SCAN_PSS_DECODE_LAUNCHES
     _check(resi_y, torch.int32, "resi_y")
     _check(resi_c, torch.int32, "resi_c")
-    dev = resi_y.device
+    pss = ref is not None
     ry = torch.zeros_like(resi_y)
     rc = torch.zeros_like(resi_c)
-    a = _scan_args(work, ry, rc, resi_y, resi_c, h, bit_depth, strong)
+    dev = resi_y.device
+    a = _scan_args(work, ry, rc, resi_y, resi_c, h, bit_depth, strong, ref)
     for log2, p in plans.items():
         _plan_check(p)
         t = len(p.vpos)
@@ -752,11 +826,13 @@ def _scan_decode_c14(resi_y, resi_c, plans, work, modes, cmodes, mvs,
                  (mvs[log2], "mvs", (t, 2))]
         if gt is not None:
             given += [(gt[log2][0], "gtf", (t,)), (gt[log2][1], "gtv", (t, 6))]
+        if pss:
+            given.append((tf[log2][0], "tflag", (t,)))
         z = a.size[log2 - 3]
         for v, nm, shape in given:
             _check(v, torch.int32, nm)
             if tuple(v.shape) != shape:
-                raise ValueError(f"scan_decode_ss: {nm}[log2] must be "
+                raise ValueError(f"ss_scan: {nm}[log2] must be "
                                  f"{list(shape)}")
             setattr(z, nm, v.data_ptr())
         for k in ("pos", "cpos", "avail", "cavail"):
@@ -765,5 +841,8 @@ def _scan_decode_c14(resi_y, resi_c, plans, work, modes, cmodes, mvs,
         z.lc = _ws._ClassArgs(_ws._intra_tables(dev, p.n // 2))
     if work.widest:
         _launch("hh_ss_scan_decode", "ppipp", a, work.widest, like=resi_y)
-        SCAN_ISS_DECODE_LAUNCHES += 1
+        if pss:
+            SCAN_PSS_DECODE_LAUNCHES += 1
+        else:
+            SCAN_ISS_DECODE_LAUNCHES += 1
     return ry, rc

@@ -344,16 +344,25 @@ def pss_search(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav, n,
     (the previous picture, rows of the same stride as org_plane) with
     radius ``radius_t``."""
     if not recon.is_cuda:
-        from hevc_hop_torch.ops.inter_arms import gather_cands
-        p_ss, p_t = gather_cands(*motion, pos, nbav, miav, n, mi_size,
-                                 SS_IDX_PSS)[3:]
-        return (ss_search_plain(recon, org_plane, pos, zcur, zmaxw, p_ss, n,
-                                radius, w, h, lam, zmax2n, seq=True),
-                t_search_plain(ref, org_plane, pos, p_t, n, radius_t, w, h,
-                               lam))
+        return pss_search_plain(recon, org_plane, pos, zcur, zmaxw, motion,
+                                nbav, miav, n, radius, w, h, lam, mi_size,
+                                zmax2n, ref, radius_t)
     return _search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav,
                         miav, n, radius, w, h, lam, mi_size, zmax2n, ref,
                         radius_t)
+
+
+def pss_search_plain(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav,
+                     n, radius, w, h, lam, mi_size, zmax2n, ref, radius_t):
+    """Plain version of :func:`pss_search` (same arguments and results) on
+    any device: the SS and temporal predictors gathered from the motion
+    planes, then both searches in the PSS program's sum order."""
+    from hevc_hop_torch.ops.inter_arms import gather_cands
+    p_ss, p_t = gather_cands(*motion, pos, nbav, miav, n, mi_size,
+                             SS_IDX_PSS)[3:]
+    return (ss_search_plain(recon, org_plane, pos, zcur, zmaxw, p_ss, n,
+                            radius, w, h, lam, zmax2n, seq=True),
+            t_search_plain(ref, org_plane, pos, p_t, n, radius_t, w, h, lam))
 
 
 def _search_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav, n,

@@ -211,6 +211,7 @@ one for the main paths, and as its last line
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import hashlib
 import json
 import os
@@ -234,6 +235,10 @@ PEAK_INT32_OPS = 33.5e12
 # float32 on the CUDA cores (NVIDIA data sheet, 67 TFLOP/s, an FMA counted
 # as two operations)
 PEAK_FP32_OPS = 67e12
+# int8 on the tensor cores (NVIDIA data sheet, 1979 TOP/s dense, a
+# multiply-add counted as two operations): kernel C9's correlation of 8-bit
+# samples is a matrix product of the block against the window's rows
+PEAK_INT8_OPS = 1979e12
 
 W, H, QP = 1920, 1088, 32
 TIMED_FRAMES = 6
@@ -277,7 +282,16 @@ def require(cond, what):
 
 # ---------------------------------------------------------------------------
 
+# the stage-clock build of csrc/ss_scan.cu, started by phase_build once the
+# production libraries are built and awaited by phase_stage_clock: it
+# compiles while the phases between run
+_CLOCK_BUILD = {}
+
+
 def phase_build():
+    """Every kernel library, one nvcc per source, all started together; the
+    CABAC library; then the stage-clock build started in the background."""
+    from concurrent.futures import ThreadPoolExecutor
     from hevc_hop_torch import _cuda
     from hevc_hop_torch.entropy import native
     t0 = time.perf_counter()
@@ -287,6 +301,10 @@ def phase_build():
     native.get_lib()
     log(f"build: {_cuda.sources()} and libhevc_hop.so in "
         f"{time.perf_counter() - t0:.1f} s")
+    ex = ThreadPoolExecutor(1)
+    _CLOCK_BUILD["so"] = ex.submit(_cuda.variant, "ss_scan", "clock",
+                                   CLOCK_FLAGS)
+    ex.shutdown(wait=False)
     for name, kernel in (("scan", "C13"), ("ss_scan", "C14")):
         log(f"ptxas, csrc/{name}.cu (kernel {kernel}):\n"
             + _cuda.BUILD_LOGS.get(name, "(built before this run)").strip())
@@ -1467,12 +1485,12 @@ def rdoq_ops(n):
 
 def bound(nbytes, ops):
     """Least time (ms) of the work and what bounds it. ``ops`` is int32
-    operations, or (int32, float32) operations: the CUDA cores run the two
-    at 33.5 and 67 T/s, and the floor is the larger of the two times."""
-    if isinstance(ops, tuple):
-        to = max(ops[0] / PEAK_INT32_OPS, ops[1] / PEAK_FP32_OPS) * 1e3
-    else:
-        to = ops / PEAK_INT32_OPS * 1e3
+    operations, or (int32, float32) or (int32, float32, int8) operations:
+    the CUDA cores run the first two at 33.5 and 67 T/s, the tensor cores
+    int8 at 1979 T/s, and the floor is the largest of the times."""
+    ops = ops if isinstance(ops, tuple) else (ops,)
+    to = max(o / p for o, p in zip(
+        ops, (PEAK_INT32_OPS, PEAK_FP32_OPS, PEAK_INT8_OPS))) * 1e3
     tb = nbytes / PEAK_BYTES * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
@@ -1898,6 +1916,26 @@ def phase_timing(ctxs, ps, checks, launches, scan_rows):
     return _time_specs(specs, checks, launches)
 
 
+def _traced_ms(fn, kernel, name):
+    """(device ms per call of fn's launches of ``kernel``, traces taken):
+    a call of small launches is bound by the host, so its host time is
+    mostly Python. A trace now and then lacks some of the launches'
+    records, so one counts only if it holds them all."""
+    inner, ms, traces = 10, None, 0
+    while ms is None and traces < 6:
+        traces += 1
+        prof = _profile(lambda: [fn() for _ in range(inner)])
+        count = prof["kernel_calls"][kernel]
+        if count and count == count // inner * inner:
+            ms = prof["kernel_ms"][kernel] / inner
+        else:
+            log(f"{name}: trace {traces} holds {count} records of "
+                f"{kernel} for {inner} calls; traced again")
+    require(ms is not None and ms > 0,
+            f"no complete trace of {kernel} in {traces} tries")
+    return ms, traces
+
+
 def _time_specs(specs, checks, launches):
     """Each spec's kernel held once more against its plain version, then
     timed: device ms from a complete profiler trace, the wrapper's and the
@@ -1933,23 +1971,7 @@ def _time_specs(specs, checks, launches):
         call_ms = time_ms(fn, reps=3 if slow else 7, inner=3 if slow else 10)
         pms = (sp["plain_ms"] if "plain_ms" in sp else
                time_ms(plain, reps=1 if slow else 5, inner=1))
-        # the kernel's own device time per call: a call of these small
-        # launches is bound by the host, so call_ms is mostly Python. A
-        # trace now and then lacks some of the launches' records, so one
-        # counts only if it holds them all
-        inner, ms, traces = 10, None, 0
-        while ms is None and traces < 6:
-            traces += 1
-            prof = _profile(lambda: [fn() for _ in range(inner)])
-            count = prof["kernel_calls"][sp["kernel"]]
-            per_call = count // inner
-            if count and count == per_call * inner:
-                ms = prof["kernel_ms"][sp["kernel"]] / inner
-            else:
-                log(f"{name}: trace {traces} holds {count} records of "
-                    f"{sp['kernel']} for {inner} calls; traced again")
-        require(ms is not None and ms > 0,
-                f"no complete trace of {sp['kernel']} in {traces} tries")
+        ms, traces = _traced_ms(fn, sp["kernel"], name)
         b_ms, by = bound(sp["nbytes"], sp["ops"])
         # on the main paths C7's device code (rdoq_block) runs inside C3's
         # RDOQ arm, or inside C13, and C2's and C3's inside C13 on the
@@ -1966,6 +1988,15 @@ def _time_specs(specs, checks, launches):
                          k: v[counter] for k, v in launches.items()}}
         if "loop_ms" in sp:
             fused["level_loop_ms"] = sp["loop_ms"]
+        if "wide" in sp:
+            wd = sp["wide"]
+            wb_ms, wby = bound(sp["nbytes"] * wd["times"],
+                               tuple(o * wd["times"] for o in sp["ops"]))
+            fused["at_more_cus"] = {
+                "cus": wd["cus"],
+                "ms": _traced_ms(wd["fn"], sp["kernel"], name)[0],
+                "library_ms": time_ms(wd["library"]), "bound_ms": wb_ms,
+                "bound_by": wby}
         rows.append({"name": name, "route": "cuda", "source": sp["source"],
                      "replaces": sp["replaces"], "path": sp["path"],
                      "kernel": sp["kernel"],
@@ -2801,6 +2832,7 @@ def phase_ss_scan_program(ctxs, checks):
         c14, secs["encode_C14_s"] = _timed(
             lambda: ss_scan.scan_encode_iss(*args, work=work))
         grid = ss_scan.LAST_LAUNCH
+        require_cluster_launch(grid, f"C14 encode, {name}")
         loop, secs["encode_loop_s"] = _timed(
             lambda: ss_scan.scan_encode_iss_loop(*args))
         _hold_ss_scan(chk, c14, loop, f"C14 encode, {name} frame, against "
@@ -2833,8 +2865,7 @@ def phase_ss_scan_program(ctxs, checks):
         rec = {"path": name, "groups": len(work.host_groups),
                "cus": len(work.host_items), "widest_group": work.widest,
                "gt_cus": gts, "decode_groups": len(dwork.host_groups),
-               "grid_ctas_per_sm_smem_threads": grid,
-               "turns": turns, **secs,
+               "launch": grid, "turns": turns, **secs,
                **{f"{k}_{r}": float(med[r][i]) for r in med
                   for i, k in enumerate(("encode_s", "scan_s", "decode_s",
                                          "decode_scan_s"))}}
@@ -2886,7 +2917,7 @@ def _pss_calls(enc, frames, stream=None):
     return list(zip(encs, decs))
 
 
-def _hold_pss(chk, calls, what, plain=False):
+def _hold_pss(chk, calls, what, plain=False, gt=True):
     """C14's PSS form on each PSS picture's recorded inputs (``calls``,
     from _pss_calls), each way, against the level loop of the card's
     kernels and, with ``plain``, the plain loop: recon, level planes and
@@ -2902,6 +2933,7 @@ def _hold_pss(chk, calls, what, plain=False):
         c14, secs["encode_C14_s"] = _timed(
             lambda: ss_scan.scan_encode_pss(*args, work=work))
         grid = ss_scan.LAST_LAUNCH
+        require_cluster_launch(grid, f"C14 PSS encode, {at}")
         dec, secs["decode_C14_s"] = _timed(
             lambda: ss_scan.scan_decode_pss(*dargs, work=dwork))
         for a, b, nm in zip(dec, c14[:2], ("ry", "rc")):
@@ -2930,7 +2962,7 @@ def _pss_record(r):
             "cus": len(r["work"].host_items),
             "widest_group": r["work"].widest, **_cu_kinds(r["c14"][4]),
             "decode_groups": len(r["dwork"].host_groups),
-            "grid_ctas_per_sm_smem_threads": r["grid"], **r["secs"]}
+            "launch": r["grid"], **r["secs"]}
 
 
 def phase_pss_scan_program(ctxs, checks):
@@ -2989,6 +3021,259 @@ def phase_pss_scan_program(ctxs, checks):
     log(f"pss scan program: C14 held in {chk.cases} comparisons, "
         f"{chk.mism} mismatching elements")
     return rec, held[-1]
+
+
+# Kernel C14's stage clocks (csrc/ss_scan.cu's Stamp, built with
+# -DHH_STAGE_CLOCK into a library of its own): the read phase's stages in
+# their order, with the stamp each ends at, then the phases' stamps
+CLOCK_STAGES = (("intra", 1), ("C9 SS search", 2), ("C9 temporal search", 3),
+                ("cluster sync 1", 4), ("C9 merge", 5),
+                ("cluster sync 2", 6), ("C10 arms", 7), ("C12 anchor 0", 8),
+                ("C12 anchor 1", 9), ("cluster sync 3", 10),
+                ("C12 decide", 11), ("chroma", 12))
+CLOCK_SYNC1, CLOCK_WRITE, CLOCK_SYNC2, CLOCK_STAMPS = 13, 14, 15, 16
+# the search parts' stamps (SS, temporal) and the two anchors'
+CLOCK_SEARCH, CLOCK_ANCHORS = (2, 3), (8, 9)
+CLOCK_PATHS = ("iss", "iss-gt-warped", "pss-gt")
+CLOCK_FLAGS = ["-DHH_STAGE_CLOCK"]
+
+
+class _C14Library:
+    """Within it, the wrappers launch C14 from the library ``so`` (the
+    stage-clock build) in place of the production one."""
+
+    def __init__(self, so):
+        self.so = so
+
+    def __enter__(self):
+        from hevc_hop_torch import _cuda
+        self.saved = _cuda._libs.get("ss_scan")
+        _cuda._libs["ss_scan"] = self.so
+
+    def __exit__(self, *exc):
+        from hevc_hop_torch import _cuda
+        _cuda._libs["ss_scan"] = self.saved
+
+
+def stage_split(clk):
+    """The stage split of one C14 encode from its stamps clk [groups, CTAs,
+    CLOCK_STAMPS] (ns, 0 where a CTA did not run the stage), in us summed
+    over the groups: per read-phase stage the longest time any CTA of the
+    group spent in it (a CTA's stage runs from its previous stamp to this
+    one); the read phase (the group's first start to its last read end),
+    grid sync 1 (from there to the last CTA out of it), the write phase and
+    grid sync 2 alike; and the groups' time (first start to last out of
+    sync 2)."""
+    clk = np.asarray(clk, dtype=np.int64)
+    start = clk[:, :, 0]
+    last = start.copy()
+    stage = {}
+    for name, k in CLOCK_STAGES:
+        s = clk[:, :, k]
+        stage[name] = np.where(s > 0, s - last, 0).max(axis=1)
+        last = np.where(s > 0, s, last)
+    g0 = start.min(axis=1)
+    read_end = last.max(axis=1)
+    s1 = clk[:, :, CLOCK_SYNC1].max(axis=1)
+    wr = clk[:, :, CLOCK_WRITE].max(axis=1)
+    s2 = clk[:, :, CLOCK_SYNC2].max(axis=1)
+    phase = {"read phase": read_end - g0, "grid sync 1": s1 - read_end,
+             "write phase": wr - s1, "grid sync 2": s2 - wr}
+    group = s2 - g0
+    us = lambda v: float(v.sum() / 1e3)
+    return {"groups": int(clk.shape[0]), "groups_us": us(group),
+            "group_us_median": float(np.median(group) / 1e3),
+            "group_us_max": float(group.max() / 1e3),
+            "stage_us": {k: us(v) for k, v in stage.items()},
+            "phase_us": {k: us(v) for k, v in phase.items()}}
+
+
+def phase_stage_clock(ss_rows, checks):
+    """C14's stage clocks on the encode of CLOCK_PATHS' pictures (pss-gt:
+    its last PSS picture): the stage-clock build of csrc/ss_scan.cu
+    (-DHH_STAGE_CLOCK), its outputs held against the production
+    library's, the cluster layout required from its stamps
+    (require_cluster_stamps), then stage_split of them, with the launch's
+    shape."""
+    import torch
+    from hevc_hop_torch import _cuda
+    from hevc_hop_torch.models import ss_scan
+    t0 = time.perf_counter()
+    so = (_CLOCK_BUILD["so"].result() if "so" in _CLOCK_BUILD else
+          _cuda.variant("ss_scan", "clock", CLOCK_FLAGS))
+    log(f"stage clock: its build awaited {time.perf_counter() - t0:.1f} s")
+    set_clock = so.hh_ss_scan_clock
+    set_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    chk = checks["C14"]
+    out = {}
+    for name in CLOCK_PATHS:
+        r = ss_rows[name]
+        fn = ss_scan.scan_encode_pss if r.get("pss") else \
+            ss_scan.scan_encode_iss
+        groups = len(r["work"].host_groups)
+        ctas = torch.cuda.get_device_properties(0).multi_processor_count * 8
+        buf = torch.zeros((groups, ctas, CLOCK_STAMPS), dtype=torch.int64,
+                          device="cuda")
+        with _C14Library(so):
+            torch.cuda.synchronize()
+            _cuda.check("ss_scan", set_clock(buf.data_ptr(), ctas))
+            got = fn(*r["args"], work=r["work"])
+            torch.cuda.synchronize()
+            _cuda.check("ss_scan", set_clock(None, 0))
+            launch = ss_scan.LAST_LAUNCH
+        _hold_ss_scan(chk, got, r["c14"], f"C14 stage-clock build, {name}, "
+                      "against the production library")
+        clk = buf[:, :launch["grid"]].cpu().numpy()
+        anchor_stamps = require_cluster_stamps(
+            clk, launch["ctas_per_cu"], f"C14 stage clocks, {name}",
+            r["args"][-1] is not None)
+        rec = {"path": name, "launch": launch, "anchor_stamps": anchor_stamps,
+               **stage_split(clk)}
+        log(f"stage clock: {json.dumps(rec)}")
+        out[name] = rec
+    return out
+
+
+# kernel C9's scan entry held at every CU size and both bit depths on a
+# lenslet plane of this size
+C9_SPLIT_W, C9_SPLIT_H = 512, 384
+C9_SPLIT_BLOCKS = 8
+
+
+def phase_c9_split(checks):
+    """Kernel C9's scan entry (a cluster of CTAs per block, the
+    displacements split between them) against its plain body on the card
+    at n = 8, 16 and 32, 8 and 10 bit, on a lenslet plane: the SS search
+    with the GT anchor ring (radius 32), then the PSS launch (the SS search
+    in F10's order beside the temporal search, radius 16, over the plane
+    panned 3 samples), every output; and against the emulation of its
+    arithmetic (ops/ss_search.py ss_search_split, t_search_split, run on
+    the card), whose counts show the entries that stayed exact below 2^24
+    and those that took the ordered form (required at 32x32 and 10 bit,
+    absent at 8-bit 16x16 and less; at 32x32 the SS search has no causal
+    displacement within radius 32, the temporal one shows the region) and
+    the anchor ring found (n < 32)."""
+    import torch
+    from hevc_hop_torch.models import wavefront
+    from hevc_hop_torch.models.partition import full_lambda
+    from hevc_hop_torch.models.ss_scan import zmax_win_px
+    from hevc_hop_torch.ops import inter_arms as ia
+    from hevc_hop_torch.ops import ss_search as ss
+    dev = torch.device("cuda")
+    w, h, lam = C9_SPLIT_W, C9_SPLIT_H, full_lambda(QP)
+    chk = checks["C9"]
+    zplane = wavefront.zaddr4_plane(w, h, 5)
+    out = {}
+    for bd in (8, 10):
+        rng = np.random.default_rng(bd)
+        y = synth_lenslet(w, h, 13, seed=bd)[0] << (bd - 8)
+        maxv = (1 << bd) - 1
+        recon = np.zeros((h + 32, w), np.int32)
+        recon[:h] = y
+        org = recon.copy()
+        org[:h] = np.clip(y + rng.integers(-3, 4, y.shape), 0, maxv)
+        ref = recon.copy()
+        ref[:h] = np.roll(y, 3, axis=1)
+        recon, org, ref = (torch.as_tensor(a, device=dev)
+                           for a in (recon, org, ref))
+        motion = (
+            torch.as_tensor(rng.integers(-200, 40, ((h + 32) // 4, w // 4)),
+                            dtype=torch.int32, device=dev),
+            torch.as_tensor(rng.integers(-200, 40, ((h + 32) // 4, w // 4)),
+                            dtype=torch.int32, device=dev),
+            torch.as_tensor(rng.random(((h + 32) // 4, w // 4)) < 0.6,
+                            dtype=torch.int32, device=dev),
+            torch.as_tensor(rng.integers(0, 2, ((h + 32) // 4, w // 4)),
+                            dtype=torch.int32, device=dev))
+        for n in (8, 16, 32):
+            ys, xs = np.mgrid[96:h - n + 1:3 * n, 0:w - n + 1:5 * n]
+            pos = np.stack([xs.ravel(), ys.ravel()], -1)[:C9_SPLIT_BLOCKS]
+            b = len(pos)
+            zcur = torch.as_tensor(
+                zplane[pos[:, 1] >> 2, pos[:, 0] >> 2].astype(np.int32),
+                device=dev)
+            pos = torch.as_tensor(pos.astype(np.int32), device=dev)
+            zmaxw = torch.as_tensor(zmax_win_px(zplane, n), device=dev)
+            zmax2n = torch.as_tensor(zmax_win_px(zplane, 2 * n, ifm=2),
+                                     device=dev)
+            nbav = torch.as_tensor(rng.random((b, 5)) < 0.7, device=dev)
+            miav = torch.as_tensor(rng.random((b, 3)) < 0.7, device=dev)
+            args = (recon, org, pos, zcur, zmaxw, motion, nbav, miav, n, 32,
+                    w, h, lam, 16, zmax2n)
+            at = f"C9 split n={n} {bd} bit"
+            got = ss.ss_search(*args)
+            want = ss.ss_search_motion_plain(*args)
+            emu, reg = ss.ss_search_split(recon, org, pos, zcur, zmaxw,
+                                          ia.gather_cands(
+                                              *motion, pos, nbav, miav, n,
+                                              16)[3], n, 32, w, h, lam,
+                                          zmax2n)
+            for g, w_, e, nm in zip(got, want, emu, (
+                    "mv", "cost", "pred", "sse", "anchor", "gt_rate",
+                    "gt_ok")):
+                chk.add(g, w_, f"{at}: {nm} against the plain body")
+                chk.add(g, e, f"{at}: {nm} against the emulation")
+            pargs = args + (ref, 16)
+            gs, gt = ss.pss_search(*pargs)
+            ws, wt = ss.pss_search_plain(*pargs)
+            p_ss, p_t = ia.gather_cands(*motion, pos, nbav, miav, n, 16,
+                                        ss.SS_IDX_PSS)[3:]
+            es, _ = ss.ss_search_split(recon, org, pos, zcur, zmaxw, p_ss,
+                                       n, 32, w, h, lam, zmax2n, seq=True)
+            et, treg = ss.t_search_split(ref, org, pos, p_t, n, 16, w, h,
+                                         lam)
+            for g, w_, e, nm in zip(gs + gt, ws + wt, es + et, (
+                    "mv", "cost", "pred", "sse", "anchor", "gt_rate",
+                    "gt_ok", "temporal mv", "temporal cost",
+                    "temporal pred", "temporal sse")):
+                chk.add(g, w_, f"{at} PSS: {nm} against the plain body")
+                chk.add(g, e, f"{at} PSS: {nm} against the emulation")
+            # at 32x32 no displacement within radius 32 is causal (its
+            # window's interpolation margin reaches the CU's own first
+            # samples): the SS search takes index 0 there
+            big = n == 32 or bd == 10
+            ss_ok = (reg["none_valid"] == b if n == 32 else
+                     reg["ring"] > 0 and (reg["ordered"] > 0) == big)
+            require(ss_ok and (treg["ordered"] > 0) == big,
+                    f"{at}: the sums' regions {reg}, temporal {treg}")
+            out[f"n{n}_{bd}bit"] = {"blocks": b, "ss": reg, "temporal": treg}
+    log(f"c9 split: {json.dumps(out)}")
+    log(f"c9 split: C9 held in {chk.cases} comparisons, {chk.mism} "
+        "mismatching elements")
+    require(chk.mism == 0, "C9's split search differs from its plain body")
+    return out
+
+
+def require_cluster_launch(launch, what):
+    """C14's encode launch ran its read phase on clusters: more than one
+    CTA per CU (the launch's cluster dimension). That the CTAs of a cluster
+    shared a CU's work, the anchors on two of them, the stage clocks show
+    (require_cluster_stamps)."""
+    require(launch["ctas_per_cu"] > 1,
+            f"{what}: {launch['ctas_per_cu']} CTA per CU: {launch}")
+
+
+def require_cluster_stamps(clk, per_cu, what, gt):
+    """From the stamps clk [groups, CTAs, CLOCK_STAMPS] of one C14 encode
+    (clusters of per_cu consecutive CTAs): in every group some cluster had
+    more than one CTA stamp a search part (C9's displacements split), and
+    with the GT on C12's anchors ran on two CTAs: each anchor stamped in
+    some group, and no CTA stamped both. Returns the two anchors' stamp
+    counts ([0, 0] with the GT off)."""
+    g, ctas = clk.shape[:2]
+    searched = ((clk[:, :, CLOCK_SEARCH[0]] > 0)
+                | (clk[:, :, CLOCK_SEARCH[1]] > 0))
+    most = searched.reshape(g, ctas // per_cu, per_cu).sum(2).max(1)
+    require((most > 1).all(), f"{what}: groups whose CUs each searched on "
+            f"one CTA: {np.flatnonzero(most <= 1).tolist()[:10]}")
+    if gt:
+        a0, a1 = (clk[:, :, k] > 0 for k in CLOCK_ANCHORS)
+        require(a0.any() and a1.any() and not (a0 & a1).any(),
+                f"{what}: C12's anchors did not run on two CTAs "
+                f"({int(a0.sum())}, {int(a1.sum())} stamps, "
+                f"{int((a0 & a1).sum())} CTAs with both)")
+        return [int(a0.sum()), int(a1.sum())]
+    return [0, 0]
 
 
 GT_SHARE_TURNS = 1
@@ -3356,12 +3641,16 @@ def _last_prep(enc):
     return enc._prep_cache[next(reversed(enc._prep_cache))]
 
 
+# the K13 row's search also timed over this many times its CUs
+WIDE = 16
+
+
 def search_ops(pos, zcur, zmaxw, n, radius):
-    """Float32 operations of the search over blocks pos at the causal
-    displacements these inputs have (the kernel skips the others): per
-    displacement 2 n^2 multiply-adds (correlation and ref^2, two
-    operations each) and the SSE, rate and compare (about 12 + 10 per
-    predictor, counted as 80)."""
+    """Float32 operations of the pre-pass's search (its float sums) over
+    blocks pos at the causal displacements these inputs have (the kernel
+    skips the others): per displacement 2 n^2 multiply-adds (correlation
+    and ref^2, two operations each) and the SSE, rate and compare (about
+    12 + 10 per predictor, counted as 80)."""
     import torch
     d = torch.arange(-radius, radius + 1, device=pos.device)
     ty = pos[:, 1, None, None].long() + d[None, :, None]
@@ -3370,6 +3659,32 @@ def search_ops(pos, zcur, zmaxw, n, radius):
     zm = zmaxw[ty.clamp(0, H - n), tx.clamp(0, W - n)]
     causal = int((inb & (zm < zcur[:, None, None])).sum())
     return causal * (4 * n * n + 80), causal
+
+
+def scan_search_ops(counts, n, radius, bits=8):
+    """(int32, float32, int8) operations of kernel C9's scan search
+    (search_part) of the blocks whose valid displacements number counts
+    [B], the least its function needs: per valid displacement corr's n^2
+    multiply-adds (two operations each; int8 at 8 bit, int32 at 10 bit)
+    and the SSE, rate and compare (about 12 + 10 per predictor, counted as
+    80, float32); per block with one, ref^2's box sums of its squared
+    window of side w = n + 2 radius (w^2 squares, then sliding sums of
+    width n along the w rows and of n rows along the d = 2 radius + 1
+    columns, an add and a subtract each) and org^2 (n^2 multiply-adds).
+    Entries whose sums pass 2^24 and take the reference's ordered float
+    form are not counted: a floor."""
+    w, d = n + 2 * radius, 2 * radius + 1
+    valid, live = int(counts.sum()), int((counts > 0).sum())
+    corr = 2 * n * n * valid
+    box = live * (w * w + 2 * w * d + 2 * d * d + 2 * n * n)
+    return ((box + corr, 80 * valid, 0) if bits > 8 else
+            (box, 80 * valid, corr))
+
+
+def add_ops(*ops):
+    """The sum of operation tuples, element by element."""
+    return tuple(sum(o[k] for o in ops if k < len(o))
+                 for k in range(max(len(o) for o in ops)))
 
 
 def mc_ops(n, taps):
@@ -3426,13 +3741,13 @@ def _in_picture_counts(pos, n, radius):
 
 
 def ss_encode_work(args, outs, pss=False):
-    """(bytes, (int32, float32) operations) of kernel C14's encode of one
-    ISS picture (``args`` scan_encode_iss's) or, with ``pss``, one PSS
+    """(bytes, (int32, float32, int8) operations) of kernel C14's encode of
+    one ISS picture (``args`` scan_encode_iss's) or, with ``pss``, one PSS
     picture (``args`` scan_encode_pss's), counted on this run's data: each
     original sample (and on a PSS picture each previous-picture sample)
     read once and each recon sample and level written once, each CU's
     outputs; per CU C2's RMD or given mode, C9's sums over its causal
-    displacements (search_ops) and on a PSS picture over the temporal
+    displacements (scan_search_ops) and on a PSS picture over the temporal
     search's displacements in the picture, C10's 16 sub-pel MCs and their
     SSEs where a displacement was causal (and the temporal refinement's 16)
     and the intra SSE, C12's 79 warps for a CU that codes the GT (at least
@@ -3440,24 +3755,25 @@ def ss_encode_work(args, outs, pss=False):
     work (RDOQ's where on). Merge candidates and the anchors no GT CU kept
     are not counted: a floor."""
     if pss:
-        (_, _, _, _, plans, _, zmaxw, _, _, _, _, _, _, radius, radius_t, _,
-         rdoq, _, modes, _) = args
+        (_, _, _, _, plans, _, zmaxw, _, _, bits, _, _, _, radius, radius_t,
+         _, rdoq, _, modes, _) = args
     else:
-        (_, _, plans, _, zmaxw, _, _, _, _, _, _, radius, _, rdoq, _, modes,
-         _) = args
+        (_, _, plans, _, zmaxw, _, _, bits, _, _, _, radius, _, rdoq, _,
+         modes, _) = args
     gi = 7 if pss else 6        # the GT flag among the outputs
-    nbytes, oi, of = 0, 0, 0
+    nbytes, oi, of, o8 = 0, 0, 0, 0
     for lg, p in plans.items():
         n, m, t = p.n, p.n // 2, len(p.vpos)
         causal = _causal_counts(p.pos, p.zcur, zmaxw[lg], n, radius)
         live = int((causal > 0).sum())
         oi += t * (given_mode_ops(n) if modes is not None else rmd_ops(n))
-        of += int(causal.sum()) * (4 * n * n + 80)
+        oi, of, o8 = add_ops((oi, of, o8),
+                             scan_search_ops(causal, n, radius, bits))
         oi += live * 16 * mc_ops(n, 8)
         of += (t + 16 * live) * 3 * n * n
         if pss:
-            inpic = _in_picture_counts(p.pos, n, radius_t)
-            of += int(inpic.sum()) * (4 * n * n + 80)
+            oi, of, o8 = add_ops((oi, of, o8), scan_search_ops(
+                _in_picture_counts(p.pos, n, radius_t), n, radius_t, bits))
             oi += t * 16 * mc_ops(n, 8)
             of += 16 * t * 3 * n * n
             nbytes += t * ((n * n + 2 * m * m) * 4 + 4)
@@ -3467,7 +3783,7 @@ def ss_encode_work(args, outs, pss=False):
             ti, tf = _tq_work(b, k, rdoq)
             oi, of = oi + ti, of + tf
         nbytes += t * (n * n * 10 + 2 * m * m * 10 + 64)
-    return nbytes, (oi, of)
+    return nbytes, (oi, of, o8)
 
 
 def ss_decode_work(dargs, pss=False):
@@ -3581,7 +3897,8 @@ def phase_iss_timing(ctxs, checks, launches):
     zmaxw = zmaxws[lg]
     sargs = (ry, oy, pos, zcur, zmaxw, motion, nbav, miav, n, 32, W, H, lam,
              16)
-    ops, causal = search_ops(pos, zcur, zmaxw, n, 32)
+    cnt = _causal_counts(pos, zcur, zmaxw, n, 32)
+    causal = int(cnt.sum())
     wsz = n + 64
     spec(name=f"C9 ss_search (scan, {n}x{n})", counter="C9 search",
          path=path, kernel="ss_search_kernel",
@@ -3594,7 +3911,7 @@ def phase_iss_timing(ctxs, checks, launches):
              ia.gather_cands(*motion, pos, nbav, miav, n, 16)[3], n, 32, W,
              H, lam),
          nbytes=c * (wsz * wsz + n * n) * 4 + c * (n * n * 4 + 16),
-         ops=(0, ops))
+         ops=scan_search_ops(cnt, n, 32))
     # the library yardstick: cuDNN's grouped float32 convolution of the
     # same windows with the blocks (the correlation alone, TF32 allowed as
     # PyTorch's default)
@@ -3606,6 +3923,16 @@ def phase_iss_timing(ctxs, checks, launches):
     specs[-1]["library"] = lambda: F.conv2d(win, ker, groups=c)
     specs[-1]["library_call"] = ("torch.nn.functional.conv2d, grouped, "
                                  "float32 (cuDNN; the correlation only)")
+    # the same search and convolution over WIDE times the CUs (each block
+    # WIDE times): a level of the wavefront holds too few CUs to fill the
+    # card, and the time's growth with the count says how far the row's
+    # time is latency
+    wargs = (ry, oy, pos.repeat(WIDE, 1), zcur.repeat(WIDE), zmaxw, motion,
+             nbav.repeat(WIDE, 1), miav.repeat(WIDE, 1)) + sargs[8:]
+    wwin, wker = win.repeat(1, WIDE, 1, 1), ker.repeat(WIDE, 1, 1, 1)
+    specs[-1]["wide"] = dict(
+        times=WIDE, cus=WIDE * c, fn=lambda: ss.ss_search(*wargs),
+        library=lambda: F.conv2d(wwin, wker, groups=WIDE * c))
     # C9's pre-pass entry on every 16x16 block of the lenslet luma
     ys, xs = np.mgrid[0:H:16, 0:W:16]
     ppos = torch.as_tensor(np.stack([xs.ravel(), ys.ravel()], -1).astype(
@@ -3787,7 +4114,8 @@ def phase_gt_timing(ctxs, checks, launches):
     n, c = 16, L["c"]
     sargs = (L["ry"], L["oy"], L["pos"], L["zcur"], L["zmaxw"], L["motion"],
              L["nbav"], L["miav"], n, 32, W, H, L["lam"], 16)
-    ops, causal = search_ops(L["pos"], L["zcur"], L["zmaxw"], n, 32)
+    cnt = _causal_counts(L["pos"], L["zcur"], L["zmaxw"], n, 32)
+    causal = int(cnt.sum())
     wsz = n + 64
     spec = lambda **kw: specs.append(_in_c14(kw))
     spec(name=f"C9 ss_search (scan, GT ring, {n}x{n})", counter="C9 ring",
@@ -3802,7 +4130,7 @@ def phase_gt_timing(ctxs, checks, launches):
              ia.gather_cands(*L["motion"], L["pos"], L["nbav"], L["miav"],
                              n, 16)[3], n, 32, W, H, L["lam"], L["zmax2n"]),
          nbytes=c * (wsz * wsz + n * n) * 4 + c * (n * n * 4 + 28),
-         ops=(0, ops + causal * 10))
+         ops=add_ops(scan_search_ops(cnt, n, 32), (0, causal * 10)))
 
     # C12 on the iss-gt-warped path's fullest level, after a real search
     # and C10's tournament
@@ -3944,13 +4272,11 @@ def phase_pss_timing(ctxs, checks, launches):
         kw if kw["counter"] == "C9 prepass temporal" else dict(kw, **in_c14))
     sargs = (ry, oy, pos, zcur, zmaxw, motion, nbav, miav, n, 32, W, H, lam,
              16, zmax2n, ref, 16)
-    ops_s, causal = search_ops(pos, zcur, zmaxw, n, 32)
+    cnt = _causal_counts(pos, zcur, zmaxw, n, 32)
+    causal = int(cnt.sum())
+    tcnt = _in_picture_counts(pos, n, 16)
+    inpic = int(tcnt.sum())
     dt = torch.arange(-16, 17, device=dev)
-    ty = pos[:, 1, None, None].long() + dt[None, :, None]
-    tx = pos[:, 0, None, None].long() + dt[None, None, :]
-    inpic = int(((ty >= 0) & (tx >= 0) & (ty + n <= H)
-                 & (tx + n <= W)).sum())
-    ops_t = inpic * (4 * n * n + 80)
     ws, wt = n + 64, n + 32
 
     def plain_search():
@@ -3969,7 +4295,8 @@ def phase_pss_timing(ctxs, checks, launches):
          plain=plain_search,
          nbytes=c * (ws * ws + wt * wt + n * n) * 4
          + c * (2 * n * n * 4 + 44),
-         ops=(0, ops_s + ops_t))
+         ops=add_ops(scan_search_ops(cnt, n, 32),
+                     scan_search_ops(tcnt, n, 16)))
     # the library yardstick: the temporal correlation as cuDNN's grouped
     # float32 convolution of the same windows (TF32 allowed, its default)
     ar = torch.arange(wt, device=dev)
@@ -4591,6 +4918,7 @@ def main() -> int:
     phase_rdoq(checks)
     phase_interp(checks)
     phase_warp(checks)
+    c9_split = phase_c9_split(checks)
     ps = phase_partition_sao(checks)
     log_host("kernels held")
     paths, ctxs = {}, {}
@@ -4608,6 +4936,8 @@ def main() -> int:
     ss_scan_program["pss-gt"], ss_rows["pss-gt"] = phase_pss_scan_program(
         ctxs, checks)
     log_host("pss scan program held")
+    stage_clock = phase_stage_clock(ss_rows, checks)
+    log_host("stage clocks read")
     paths["mesh"], mesh_ctx = phase_mesh(checks)
     log_host("mesh path timed")
     gt_share = phase_gt_share(ctxs)
@@ -4662,7 +4992,8 @@ def main() -> int:
                     "iss_prepass_check": iss_prepass, "bdrate": bdrate,
                     "gt_share": gt_share, "scan_program": scan_program,
                     "ss_scan_program": ss_scan_program,
-                    "ss_scan_plain": ss_plain,
+                    "ss_scan_plain": ss_plain, "stage_clock": stage_clock,
+                    "c9_split": c9_split,
                     "full_fixtures": full_fixtures}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -57,21 +57,22 @@ def _stale(name: str) -> bool:
     return os.path.getmtime(out) < max(os.path.getmtime(d) for d in deps)
 
 
-def _start_build(name: str) -> tuple:
+def _start_build(name: str, flags=(), out: str | None = None) -> tuple:
     os.makedirs(BUILD, exist_ok=True)
-    tmp = _lib_path(name) + f".tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    tmp = (out or _lib_path(name)) + f".tmp{os.getpid()}"
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", tmp,
+           os.path.join(CSRC, f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp
 
 
-def _finish_build(name: str, proc, tmp: str) -> None:
+def _finish_build(name: str, proc, tmp: str, out: str | None = None) -> None:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     BUILD_LOGS[name] = log
-    os.replace(tmp, _lib_path(name))
+    os.replace(tmp, out or _lib_path(name))
 
 
 def sources() -> list:
@@ -104,6 +105,26 @@ def lib(name: str) -> ctypes.CDLL:
         so.hh_error_string.argtypes = [ctypes.c_int]
         _libs[name] = so
         return so
+
+
+def variant(name: str, tag: str, flags=()) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built with the extra nvcc ``flags`` into
+    build/lib<name>_<tag>.so and loaded, beside the library the wrappers
+    use: the stage-clock build (``-DHH_STAGE_CLOCK``). Built once a
+    process, beside :func:`build_all` if called from another thread."""
+    out = os.path.join(BUILD, f"lib{name}_{tag}.so")
+    with _lock:
+        if out in _libs:
+            return _libs[out]
+    # its own output file: it may build beside build_all
+    proc, tmp = _start_build(name, flags, out)
+    _finish_build(f"{name}_{tag}", proc, tmp, out)
+    so = ctypes.CDLL(out)
+    so.hh_error_string.restype = ctypes.c_char_p
+    so.hh_error_string.argtypes = [ctypes.c_int]
+    with _lock:
+        _libs[out] = so
+    return so
 
 
 def bind(name: str, fn: str, sig: str):

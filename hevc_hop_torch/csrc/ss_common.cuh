@@ -40,18 +40,27 @@ __device__ __forceinline__ float min_rate_bits(int mx, int my,
 
 // float32 sum of the n x n terms t(i) (raster index i) in XLA:CPU's order
 // of the reference's jnp.sum over a block: each row one rounded add after
-// another, then the row sums pairwise by halves. One thread; n <= 32.
+// another (block_row), then the row sums pairwise by halves (fold_rows,
+// which leaves the sum in rows[0]). block_sum runs both in one thread; a
+// CTA may run block_row a thread a row, then fold_rows in one. n <= 32.
 template <typename F>
-__device__ float block_sum(int n, F t) {
-  float rows[32];
-  for (int r = 0; r < n; ++r) {
-    float acc = t(r * n);
-    for (int c = 1; c < n; ++c) acc = __fadd_rn(acc, t(r * n + c));
-    rows[r] = acc;
-  }
+__device__ __forceinline__ float block_row(int n, int r, F t) {
+  float acc = t(r * n);
+  for (int c = 1; c < n; ++c) acc = __fadd_rn(acc, t(r * n + c));
+  return acc;
+}
+
+__device__ __forceinline__ float fold_rows(int n, float *rows) {
   for (int half = n / 2; half >= 1; half /= 2)
     for (int i = 0; i < half; ++i) rows[i] = __fadd_rn(rows[i], rows[i + half]);
   return rows[0];
+}
+
+template <typename F>
+__device__ float block_sum(int n, F t) {
+  float rows[32];
+  for (int r = 0; r < n; ++r) rows[r] = block_row(n, r, t);
+  return fold_rows(n, rows);
 }
 
 // The motion carried across the scan: [hp, wp] int32 planes of 4x4 cells.

@@ -16,25 +16,36 @@
 // after another, smallest first), each group's CUs packed: items[i] =
 // (log2, row of the CU in its size's plan, cb row, cr row of cpos), groups
 // [g] = (first item, items, items of its first part: the decoder's intra
-// CUs). A persistent grid of CTAs strides over a phase's items;
-// cooperative_groups' grid sync separates the phases.
+// CUs). A persistent grid strides over a phase's items; cooperative_groups'
+// grid sync separates the phases. The encode launches in clusters of
+// kClusterCtas CTAs (cudaLaunchKernelEx, cooperative and with a cluster
+// dimension, as many clusters as are co-resident up to the widest group):
+// a cluster per CU in the read phase, a CTA per CU and plane in the write
+// phase. The decode launches one CTA per CU.
 //
 // Encode, two phases per group, as the reference's step orders its reads
 // and writes (ss_scan.py:745-869: every decision reads the luma recon and
 // the motion planes, then ry and the motion planes are written; chroma is
 // predicted from rc, then rc is written):
-// - read phase, one CTA per CU: luma intra (intra.cuh: RMD against the
-//   original, or the given mode), C9's search with the GT anchor ring
-//   (ss_search.cuh), C10's merge arms, refinement and tournament
-//   (inter_arms.cuh), C12's two anchors one after the other and its
-//   decision (gt_search.cuh), then the chroma prediction of cb and cr from
-//   rc and the CU's own decision: C11's warp for a GT CU (warp.cuh), C8's
-//   MC for another inter CU (interp.cuh), C2's DM intra otherwise. The
+// - read phase, one cluster per CU: luma intra (intra.cuh: RMD against
+//   the original, or the given mode) on one CTA beside C9's search with
+//   the GT anchor ring (ss_search.cuh) split over the others (on a PSS
+//   picture the temporal search on CTAs of its own beside the SS one);
+//   after a cluster sync the leader merges the SS parts (and another CTA
+//   the temporal ones) through distributed shared memory; after another,
+//   C10's merge arms, refinement and tournament (inter_arms.cuh) on the
+//   leader beside C12's two anchors on two other CTAs (gt_search.cuh:
+//   anchor 1 reads nothing that anchor 0 writes); after a third, C12's
+//   decision and the chroma prediction of cb and cr from rc and the CU's
+//   own decision on the leader: C11's warp for a GT CU (warp.cuh), C8's MC
+//   for another inter CU (interp.cuh), C2's DM intra otherwise. The
 //   predictions go to device scratch, the decisions straight into their
-//   packed output slots;
-// - write phase, one CTA per CU: C3 (tq.cuh, the RDOQ arm of C7 where
-//   asked) on the luma prediction into ry and coef_y, C10's motion write
-//   into the 4x4 motion planes, C3 on cb and cr into rc and coef_c.
+//   packed output slots; what one CTA of the cluster writes for another
+//   crosses in global memory, ordered by the cluster syncs;
+// - write phase, one CTA per CU and plane: C3 (tq.cuh, the RDOQ arm of
+//   C7 where asked) on the luma prediction into ry and coef_y with C10's
+//   motion write into the 4x4 motion planes; C3 on cb, and on cr, into rc
+//   and coef_c.
 // No read phase writes a plane that a read phase reads (ry, rc and the
 // motion planes are written in write phases only), and a write phase reads
 // only the original and its own CU's scratch, so the items of a phase may
@@ -60,16 +71,18 @@
 // ss_search.cuh's window, ss_common.cuh's candidate gather, interp.cuh's
 // and warp.cuh's windows, gt_search.cuh's window), never through L1 or the
 // read-only path; a write phase reads its CU's scratch so too. Scratch
-// written and read within one phase is the same CTA's (barriers order it).
-// Every CTA reaches every sync.
+// written and read within one phase is the same cluster's: the same CTA's
+// (barriers order it) or another CTA's of the cluster (a cluster sync,
+// release and acquire at cluster scope, orders it). Every CTA reaches
+// every sync.
 //
 // PSS form (a previous picture given; L0 = [previous picture, SS], the SS
 // reference at index 1; its own instantiation, ss_scan_pss_encode_kernel
 // and ss_scan_pss_decode_kernel, so that the ISS form's registers and
-// shared bytes stay its own). The read phase runs, after the SS search, C9's
-// temporal search over the previous picture with radius radius_t in the
-// same CTA; both searches take F10's sequential sums (Search::seq), as C9's
-// PSS launches do. C10 runs its PSS tournament (merge candidates read the
+// shared bytes stay its own). The read phase runs C9's temporal search
+// over the previous picture with radius radius_t beside the SS search, on
+// the cluster's CTAs ss_parts leaves it; both searches take F10's
+// sequential sums (Search::seq) above 2^24, as C9's PSS launches do. C10 runs its PSS tournament (merge candidates read the
 // plane their reference index names), C12 its PSS decision (GT must beat
 // the temporal cost too, and sets the reference index to the SS one), and
 // the chroma prediction of an inter CU reads rc where its reference index
@@ -86,18 +99,19 @@
 // C12's: the CTA runs their device functions with the same blockDim
 // (kThreads = 256, theirs); no float sum of theirs depends on blockDim or
 // on a grid dimension (C9's per-displacement sums run in one thread, its
-// reductions keep the first index among equals; C10's and C12's SSEs are
-// integer sums below 2^24 and block_sum's order in thread 0 above; C3's
-// and C7's float sums are in one thread), and C12's (block, anchor) CTAs
-// run here one anchor after the other.
+// reductions and the merge of its parts keep the first index among
+// equals; C10's and C12's SSEs are integer sums below 2^24 and
+// block_sum's order in thread 0 above; C3's and C7's float sums are in
+// one thread); C12's (block, anchor) pairs run on two CTAs, as C12's own
+// entry runs them.
 //
 // Bound: the chain of groups. A group holds a few tens of CUs on 132 SMs,
-// and one CTA's latency per CU (an RMD, a search of (2r+1)^2
-// displacements, 25 MCs, two GT diamond searches of 79 warps, C3 with
-// RDOQ, two chroma blocks; on a PSS picture a second search of
-// (2r_t+1)^2 displacements and 41 MCs) sets the picture's time. The design
-// removes the host from the chain: one launch instead of some 4000 per
-// ISS encode and some 1900 per PSS one.
+// and one cluster's latency per CU sets the picture's time: the longer of
+// the intra (an RMD) and a part of the search, C10's arms (25 MCs; 41 on a
+// PSS picture) or a GT diamond search of 79 warps, two chroma blocks, then
+// C3 with RDOQ in the write phase. The design removes the host from the
+// chain (one launch instead of some 4000 per ISS encode and some 1900 per
+// PSS one) and spreads each CU's read phase over a cluster's SMs.
 #include <cooperative_groups.h>
 
 #include "gt_search.cuh"
@@ -111,6 +125,33 @@ namespace {
 constexpr int kThreads = 256;
 static_assert(kThreads == kSearchThreads && kThreads == kArmsThreads,
               "the bodies' reductions are sized for kThreads");
+
+// Stage clocks, only in the library built with -DHH_STAGE_CLOCK (the
+// stage-clock phase of chip_smoke.py): thread 0 of each CTA writes
+// %globaltimer (ns, one clock for every SM) when the CTA's threads have
+// left a stage (a barrier first), into clk[(group * ctas + CTA) * kStamps
+// + stage]. A stage a CTA does not run stays 0. The production library has
+// no stamps.
+enum Stamp {
+  kStampStart, kStampIntra, kStampSs, kStampTemporal, kStampCluster1,
+  kStampMerge, kStampCluster2, kStampArms, kStampAnchor0, kStampAnchor1,
+  kStampCluster3, kStampDecide, kStampChroma, kStampSync1, kStampWrite,
+  kStampSync2, kStamps
+};
+#ifdef HH_STAGE_CLOCK
+__device__ long long *g_clk;
+__device__ int g_clk_ctas;
+__device__ __forceinline__ void stamp(int g, int k) {
+  __syncthreads();
+  if (threadIdx.x == 0 && g_clk != nullptr && (int)blockIdx.x < g_clk_ctas) {
+    long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_clk[((long long)g * g_clk_ctas + blockIdx.x) * kStamps + k] = t;
+  }
+}
+#else
+__device__ __forceinline__ void stamp(int, int) {}
+#endif
 
 // One TU class: C2's tables and C3's class (models/wavefront_scan.py
 // _ClassArgs, as kernel C13 takes them).
@@ -192,6 +233,7 @@ struct SizeK {
   Found tfound;
   int32_t *refsel;
   const int32_t *tflag;
+  int nss;   // the SS search's parts (CTAs) of a cluster
   ClassArgs ly, lc;
 };
 
@@ -212,35 +254,80 @@ struct ScanK {
   SizeK size[3];
 };
 
-// The read phase of CU item w: every decision and prediction into scratch
-// and the packed outputs.
+// The roles of a CU's cluster in the read phase: ranks [0, nss) search
+// parts of C9's SS displacements, ranks [nss, kIntraRank) parts of its
+// temporal ones (PSS), kIntraRank runs the intra; rank 0 merges the SS
+// parts and runs C10's arms, C12's decision and the chroma, rank nss
+// merges the temporal parts, kAnchorRank + an runs C12's anchor an.
+constexpr int kIntraRank = kClusterCtas - 1, kAnchorRank = 1;
+static_assert(kAnchorRank + 1 < kIntraRank, "two anchor CTAs besides rank 0");
+
+// The read phase of CU item w on its cluster: every decision and
+// prediction into scratch and the packed outputs (see the roles above).
+// Three cluster syncs: after the intra and the search parts, after the
+// merges, after C10's arms and C12's anchors. Data that one CTA of the
+// cluster writes and another reads crosses in global memory, ordered by
+// the cluster syncs (release and acquire at cluster scope).
 template <bool kPss>
-__device__ void encode_read(const ScanK &a, const int32_t *w, int32_t *sm) {
+__device__ void encode_read(const ScanK &a, const int32_t *w, int g,
+                            int32_t *sm) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cl = cg::this_cluster();
+  const int rank = cl.block_rank();
   const int log2 = w[0], row = w[1];
   const SizeK &z = a.size[log2 - 3];
-  const int n = z.n, nn = n * n, m = n / 2, mm = m * m, tid = threadIdx.x;
+  const int n = z.n, m = n / 2, mm = m * m, tid = threadIdx.x;
   const int px = z.pos[2 * row], py = z.pos[2 * row + 1], zc = z.zcur[row];
-  const int ask = z.modes != nullptr ? z.modes[row] : -1;
-  const int imode = intra_block(
-      a.y, z.ly.t, px, py, z.avail + (long long)row * (4 * n + 1), ask, n, 0,
-      a.bit_depth, a.strong, sm, z.ipred + (long long)row * nn);
-  if (tid == 0) z.imode[row] = imode;
-  __syncthreads();
   const int ss_idx = kPss ? 1 : 0;
-  search_entry_block(z.search, a.m, row, px, py, zc, z.nbav + 5 * row,
-                     z.miav + 3 * row, a.mi_size, ss_idx, false, z.found,
-                     z.anchor, z.gt_rate, z.gt_ok,
-                     reinterpret_cast<float *>(sm));
-  if (kPss)
-    search_entry_block(z.tsearch, a.m, row, px, py, zc, z.nbav + 5 * row,
-                       z.miav + 3 * row, a.mi_size, ss_idx, true, z.tfound,
-                       nullptr, nullptr, nullptr,
-                       reinterpret_cast<float *>(sm));
-  inter_arms_block(z.arms, row, px, py, zc, sm);
+  const int nss = z.nss, ntp = kIntraRank - nss;
+  const bool temporal = kPss && rank >= nss;   // this CTA's search
+  const Search &q = temporal ? z.tsearch : z.search;
+  __shared__ Cands c;
+  const int *preds = temporal ? &c.tpreds[0][0] : &c.preds[0][0];
+  const int npred = temporal ? 3 : 6;
+  if (rank == kIntraRank) {
+    const int ask = z.modes != nullptr ? z.modes[row] : -1;
+    const int imode = intra_block(
+        a.y, z.ly.t, px, py, z.avail + (long long)row * (4 * n + 1), ask, n,
+        0, a.bit_depth, a.strong, sm, z.ipred + (long long)row * n * n);
+    if (tid == 0) z.imode[row] = imode;
+    stamp(g, kStampIntra);
+  } else {
+    const int D = 2 * q.radius + 1;
+    int d0, d1;
+    part_range(D * D, temporal ? rank - nss : rank, temporal ? ntp : nss, d0,
+               d1);
+    search_part(q, px, py, temporal ? 0 : zc, preds, npred, d0, d1, sm,
+                cluster_part(), [&] {
+                  gather_cands(a.m, px, py, n, z.nbav + 5 * row,
+                               z.miav + 3 * row, a.mi_size, ss_idx, c);
+                });
+    stamp(g, temporal ? kStampTemporal : kStampSs);
+  }
+  cl.sync();
+  stamp(g, kStampCluster1);
+  if (rank == 0 || (temporal && rank == nss)) {
+    const Best best = merge_parts(q, temporal ? nss : 0,
+                                  temporal ? ntp : nss, preds, npred);
+    write_found(q, row, px, py, best, temporal ? z.tfound : z.found,
+                z.anchor, z.gt_rate, z.gt_ok);
+    stamp(g, kStampMerge);
+  }
+  cl.sync();
+  stamp(g, kStampCluster2);
+  if (rank == 0) {
+    inter_arms_block(z.arms, row, px, py, zc, sm);
+    stamp(g, kStampArms);
+  } else if (z.gt && (rank == kAnchorRank || rank == kAnchorRank + 1)) {
+    gt_search_block(z.gts, row, rank - kAnchorRank, sm);
+    stamp(g, rank == kAnchorRank ? kStampAnchor0 : kStampAnchor1);
+  }
+  cl.sync();
+  stamp(g, kStampCluster3);
+  if (rank != 0) return;
   if (z.gt) {
-    gt_search_block(z.gts, row, 0, sm);
-    gt_search_block(z.gts, row, 1, sm);
     gt_decide_block(z.gtd, row, sm);
+    stamp(g, kStampDecide);
   } else if (tid == 0) {
     z.gtflag[row] = 0;
     for (int k = 0; k < 6; ++k) z.gtc[6 * row + k] = 0;
@@ -248,6 +335,7 @@ __device__ void encode_read(const ScanK &a, const int32_t *w, int32_t *sm) {
   __syncthreads();
   const int inter = z.inter[row], gtf = z.gtflag[row];
   const int mvx = z.mv[2 * row], mvy = z.mv[2 * row + 1];
+  const int imode = __ldcg(z.imode + row);   // the intra CTA's
   // an SS CU (GT ones too) reads the recon, a temporal one the previous
   // picture
   const bool from_rc = !kPss || z.refsel[row] == ss_idx;
@@ -268,42 +356,46 @@ __device__ void encode_read(const ScanK &a, const int32_t *w, int32_t *sm) {
                   z.cavail + (long long)row * (4 * m + 1), imode, m, 1,
                   a.bit_depth, a.strong, sm, out);
   }
+  stamp(g, kStampChroma);
 }
 
-// The write phase of CU item w: C3 on luma, the motion write, C3 on cb and
-// cr, from the read phase's scratch.
+// The write phase of CU item w, one plane a task: plane 0 C3 on luma and
+// the motion write, plane 1 and 2 C3 on cb and cr, from the read phase's
+// scratch.
 template <bool kRdoq, bool kPss>
-__device__ void encode_write(const ScanK &a, const int32_t *w, int32_t *sm) {
+__device__ void encode_write(const ScanK &a, const int32_t *w, int plane,
+                             int32_t *sm) {
   const int log2 = w[0], row = w[1];
   const SizeK &z = a.size[log2 - 3];
   const int n = z.n, nn = n * n, m = n / 2, mm = m * m;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const int px = z.pos[2 * row], py = z.pos[2 * row + 1];
-  int32_t *pred = sm, *work = sm + nn;
-  const int32_t *ip = z.ipred + (long long)row * nn;
-  for (int i = tid; i < nn; i += nt) pred[i] = __ldcg(ip + i);
+  int32_t *pred = sm;
   const int smode = __ldcg(z.smode + row);
-  __syncthreads();
-  const int cbf = tq_encode_block<kRdoq>(z.ly.tq, a.ty, px, py, smode, pred,
-                                         work);
-  if (tid == 0) z.cbf_y[row] = cbf;
-  const int on = __ldcg(z.inter + row) != 0;
-  const int mvx = __ldcg(z.mv + 2 * row), mvy = __ldcg(z.mv + 2 * row + 1);
-  const int ref = kPss ? __ldcg(z.refsel + row) : 0;
-  const int u = n / 4;
-  for (int cell = tid; cell < u * u; cell += nt)
-    motion_cell(a.mvx4, a.mvy4, a.pi4, kPss ? a.rf4 : nullptr, a.wp,
-                py / 4 + cell / u, px / 4 + cell % u, on, mvx, mvy, ref);
-  for (int k = 2; k <= 3; ++k) {
-    const int r = w[k];
-    const int32_t *cp = z.cpred + (long long)r * mm;
-    for (int i = tid; i < mm; i += nt) pred[i] = __ldcg(cp + i);
+  __syncthreads();   // the CTA's previous task is done with pred
+  if (plane == 0) {
+    const int px = z.pos[2 * row], py = z.pos[2 * row + 1];
+    const int32_t *ip = z.ipred + (long long)row * nn;
+    for (int i = tid; i < nn; i += nt) pred[i] = __ldcg(ip + i);
     __syncthreads();
-    const int cbf_c = tq_encode_block<kRdoq>(
-        z.lc.tq, a.tc, z.cpos[2 * r], z.cpos[2 * r + 1], smode, pred,
-        sm + mm);
-    if (tid == 0) (k == 2 ? z.cbf_cb : z.cbf_cr)[row] = cbf_c;
+    const int cbf = tq_encode_block<kRdoq>(z.ly.tq, a.ty, px, py, smode,
+                                           pred, sm + nn);
+    if (tid == 0) z.cbf_y[row] = cbf;
+    const int on = __ldcg(z.inter + row) != 0;
+    const int mvx = __ldcg(z.mv + 2 * row), mvy = __ldcg(z.mv + 2 * row + 1);
+    const int ref = kPss ? __ldcg(z.refsel + row) : 0;
+    const int u = n / 4;
+    for (int cell = tid; cell < u * u; cell += nt)
+      motion_cell(a.mvx4, a.mvy4, a.pi4, kPss ? a.rf4 : nullptr, a.wp,
+                  py / 4 + cell / u, px / 4 + cell % u, on, mvx, mvy, ref);
+    return;
   }
+  const int r = w[plane + 1];   // cb's row of cpos, then cr's
+  const int32_t *cp = z.cpred + (long long)r * mm;
+  for (int i = tid; i < mm; i += nt) pred[i] = __ldcg(cp + i);
+  __syncthreads();
+  const int cbf_c = tq_encode_block<kRdoq>(
+      z.lc.tq, a.tc, z.cpos[2 * r], z.cpos[2 * r + 1], smode, pred, sm + mm);
+  if (tid == 0) (plane == 1 ? z.cbf_cb : z.cbf_cr)[row] = cbf_c;
 }
 
 // Every group of the picture: a read phase, a grid sync, a write phase, a
@@ -311,14 +403,21 @@ __device__ void encode_write(const ScanK &a, const int32_t *w, int32_t *sm) {
 template <bool kRdoq, bool kPss>
 __device__ __forceinline__ void encode_groups(const ScanK &a, int32_t *sm) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int cluster = blockIdx.x / kClusterCtas;
+  const int clusters = gridDim.x / kClusterCtas;
   for (int g = 0; g < a.ngroups; ++g) {
     const int first = a.groups[3 * g], end = first + a.groups[3 * g + 1];
-    for (int it = first + blockIdx.x; it < end; it += gridDim.x)
-      encode_read<kPss>(a, a.items + 4LL * it, sm);
+    stamp(g, kStampStart);
+    for (int it = first + cluster; it < end; it += clusters)
+      encode_read<kPss>(a, a.items + 4LL * it, g, sm);
     grid.sync();
-    for (int it = first + blockIdx.x; it < end; it += gridDim.x)
-      encode_write<kRdoq, kPss>(a, a.items + 4LL * it, sm);
+    stamp(g, kStampSync1);
+    for (int t = blockIdx.x; t < 3 * (end - first); t += gridDim.x)
+      encode_write<kRdoq, kPss>(a, a.items + 4LL * (first + t / 3), t % 3,
+                                sm);
+    stamp(g, kStampWrite);
     if (g + 1 < a.ngroups) grid.sync();
+    stamp(g, kStampSync2);
   }
 }
 
@@ -401,14 +500,33 @@ __global__ void __launch_bounds__(kThreads)
 
 size_t max_of(size_t a, size_t b) { return a > b ? a : b; }
 
+// The SS search's share of a PSS cluster's kIntraRank search CTAs for n x
+// n CUs: the split whose busiest CTA has the fewest displacements that
+// can be valid. No SS displacement within a radius below n + 4 is causal
+// (its window's interpolation margin reaches the CU's own samples), so
+// there the SS search keeps one CTA.
+int ss_parts(int n, int radius, int radius_t) {
+  const int ds = radius < n + 4 ? 0 : (2 * radius + 1) * (2 * radius + 1);
+  const int dt = (2 * radius_t + 1) * (2 * radius_t + 1);
+  int best = 1, most = 1 << 30;
+  for (int p = 1; p < kIntraRank; ++p) {
+    const int a = (ds + p - 1) / p, b = (dt + kIntraRank - p - 1) /
+                                        (kIntraRank - p);
+    const int worst = a > b ? a : b;
+    if (worst < most) {
+      most = worst;
+      best = p;
+    }
+  }
+  return best;
+}
+
 // The kernel's view of the wrapper's arguments (the PSS form where a
 // previous picture is given); smem <- the dynamic shared bytes the largest
 // body of that form needs.
 ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
   const bool pss = in.ref_y != nullptr;
   const int ss_idx = pss ? 1 : 0;
-  // the search window of the larger of the two searches
-  const int rmax = pss && in.radius_t > in.radius ? in.radius_t : in.radius;
   ScanK k{};
   k.items = in.items;
   k.groups = in.groups;
@@ -480,6 +598,7 @@ ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
     o.gt = encode && z.zmax2n != nullptr;
     o.refsel = z.refsel;
     o.tflag = z.tflag;
+    o.nss = pss ? ss_parts(n, in.radius, in.radius_t) : kIntraRank;
     if (z.pos == nullptr) continue;   // no CU of this size
     if (encode) {
       o.search = Search{in.ry, in.src_y, in.stride_y, z.zmaxw, n, in.radius,
@@ -569,7 +688,9 @@ ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
       // read phase: every body in turn; write phase: the prediction in
       // shared memory beside C3's scratch
       words = max_of(words, intra_scratch_words(n));
-      words = max_of(words, search_words(n, rmax));
+      words = max_of(words, part_words(n, in.radius, o.nss));
+      if (pss)
+        words = max_of(words, part_words(n, in.radius_t, kIntraRank - o.nss));
       words = max_of(words, (arms_smem_bytes(n, pss) + 3) / 4);
       if (o.gt) {
         words = max_of(words, gt_search_words(n));
@@ -594,13 +715,37 @@ ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
   return k;
 }
 
-// The cooperative launch of `kernel` over min(co-resident CTAs, widest)
-// CTAs with the kernel's arguments copied to args_dev; info <- (grid, CTAs
-// per SM, dynamic shared bytes, threads). A grid that cannot be co-resident
-// is an error, never a smaller launch.
+// The SS parts of the launch's largest CU size
+int largest_nss(const ScanK &k) {
+  for (int s = 2; s >= 0; --s)
+    if (k.size[s].pos != nullptr) return k.size[s].nss;
+  return 0;
+}
+
+// The shape of a launch, as info [kInfo] gives it to the wrapper: grid
+// CTAs, CTAs per SM, dynamic shared bytes, threads, CTAs per CU in the
+// read phase, registers per thread, the intra's rank, the SS search's
+// parts, the two anchors' ranks (-1 where the launch has no such role)
+constexpr int kInfo = 10;
+
+int fill_info(const void *kernel, int grid, int per_sm, size_t smem,
+              int per_cu, int nss, int *info) {
+  cudaFuncAttributes fa;
+  const cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return (int)e;
+  const int v[kInfo] = {grid, per_sm, (int)smem, kThreads, per_cu,
+                        fa.numRegs, per_cu > 1 ? kIntraRank : -1,
+                        per_cu > 1 ? nss : -1,
+                        per_cu > 1 ? kAnchorRank : -1,
+                        per_cu > 1 ? kAnchorRank + 1 : -1};
+  for (int i = 0; i < kInfo; ++i) info[i] = v[i];
+  return 0;
+}
+
+// Dynamic shared memory above 48 KB, the device's SMs, its cooperative
+// launch; the CTAs of `kernel` per SM
 template <class Kernel>
-int launch(Kernel kernel, const ScanK &k, void *args_dev, size_t smem,
-           int widest, cudaStream_t st, int *info) {
+int prepare(Kernel kernel, size_t smem, int *sms, int *per_sm) {
   cudaError_t e;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel,
@@ -608,26 +753,37 @@ int launch(Kernel kernel, const ScanK &k, void *args_dev, size_t smem,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  int dev = 0, coop = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
   e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e != cudaSuccess) return (int)e;
   if (!coop) return (int)cudaErrorNotSupported;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                    kThreads, smem);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads,
+                                                    smem);
   if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  return *per_sm < 1 ? (int)cudaErrorCooperativeLaunchTooLarge : 0;
+}
+
+// The decode's cooperative launch of `kernel` over min(co-resident CTAs,
+// widest) CTAs, one CTA per CU, with the kernel's arguments copied to
+// args_dev; info <- its shape. A grid that cannot be co-resident is an
+// error, never a smaller launch.
+template <class Kernel>
+int launch(Kernel kernel, const ScanK &k, void *args_dev, size_t smem,
+           int widest, cudaStream_t st, int *info) {
+  int sms = 0, per_sm = 0;
+  int err = prepare(kernel, smem, &sms, &per_sm);
+  if (err) return err;
   int grid = per_sm * sms < widest ? per_sm * sms : widest;
   if (grid < 1) grid = 1;
-  info[0] = grid;
-  info[1] = per_sm;
-  info[2] = (int)smem;
-  info[3] = kThreads;
+  if ((err = fill_info((const void *)kernel, grid, per_sm, smem, 1,
+                       largest_nss(k), info)))
+    return err;
   // from pageable memory: the copy is staged before the call returns
-  e = cudaMemcpyAsync(args_dev, &k, sizeof(ScanK), cudaMemcpyHostToDevice,
-                      st);
+  cudaError_t e = cudaMemcpyAsync(args_dev, &k, sizeof(ScanK),
+                                  cudaMemcpyHostToDevice, st);
   if (e != cudaSuccess) return (int)e;
   const ScanK *ap = static_cast<const ScanK *>(args_dev);
   void *params[] = {&ap};
@@ -637,13 +793,69 @@ int launch(Kernel kernel, const ScanK &k, void *args_dev, size_t smem,
   return (int)cudaGetLastError();
 }
 
+// The encode's launch of `kernel`: cooperative (grid syncs between the
+// phases) and in clusters of kClusterCtas CTAs (a cluster per CU in the
+// read phase), min(co-resident clusters, widest) clusters, through
+// cudaLaunchKernelEx; info <- its shape. A card that refuses either
+// attribute, or a grid that cannot be co-resident, is an error, never
+// another layout.
+template <class Kernel>
+int launch_clusters(Kernel kernel, const ScanK &k, void *args_dev,
+                    size_t smem, int widest, cudaStream_t st, int *info) {
+  int sms = 0, per_sm = 0;
+  int err = prepare(kernel, smem, &sms, &per_sm);
+  if (err) return err;
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = kClusterCtas;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeCooperative;
+  at[1].val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kClusterCtas);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  int most = 0;
+  cudaError_t e = cudaOccupancyMaxActiveClusters(&most, kernel, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (most < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int clusters = most < widest ? most : (widest > 0 ? widest : 1);
+  cfg.gridDim = dim3(clusters * kClusterCtas);
+  if ((err = fill_info((const void *)kernel, clusters * kClusterCtas, per_sm,
+                       smem, kClusterCtas, largest_nss(k), info)))
+    return err;
+  e = cudaMemcpyAsync(args_dev, &k, sizeof(ScanK), cudaMemcpyHostToDevice,
+                      st);
+  if (e != cudaSuccess) return (int)e;
+  const ScanK *ap = static_cast<const ScanK *>(args_dev);
+  e = cudaLaunchKernelEx(&cfg, kernel, ap);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+#ifdef HH_STAGE_CLOCK
+// The stage clocks' buffer: int64 [groups, ctas, kStamps], zero, or null
+// to stop; CTAs at or past ctas write nothing.
+HH_EXPORT int hh_ss_scan_clock(void *buf, int ctas) {
+  cudaError_t e = cudaMemcpyToSymbol(g_clk, &buf, sizeof(buf));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_clk_ctas, &ctas, sizeof(int));
+  return (int)e;
+}
+#endif
+
 // Sizes the wrapper checks its mirror and its device buffer against:
-// (sizeof SsScanIn, sizeof of the kernel's argument block).
+// (sizeof SsScanIn, sizeof of the kernel's argument block, the launch
+// info's ints).
 HH_EXPORT int hh_ss_scan_sizes(int *out) {
   out[0] = (int)sizeof(SsScanIn);
   out[1] = (int)sizeof(ScanK);
+  out[2] = kInfo;
   return 0;
 }
 
@@ -653,7 +865,7 @@ HH_EXPORT int hh_ss_scan_sizes(int *out) {
 // and ref_c the previous picture and, per size, the temporal search's
 // scratch and refsel; args_dev: device bytes for the kernel's arguments
 // (hh_ss_scan_sizes); rdoq selects the RDOQ arm; widest: the most items of
-// any group; info [4] receives the launch's shape.
+// any group; info [kInfo] receives the launch's shape.
 HH_EXPORT int hh_ss_scan_encode(const void *args, void *args_dev, int rdoq,
                                 int widest, void *stream, int *info) {
   const SsScanIn &in = *static_cast<const SsScanIn *>(args);
@@ -661,14 +873,14 @@ HH_EXPORT int hh_ss_scan_encode(const void *args, void *args_dev, int rdoq,
   const ScanK k = build(in, true, rdoq != 0, &smem);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in.ref_y != nullptr)
-    return rdoq ? launch(ss_scan_pss_encode_kernel<true>, k, args_dev, smem,
-                         widest, st, info)
-                : launch(ss_scan_pss_encode_kernel<false>, k, args_dev,
-                         smem, widest, st, info);
-  return rdoq ? launch(ss_scan_encode_kernel<true>, k, args_dev, smem,
-                       widest, st, info)
-              : launch(ss_scan_encode_kernel<false>, k, args_dev, smem,
-                       widest, st, info);
+    return rdoq ? launch_clusters(ss_scan_pss_encode_kernel<true>, k,
+                                  args_dev, smem, widest, st, info)
+                : launch_clusters(ss_scan_pss_encode_kernel<false>, k,
+                                  args_dev, smem, widest, st, info);
+  return rdoq ? launch_clusters(ss_scan_encode_kernel<true>, k, args_dev,
+                                smem, widest, st, info)
+              : launch_clusters(ss_scan_encode_kernel<false>, k, args_dev,
+                                smem, widest, st, info);
 }
 
 // Decode entry: every group of one ISS or PSS picture, prediction plus the

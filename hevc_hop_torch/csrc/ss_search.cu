@@ -6,53 +6,64 @@
 // entry, hh_ss_search), and hevc_hop_tpu/models/ss_partition.py
 // _ss_rd_size, its SS arm and its temporal one (pre-pass entry, hh_ss_rd).
 //
-// One CTA per block; the scan entry's work on a block (search_entry_block,
-// and the search itself, search_block) is in ss_search.cuh, which kernel C14
-// (ss_scan.cu) runs too. The CTA stages the clamped (n+2r)^2 search window of
-// the recon (the original plane in the pre-pass) and the block's original
-// in shared memory as float32, and gathers the block's AMVP predictors from
-// the carried motion planes (ss_common.cuh gather_cands; the pre-pass takes
-// the four static ones). Each thread then takes displacements in row-major
-// (dy, dx) order: a displacement outside the picture, or whose window with
-// the interpolation margin reaches a sample not yet decoded, costs 3e38;
-// otherwise the SSE is org^2 + ref^2 - 2 corr and the cost SSE + lambda *
-// (6 + the least MVD bits over the predictors). The least cost wins, the
-// first in row-major order among equals (jnp.argmin's rule), through one
-// per-thread pass and a CTA reduction. The entry writes the MV, the cost,
-// the SSE (3e38 when no displacement was causal) and the full-pel
-// prediction. With the GT on, the same pass keeps a second least cost, over
-// the displacements whose 2n GT window plus 2 samples of slack is in the
-// picture and causal (zmax2n), with the same tie rule (the reference's
+// Scan entry: one cluster of kClusterCtas CTAs per block (and per search:
+// on a PSS picture a second row of clusters runs the temporal search); its
+// work on a block (search_entry_cluster, search_part, merge_parts) is in
+// ss_search.cuh, which kernel C14 (ss_scan.cu) runs too. The CTAs split
+// the (2r+1)^2 displacements into contiguous row-major parts, one per
+// rank. Each stages the clamped window rows its part reads and the
+// block's original in shared memory, gathers the block's AMVP predictors
+// from the carried motion planes (ss_common.cuh gather_cands) and takes
+// its displacements thread by thread: a displacement outside the picture,
+// or whose window with the interpolation margin reaches a sample not yet
+// decoded, costs 3e38; otherwise the SSE is org^2 + ref^2 - 2 corr and the
+// cost SSE + lambda * (6 + the least MVD bits over the predictors). The
+// least cost wins, the first in row-major order among equals (jnp.argmin's
+// rule): per thread, then per CTA into its Part, then the leader reads the
+// parts through distributed shared memory after a cluster sync and merges
+// them in rank order, which is index order. The entry writes the MV, the
+// cost, the SSE (3e38 when no displacement was causal) and the full-pel
+// prediction. With the GT on, the same pass keeps a second least cost,
+// over the displacements whose 2n GT window plus 2 samples of slack is in
+// the picture and causal (zmax2n), with the same tie rule (the reference's
 // lax.top_k with k = 1): the anchor ring, written as the anchor, its rate
-// and whether one was found. On a PSS picture the scan entry's grid has a
-// second row of CTAs, one per block again, that run the temporal search:
-// the same code over the previous picture's window with radius radius_t,
+// and whether one was found. On a PSS picture the temporal search is the
+// same code over the previous picture's window with radius radius_t,
 // every displacement inside the picture valid (no causal test), with the
 // temporal predictors (the neighbours that name the temporal reference,
-// and zero); its own outputs. The pre-pass entry goes on with the
-// dead-zone transform round trip of the residual (tq.cuh, kernel C3's
-// device functions) and writes SSE + lambda * level bits + the search's
-// rate; on a PSS picture it first runs the temporal search over the
-// previous luma with the zero predictor, and takes its residual and rate
-// where its cost is lower.
+// and zero); its own outputs.
 //
-// Floats: the reference's SSE map is float32 from XLA:CPU's convolution,
-// whose sums this kernel repeats in the same order (ROADMAP.md F8): over the
-// kernel in row-major order in blocks of 512 products, two accumulators per
-// block (even and odd products), added at the block's end, blocks added in
-// order; org^2 in ss_common.cuh block_sum's order. The PSS program compiles
-// both searches' sums otherwise (ROADMAP.md F10): over the kernel in
-// row-major order, one rounded add after another (Search::seq; the scan
-// entry's PSS launches). The rate lambda * (6 + bits) is rounded on its own
-// and then added, as in the reference. For 8-bit samples and n <= 16 every
-// sum is exact.
+// Pre-pass entry: one CTA per block runs the whole search in the float
+// forms (search_block), then the dead-zone transform round trip of the
+// residual (tq.cuh, kernel C3's device functions), and writes SSE +
+// lambda * level bits + the search's rate; on a PSS picture it first runs
+// the temporal search over the previous luma with the zero predictor, and
+// takes its residual and rate where its cost is lower.
 //
-// Bound: float32 operations, 2 n^2 (2r+1)^2 multiply-adds per block for the
-// correlation and ref^2 against (n+2r)^2 + n^2 samples: far above the
-// card's bytes-per-operation line. The design keeps the window in shared
-// memory, so device memory sees each sample of it once per block; threads
-// of a warp take neighbouring dx, so their shared-memory reads fall in
-// distinct banks. Tensor-core correlation is later work.
+// Sums: every term of corr and ref^2 is a non-negative integer, so where
+// a sum stays below 2^24 every partial sum is an exact float32 integer in
+// any order. The scan entry takes both sums as integers: ref^2 from the
+// window rows' box sums of squares (width n, then n rows), corr by __dp4a
+// on packed bytes where every sample is below 256 and by int32
+// multiply-adds otherwise (10 bit: 1024 * 1023^2 < 2^31). An entry whose
+// corr and ref^2 are below 2^24 (every entry of an 8-bit block of 16x16 or
+// less: 256 * 255^2 < 2^24) takes them as float32; another takes the
+// reference's float order, which the pre-pass takes for every entry:
+// XLA:CPU's convolution (ROADMAP.md F8), over the kernel in row-major
+// order in blocks of 512 products, two accumulators per block (even and
+// odd products), added at the block's end, blocks added in order; the PSS
+// program's (ROADMAP.md F10), over the kernel in row-major order, one
+// rounded add after another (Search::seq; the scan entry's PSS
+// launches). org^2 is exact below 2^24, in ss_common.cuh block_sum's
+// order above. The rate lambda * (6 + bits) is rounded on its own and then
+// added, as in the reference.
+//
+// Bound: integer operations, n^2 (2r+1)^2 multiply-adds per block for the
+// correlation (a quarter as many __dp4a) and O((n+2r)^2 n / 8 + (2r+1)^2
+// n) adds for ref^2, against (n+2r)^2 + n^2 samples. The split puts a
+// block's displacements on kClusterCtas SMs; each CTA reads only its
+// part's window rows from L2; threads of a warp take neighbouring dx, so
+// their shared-memory reads fall in distinct banks or broadcast.
 #include "ss_search.cuh"
 #include "tq.cuh"
 
@@ -60,18 +71,21 @@ namespace {
 
 constexpr int kThreads = kSearchThreads;
 
-__global__ void ss_search_kernel(Search s, Search st, const int32_t *pos,
-                                 const int32_t *zcur, Motion m,
-                                 const uint8_t *nbav, const uint8_t *miav,
-                                 int mi_size, int ss_idx, Found f,
-                                 Found ft, int32_t *anchor, float *gt_rate,
-                                 uint8_t *gt_ok) {
-  extern __shared__ float sm[];
-  const int b = blockIdx.x;
+__global__ void __cluster_dims__(kClusterCtas, 1, 1)
+    __launch_bounds__(kThreads)
+    ss_search_kernel(Search s, Search st, const int32_t *pos,
+                     const int32_t *zcur, Motion m, const uint8_t *nbav,
+                     const uint8_t *miav, int mi_size, int ss_idx, Found f,
+                     Found ft, int32_t *anchor, float *gt_rate,
+                     uint8_t *gt_ok) {
+  // the pre-pass kernel's dynamic shared memory is float; this one's int
+  extern __shared__ __align__(16) int32_t smi[];
+  const int b = blockIdx.x / kClusterCtas;
   const bool temporal = blockIdx.y == 1;
-  search_entry_block(temporal ? st : s, m, b, pos[2 * b], pos[2 * b + 1],
-                     zcur[b], nbav + 5 * b, miav + 3 * b, mi_size, ss_idx,
-                     temporal, temporal ? ft : f, anchor, gt_rate, gt_ok, sm);
+  search_entry_cluster(temporal ? st : s, m, b, pos[2 * b], pos[2 * b + 1],
+                       zcur[b], nbav + 5 * b, miav + 3 * b, mi_size, ss_idx,
+                       temporal, temporal ? ft : f, anchor, gt_rate, gt_ok,
+                       smi);
 }
 
 struct Tq {
@@ -202,11 +216,13 @@ HH_EXPORT int hh_ss_search(const void *recon, const void *org, int stride,
   const Found ft{static_cast<int32_t *>(tmv), static_cast<int32_t *>(tpred),
                  static_cast<float *>(tcost), static_cast<float *>(tsse)};
   const bool temporal = ref != nullptr;
-  const int rmax = temporal && radius_t > radius ? radius_t : radius;
-  const size_t smem = sizeof(float) * search_words(n, rmax);
+  const int words = part_words(n, radius, kClusterCtas);
+  const int twords = temporal ? part_words(n, radius_t, kClusterCtas) : 0;
+  const size_t smem = sizeof(int32_t) * (words > twords ? words : twords);
   const int err = launch_smem((const void *)ss_search_kernel, smem);
   if (err) return err;
-  ss_search_kernel<<<dim3(b, temporal ? 2 : 1), kThreads, smem,
+  ss_search_kernel<<<dim3(b * kClusterCtas, temporal ? 2 : 1), kThreads,
+                     smem,
                      static_cast<cudaStream_t>(stream)>>>(
       s, st, static_cast<const int32_t *>(pos),
       static_cast<const int32_t *>(zcur), m,

@@ -66,8 +66,13 @@ SCAN_ISS_ENCODE_LAUNCHES = 0
 SCAN_ISS_DECODE_LAUNCHES = 0
 SCAN_PSS_ENCODE_LAUNCHES = 0
 SCAN_PSS_DECODE_LAUNCHES = 0
-# (grid, CTAs per SM, dynamic shared bytes, threads) of the last C14 launch
+# the shape of the last C14 launch: a dict of LAUNCH_INFO's keys
 LAST_LAUNCH = None
+# csrc/ss_scan.cu's launch info, in its order (-1: no such role; the
+# decode runs one CTA per CU)
+LAUNCH_INFO = ("grid", "ctas_per_sm", "smem_bytes", "threads",
+               "ctas_per_cu", "registers", "intra_rank", "ss_parts",
+               "anchor0_rank", "anchor1_rank")
 
 
 def zmax_win_px(zaddr4: np.ndarray, n: int, ifm: int = IFM) -> np.ndarray:
@@ -643,15 +648,19 @@ _SIZES = {}
 def _arg_bytes() -> int:
     """Bytes of C14's argument block on the card, after checking that
     _SsScanIn mirrors csrc/ss_scan.cu's SsScanIn."""
-    if "k" not in _SIZES:
-        out = (ctypes.c_int * 2)()
+    lib = _cuda.lib("ss_scan")
+    if lib not in _SIZES:
+        out = (ctypes.c_int * 3)()
         _cuda.bind("ss_scan", "hh_ss_scan_sizes", "p")(out)
         if out[0] != ctypes.sizeof(_SsScanIn):
             raise RuntimeError(
                 f"ss_scan: SsScanIn is {out[0]} bytes in csrc/ss_scan.cu, "
                 f"{ctypes.sizeof(_SsScanIn)} in its ctypes mirror")
-        _SIZES["k"] = out[1]
-    return _SIZES["k"]
+        if out[2] > len(LAUNCH_INFO):
+            raise RuntimeError(f"ss_scan: {out[2]} launch info ints, "
+                               f"{len(LAUNCH_INFO)} known")
+        _SIZES[lib] = out[1]
+    return _SIZES[lib]
 
 
 def _ptr(t):
@@ -710,12 +719,12 @@ def _launch(entry, sig, a, *extra, like):
     global LAST_LAUNCH
     args_dev = torch.empty(_arg_bytes(), dtype=torch.uint8,
                            device=like.device)
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * len(LAUNCH_INFO))(*[-1] * len(LAUNCH_INFO))
     fn = _cuda.bind("ss_scan", entry, sig)
     err = fn(ctypes.addressof(a), args_dev.data_ptr(), *extra,
              _cuda.stream(like), info)
     _cuda.check("ss_scan", err)
-    LAST_LAUNCH = tuple(info)
+    LAST_LAUNCH = dict(zip(LAUNCH_INFO, info))
 
 
 def _scan_encode_c14(org_y, org_c, plans, work, zmaxw, qp, qp_c, bit_depth,

@@ -240,6 +240,22 @@ def _targets(pos, n, radius, w, h):
     return ty, tx, (ty >= 0) & (tx >= 0) & (ty + n <= h) & (tx + n <= w)
 
 
+def _ss_masks(pos, zcur, zmaxw, zmax2n, n, radius, w, h):
+    """[B, D, D] the causal displacements and, with zmax2n, those whose
+    whole 2n GT window (+2 samples of slack) is causal and in the picture
+    (else None)."""
+    ty, tx, inb = _targets(pos, n, radius, w, h)
+    zm = zmaxw[ty.clamp(0, h - n), tx.clamp(0, w - n)]
+    mask = inb & (zm < zcur[:, None, None])
+    if zmax2n is None:
+        return mask, None
+    wyy, wxx = ty - n // 2, tx - n // 2
+    inb2 = ((wxx >= 2) & (wyy >= 2) & (wxx + 2 * n + 2 <= w)
+            & (wyy + 2 * n + 2 <= h))
+    zm2 = zmax2n[wyy.clamp(0, h - 2 * n), wxx.clamp(0, w - 2 * n)]
+    return mask, inb2 & (zm2 < zcur[:, None, None])
+
+
 def ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n, radius,
                     w, h, lam, zmax2n=None, seq=False):
     """Plain version of the search: (mv [B, 2] full-pel (x, y), cost [B],
@@ -248,22 +264,15 @@ def ss_search_plain(recon, org_plane, pos, zcur, zmaxw, preds, n, radius,
     ``seq``: the PSS program's sum order (:func:`conv_sum`)."""
     b = pos.shape[0]
     d = 2 * radius + 1
-    ty, tx, inb = _targets(pos, n, radius, w, h)
-    zm = zmaxw[ty.clamp(0, h - n), tx.clamp(0, w - n)]
-    mask = inb & (zm < zcur[:, None, None])
+    mask, mask2 = _ss_masks(pos, zcur, zmaxw, zmax2n, n, radius, w, h)
     *out, sse, rate = _full_search(recon, org_plane, pos, mask, preds, n,
                                    radius, h, lam, seq)
     out = tuple(out)
     if zmax2n is None:
         return out
     # the GT anchor ring: the least cost among the displacements whose
-    # whole 2n window (+2 samples of slack) is causal and in the picture;
-    # lax.top_k's k = 1 takes the lower index on a tie, as argmin does
-    wyy, wxx = ty - n // 2, tx - n // 2
-    inb2 = ((wxx >= 2) & (wyy >= 2) & (wxx + 2 * n + 2 <= w)
-            & (wyy + 2 * n + 2 <= h))
-    zm2 = zmax2n[wyy.clamp(0, h - 2 * n), wxx.clamp(0, w - 2 * n)]
-    mask2 = inb2 & (zm2 < zcur[:, None, None])
+    # whole 2n window is causal; lax.top_k's k = 1 takes the lower index
+    # on a tie, as argmin does
     cost2 = torch.where(mask2, sse + rate, torch.full_like(sse, BIG))
     idx2 = argmin_first(cost2.reshape(b, -1))
     gt_ok = cost2.reshape(b, -1).gather(1, idx2[:, None])[:, 0] < 1e37
@@ -283,6 +292,139 @@ def t_search_plain(refp, org_plane, pos, preds, n, radius, w, h, lam,
     mask = _targets(pos, n, radius, w, h)[2]
     return _full_search(refp, org_plane, pos, mask, preds, n, radius, h,
                         lam, seq)[:4]
+
+
+# ---------------------------------------------------------------------------
+# An emulation of kernel C9's scan-entry arithmetic, for the tests: the
+# integer sums, the 2^24 rule per entry, and the cluster's partition and
+# merge of the displacements.
+# ---------------------------------------------------------------------------
+
+EXACT = 1 << 24   # a non-negative integer sum below it is exact in float32
+
+
+def int_sums(win: torch.Tensor, org: torch.Tensor, n: int, d: int):
+    """int64 (corr, ref^2) [B, d, d] of the windows win [B, n+d-1, n+d-1]
+    against the blocks org [B, n, n], as the kernel forms them: ref^2 from
+    box sums of the squared window (rows of width n, then n rows), corr as
+    integer products."""
+    w, o = win.long(), org.long()
+    c = torch.nn.functional.pad((w * w).cumsum(2), (1, 0))
+    rows = c[:, :, n:n + d] - c[:, :, :d]
+    c2 = torch.nn.functional.pad(rows.cumsum(1), (0, 0, 1, 0))
+    ref2 = c2[:, n:n + d] - c2[:, :d]
+    tiles = w.unfold(1, n, 1).unfold(2, n, 1)
+    corr = (tiles * o[:, None, None]).sum((-1, -2))
+    return corr, ref2
+
+
+def search_split_plain(plane, org_plane, pos, mask, preds, n, radius, h,
+                       lam, seq, parts, mask2=None):
+    """Kernel C9's scan-entry arithmetic on the CPU: the masked full search
+    of :func:`_full_search` with its sums formed as the kernel forms them
+    (:func:`int_sums`; an entry whose corr and ref^2 are below 2^24 takes
+    them as float32, another the reference's ordered float sums, F8's or
+    with ``seq`` F10's), and its (2r+1)^2 displacements split into
+    ``parts`` contiguous row-major parts, each part's least cost (first
+    index among equals; a masked entry counts as 3e38) merged in part
+    order. With mask2 [B, D, D] (the GT windows' causality) also the
+    anchor ring over mask & mask2. Returns ((mv [B, 2], cost, pred, sse)
+    and with mask2 (anchor, gt_rate, gt_ok), as the plain searches give
+    them; a dict of the regions reached: causal entries whose sums stayed
+    exact and that took the ordered form, (block, part) pairs with no
+    causal displacement, blocks with none, blocks whose least cost is tied,
+    blocks with a ring anchor)."""
+    b = pos.shape[0]
+    dev = plane.device
+    d = 2 * radius + 1
+    dd = d * d
+    win = _search_window(plane, pos, n, radius, h)
+    org = block_at(org_plane, pos, n)
+    corr, ref2 = int_sums(win, org, n, d)
+    exact = (corr < EXACT) & (ref2 < EXACT)
+    fc, fr = corr.float(), ref2.float()
+    rows = (~exact).flatten(1).any(1)
+    if rows.any():
+        wf, of = win[rows].float(), org[rows].float()
+        block, lanes = (n * n, 1) if seq else (CONV_BLOCK, 2)
+        oc = _conv_sum_ordered(wf, of, n, d, block, lanes)
+        orf = _conv_sum_ordered(wf * wf, torch.ones_like(of), n, d, block,
+                                lanes)
+        keep = exact[rows]
+        fc[rows] = torch.where(keep, fc[rows], oc)
+        fr[rows] = torch.where(keep, fr[rows], orf)
+    o2 = (org.long() ** 2).sum((1, 2))
+    org2 = torch.where(o2 < EXACT, o2.float(),
+                       block_sum(org.float() * org.float()))
+    sse = (org2[:, None, None] + fr) - 2.0 * fc
+    rate = search_rate(lam, rate_bits_map(preds, radius))
+    cost = torch.where(mask, sse + rate, torch.full_like(sse, BIG))
+
+    def split_argmin(c):
+        flat = c.reshape(b, -1)
+        best = torch.full((b,), BIG, dtype=torch.float32, device=dev)
+        idx = torch.full((b,), dd, dtype=torch.int64, device=dev)
+        for p in range(parts):
+            d0, d1 = dd * p // parts, dd * (p + 1) // parts
+            if d1 == d0:
+                continue
+            i = argmin_first(flat[:, d0:d1]) + d0
+            v = flat.gather(1, i[:, None])[:, 0]
+            take = (v < best) | (idx == dd)
+            best = torch.where(take, v, best)
+            idx = torch.where(take, i, idx)
+        return best, idx
+
+    best, idx = split_argmin(cost)
+    sse_best = sse.reshape(b, -1).gather(1, idx[:, None])[:, 0]
+    sse_best = torch.where(best < 1e37, sse_best,
+                           torch.full_like(sse_best, BIG))
+    mvy = (idx // d).to(torch.int32) - radius
+    mvx = (idx % d).to(torch.int32) - radius
+    ar = torch.arange(n, device=dev)
+    pry = (mvy + radius).long()[:, None, None] + ar[None, :, None]
+    prx = (mvx + radius).long()[:, None, None] + ar[None, None, :]
+    pred = win[torch.arange(b, device=dev)[:, None, None], pry, prx]
+    out = (torch.stack([mvx, mvy], -1), best, pred.to(torch.int32),
+           sse_best)
+    flat_mask = mask.reshape(b, -1)
+    part_live = [flat_mask[:, dd * p // parts:dd * (p + 1) // parts].any(1)
+                 for p in range(parts)]
+    regions = {
+        "exact": int((mask & exact).sum()),
+        "ordered": int((mask & ~exact).sum()),
+        "empty_parts": int(sum(int((~live).sum()) for live in part_live)),
+        "none_valid": int((~flat_mask.any(1)).sum()),
+        "tied": int(((cost.reshape(b, -1) == best[:, None]).sum(1) > 1)
+                    .sum())}
+    if mask2 is None:
+        return out, regions
+    cost2 = torch.where(mask & mask2, sse + rate, torch.full_like(sse, BIG))
+    best2, idx2 = split_argmin(cost2)
+    gt_ok = best2 < 1e37
+    gt_rate = rate.reshape(b, -1).gather(1, idx2[:, None])[:, 0]
+    anchor = torch.stack([(idx2 % d).to(torch.int32) - radius,
+                          (idx2 // d).to(torch.int32) - radius], -1)
+    regions["ring"] = int(gt_ok.sum())
+    return out + (anchor, gt_rate, gt_ok), regions
+
+
+def ss_search_split(recon, org_plane, pos, zcur, zmaxw, preds, n, radius,
+                    w, h, lam, zmax2n=None, seq=False, parts=8):
+    """:func:`search_split_plain` with :func:`ss_search_plain`'s masks and
+    arguments (the SS search, with the ring where zmax2n is given)."""
+    mask, mask2 = _ss_masks(pos, zcur, zmaxw, zmax2n, n, radius, w, h)
+    return search_split_plain(recon, org_plane, pos, mask, preds, n, radius,
+                              h, lam, seq, parts, mask2)
+
+
+def t_search_split(refp, org_plane, pos, preds, n, radius, w, h, lam,
+                   seq=True, parts=8):
+    """:func:`search_split_plain` with :func:`t_search_plain`'s mask and
+    arguments (the temporal search)."""
+    mask = _targets(pos, n, radius, w, h)[2]
+    return search_split_plain(refp, org_plane, pos, mask, preds, n, radius,
+                              h, lam, seq, parts)
 
 
 # ---------------------------------------------------------------------------

@@ -250,6 +250,8 @@ NOISY = dict(seed=4, noise=25)
 # kernel C5's float32 costs against the plain version's: the same formulas
 # and the same order of sums, so a few units in the last place at most
 COST_RTOL = 1e-5
+# the QP of C5's 10-bit noise check: its 32x32 blocks' SSEs pass 2^24
+NOISE_QP = 51
 
 
 def log(*a):
@@ -282,9 +284,10 @@ def require(cond, what):
 
 # ---------------------------------------------------------------------------
 
-# the stage-clock build of csrc/ss_scan.cu, started by phase_build once the
-# production libraries are built and awaited by phase_stage_clock: it
-# compiles while the phases between run
+# the stage-clock builds of csrc/ss_scan.cu ("so") and csrc/scan.cu
+# ("scan"), started by phase_build once the production libraries are built
+# and awaited by phase_stage_clock and phase_scan_clock: they compile while
+# the phases between run
 _CLOCK_BUILD = {}
 
 
@@ -301,11 +304,14 @@ def phase_build():
     native.get_lib()
     log(f"build: {_cuda.sources()} and libhevc_hop.so in "
         f"{time.perf_counter() - t0:.1f} s")
-    ex = ThreadPoolExecutor(1)
+    ex = ThreadPoolExecutor(2)
     _CLOCK_BUILD["so"] = ex.submit(_cuda.variant, "ss_scan", "clock",
                                    CLOCK_FLAGS)
+    _CLOCK_BUILD["scan"] = ex.submit(_cuda.variant, "scan", "clock",
+                                     CLOCK_FLAGS)
     ex.shutdown(wait=False)
-    for name, kernel in (("scan", "C13"), ("ss_scan", "C14")):
+    for name, kernel in (("scan", "C13"), ("ss_scan", "C14"),
+                         ("partition", "C5")):
         log(f"ptxas, csrc/{name}.cu (kernel {kernel}):\n"
             + _cuda.BUILD_LOGS.get(name, "(built before this run)").strip())
 
@@ -597,6 +603,9 @@ def phase_partition_sao(checks):
         log(f"C5 bd={bd} against the plain pipeline (costs within "
             f"{COST_RTOL} relative): {json.dumps(tally)}; depth8 histogram "
             f"{torch.bincount(got[0].flatten(), minlength=4).tolist()}")
+        require(tally["costs_not_bit_equal"] == 0,
+                f"C5 bd={bd}: {tally['costs_not_bit_equal']} costs differ "
+                "from the plain body's")
 
         lam = partition.full_lambda(QP)
         maxv = (1 << bd) - 1
@@ -632,6 +641,35 @@ def phase_partition_sao(checks):
             maps.append(rdo)
         if bd == 8:
             ctx = dict(y=y, kern=kern, planes=planes, maps=maps)
+    # 10-bit noise at QP 51: at 16x16 and 32x32 a block's SSE passes 2^24,
+    # where C5 sums it in the compiled reference's order (the 32x32 rows'
+    # order differs between the arms) instead of as an exact integer; every
+    # cost must equal the plain body's bit for bit
+    noise = torch.as_tensor(rng.integers(0, 1024, (384, 512)),
+                            dtype=torch.int32, device=dev)
+    noisy = {}
+    for n in (16, 32):
+        got, want = (partition.rd_costs(noise, n, NOISE_QP, 10),
+                     partition.rd_costs_plain(noise, n, NOISE_QP, 10))
+        noisy[f"rd {n}"] = c5.add_close(got[0], want[0], COST_RTOL,
+                                        f"C5 rd n={n} 10-bit noise")
+        differ, faults = mode_faults(got, want)
+        require(faults == 0, f"C5 rd n={n} 10-bit noise: {faults} of "
+                f"{differ} blocks whose modes differ are no near-tie")
+        # the residual quadtree's arm: half-size TUs with the CU's mode, and
+        # the CU's own size with its mode
+        for m in (n // 2, n):
+            forced = up2(got[1]) if m < n else got[1].contiguous()
+            noisy[f"forced {m} ({n}'s modes)"] = c5.add_close(
+                partition.rd_costs_forced(noise, forced, m, NOISE_QP, 10),
+                partition.rd_costs_plain(noise, m, NOISE_QP, 10, forced)[0],
+                COST_RTOL, f"C5 rd forced n={m} 10-bit noise")
+        require(bool((got[0] > 2 ** 24).any()),
+                f"C5 10-bit noise: no {n}x{n} cost passes 2^24")
+    log("C5 10-bit noise at QP 51, costs not bit-equal to the plain body's: "
+        + json.dumps(noisy))
+    require(not any(noisy.values()),
+            f"C5 10-bit noise: costs differ from the plain body's: {noisy}")
     torch.cuda.synchronize()
     log("kernels at the main path's shapes: " + ", ".join(
         f"{k} {checks[k].cases} cases {checks[k].mism} mismatches"
@@ -988,7 +1026,8 @@ def phase_scan_program(ctxs, checks):
                    "blocks": len(work.host_items),
                    "levels": len(work.host_off) - 1,
                    "widest_level": work.widest,
-                   "grid_ctas_per_sm_smem_threads": grid, **secs}
+                   "grid_ctas_per_sm_smem_threads_cluster": grid,
+                   **secs}
             log(f"scan program: {json.dumps(rec)}")
             out.append(rec)
             if what == "main":
@@ -3038,21 +3077,22 @@ CLOCK_PATHS = ("iss", "iss-gt-warped", "pss-gt")
 CLOCK_FLAGS = ["-DHH_STAGE_CLOCK"]
 
 
-class _C14Library:
-    """Within it, the wrappers launch C14 from the library ``so`` (the
-    stage-clock build) in place of the production one."""
+class _ClockLibrary:
+    """Within it, the wrappers launch kernel ``name`` (C14's ss_scan by
+    default) from the library ``so`` (the stage-clock build) in place of
+    the production one."""
 
-    def __init__(self, so):
-        self.so = so
+    def __init__(self, so, name="ss_scan"):
+        self.so, self.name = so, name
 
     def __enter__(self):
         from hevc_hop_torch import _cuda
-        self.saved = _cuda._libs.get("ss_scan")
-        _cuda._libs["ss_scan"] = self.so
+        self.saved = _cuda._libs.get(self.name)
+        _cuda._libs[self.name] = self.so
 
     def __exit__(self, *exc):
         from hevc_hop_torch import _cuda
-        _cuda._libs["ss_scan"] = self.saved
+        _cuda._libs[self.name] = self.saved
 
 
 def stage_split(clk):
@@ -3114,7 +3154,7 @@ def phase_stage_clock(ss_rows, checks):
         ctas = torch.cuda.get_device_properties(0).multi_processor_count * 8
         buf = torch.zeros((groups, ctas, CLOCK_STAMPS), dtype=torch.int64,
                           device="cuda")
-        with _C14Library(so):
+        with _ClockLibrary(so):
             torch.cuda.synchronize()
             _cuda.check("ss_scan", set_clock(buf.data_ptr(), ctas))
             got = fn(*r["args"], work=r["work"])
@@ -3133,6 +3173,127 @@ def phase_stage_clock(ss_rows, checks):
         out[name] = rec
     return out
 
+
+
+# Kernel C13's stage clocks (csrc/scan.cu's Clock, built with
+# -DHH_STAGE_CLOCK into a library of its own): per level and CTA the ns the
+# CTA spent in each stage, slot plane * 5 + stage (C13_MARKS, planes luma,
+# cb, cr), the RMD's merge (C13_CLOCK_MERGE), the wait at the grid sync;
+# then the level's start and the CTA's way out of its sync
+C13_MARKS = ("chain", "predict", "quant", "sbh", "recon")
+C13_PLANES = ("luma", "cb", "cr")
+C13_CLOCK_MERGE = 15
+C13_CLOCK_WAIT, C13_CLOCK_START, C13_CLOCK_END = 16, 17, 18
+C13_CLOCK = 19
+C13_CLOCK_PATHS = ("production", "uniform")
+
+
+def scan_stage_split(clk):
+    """The stage split of one C13 encode from its clocks clk [levels, CTAs,
+    C13_CLOCK] (ns), in us summed over the levels: per stage the longest
+    time any CTA of the level spent in it; the levels' time (first start
+    to last way out of the sync); the grid sync's own cost (the least wait
+    of any CTA of a level) and the CTAs' mean wait; CTAs at work per
+    level."""
+    clk = np.asarray(clk, dtype=np.int64)
+    stage = {f"{C13_PLANES[j // 5]} {C13_MARKS[j % 5]}":
+             float(clk[:, :, j].max(axis=1).sum() / 1e3)
+             for j in range(C13_CLOCK_MERGE)}
+    stage["RMD merge"] = float(clk[:, :, C13_CLOCK_MERGE].max(axis=1).sum()
+                               / 1e3)
+    start = np.where(clk[:, :, C13_CLOCK_START] > 0,
+                     clk[:, :, C13_CLOCK_START],
+                     np.iinfo(np.int64).max).min(axis=1)
+    level = clk[:, :, C13_CLOCK_END].max(axis=1) - start
+    wait = clk[:, :, C13_CLOCK_WAIT]
+    busy = (clk[:, :, :C13_CLOCK_WAIT].sum(axis=2) > 0).sum(axis=1)
+    return {"levels": int(clk.shape[0]),
+            "levels_us": float(level.sum() / 1e3),
+            "level_us_median": float(np.median(level) / 1e3),
+            "stage_us": stage,
+            "grid_sync_us": float(wait.min(axis=1).sum() / 1e3),
+            "wait_us_mean": float(wait.mean(axis=1).sum() / 1e3),
+            "busy_ctas_mean": float(busy.mean()),
+            "busy_ctas_max": int(busy.max())}
+
+
+def require_plane_stamps(clk, work, grid, rmd, what):
+    """C13's layout from its clocks clk [levels, CTAs, C13_CLOCK]. With
+    the modes given, in every level whose three tasks per item fit the
+    grid, each item's planes ran on CTAs of their own: as many CTAs coded
+    luma as the level has items, as many coded chroma as it has chroma
+    blocks, and no CTA coded both. With the RMD, in every level at least
+    two CTAs ran a share of the 35 modes. Returns the levels checked."""
+    luma = clk[:, :, 0:5].sum(axis=2) > 0
+    chroma = clk[:, :, 5:15].sum(axis=2) > 0
+    off, items = work.host_off, work.host_items
+    checked = 0
+    for s in range(len(off) - 1):
+        lv = items[off[s]:off[s + 1]]
+        if rmd:
+            parts = int((clk[s, :, 1] > 0).sum())
+            require(parts >= 2, f"{what}: level {s}: the RMD ran on {parts} "
+                    "CTA")
+            checked += 1
+            continue
+        if 3 * len(lv) > grid:
+            continue
+        nl, nc = int(luma[s].sum()), int(chroma[s].sum())
+        both = int((luma[s] & chroma[s]).sum())
+        want_c = 2 * int((lv[:, 2] >= 0).sum())
+        require(nl == len(lv) and nc == want_c and both == 0,
+                f"{what}: level {s}: {nl} luma CTAs for {len(lv)} items, "
+                f"{nc} chroma CTAs for {want_c} blocks, {both} CTAs with "
+                "both")
+        checked += 1
+    require(checked > 0, f"{what}: no level checked")
+    return checked
+
+
+def phase_scan_clock(scan_rows, checks):
+    """C13's stage clocks on the encode of C13_CLOCK_PATHS' frames: the
+    stage-clock build of csrc/scan.cu (-DHH_STAGE_CLOCK), its outputs held
+    against the production library's, the layout required from its clocks
+    (require_plane_stamps), then scan_stage_split of them, with the
+    launch's shape."""
+    import torch
+    from hevc_hop_torch import _cuda
+    from hevc_hop_torch.models import wavefront_scan as ws
+    t0 = time.perf_counter()
+    so = (_CLOCK_BUILD["scan"].result() if "scan" in _CLOCK_BUILD else
+          _cuda.variant("scan", "clock", CLOCK_FLAGS))
+    log(f"scan clock: its build awaited {time.perf_counter() - t0:.1f} s")
+    set_clock = so.hh_scan_clock
+    set_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    chk = checks["C13"]
+    out = {}
+    for name in C13_CLOCK_PATHS:
+        r = scan_rows[name]
+        args, kws, work = r["args"], r["kws"], r["sched"].work
+        want = ws.scan_encode(*args, **kws, work=work)
+        levels = len(work.host_off) - 1
+        ctas = torch.cuda.get_device_properties(0).multi_processor_count * 8
+        buf = torch.zeros((levels, ctas, C13_CLOCK), dtype=torch.int64,
+                          device="cuda")
+        with _ClockLibrary(so, "scan"):
+            torch.cuda.synchronize()
+            _cuda.check("scan", set_clock(buf.data_ptr(), ctas))
+            got = ws.scan_encode(*args, **kws, work=work)
+            torch.cuda.synchronize()
+            _cuda.check("scan", set_clock(None, 0))
+            launch = ws.LAST_LAUNCH
+        _hold_scan(chk, got, want, f"C13 stage-clock build, {name}, against "
+                   "the production library")
+        grid = launch[0]
+        clk = buf[:, :grid].cpu().numpy()
+        rmd = args[9] is None
+        checked = require_plane_stamps(clk, work, grid, rmd,
+                                       f"C13 stage clocks, {name}")
+        rec = {"path": name, "launch": launch, "rmd": rmd,
+               "levels_checked": checked, **scan_stage_split(clk)}
+        log(f"scan clock: {json.dumps(rec)}")
+        out[name] = rec
+    return out
 
 # kernel C9's scan entry held at every CU size and both bit depths on a
 # lenslet plane of this size
@@ -4937,6 +5098,7 @@ def main() -> int:
         ctxs, checks)
     log_host("pss scan program held")
     stage_clock = phase_stage_clock(ss_rows, checks)
+    scan_clock = phase_scan_clock(scan_rows, checks)
     log_host("stage clocks read")
     paths["mesh"], mesh_ctx = phase_mesh(checks)
     log_host("mesh path timed")
@@ -4993,6 +5155,7 @@ def main() -> int:
                     "gt_share": gt_share, "scan_program": scan_program,
                     "ss_scan_program": ss_scan_program,
                     "ss_scan_plain": ss_plain, "stage_clock": stage_clock,
+                    "scan_clock": scan_clock,
                     "c9_split": c9_split,
                     "full_fixtures": full_fixtures}))
     log(json.dumps({"kernels": rows}))

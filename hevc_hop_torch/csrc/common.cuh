@@ -22,3 +22,36 @@ __device__ __forceinline__ int clip3(int lo, int hi, int v) {
 __device__ __forceinline__ int iabs(int v) { return v < 0 ? -v : v; }
 
 __device__ __forceinline__ int isign(int v) { return (v > 0) - (v < 0); }
+
+// float32 sum of the n x n terms t(i) (n a multiple of 8) in an order
+// XLA:CPU compiles for several of the reference's reductions (the jitted
+// searches' org^2, F11, ops/ss_search.py lane_block_sum; rd_costs' SSE at
+// 8x8 and 16x16, F12, models/partition.py block_dist): eight vector lanes,
+// lane l adding rows l, l + 8, ... in row-major order (block_lane), then
+// the lanes by halves, (l, l + 4), (k, k + 2), (0, 1) (fold_lanes). A CTA
+// runs block_lane a thread a lane, then fold_lanes in one.
+template <typename F>
+__device__ __forceinline__ float block_lane(int n, int l, F t) {
+  float acc = t(l * n);
+  for (int c = 1; c < n; ++c) acc = __fadd_rn(acc, t(l * n + c));
+  for (int r = l + 8; r < n; r += 8)
+    for (int c = 0; c < n; ++c) acc = __fadd_rn(acc, t(r * n + c));
+  return acc;
+}
+
+__device__ __forceinline__ float fold_lanes(const float *s) {
+  const float b0 = __fadd_rn(__fadd_rn(s[0], s[4]), __fadd_rn(s[2], s[6]));
+  const float b1 = __fadd_rn(__fadd_rn(s[1], s[5]), __fadd_rn(s[3], s[7]));
+  return __fadd_rn(b0, b1);
+}
+
+// Stage hooks of the shared bodies (intra_block, tq_encode_block): each
+// calls mark(k), by every thread of the CTA, where its stage k ends. The
+// stage-clock build of kernel C13 (scan.cu, -DHH_STAGE_CLOCK) passes a
+// functor that stamps a clock there; every other caller passes NoMark,
+// which compiles to nothing.
+enum Mark { kMarkChain, kMarkPredict, kMarkQuant, kMarkSbh, kMarkRecon,
+            kMarks };
+struct NoMark {
+  __device__ __forceinline__ void operator()(int) const {}
+};

@@ -117,7 +117,9 @@ __device__ void filter_chain(const int32_t *cu, int32_t *cf, int n,
 }
 
 // The references of a block: chain cu, filtered chain cf (null: no
-// filtering), and the DC value.
+// filtering), and the DC value. Called by every thread of the CTA (whole
+// warps): each warp sums the 2n DC samples with a shuffle reduction, an
+// integer sum in any order, so no barrier is needed.
 __device__ Refs make_refs(const int32_t *cu, const int32_t *cf, int n,
                           int c_idx, int bit_depth) {
   Refs r;
@@ -128,8 +130,10 @@ __device__ Refs make_refs(const int32_t *cu, const int32_t *cf, int n,
   r.c_idx = c_idx;
   r.use_filter = cf != nullptr;
   r.maxv = (1 << bit_depth) - 1;
+  const int lane = threadIdx.x & 31;
   int s = 0;
-  for (int i = 0; i < n; ++i) s += top_of(cu, n, i) + left_of(cu, n, i);
+  for (int i = lane; i < n; i += 32) s += top_of(cu, n, i) + left_of(cu, n, i);
+  s = __reduce_add_sync(0xffffffffu, s);
   r.dc = (s + n) >> (r.log2 + 1);
   return r;
 }
@@ -137,11 +141,16 @@ __device__ Refs make_refs(const int32_t *cu, const int32_t *cf, int n,
 // Hadamard SATD of the n x n difference block O (8x8 tiles, 4x4 at n = 4),
 // the reference's intra.satd. A [n*n] is scratch, H the k x k Hadamard
 // matrix, tsum [16] per-tile sums that are zero on entry and on return.
-// Called by every thread of the CTA with O complete; the cost is valid in
-// thread 0 only, and the caller synchronises before O or A change.
+// Called by every thread of the CTA (blockDim a multiple of 32) with O
+// complete; the cost is valid in thread 0 only, and the caller
+// synchronises before O or A change. The second stage walks the samples
+// tile by tile, so a warp's 32 lanes lie in one tile: a shuffle reduction
+// and one shared atomic per warp give the tile sums, and warp 0 reduces
+// the normalised tile sums with shuffles (integers: any order is exact).
 __device__ int satd_cost(const int32_t *O, int32_t *A, const int32_t *H,
                          int32_t *tsum, int n) {
   const int nn = n * n, tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31;
   const int k = n >= 8 ? 8 : 4;
   const int kl = k == 8 ? 3 : 2;
   const int tiles_w = n / k;
@@ -154,22 +163,33 @@ __device__ int satd_cost(const int32_t *O, int32_t *A, const int32_t *H,
     A[i] = s;
   }
   __syncthreads();
-  // stage 2: (H . D) . H (columns mix), absolute sum per tile
-  for (int i = tid; i < nn; i += nt) {
-    const int x = i % n, y = i / n;
-    const int tx = x & ~(k - 1), lx = x & (k - 1);
-    int s = 0;
-    for (int j = 0; j < k; ++j) s += A[y * n + tx + j] * H[j * k + lx];
-    atomicAdd(&tsum[(y >> kl) * tiles_w + (x >> kl)], iabs(s));
+  // stage 2: (H . D) . H (columns mix), absolute sum per tile; sample i in
+  // tile order: tile i >> 2kl, row and column within it from the rest
+  for (int base = 0; base < nn; base += nt) {
+    const int i = base + tid;
+    int v = 0;
+    if (i < nn) {
+      const int ti = i >> (2 * kl), j = i & (k * k - 1);
+      const int tx = (ti % tiles_w) * k, y = (ti / tiles_w) * k + (j >> kl);
+      const int lx = j & (k - 1);
+      int s = 0;
+      for (int jj = 0; jj < k; ++jj) s += A[y * n + tx + jj] * H[jj * k + lx];
+      v = iabs(s);
+    }
+    v = __reduce_add_sync(0xffffffffu, v);
+    const int first = i - lane;   // the warp's first sample
+    if (lane == 0 && first < nn) atomicAdd(&tsum[first >> (2 * kl)], v);
   }
   __syncthreads();
   int cost = 0;
-  if (tid == 0) {
-    for (int ti = 0; ti < tiles_w * tiles_w; ++ti) {
-      const int s = tsum[ti];
-      cost += k == 8 ? (s + 2) >> 2 : (s + 1) >> 1;
-      tsum[ti] = 0;
+  if (tid < 32) {
+    int c = 0;
+    if (lane < tiles_w * tiles_w) {
+      const int s = tsum[lane];
+      c = k == 8 ? (s + 2) >> 2 : (s + 1) >> 1;
+      tsum[lane] = 0;
     }
+    cost = __reduce_add_sync(0xffffffffu, c);
   }
   return cost;
 }
@@ -187,9 +207,75 @@ struct IntraPlane {
   int resi_stride;
 };
 
-// Shared scratch of intra_block for an n x n block, in int32 words.
+// Shared scratch of intra_block for an n x n block, in int32 words; its
+// last word (intra_cost_word) holds the RMD's lowest SATD on return.
 __host__ __device__ inline int intra_scratch_words(int n) {
-  return 2 * (4 * n + 1) + 4 * n * n + 64 + 18;
+  return 2 * (4 * n + 1) + 4 * n * n + 64 + 19;
+}
+__host__ __device__ inline int intra_cost_word(int n) {
+  return intra_scratch_words(n) - 1;
+}
+
+// The substitution of H.265 8.4.4.2.2 on the gathered chain cu [L], by
+// every thread of the CTA (blockDim a multiple of 32): each unavailable
+// sample takes the last available one at or before it, else the first
+// available one; with none available every sample is mid-grey. The "last
+// available index at or before i" is an inclusive max-scan of
+// (av[i] ? i : -1): shuffles within a warp, the warps' totals through
+// shared memory, chunk by chunk of blockDim. An available sample is its
+// own source and is never written, so the chain is substituted in place.
+// src [L] is scratch.
+__device__ void substitute_chain(int32_t *cu, const uint8_t *av, int L,
+                                 int bit_depth, int32_t *src) {
+  __shared__ int s_wmax[32], s_carry, s_first;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) {
+    s_carry = -1;
+    s_first = L;
+  }
+  __syncthreads();
+  for (int base = 0; base < L; base += nt) {
+    const int i = base + tid;
+    const bool here = i < L && av[i];
+    int v = here ? i : -1;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, d);
+      if (lane >= d) v = max(v, u);
+    }
+    if (lane == 31) s_wmax[warp] = v;
+    if (here) atomicMin(&s_first, i);
+    __syncthreads();
+    int pre = s_carry;
+    for (int w = 0; w < warp; ++w) pre = max(pre, s_wmax[w]);
+    v = max(v, pre);
+    if (i < L) src[i] = v;
+    __syncthreads();
+    if (tid == nt - 1) s_carry = v;
+    __syncthreads();
+  }
+  const int first = s_first;
+  for (int i = tid; i < L; i += nt)
+    if (!av[i])
+      cu[i] = first >= L ? 1 << (bit_depth - 1)
+                         : cu[src[i] >= 0 ? src[i] : first];
+  __syncthreads();
+}
+
+// The prediction of `mode` from the chain that intra_block left in sm
+// (its cu and cf), into pred [n*n], by every thread of the CTA; ends with
+// a barrier. The RMD split of kernel C13 predicts the cluster's best mode
+// so on the CTA that codes it.
+__device__ void predict_from_chain(const Tables &t, int32_t *sm, int mode,
+                                   int n, int c_idx, int bit_depth,
+                                   int32_t *pred) {
+  const int L = 4 * n + 1, nn = n * n;
+  const int use_filter = (c_idx == 0 && n > 4);
+  const Refs r = make_refs(sm, use_filter ? sm + L : nullptr, n, c_idx,
+                           bit_depth);
+  for (int i = threadIdx.x; i < nn; i += blockDim.x)
+    pred[i] = predict_px(r, t, mode, i % n, i / n);
+  __syncthreads();
 }
 
 // Kernel C2's work on the n x n block at (px, py), by every thread of the
@@ -197,20 +283,25 @@ __host__ __device__ inline int intra_scratch_words(int n) {
 // (coordinates clamped to the plane; L2-coherent loads, since a
 // persistent caller reads recon that other SMs wrote after its L1 may
 // have cached the line), substitutes the samples that `av` marks
-// unavailable (H.265 8.4.4.2.2), builds the 1-2-1 filtered chain and the
-// 32x32 strong-smoothed one, and then:
+// unavailable (H.265 8.4.4.2.2, substitute_chain), builds the 1-2-1
+// filtered chain and the 32x32 strong-smoothed one, and then:
 // - mode >= 0, or no original: predicts `mode` into pred [n*n], or, with
 //   p.resi, writes clip(prediction + residual) into the plane;
-// - else RMD: predicts the 35 modes one after another, scores each with
-//   the 8x8 (4x4 at N = 4) Hadamard SATD against the original, and writes
-//   the lowest cost's prediction into pred; ties go to the lowest mode,
-//   as jnp.argmin does.
+// - else RMD over the modes [m0, m1) (all 35 by default): predicts them
+//   one after another, scores each with the 8x8 (4x4 at N = 4) Hadamard
+//   SATD against the original, and writes the lowest cost's prediction
+//   into pred (none where pred is null); ties go to the lowest mode, as
+//   jnp.argmin does. The lowest cost is left in sm[intra_cost_word(n)],
+//   so that kernel C13 can merge the parts of a split RMD.
 // Returns the mode, in every thread. sm holds intra_scratch_words(n);
-// pred may lie in shared or device memory. Ends with a barrier.
+// pred may lie in shared or device memory. Ends with a barrier. mark
+// (common.cuh) is called where the chain and the prediction are done.
+template <class MarkFn = NoMark>
 __device__ int intra_block(const IntraPlane &p, const Tables &t, int px,
                            int py, const uint8_t *av, int mode, int n,
                            int c_idx, int bit_depth, int strong, int32_t *sm,
-                           int32_t *pred) {
+                           int32_t *pred, const MarkFn &mark = MarkFn(),
+                           int m0 = 0, int m1 = 35) {
   const int L = 4 * n + 1, nn = n * n;
   int32_t *cu = sm;            // [L]
   int32_t *cf = cu + L;        // [L]
@@ -220,7 +311,7 @@ __device__ int intra_block(const IntraPlane &p, const Tables &t, int px,
   int32_t *A = O + nn;         // [nn] Hadamard first stage
   int32_t *H = A + nn;         // [64]
   int32_t *tsum = H + 64;      // [16] per-tile sums
-  int32_t *flag = tsum + 16;   // [2] improved, best mode
+  int32_t *flag = tsum + 16;   // [3] improved, best mode, best cost
   const int tid = threadIdx.x, nt = blockDim.x;
   const int maxv = (1 << bit_depth) - 1;
 
@@ -241,28 +332,13 @@ __device__ int intra_block(const IntraPlane &p, const Tables &t, int px,
     y = clip3(0, p.ph - 1, y);
     cu[i] = __ldcg(p.plane + (long long)y * p.stride + x);
   }
-  __syncthreads();
-
-  // substitution: last available sample at or before i, else the first
-  if (tid == 0) {
-    int first = -1;
-    for (int i = 0; i < L && first < 0; ++i)
-      if (av[i]) first = i;
-    if (first < 0) {
-      for (int i = 0; i < L; ++i) cu[i] = 1 << (bit_depth - 1);
-    } else {
-      int prev = -1;
-      for (int i = 0; i < L; ++i) {
-        if (av[i]) prev = i;
-        cu[i] = cu[prev >= 0 ? prev : first];
-      }
-    }
-  }
-  __syncthreads();
+  // O and A (2 nn >= L words) hold the scan's source indices
+  substitute_chain(cu, av, L, bit_depth, O);
 
   const int use_filter = (c_idx == 0 && n > 4);
   if (use_filter) filter_chain(cu, cf, n, bit_depth, strong);
   const Refs r = make_refs(cu, use_filter ? cf : nullptr, n, c_idx, bit_depth);
+  mark(kMarkChain);
 
   if (p.org == nullptr || mode >= 0) {
     // one given mode: prediction, or the decode epilogue
@@ -278,21 +354,22 @@ __device__ int intra_block(const IntraPlane &p, const Tables &t, int px,
       }
     }
     __syncthreads();
+    mark(kMarkPredict);
     return mode;
   }
 
-  // RMD: 35 candidates, Hadamard SATD against the original
+  // RMD: the candidates [m0, m1), Hadamard SATD against the original
   const int k = n >= 8 ? 8 : 4;
   for (int i = tid; i < k * k; i += nt) H[i] = t.had[i];
   for (int i = tid; i < 16; i += nt) tsum[i] = 0;
   if (tid == 0) {
     flag[0] = 0;
-    flag[1] = 0;
+    flag[1] = m0;
   }
   int best_cost = 0x7fffffff;  // kept by thread 0
   __syncthreads();
 
-  for (int m = 0; m < 35; ++m) {
+  for (int m = m0; m < m1; ++m) {
     for (int i = tid; i < nn; i += nt) {
       const int x = i % n, y = i / n;
       const int v = predict_px(r, t, m, x, y);
@@ -309,13 +386,16 @@ __device__ int intra_block(const IntraPlane &p, const Tables &t, int px,
       }
     }
     __syncthreads();
-    if (flag[0])
+    if (flag[0] && pred != nullptr)
       for (int i = tid; i < nn; i += nt) B[i] = P[i];
     __syncthreads();
   }
   const int best = flag[1];
-  for (int i = tid; i < nn; i += nt) pred[i] = B[i];
+  if (tid == 0) flag[2] = best_cost;
+  if (pred != nullptr)
+    for (int i = tid; i < nn; i += nt) pred[i] = B[i];
   __syncthreads();
+  mark(kMarkPredict);
   return best;
 }
 

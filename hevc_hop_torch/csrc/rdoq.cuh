@@ -1,8 +1,10 @@
 // Device code of kernel C7, RDOQ of one transform block by one CTA, shared
 // by its standalone entry (rdoq.cu) and by the RDOQ arm of tq_encode_block
-// (tq.cuh), which kernel C3's encode entry (tq.cu) and kernel C13 (scan.cu)
-// run. No sum's order depends on blockDim: the CG stages walk their 16
-// positions in one thread each, and the scalar sums run in thread 0.
+// (tq.cuh), which kernel C3's encode entry (tq.cu), kernel C13 (scan.cu),
+// kernel C14 (ss_scan.cu) and the mesh's level loop run. No sum's order
+// depends on blockDim: the CG stages walk their 16 positions in one thread
+// each, and each scalar sum keeps XLA's order with its independent blocks
+// on threads of their own.
 //
 // Replaces hevc_hop_tpu/ops/rdoq.py rdoq_quant (with _level_rate). The
 // stages follow the reference: the scan-order gather and round-half
@@ -11,18 +13,25 @@
 // suffix passes per CG); the per-coefficient choice among max_abs,
 // max_abs - 1 and 0; CG zeroing; the last-position / cbf tournament; the
 // inverse permutation. Elementwise stages run one thread per coefficient,
-// the CG stages one thread per CG walking its 16 positions in scan order,
-// and the two scalar sums (the exclusive scans of the CG totals, total0)
-// one thread.
+// the CG stages one thread per CG walking its 16 positions in scan order.
+// The scalar stage keeps every float's order and spreads what is
+// independent: each 16-block of the three cumsums and each 32-block of
+// total0 on a thread of its own, then the block totals' scans (one thread
+// per cumsum, one for total0's block sums in order); the CG tournament is
+// a warp argmin that keeps the first CG among equals. Serial by nature,
+// and left so: the 4x4 total0 fma chain (each fma reads the last) and each
+// CG's walk of its 16 positions (the c1/c2 counts and the Rice passes
+// carry from position to position, and the sums run in scan order).
 //
 // Floats: every product and sum is rounded where the reference's compiled
 // program (XLA on the CPU) rounds it, and fused where it fuses it, so that
 // each level decision is the reference's bit for bit. __fmul_rn, __fadd_rn
 // and __fsub_rn keep nvcc from contracting; fmaf marks each fused
-// multiply-add. jnp.cumsum is XLA's blocked scan (sequential within blocks
-// of 16 = one CG, plus the exclusive scan of the block totals, blocked again
-// over more than 16 CGs); jnp.sum over more than 32 positions adds blocks
-// of 32 and then the block sums. The class-dependent forms (total0 as an
+// multiply-add. jnp.cumsum of k <= 64 values is XLA's blocked scan
+// (sequential within blocks of 16 = one CG; over more than 16 CGs each
+// block's running sum plus the exclusive scan of the block totals);
+// jnp.sum over more than 32 positions adds blocks of 32 and then the block
+// sums in order. The class-dependent forms (total0 as an
 // fma chain at 4x4; cost_coeff - cost_sig fused at 8x8 and 16x16; the
 // last-position rate fused where it is gathered per scan) come in as flags
 // from ops/rdoq.py float_forms.
@@ -93,33 +102,6 @@ __device__ __forceinline__ float level_rate(int lev, float ob0, float ob1,
   return rate;
 }
 
-// jnp.cumsum of v[0..k) (k <= 64) as XLA blocks it, written into out.
-__device__ void xla_cumsum_small(const float *v, float *out, int k) {
-  if (k <= 16) {
-    float acc = v[0];
-    out[0] = acc;
-    for (int j = 1; j < k; ++j) out[j] = acc = __fadd_rn(acc, v[j]);
-    return;
-  }
-  // k / 16 blocks (k = 64: four), then the exclusive scan of their totals
-  float excl[4];
-  float e = 0.0f;
-  for (int q = 0; q < k / 16; ++q) {
-    excl[q] = e;
-    float acc = v[16 * q];
-    for (int j = 1; j < 16; ++j) acc = __fadd_rn(acc, v[16 * q + j]);
-    e = q == 0 ? acc : __fadd_rn(e, acc);
-  }
-  for (int q = 0; q < k / 16; ++q) {
-    float acc = v[16 * q];
-    out[16 * q] = __fadd_rn(acc, excl[q]);
-    for (int j = 1; j < 16; ++j) {
-      acc = __fadd_rn(acc, v[16 * q + j]);
-      out[16 * q + j] = __fadd_rn(acc, excl[q]);
-    }
-  }
-}
-
 // RDOQ of the n x n block C (raster, int32 coefficients) into Q (raster,
 // signed levels), scan sid (0 for single-scan classes). Every thread of the
 // CTA calls it; scratch holds rdoq_scratch_bytes(n).
@@ -153,6 +135,9 @@ __device__ void rdoq_block(const int32_t *C, int32_t *Q, int n, int c_idx,
   __shared__ float s_total0;
   __shared__ float s_cgr[64], s_cgb[64], s_bc[64];
   __shared__ int s_bi[64];
+  // stage 6's partial results: the three cumsums' in-block scans and block
+  // totals (then their exclusive scan), total0's 32-blocks
+  __shared__ float s_inc[3][64], s_btot[3][4], s_qsum[32];
 
   const int32_t *perm = a.perm + sid * m;
   const int qbits = a.qbits;
@@ -323,36 +308,73 @@ __device__ void rdoq_block(const int32_t *C, int32_t *Q, int n, int c_idx,
   // p2, the last level above 1, after the zeroing
   for (int j = tid; j < m; j += nt)
     if (lev[j] > 1) atomicMax(&s_p2, j);
-  // ---- 6. one thread: exclusive scans of the block totals, CG rates
-  // below each CG, total0
-  if (tid == 0) {
-    xla_cumsum_small(t_cc, e_cc, ncg);
-    xla_cumsum_small(t_c0, e_c0, ncg);
-    for (int k = ncg - 1; k >= 0; --k) {
-      e_cc[k] = k ? e_cc[k - 1] : 0.0f;
-      e_c0[k] = k ? e_c0[k - 1] : 0.0f;
-    }
-    xla_cumsum_small(s_cgr, s_cgb, ncg);
-    for (int k = 0; k < ncg; ++k) s_cgb[k] = __fsub_rn(s_cgb[k], s_cgr[k]);
-    float tot0;
-    if (a.chain_total0) {
-      tot0 = cost0[0];
-      for (int j = 1; j < m; ++j) {
-        const float ldf = __int2float_rn(ld[j]);
-        tot0 = fmaf(__fmul_rn(ldf, ldf), es, tot0);
+  // ---- 6. the exclusive scans of the block totals, the CG rates below
+  // each CG, total0, in XLA's orders (xla_cumsum_small, blocked sums) with
+  // their serial parts spread over threads: (a) each 16-block of the three
+  // cumsums scanned by its own thread, each 32-block of total0 summed by
+  // its own thread (total0's serial forms, the 4x4 fma chain and m <= 32,
+  // whole on one thread); (b) the exclusive scan of each cumsum's block
+  // totals on one thread each, total0's block sums added in order q = 0,
+  // 1, ... on another; (c) the block offsets added, every CG on its own
+  // thread.
+  {
+    const int nb = ncg > 16 ? ncg / 16 : 1, bl = ncg > 16 ? 16 : ncg;
+    const bool blocked0 = !a.chain_total0 && m > 32;
+    const int nq = blocked0 ? m / 32 : 1;
+    const float *src3[3] = {t_cc, t_c0, s_cgr};
+    for (int job = tid; job < 3 * nb + nq; job += nt) {
+      if (job < 3 * nb) {
+        const int ar = job / nb, q = job % nb;
+        const float *v = src3[ar] + 16 * q;
+        float *out = s_inc[ar] + 16 * q;
+        float acc = v[0];
+        out[0] = acc;
+        for (int j = 1; j < bl; ++j) out[j] = acc = __fadd_rn(acc, v[j]);
+        s_btot[ar][q] = acc;
+      } else if (!blocked0) {
+        float tot0 = cost0[0];
+        if (a.chain_total0) {
+          for (int j = 1; j < m; ++j) {
+            const float ldf = __int2float_rn(ld[j]);
+            tot0 = fmaf(__fmul_rn(ldf, ldf), es, tot0);
+          }
+        } else {
+          for (int j = 1; j < m; ++j) tot0 = __fadd_rn(tot0, cost0[j]);
+        }
+        s_total0 = tot0;
+      } else {
+        const int q = job - 3 * nb;
+        float sq = cost0[32 * q];
+        for (int j = 1; j < 32; ++j) sq = __fadd_rn(sq, cost0[32 * q + j]);
+        s_qsum[q] = sq;
       }
-    } else if (m <= 32) {
-      tot0 = cost0[0];
-      for (int j = 1; j < m; ++j) tot0 = __fadd_rn(tot0, cost0[j]);
-    } else {
-      tot0 = 0.0f;
-      for (int q = 0; q < m / 32; ++q) {
-        float s = cost0[32 * q];
-        for (int j = 1; j < 32; ++j) s = __fadd_rn(s, cost0[32 * q + j]);
-        tot0 = q == 0 ? s : __fadd_rn(tot0, s);
+    }
+    __syncthreads();
+    if (nb > 1 && tid < 3) {
+      // the exclusive scan of the block totals, in place
+      float e = 0.0f;
+      for (int q = 0; q < nb; ++q) {
+        const float tq = s_btot[tid][q];
+        s_btot[tid][q] = e;
+        e = q == 0 ? tq : __fadd_rn(e, tq);
       }
     }
-    s_total0 = tot0;
+    if (blocked0 && tid == (nt > 3 ? 3 : 0)) {
+      float tot0 = s_qsum[0];
+      for (int q = 1; q < nq; ++q) tot0 = __fadd_rn(tot0, s_qsum[q]);
+      s_total0 = tot0;
+    }
+    __syncthreads();
+    // inclusive cumsum of array ar at CG k
+    auto inc = [&](int ar, int k) {
+      return nb > 1 ? __fadd_rn(s_inc[ar][k], s_btot[ar][k >> 4])
+                    : s_inc[ar][k];
+    };
+    for (int k = tid; k < ncg; k += nt) {
+      e_cc[k] = k ? inc(0, k - 1) : 0.0f;
+      e_c0[k] = k ? inc(1, k - 1) : 0.0f;
+      s_cgb[k] = __fsub_rn(inc(2, k), s_cgr[k]);
+    }
   }
   __syncthreads();
   // ---- 7. last-position tournament, one thread per CG
@@ -390,16 +412,29 @@ __device__ void rdoq_block(const int32_t *C, int32_t *Q, int n, int c_idx,
     s_bi[k] = bi;
   }
   __syncthreads();
-  if (tid == 0) {
-    float bc = s_bc[0];
-    int bi = s_bi[0];
-    for (int k = 1; k < ncg; ++k)
-      if (s_bc[k] < bc) {
+  // the best CG by a warp argmin: (cost, CG) in lexicographic order, so
+  // the first CG among equal costs wins, as the walk over the CGs in order
+  // with a strict < does
+  if (tid < 32) {
+    float bc = kInf;
+    int bk = ncg;
+    for (int k = tid; k < ncg; k += 32)
+      if (s_bc[k] < bc || bk == ncg) {
         bc = s_bc[k];
-        bi = s_bi[k];
+        bk = k;
       }
-    const float cbf0 = __fadd_rn(__fmul_rn(lam, a.cbf_bits[0]), total0);
-    s_best = (bc < cbf0 && last_pos >= 0) ? bi : -1;
+    for (int o = 16; o > 0; o >>= 1) {
+      const float oc = __shfl_xor_sync(0xffffffffu, bc, o);
+      const int ok = __shfl_xor_sync(0xffffffffu, bk, o);
+      if (oc < bc || (oc == bc && ok < bk)) {
+        bc = oc;
+        bk = ok;
+      }
+    }
+    if (tid == 0) {
+      const float cbf0 = __fadd_rn(__fmul_rn(lam, a.cbf_bits[0]), total0);
+      s_best = (bc < cbf0 && last_pos >= 0) ? s_bi[bk] : -1;
+    }
   }
   __syncthreads();
   // ---- 8. inverse permutation

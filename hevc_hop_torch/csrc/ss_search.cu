@@ -54,8 +54,9 @@
 // odd products), added at the block's end, blocks added in order; the PSS
 // program's (ROADMAP.md F10), over the kernel in row-major order, one
 // rounded add after another (Search::seq; the scan entry's PSS
-// launches). org^2 is exact below 2^24, in ss_common.cuh block_sum's
-// order above. The rate lambda * (6 + bits) is rounded on its own and then
+// launches). org^2 is exact below 2^24; above, in the jitted search's
+// order (ss_common.cuh block_lane and fold_lanes, F11), or with seq in
+// block_sum's. The rate lambda * (6 + bits) is rounded on its own and then
 // added, as in the reference.
 //
 // Bound: integer operations, n^2 (2r+1)^2 multiply-adds per block for the

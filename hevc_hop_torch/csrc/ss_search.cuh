@@ -309,16 +309,20 @@ __device__ void search_part(const Search &s, int px, int py, int zcur,
     }
   }
   __syncthreads();
-  // org^2: exact below 2^24, else block_sum's order (a thread a row)
+  // org^2: exact below 2^24, else the reference's order: the jitted
+  // search's (F11, a thread a lane), or with seq the PSS program's
+  // block_sum order (a thread a row)
   if (org2_i < kExact) {
     if (tid == 0) org2_s = (float)org2_i;
   } else {
-    if (tid < n)
-      red[tid] = block_row(n, tid, [&](int i) {
-        return __fmul_rn((float)org[i], (float)org[i]);
-      });
+    const auto sq = [&](int i) {
+      return __fmul_rn((float)org[i], (float)org[i]);
+    };
+    const bool rows = s.seq || n % 8 != 0;
+    if (tid < (rows ? n : 8))
+      red[tid] = rows ? block_row(n, tid, sq) : block_lane(n, tid, sq);
     __syncthreads();
-    if (tid == 0) org2_s = fold_rows(n, red);
+    if (tid == 0) org2_s = rows ? fold_rows(n, red) : fold_lanes(red);
   }
   __syncthreads();
   const float org2 = org2_s;
@@ -419,8 +423,16 @@ __device__ Best search_block(const Search &s, int px, int py, int zcur,
   for (int i = tid; i < nn; i += nt)
     of[i] = (float)s.org[(long long)(py + i / n) * s.stride + px + i % n];
   __syncthreads();
-  if (tid == 0)
-    org2_s = block_sum(n, [&](int i) { return __fmul_rn(of[i], of[i]); });
+  {
+    // the jitted search's order (F11, a thread a lane), or with seq
+    // block_sum's (a thread a row)
+    const auto sq = [&](int i) { return __fmul_rn(of[i], of[i]); };
+    const bool rows = s.seq || n % 8 != 0;
+    if (tid < (rows ? n : 8))
+      red[tid] = rows ? block_row(n, tid, sq) : block_lane(n, tid, sq);
+    __syncthreads();
+    if (tid == 0) org2_s = rows ? fold_rows(n, red) : fold_lanes(red);
+  }
   __syncthreads();
   const float org2 = org2_s;
   float bc = kBig, bs = 0.0f, bc2 = kBig;

@@ -181,11 +181,12 @@ __host__ __device__ inline size_t tq_scratch_bytes(int n, bool rdoq) {
 // sign-bit hiding with its RD +-1 move, dequant, inverse transform with
 // both 16-bit clamps, and the clipped recon. The recon and the int16
 // levels go straight into their planes. Returns the cbf, in every thread;
-// sm holds tq_scratch_bytes(n, kRdoq). Ends with a barrier.
-template <bool kRdoq>
+// sm holds tq_scratch_bytes(n, kRdoq). Ends with a barrier. mark
+// (common.cuh) is called where the quantizer, SBH and the recon are done.
+template <bool kRdoq, class MarkFn = NoMark>
 __device__ int tq_encode_block(const TqClass &c, const TqPlanes &pl, int px,
                                int py, int mode, const int32_t *pred,
-                               int32_t *sm) {
+                               int32_t *sm, const MarkFn &mark = MarkFn()) {
   const int n = c.n, nn = n * n;
   int32_t *M = sm, *R = M + nn, *T = R + nn, *C = T + nn, *Q = C + nn;
   int32_t *any = Q + nn;
@@ -212,12 +213,14 @@ __device__ int tq_encode_block(const TqClass &c, const TqPlanes &pl, int px,
                                                      c.qbits);
     __syncthreads();
   }
+  mark(kMarkQuant);
   if (c.sbh) {
     const int32_t *perm = c.scan + sid * nn;
     for (int g = tid; g < nn / 16; g += nt)
       sbh_group(Q, C, perm, g, c.rd, c.lamc, c.dqs, c.dqsh);
     __syncthreads();
   }
+  mark(kMarkSbh);
   for (int i = tid; i < nn; i += nt) {
     const int q = Q[i];
     pl.coefp[(long long)(py + i / n) * pl.coef_stride + px + i % n] =
@@ -236,6 +239,7 @@ __device__ int tq_encode_block(const TqClass &c, const TqPlanes &pl, int px,
         clip3(0, c.maxv, pred[i] + T[i]);
   const int cbf = *any;
   __syncthreads();
+  mark(kMarkRecon);
   return cbf;
 }
 

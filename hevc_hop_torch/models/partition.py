@@ -21,9 +21,11 @@ rounding, and fix it as the reference's compiled program was measured to
 round on the CPU (tests/test_torch_partition.py holds the decision's
 expressions against it to the last bit):
 
-- a block's ``dist`` (squares of integers, exact below 2**24) and ``bits``
-  are summed over its samples one after another in raster order, starting
-  from the first sample, each sum rounded to float32;
+- a block's ``bits`` are summed over its samples one after another in
+  raster order, starting from the first sample, each sum rounded to
+  float32; its ``dist`` (squares of integers, every order exact below
+  2**24) in the order of the reference's compiled reduction
+  (:func:`block_dist`), which differs between the two arms at 32x32;
 - ``dist + lam * bits`` is ONE fused multiply-add (the reference's compiler
   contracts it): ``fmaf`` in the kernel, a float64 product and sum rounded
   once to float32 in the plain version;
@@ -50,6 +52,7 @@ import torch
 from hevc_hop_torch import _cuda
 from hevc_hop_torch.ops import intra, quant, transform
 from hevc_hop_torch.ops.quant import argmin_first
+from hevc_hop_torch.ops.ss_search import lane_block_sum
 
 # one count per kernel of csrc/partition.cu
 RD_LAUNCHES = 0
@@ -104,22 +107,23 @@ def _chains(y: torch.Tensor, idx: torch.Tensor, n: int, bit_depth: int):
     return ext[cy, cx], y[rows, cols]
 
 
-def _tq_cost(resi: torch.Tensor, n: int, qp: int, bit_depth: int):
+def _tq_cost(resi: torch.Tensor, n: int, qp: int, bit_depth: int,
+             arm: str | None = None):
     """float32 RD cost of coding each residual block [B, n, n] int32 as one
-    TU: SSE after recon plus lambda times the level-rate proxy."""
+    TU: SSE after recon plus lambda times the level-rate proxy; ``arm`` is
+    :func:`block_dist`'s."""
     log2 = n.bit_length() - 1
     use_dst = n == 4      # 4x4 intra luma codes through the DST
     coef = transform.fwd_transform(resi, bit_depth, use_dst)
     lev = quant.quant(coef, qp, log2, bit_depth, True)
     rq = transform.inv_transform(quant.dequant(lev, qp, log2, bit_depth),
                                  bit_depth, use_dst)
-    err = (resi - rq).to(torch.float32).flatten(1)
-    dist = quant.seq_sum(err * err)
+    dist = block_dist((resi - rq).flatten(1), n, arm)
     # rate proxy: per-nonzero cost ~ 3 + 2*log2(|level|), + per-TU overhead
     a = torch.abs(lev).to(torch.float32).flatten(1)
     zero = torch.zeros((), dtype=torch.float32, device=resi.device)
-    bits = quant.seq_sum(torch.where(a > 0, 3.0 + 2.0 * torch.log2(a + 1.0),
-                                     zero))
+    bits = block_bits(torch.where(a > 0, 3.0 + 2.0 * torch.log2(a + 1.0),
+                                  zero))
     nz_any = (lev != 0).flatten(1).any(1)
     ten = torch.full((), 10.0, dtype=torch.float32, device=resi.device)
     bits = bits + torch.where(nz_any, ten, 1.0)  # last-pos/CG vs cbf=0
@@ -127,6 +131,48 @@ def _tq_cost(resi: torch.Tensor, n: int, qp: int, bit_depth: int):
     # rounded to float64 and then to float32
     lam = _f32(full_lambda(qp))
     return (dist.double() + lam * bits.double()).float()
+
+
+# rd_costs' and rd_costs_forced's order of a 32x32 row's four chunks
+ROW32_ORDER = {"rd": (0, 2, 3, 1), "forced": (0, 1, 2, 3)}
+
+
+def block_dist(err: torch.Tensor, n: int, arm: str | None = None):
+    """float32 SSE of each block's integer errors err [B, n*n] in the order
+    of the reference's compiled reduction for ``arm`` ("rd": rd_costs,
+    "forced": rd_costs_forced), read from XLA:CPU's machine code (ROADMAP.md
+    queue 3, F12):
+
+    - n = 8, 16: eight lanes, lane l adding rows l, l + 8 in row-major order,
+      then the lanes by halves (ops/ss_search.py ``lane_block_sum``);
+    - n = 32: row by row, the running sum entering lane 0 of an eight-lane
+      vector to which the row's chunks (samples 8k .. 8k + 7) are added in
+      ``ROW32_ORDER[arm]``, then ``fold_lanes`` (ops/quant.py);
+    - n = 4, and ``arm`` None (the ISS pre-pass, models/ss_partition.py):
+      one rounded add after another in raster order.
+
+    Below 2**24 every partial sum is an exact integer in any order."""
+    e = err.to(torch.float32)
+    sq = e * e
+    if arm is None or n == 4:
+        return quant.seq_sum(sq)
+    if n < 32:
+        return lane_block_sum(sq.reshape(-1, n, n))
+    order = ROW32_ORDER[arm]
+    chunks = sq.reshape(-1, n, n // 8, 8)
+    acc = torch.zeros(sq.shape[0], dtype=torch.float32, device=sq.device)
+    for r in range(n):
+        v = chunks[:, r, order[0]].clone()
+        v[:, 0] = acc + v[:, 0]
+        for k in order[1:]:
+            v = v + chunks[:, r, k]
+        acc = quant.fold_lanes(v)
+    return acc
+
+
+def block_bits(terms: torch.Tensor) -> torch.Tensor:
+    """float32 sum of each block's rate terms [B, nn] in raster order."""
+    return quant.seq_sum(terms)
 
 
 def rd_costs_plain(y: torch.Tensor, n: int, qp: int, bit_depth: int = 8,
@@ -144,7 +190,8 @@ def rd_costs_plain(y: torch.Tensor, n: int, qp: int, bit_depth: int = 8,
         if modes is not None:
             m = modes.reshape(-1)[idx].to(torch.int32)
             pred = intra.predict_mode(chains, m, n, 0, bit_depth, False)
-            costs.append(_tq_cost(blocks - pred, n, qp, bit_depth))
+            costs.append(_tq_cost(blocks - pred, n, qp, bit_depth,
+                                   "forced"))
             best.append(m)
             continue
         preds = intra.predict_all_modes(chains, n, 0, bit_depth, False)
@@ -154,7 +201,7 @@ def rd_costs_plain(y: torch.Tensor, n: int, qp: int, bit_depth: int = 8,
         cpred = torch.gather(preds, 1, cand[:, :, None, None].expand(
             -1, -1, n, n))
         resi = (blocks[:, None] - cpred).reshape(-1, n, n)
-        costk = _tq_cost(resi, n, qp, bit_depth).reshape(-1, TOP_K)
+        costk = _tq_cost(resi, n, qp, bit_depth, "rd").reshape(-1, TOP_K)
         ki = argmin_first(costk)
         costs.append(torch.gather(costk, 1, ki[:, None])[:, 0])
         best.append(torch.gather(cand, 1, ki[:, None])[:, 0].to(torch.int32))

@@ -6,7 +6,10 @@ transform blocks, each level's blocks mutually independent. The reference
 runs the levels as one ``lax.scan``; on the card :func:`scan_encode` and
 :func:`scan_decode` run them as one cooperative launch of kernel C13
 (``csrc/scan.cu``), which walks the schedule's :class:`WorkList` level by
-level with a grid-wide barrier between levels. Their plain version is the
+level with a grid-wide barrier between levels: with the modes given, each
+item's luma, cb and cr on three CTAs; with the in-loop RMD, a cluster of
+CTAs per item that splits the 35 modes, then codes the three planes side
+by side. Their plain version is the
 level loop (:func:`scan_encode_loop`, :func:`scan_decode_loop`), which
 launches, per level and block size, C2 then C3 for luma and C2 then C3 for
 the stacked cb/cr plane (encode), or C2 with its add-residual epilogue for
@@ -40,7 +43,8 @@ from hevc_hop_torch.ops.tq import tq_encode, tq_encode_plain
 # launches of kernel C13's two entries
 SCAN_ENCODE_LAUNCHES = 0
 SCAN_DECODE_LAUNCHES = 0
-# (grid, CTAs per SM, dynamic shared bytes, threads) of the last C13 launch
+# (grid, CTAs per SM, dynamic shared bytes, threads, CTAs per cluster) of
+# the last C13 launch
 LAST_LAUNCH = None
 
 
@@ -590,7 +594,7 @@ def _launch(entry, sig, a, *extra, like):
     """One launch of C13's ``entry`` (ctypes signature ``sig``); records
     its shape in LAST_LAUNCH."""
     global LAST_LAUNCH
-    info = (ctypes.c_int * 4)()
+    info = (ctypes.c_int * 5)()
     fn = _cuda.bind("scan", entry, sig)
     err = fn(ctypes.addressof(a), *extra, _cuda.stream(like), info)
     _cuda.check("scan", err)

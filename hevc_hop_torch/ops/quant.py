@@ -205,6 +205,14 @@ def seq_sum(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def fold_lanes(v: torch.Tensor) -> torch.Tensor:
+    """float32 sum of eight vector lanes [..., 8] by halves, as XLA:CPU
+    reduces a vector: ((v0 + v4) + (v2 + v6)) + ((v1 + v5) + (v3 + v7))."""
+    a = v[..., :4] + v[..., 4:]
+    b = a[..., :2] + a[..., 2:]
+    return b[..., 0] + b[..., 1]
+
+
 def argmin_first(x: torch.Tensor) -> torch.Tensor:
     """argmin over the last axis, ties to the lowest index (jnp.argmin's
     rule; torch's argmin does not promise one)."""

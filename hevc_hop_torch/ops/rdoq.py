@@ -282,6 +282,15 @@ def xla_sum(x: torch.Tensor) -> torch.Tensor:
     return _seq_sum(_seq_sum(x.reshape(*x.shape[:-1], k // 32, 32)))
 
 
+def last_tournament(tot: torch.Tensor) -> tuple:
+    """The last-position tournament over tot [B, M] float32: the lowest
+    cost and the first position that reaches it."""
+    best = tot.amin(1)
+    pidx = torch.arange(tot.shape[1], device=tot.device)
+    return best, torch.where(tot == best[:, None], pidx,
+                             tot.shape[1]).amin(1)
+
+
 def fma_chain_sum(a: torch.Tensor, s) -> torch.Tensor:
     """sum_j a[..., j] * s over the last axis, as the chain
     acc = fma(a_j, s, acc) from acc = a_0 * s."""
@@ -493,8 +502,7 @@ def rdoq_quant_plain(coef: torch.Tensor, scan_id: torch.Tensor, *, qp: int,
     p2 = torch.where(lev > 1, pidx, 0).amax(1)
     cand_mask = (lev > 0) & (pidx >= p2[:, None])
     tot = torch.where(cand_mask, tot, inf)
-    best_cost = tot.amin(1)
-    best_last = torch.where(tot == best_cost[:, None], pidx, m).amin(1)
+    best_cost, best_last = last_tournament(tot)
     cbf0_cost = lam * cbf_bits[0] + total0[:, 0]
     keep = (best_cost < cbf0_cost) & (last_pos >= 0)
     lev = torch.where(keep[:, None] & (pidx <= best_last[:, None]), lev, 0)

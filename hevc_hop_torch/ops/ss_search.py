@@ -32,8 +32,8 @@ from a reduction. Copied from the compiled reference (ROADMAP.md queue 3,
 F8): a convolution sum runs over the kernel in row-major order in blocks
 of 512 products, each block as two accumulators (even and odd products,
 each one rounded sum after another) added at its end, the blocks added in
-order; org^2 is :func:`block_sum`'s order (rows, then the row sums by
-halves). For 8-bit
+order; org^2 is :func:`lane_block_sum`'s order (eight lanes over the
+rows, then the lanes by halves; F11). For 8-bit
 samples and n <= 16 every one of these sums is exact. The PSS program
 (``scan_encode_pss``) compiles both searches' convolutions otherwise
 (ROADMAP.md queue 3, F10): each sum runs over the kernel in row-major
@@ -166,6 +166,20 @@ def block_sum(x: torch.Tensor) -> torch.Tensor:
     return rows[..., 0]
 
 
+def lane_block_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last two axes [..., n, n] (n a multiple of 8)
+    in the order XLA:CPU compiles the jitted searches' org^2 reduction
+    (``_ss_search``, ``_t_search``; read from its LLVM IR and machine code,
+    ROADMAP.md queue 3, F11): eight vector lanes, lane l adding rows l,
+    l + 8, ... in row-major order, one rounded add after another; then the
+    lanes by halves, (l, l + 4), (k, k + 2), (0, 1). At n = 8 it is
+    :func:`block_sum`'s order."""
+    n = x.shape[-1]
+    lanes = x.reshape(*x.shape[:-2], n // 8, 8, n).transpose(-3, -2)
+    return quant.fold_lanes(seq_sum(lanes.reshape(*x.shape[:-2], 8,
+                                                  n * n // 8)))
+
+
 def _search_window(recon, pos, n, radius, h):
     ar = torch.arange(n + 2 * radius, device=recon.device)
     ry = (pos[:, 1, None].long() - radius + ar[None]).clamp(0, h - 1)
@@ -212,7 +226,7 @@ def _full_search(plane, org_plane, pos, mask, preds, n, radius, h, lam,
     if live.any():
         corr = conv_sum(wf, of, n, d, seq)
         ref2 = conv_sum(wf * wf, torch.ones_like(of), n, d, seq)
-        org2 = block_sum(of * of)[:, None, None]
+        org2 = (block_sum if seq else lane_block_sum)(of * of)[:, None, None]
         sse[live] = (org2 + ref2) - 2.0 * corr
     rate = search_rate(lam, rate_bits_map(preds, radius))
     cost = torch.where(mask, sse + rate, torch.full_like(sse, BIG))
@@ -355,7 +369,8 @@ def search_split_plain(plane, org_plane, pos, mask, preds, n, radius, h,
         fr[rows] = torch.where(keep, fr[rows], orf)
     o2 = (org.long() ** 2).sum((1, 2))
     org2 = torch.where(o2 < EXACT, o2.float(),
-                       block_sum(org.float() * org.float()))
+                       (block_sum if seq else lane_block_sum)(
+                           org.float() * org.float()))
     sse = (org2[:, None, None] + fr) - 2.0 * fc
     rate = search_rate(lam, rate_bits_map(preds, radius))
     cost = torch.where(mask, sse + rate, torch.full_like(sse, BIG))

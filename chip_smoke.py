@@ -24,7 +24,13 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    GT warp) on every golden case of tests/golden/hm_golden.json and a
    sweep of both forms (luma 8-32, chroma 4-16, 8 and 10 bit, corners to
    +-n, the knife edges reached), prediction and safety mask, and its
-   plane entries in their masked and add-residual forms;
+   plane entries in their masked and add-residual forms. Kernels C10 (the
+   arms entry, ISS and PSS) and C12 (the search and decide step, ISS and
+   PSS; the search alone on the anchors) bit for bit, floats by their
+   bits, against their plain bodies and their split emulations on
+   ARMS_W x ARMS_H pictures at n = 8, 16, 32, 8 and 10 bit, noise (the
+   10-bit 32x32 SSEs pass 2^24) and flat planes (least costs tie): 0
+   mismatching elements, the count logged (phase_arms_exact);
 3. main paths, all on the card, each with every launch count set to 0
    just before it and read just after:
    - production: bench.py's production configuration, the all-intra
@@ -311,7 +317,8 @@ def phase_build():
                                      CLOCK_FLAGS)
     ex.shutdown(wait=False)
     for name, kernel in (("scan", "C13"), ("ss_scan", "C14"),
-                         ("partition", "C5")):
+                         ("partition", "C5"), ("inter_arms", "C10"),
+                         ("gt_search", "C12")):
         log(f"ptxas, csrc/{name}.cu (kernel {kernel}):\n"
             + _cuda.BUILD_LOGS.get(name, "(built before this run)").strip())
 
@@ -3067,13 +3074,23 @@ def phase_pss_scan_program(ctxs, checks):
 # their order, with the stamp each ends at, then the phases' stamps
 CLOCK_STAGES = (("intra", 1), ("C9 SS search", 2), ("C9 temporal search", 3),
                 ("cluster sync 1", 4), ("C9 merge", 5),
-                ("cluster sync 2", 6), ("C10 arms", 7), ("C12 anchor 0", 8),
-                ("C12 anchor 1", 9), ("cluster sync 3", 10),
+                ("cluster sync 2", 6),
+                ("C10 merge", 16), ("C10 SS half-pel", 17),
+                ("C10 SS quarter-pel", 18), ("C10 temporal half-pel", 19),
+                ("C10 temporal quarter-pel", 20), ("C10 chain end", 7),
+                ("C12 window", 22),
+                *((f"C12 iteration {it}", 23 + it + 1) for it in range(-1, 6)),
+                ("C12 anchor 0", 8), ("C12 anchor 1", 9),
+                ("cluster sync 3", 10), ("C10 tournament", 21),
                 ("C12 decide", 11), ("chroma", 12))
-CLOCK_SYNC1, CLOCK_WRITE, CLOCK_SYNC2, CLOCK_STAMPS = 13, 14, 15, 16
-# the search parts' stamps (SS, temporal) and the two anchors'
+CLOCK_SYNC1, CLOCK_WRITE, CLOCK_SYNC2, CLOCK_STAMPS = 13, 14, 15, 31
+# the slot that holds each CTA's SM index + 1
+CLOCK_SM = 30
+# the search parts' stamps (SS, temporal), the two anchors', and each of
+# C10's chains' (merge, SS refinement, temporal refinement)
 CLOCK_SEARCH, CLOCK_ANCHORS = (2, 3), (8, 9)
-CLOCK_PATHS = ("iss", "iss-gt-warped", "pss-gt")
+CLOCK_CHAINS = ((16,), (17, 18), (19, 20))
+CLOCK_PATHS = ("iss", "iss-gt", "iss-gt-warped", "pss-gt")
 CLOCK_FLAGS = ["-DHH_STAGE_CLOCK"]
 
 
@@ -3405,6 +3422,173 @@ def phase_c9_split(checks):
     return out
 
 
+# kernels C10's arms entry and C12's step held bit for bit against their
+# plain bodies and their split emulations on planes of this size: every
+# CU size and bit depth, noise (at 10-bit 32x32 the SSEs pass 2^24) and
+# flat planes (candidates tie)
+ARMS_W, ARMS_H = 256, 192
+ARMS_BLOCKS = 8
+
+
+def _bits(t):
+    """t with a float32 tensor's bits as int32, to compare bit for bit."""
+    import torch
+    return t.view(torch.int32) if t.is_floating_point() else t
+
+
+def arms_case(n, bd, flat, seed, dev):
+    """The inputs of C10's arms entry and C12's step on an ARMS_W x ARMS_H
+    picture at bit depth bd: noise planes (recon, original, previous
+    picture and chroma drawn independently) or flat ones (every candidate's
+    prediction alike, C9's full-pel cost priced above them, half the blocks
+    without their first three merge candidates, so that candidates tie);
+    ARMS_BLOCKS blocks of n x n with random carried motion (every
+    reference index 0 on ISS, as an ISS picture carries it), full-pel
+    results and anchors. Returns (the arms entry's ISS arguments, pss,
+    the PSS form's motion planes, the GT step's extra arguments)."""
+    import torch
+    from hevc_hop_torch.models import wavefront
+    from hevc_hop_torch.models.partition import full_lambda
+    from hevc_hop_torch.models.ss_scan import zmax_win_px
+    w, h, b = ARMS_W, ARMS_H, ARMS_BLOCKS
+    rng = np.random.default_rng(seed)
+    maxv = (1 << bd) - 1
+    t = lambda a, dt=torch.int32: torch.as_tensor(np.asarray(a), dtype=dt,
+                                                  device=dev)
+
+    def plane(rows, cols, lo):
+        p = np.zeros((rows, cols), np.int32)
+        p[:lo] = (maxv // 2 if flat else
+                  rng.integers(0, maxv + 1, (lo, cols)))
+        return p
+
+    recon, org, ref = (t(plane(h + 32, w, h)) for _ in range(3))
+    hc_off = h // 2 + 16
+    rc = plane(2 * hc_off, w // 2, h // 2)
+    rc[hc_off:hc_off + h // 2] = rc[:h // 2][::-1]
+    zplane = wavefront.zaddr4_plane(w, h, 5)
+    ys, xs = np.mgrid[h // 2:h - n + 1:n, w // 4:w - n + 1:2 * n]
+    pos = np.stack([xs.ravel(), ys.ravel()], -1)[:b].astype(np.int32)
+    zcur = zplane[pos[:, 1] >> 2, pos[:, 0] >> 2].astype(np.int32)
+    shape4 = ((h + 32) // 4, w // 4)
+    motion = tuple(t(a) for a in (
+        rng.integers(-200, 40, shape4), rng.integers(-200, 40, shape4),
+        rng.random(shape4) < 0.6, np.zeros(shape4)))
+    pmotion = motion[:3] + (t(rng.integers(0, 2, shape4)),)
+    nbav = rng.random((b, 5)) < 0.7
+    if flat:
+        nbav[::2, :3] = False
+    miav = rng.random((b, 3)) < 0.7
+    sse0 = (np.full(b, 1e6) if flat else rng.uniform(1e3, 1e8, b)).astype(
+        np.float32)
+    sse0[-1] = 3e38      # C9 found nothing: no refinement
+    lam = full_lambda(32)
+    head = (recon, org, t(pos), t(zcur), t(zmax_win_px(zplane, n)), motion,
+            t(nbav, torch.bool), t(miav, torch.bool),
+            t(rng.integers(-2 * n, n, (b, 2))),
+            t(rng.integers(0, maxv + 1, (b, n, n))), t(sse0, torch.float32),
+            t(rng.integers(0, maxv + 1, (b, n, n))),
+            t(rng.integers(0, 35, b)), n, w, h, bd, lam, 16)
+    tsse0 = rng.uniform(1e3, 1e8, b).astype(np.float32)
+    pss = (ref, t(rng.integers(-n, n, (b, 2))),
+           t(rng.integers(0, maxv + 1, (b, n, n))), t(tsse0, torch.float32))
+    ring = (t(rng.integers(-2 * n, 1, (b, 2))),
+            t(rng.uniform(2, 20, b), torch.float32),
+            t(rng.random(b) < 0.9, torch.bool))
+    gt_in = dict(rc=t(rc), zmax2n=t(zmax_win_px(zplane, 2 * n, ifm=2)),
+                 ring=ring, hc_off=hc_off)
+    return head, pss, pmotion, gt_in
+
+
+def phase_arms_exact(checks, dev="cuda"):
+    """Kernels C10 and C12 bit for bit: on arms_case's inputs at n = 8, 16
+    and 32, 8 and 10 bit, noise and flat, C10's arms entry (ISS and PSS
+    forms), C12's step after it (ISS and PSS) and C12's search alone on the
+    anchors, each against its plain body and its split emulation
+    (ops/inter_arms.py inter_arms_split, ops/gt.py gt_search_split) on the
+    card, every output and in-place plane, floats by their bits. Requires
+    0 mismatching elements in each, the SSE past 2^24 in the 10-bit 32x32
+    noise case (both kernels), and ties among the least costs on the flat
+    planes. Returns the counts."""
+    import torch
+    from hevc_hop_torch.ops import gt, inter_arms as ia
+    from hevc_hop_torch.ops import ss_search as ss
+    c10, c12 = checks["C10"], checks["C12"]
+    out = {}
+    mism = {"C10": 0, "C12": 0}
+
+    def hold(chk, key, got, want, what):
+        require(len(got) == len(want), f"{what}: outputs")
+        for k, (g, w_) in enumerate(zip(got, want)):
+            m, e = _mismatch(_bits(g), _bits(w_))
+            chk.cases += 1
+            chk.mism += m
+            mism[key] += m
+            if m:
+                log(f"{what}: output {k}: {m} mismatching elements")
+
+    for n in (8, 16, 32):
+        for bd in (8, 10):
+            for flat in (False, True):
+                at = f"n={n} {bd} bit {'flat' if flat else 'noise'}"
+                iss, pss, pmotion, gi = arms_case(
+                    n, bd, flat, 100 * n + bd + flat, torch.device(dev))
+                st, gst = {}, {}
+                for form, extra in (("ISS", {}), ("PSS", {"pss": pss})):
+                    head = iss if form == "ISS" else (
+                        iss[:5] + (pmotion,) + iss[6:])
+                    ip = head[11]
+                    runs = []
+                    for fn in (ia.inter_arms, ia.inter_arms_plain,
+                               lambda *a, **k: ia.inter_arms_split(
+                                   *a, **k, stats=st)):
+                        args = head[:11] + (ip.clone(),) + head[12:]
+                        runs.append(tuple(fn(*args, **extra)) + (args[11],))
+                    hold(c10, "C10", runs[0], runs[1],
+                         f"C10 {at} {form} against the plain body")
+                    hold(c10, "C10", runs[0], runs[2],
+                         f"C10 {at} {form} against the emulation")
+                    plain = runs[1]
+                    refsel = plain[4] if form == "PSS" else None
+                    base = (plain[-1], plain[0], plain[1], plain[2]) + (
+                        () if refsel is None else (refsel,))
+                    steps = []
+                    for fn in (gt.gt_step, gt.gt_step_plain):
+                        bufs = tuple(x.clone() for x in base)
+                        r = fn(head[0], head[1], gi["rc"], head[2], head[3],
+                               gi["zmax2n"], head[5], head[6], head[7],
+                               gi["ring"], plain[3], *bufs[:4], n, ARMS_W,
+                               ARMS_H, gi["hc_off"], bd, head[17], 16,
+                               *bufs[4:])
+                        steps.append(tuple(r) + bufs)
+                    hold(c12, "C12", steps[0], steps[1],
+                         f"C12 {at} {form} against the plain body")
+                head = iss
+                blocks = ss.block_at(head[1], head[2], n)
+                anchor = gi["ring"][0]
+                want = gt.gt_search_plain(head[0], blocks, head[2], anchor, n,
+                                          head[17], ARMS_H, bd)
+                emu = gt.gt_search_split(head[0], blocks, head[2], anchor, n,
+                                         head[17], ARMS_H, bd, stats=gst)
+                hold(c12, "C12", emu, want,
+                     f"C12 search {at}: the emulation against the plain "
+                     "body")
+                out[at] = {"C10": st, "C12 search": gst}
+    log(f"arms exact: {json.dumps(out)}")
+    log(f"arms exact: C10 {mism['C10']} and C12 {mism['C12']} mismatching "
+        f"elements; C10 held in {c10.cases}, C12 in {c12.cases} "
+        "comparisons")
+    require(mism["C10"] == 0 and mism["C12"] == 0,
+            f"C10 or C12 differs from its plain body: {mism}")
+    big = out["n=32 10 bit noise"]
+    require(big["C10"]["past_2_24"] > 0 and big["C12 search"]["past_2_24"] > 0,
+            f"the 10-bit 32x32 noise case never passed 2^24: {big}")
+    ties = sum(v["C10"]["merge_ties"] + v["C10"]["refine_ties"]
+               for k, v in out.items() if k.endswith("flat"))
+    require(ties > 0, f"no tie among the least costs on flat planes: {out}")
+    return {"cases": out, "mismatches": mism}
+
+
 def require_cluster_launch(launch, what):
     """C14's encode launch ran its read phase on clusters: more than one
     CTA per CU (the launch's cluster dimension). That the CTAs of a cluster
@@ -3417,16 +3601,26 @@ def require_cluster_launch(launch, what):
 def require_cluster_stamps(clk, per_cu, what, gt):
     """From the stamps clk [groups, CTAs, CLOCK_STAMPS] of one C14 encode
     (clusters of per_cu consecutive CTAs): in every group some cluster had
-    more than one CTA stamp a search part (C9's displacements split), and
-    with the GT on C12's anchors ran on two CTAs: each anchor stamped in
-    some group, and no CTA stamped both. Returns the two anchors' stamp
-    counts ([0, 0] with the GT off)."""
+    more than one CTA stamp a search part (C9's displacements split) and
+    more than one CTA stamp one of C10's chains (the merge, the SS and the
+    temporal refinement), no CTA stamped two chains, and with the GT on
+    C12's anchors ran on two CTAs: each anchor stamped in some group, and
+    no CTA stamped both. Returns the two anchors' stamp counts ([0, 0]
+    with the GT off)."""
     g, ctas = clk.shape[:2]
+    per = lambda m: m.reshape(g, ctas // per_cu, per_cu).sum(2).max(1)
     searched = ((clk[:, :, CLOCK_SEARCH[0]] > 0)
                 | (clk[:, :, CLOCK_SEARCH[1]] > 0))
-    most = searched.reshape(g, ctas // per_cu, per_cu).sum(2).max(1)
+    most = per(searched)
     require((most > 1).all(), f"{what}: groups whose CUs each searched on "
             f"one CTA: {np.flatnonzero(most <= 1).tolist()[:10]}")
+    chains = np.stack([(clk[:, :, list(ks)] > 0).any(2)
+                       for ks in CLOCK_CHAINS])
+    most = per(chains.any(0))
+    require((most > 1).all(), f"{what}: groups whose CUs ran C10's chains "
+            f"on one CTA: {np.flatnonzero(most <= 1).tolist()[:10]}")
+    two = int((chains.sum(0) > 1).sum())
+    require(two == 0, f"{what}: {two} CTAs stamped two of C10's chains")
     if gt:
         a0, a1 = (clk[:, :, k] > 0 for k in CLOCK_ANCHORS)
         require(a0.any() and a1.any() and not (a0 & a1).any(),
@@ -5080,6 +5274,7 @@ def main() -> int:
     phase_interp(checks)
     phase_warp(checks)
     c9_split = phase_c9_split(checks)
+    arms_exact = phase_arms_exact(checks)
     ps = phase_partition_sao(checks)
     log_host("kernels held")
     paths, ctxs = {}, {}
@@ -5156,7 +5351,7 @@ def main() -> int:
                     "ss_scan_program": ss_scan_program,
                     "ss_scan_plain": ss_plain, "stage_clock": stage_clock,
                     "scan_clock": scan_clock,
-                    "c9_split": c9_split,
+                    "c9_split": c9_split, "arms_exact": arms_exact,
                     "full_fixtures": full_fixtures}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

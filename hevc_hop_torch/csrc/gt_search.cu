@@ -19,15 +19,22 @@
 // around the anchor and the block's original in shared memory, and runs the
 // reference's diamond search: the identity corners, then six iterations of
 // 13 corner sets (keep; each coded corner moved by +-s on one axis; s from
-// n/2 halving to 1). The 13 warps of an iteration run at once over the CTA
-// (warp.cuh warp_sample, one sample a thread at a time), each into its own
-// shared buffer; a warp of threads shares one candidate, so the SSE is a
-// warp-shuffle sum and one shared atomic per warp, in integers (exact), and
-// the knife flags an OR. Thread 0 then costs each set, fma(bits, lambda,
-// SSE) or 1e30 where the warp is not safe, and keeps the least (the first
-// among equals) when it is strictly below the best so far. The CTA writes
-// the best corners, prediction and total cost: (cost + ring rate) + lambda
-// for anchor 0, fma(6 + MVD bits, lambda, cost) + lambda for anchor 1.
+// n/2 halving to 1). The body takes n as a template parameter (8, 16, 32),
+// so warp.cuh warp_sample divides by compile-time constants. Per
+// iteration, 13 threads of warp 0 compute the sets' corners, warp geometry
+// and bits once into shared memory; then each thread takes a sample
+// position of every set (at 8x8 a quarter of the sets, the CTA in four
+// groups), so its 13 independent warps interleave, and sums their squared
+// errors in integers (exact); per set a warp-shuffle sum and one shared
+// atomic per warp, and the knife flags an OR. Warp 0 then costs the sets on
+// 13 lanes, fma(bits, lambda, SSE) or 1e30 where the warp is not safe,
+// takes the least (cost, index) by shuffles (the first among equals),
+// keeps it when strictly below the best so far, and computes the next
+// iteration's sets.
+// No candidate's prediction is kept: the best set's is warped once more at
+// the end. The CTA writes the best corners, prediction and total cost:
+// (cost + ring rate) + lambda for anchor 0, fma(6 + MVD bits, lambda,
+// cost) + lambda for anchor 1.
 //
 // Decide entry, one CTA per block: the cheaper anchor (the first among
 // equals); where its cost beats kernel C10's intra, merge and SS costs and
@@ -40,15 +47,16 @@
 // of a GT block is the SS one.
 //
 // Floats: each SSE is the reference's float32 sum where that is exact
-// (below 2^24); above it, ss_common.cuh block_sum's order, which is not the
-// compiled reference's (ROADMAP.md F9: 32x32 blocks so far from their
-// prediction, or 10-bit samples).
+// (below 2^24); above it, ss_common.cuh block_sum's order (a thread a row,
+// the rows folded in one), which is not the compiled reference's
+// (ROADMAP.md F9: 32x32 blocks so far from their prediction, or 10-bit
+// samples).
 //
 // Bound: int32 operations: 79 warps of n^2 samples per (block, anchor),
 // about 30 operations each, against a window of 4 n^2 and a block of n^2
-// samples read once. The CTA keeps every candidate in shared memory (19 n^2
-// words, 76 KB at 32x32); a level's tens of CTAs leave most of the card's
-// 132 SMs idle.
+// samples read once. The CTA keeps the window and the block in shared
+// memory (5 n^2 words, 20 KB at 32x32); a level's tens of CTAs leave most
+// of the card's 132 SMs idle.
 #include "gt_search.cuh"
 
 namespace {
@@ -65,13 +73,11 @@ __global__ void gt_decide_kernel(GtDecide a) {
   gt_decide_block(a, blockIdx.x, sm);
 }
 
+// The kernel's dynamic shared memory raised to smem (always: its static
+// shared memory counts against the default 48 KB too)
 int raise_smem(const void *kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 }  // namespace
@@ -79,8 +85,9 @@ int raise_smem(const void *kernel, size_t smem) {
 // Search entry. recon/org int32 planes (row stride); pos [B, 2], zcur [B],
 // zmax2n [h-2n+1, w-2n+1] int32; the motion planes [hp, wp] int32; nbav
 // [B, 5], miav [B, 3] bool; C9's ring: anchor [B, 2] int32, gt_rate [B]
-// float32, gt_ok [B] bool. Out per (block, anchor): s_gtc [B, 2, 6],
-// s_pred [B, 2, n, n], s_amv [B, 2, 2], s_ok [B, 2] int32, s_cost [B, 2]
+// float32, gt_ok [B] bool; n 8, 16 or 32. Out per (block, anchor): s_gtc
+// [B, 2, 6], s_pred [B, 2, n, n], s_amv [B, 2, 2], s_ok [B, 2] int32,
+// s_cost [B, 2]
 // float32.
 HH_EXPORT int hh_gt_search(
     const void *recon, const void *org, int stride, const void *pos,
@@ -91,6 +98,7 @@ HH_EXPORT int hh_gt_search(
     int mi_size, int ss_idx, float lam, void *s_gtc, void *s_pred,
     void *s_cost,
     void *s_amv, void *s_ok, void *stream) {
+  if (n != 8 && n != 16 && n != 32) return (int)cudaErrorInvalidValue;
   GtSearch a;
   a.recon = static_cast<const int32_t *>(recon);
   a.org = static_cast<const int32_t *>(org);

@@ -16,12 +16,16 @@ namespace {
 constexpr int kCands = 13;
 constexpr float kUnsafe = 1.0e30f;
 
-// the moves of an iteration, (corner, dx, dy): keep, then each coded
-// corner right, left, down, up
-__constant__ int kMoves[kCands][3] = {
-    {0, 0, 0},  {0, 1, 0}, {0, -1, 0}, {0, 0, 1},  {0, 0, -1},
-    {1, 1, 0},  {1, -1, 0}, {1, 0, 1}, {1, 0, -1}, {2, 1, 0},
-    {2, -1, 0}, {2, 0, 1}, {2, 0, -1}};
+// The moves of an iteration, candidate k = 0..12 as (corner, dx, dy):
+// keep, then each coded corner right, left, down, up (gt_cand), as
+// ops/gt.py MOVES lists them:
+// {0, 0, 0},  {0, 1, 0}, {0, -1, 0}, {0, 0, 1},  {0, 0, -1},
+// {1, 1, 0},  {1, -1, 0}, {1, 0, 1}, {1, 0, -1}, {2, 1, 0},
+// {2, -1, 0}, {2, 0, 1}, {2, 0, -1}
+
+// Stage hooks of gt_search_block (see common.cuh's Mark): the window
+// staged, then each iteration (the identity set first)
+enum GtMark { kGtWindow, kGtIter0, kGtMarks = kGtIter0 + 7 };
 
 struct GtSearch {
   const int32_t *recon, *org;
@@ -47,27 +51,67 @@ __device__ __forceinline__ float corner_bits(const int *v) {
 }
 
 // Shared-memory words of gt_search_block for an n x n block: the [2n, 2n]
-// window, the original, the 13 candidates and the best prediction
+// window and the original
 __host__ __device__ inline int gt_search_words(int n) {
-  return (4 + 1 + kCands + 1) * n * n;
+  return (4 + 1) * n * n;
 }
 
-// The search entry's work on (block b, anchor an): the outputs into row
-// 2b + an of a's per-(block, anchor) arrays. sm holds gt_search_words(n).
-// Ends with a barrier.
-__device__ void gt_search_block(const GtSearch &a, int b, int an,
-                                int32_t *sm) {
-  const int n = a.n, nn = n * n;
-  const int ws = 2 * n, tid = threadIdx.x, nt = blockDim.x;
+// An iteration's candidate sets, computed once per iteration on kCands
+// threads: the coded corners, the warp's geometry and the corners' bits
+struct GtCand {
+  int cg[kCands][6];
+  WarpGeom g[kCands];
+  float bits[kCands];
+};
+
+// gt_search_block's scalars in shared memory, one for every n
+struct GtShared {
+  GtCand q;
+  // per iteration parity: the candidates' integer SSEs and knife flags
+  unsigned acc[2][kCands];   // below 2^32: n^2 (2^10 - 1)^2 at most
+  int kf[2][kCands];
+  // block_sum's row sums of the candidates past 2^24
+  float rows[kCands][32];
+  int amv[2], ok, gtc[6];
+  float rate, best;
+};
+
+// Lane k < kc of the calling warp: candidate k of an iteration around the
+// corners gtc (it < 0: the identity set alone; else move k by step) into
+// q, with its geometry and bits
+template <int N>
+__device__ __forceinline__ void gt_cand(GtCand &q, const int *gtc, int it,
+                                        int step, int k) {
+  // move k: corner (k - 1) / 4 right, left, down or up by step
+  const int c = (k - 1) >> 2, d = (k - 1) & 3, on = it >= 0 && k > 0;
+  const int dx = on * ((d == 0) - (d == 1)) * step;
+  const int dy = on * ((d == 2) - (d == 3)) * step;
+  int cg[6];
+  for (int j = 0; j < 6; ++j)
+    cg[j] = gtc[j] + (j == 2 * c ? dx : j == 2 * c + 1 ? dy : 0);
+  int c4[8];
+  gt4(cg, c4);
+  q.g[k] = warp_geom(N, c4, 0);
+  q.bits[k] = corner_bits(cg);
+  for (int j = 0; j < 6; ++j) q.cg[k][j] = cg[j];
+}
+
+// gt_search_block for n = N
+template <int N, class MarkFn>
+__device__ void gt_search_n(const GtSearch &a, int b, int an, int32_t *sm,
+                            GtShared &sh, const MarkFn &mark) {
+  constexpr int nn = N * N, ws = 2 * N, chunks = nn / 32;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31, warps = nt >> 5;
   const int px = a.pos[2 * b], py = a.pos[2 * b + 1];
-  int32_t *win = sm;                 // [2n, 2n]
-  int32_t *O = win + ws * ws;        // [n, n]
-  int32_t *P = O + nn;               // [13][n, n]
-  int32_t *best_p = P + kCands * nn;  // [n, n]
-  __shared__ int s_amv[2], s_ok, s_gtc[6], s_cg[kCands][6], s_kf[kCands];
-  __shared__ unsigned long long s_acc[kCands];
-  __shared__ float s_rate, s_best;
-  __shared__ int s_upd;
+  int32_t *win = sm;            // [2n, 2n]
+  int32_t *O = win + ws * ws;   // [n, n]
+  int *s_amv = sh.amv, &s_ok = sh.ok, *s_gtc = sh.gtc;
+  GtCand &s_q = sh.q;
+  unsigned(*s_acc)[kCands] = sh.acc;
+  int(*s_kf)[kCands] = sh.kf;
+  float(*s_rows)[32] = sh.rows;
+  float &s_rate = sh.rate, &s_best = sh.best;
   const long long o = (long long)b * 2 + an;
   if (tid == 0) {
     if (an == 0) {
@@ -77,7 +121,7 @@ __device__ void gt_search_block(const GtSearch &a, int b, int an,
       s_rate = a.gt_rate[b];
     } else {
       Cands c;
-      gather_cands(a.m, px, py, n, a.nbav + 5 * b, a.miav + 3 * b,
+      gather_cands(a.m, px, py, N, a.nbav + 5 * b, a.miav + 3 * b,
                    a.mi_size, a.ss_idx, c);
       const int qx = c.preds[0][0], qy = c.preds[0][1];
       const bool valid =
@@ -89,7 +133,7 @@ __device__ void gt_search_block(const GtSearch &a, int b, int an,
       s_amv[0] = dx;
       s_amv[1] = dy;
       s_ok = valid && !dup &&
-             anchor_causal(a.zmax2n, px + dx, py + dy, n, a.w, a.h,
+             anchor_causal(a.zmax2n, px + dx, py + dy, N, a.w, a.h,
                            a.zcur[b]);
       s_rate = min_rate_bits(4 * dx, 4 * dy, &c.preds[0][0], 6);
     }
@@ -105,82 +149,117 @@ __device__ void gt_search_block(const GtSearch &a, int b, int an,
     __syncthreads();
     return;
   }
-  const int x0 = px + s_amv[0] - n / 2, y0 = py + s_amv[1] - n / 2;
+  const int x0 = px + s_amv[0] - N / 2, y0 = py + s_amv[1] - N / 2;
   for (int i = tid; i < ws * ws; i += nt) {
     const int y = clip3(0, a.h - 1, y0 + i / ws);
     const int x = clip3(0, a.w - 1, x0 + i % ws);
     win[i] = __ldcg(a.recon + (long long)y * a.stride + x);
   }
   for (int i = tid; i < nn; i += nt)
-    O[i] = a.org[(long long)(py + i / n) * a.stride + px + i % n];
-  const int maxv = (1 << a.bit_depth) - 1;
-  const int lane = tid & 31;
-  int step = n / 2;
-  for (int it = -1; it < 6; ++it) {
-    const int kc = it < 0 ? 1 : kCands;   // the identity set first
-    for (int k = tid; k < kc; k += nt) {
-      for (int j = 0; j < 6; ++j) s_cg[k][j] = s_gtc[j];
-      if (it >= 0) {
-        const int c = kMoves[k][0];
-        s_cg[k][2 * c] += kMoves[k][1] * step;
-        s_cg[k][2 * c + 1] += kMoves[k][2] * step;
-      }
-      s_acc[k] = 0;
-      s_kf[k] = 0;
-    }
-    __syncthreads();
-    // nn is a multiple of 32, so each warp of threads works on one set
-    for (int i0 = tid - lane; i0 < kc * nn; i0 += nt) {
-      const int i = i0 + lane, k = i0 / nn, j = i - k * nn;
-      int c4[8];
-      gt4(s_cg[k], c4);
-      const WarpGeom g = warp_geom(n, c4, 0);
-      int knife = 0;
-      const int v = warp_sample(g, win, ws, j, maxv, knife);
-      P[k * nn + j] = v;
-      const long long e = O[j] - v;
-      unsigned long long q = (unsigned long long)(e * e);
-      for (int sh = 16; sh > 0; sh >>= 1) q += __shfl_down_sync(~0u, q, sh);
-      const unsigned kany = __any_sync(~0u, knife);
-      if (lane == 0) {
-        atomicAdd(&s_acc[k], q);
-        if (kany) atomicOr(&s_kf[k], 1);
-      }
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float cmin = 0.0f;
-      int ki = 0;
-      for (int k = 0; k < kc; ++k) {
-        const int32_t *pk = P + k * nn;
-        const float sse =
-            s_acc[k] < (1ull << 24)
-                ? (float)s_acc[k]
-                : block_sum(n, [&](int j) {
-                    const float d = (float)(O[j] - pk[j]);
-                    return __fmul_rn(d, d);
-                  });
-        const float cost =
-            s_kf[k] ? kUnsafe : fmaf(corner_bits(s_cg[k]), a.lam, sse);
-        if (k == 0 || cost < cmin) {
-          cmin = cost;
-          ki = k;
-        }
-      }
-      s_upd = -1;
-      if (it < 0 || cmin < s_best) {
-        s_best = cmin;
-        s_upd = ki;
-        for (int k = 0; k < 6; ++k) s_gtc[k] = s_cg[ki][k];
-      }
-    }
-    __syncthreads();
-    if (s_upd >= 0)
-      for (int i = tid; i < nn; i += nt) best_p[i] = P[s_upd * nn + i];
-    if (it >= 0) step = step > 1 ? step / 2 : 1;
-    __syncthreads();
+    O[i] = a.org[(long long)(py + i / N) * a.stride + px + i % N];
+  // the identity set, and the first iteration's sums cleared
+  if (warp == 0 && lane < kCands) {
+    if (lane == 0) gt_cand<N>(s_q, s_gtc, -1, 0, 0);
+    s_acc[0][lane] = 0;
+    s_kf[0][lane] = 0;
   }
-  for (int i = tid; i < nn; i += nt) a.s_pred[o * nn + i] = best_p[i];
+  __syncthreads();
+  mark(kGtWindow);
+  const int maxv = (1 << a.bit_depth) - 1;
+  int step = N / 2;   // warp 0's
+  for (int it = -1; it < 6; ++it) {
+    const int kc = it < 0 ? 1 : kCands, par = (it + 1) & 1;
+    // each warp takes a run of the iteration's chunks of 32 samples (nn is
+    // a multiple of 32), a lane a sample; its lanes sum a candidate's
+    // squared errors in integers (exact) and flush them, a warp-shuffle sum
+    // and one shared atomic, where the run moves on to the next candidate;
+    // the knife flags an OR
+    const int total = kc * chunks, per = (total + warps - 1) / warps;
+    const int c0 = warp * per, c1 = min(total, c0 + per);
+    unsigned part = 0;
+    int knives = 0, kcur = c0 / chunks;
+    auto flush = [&] {
+      const unsigned q = warp_sum(part);
+      const unsigned kany = __any_sync(~0u, knives);
+      if (lane == 0) {
+        atomicAdd(&s_acc[par][kcur], q);
+        if (kany) s_kf[par][kcur] = 1;
+      }
+    };
+    for (int ch = c0; ch < c1; ++ch) {
+      const int k = ch / chunks, j = (ch - k * chunks) * 32 + lane;
+      if (k != kcur) {   // warp-uniform
+        flush();
+        part = 0;
+        knives = 0;
+        kcur = k;
+      }
+      int knife = 0;
+      const int e = O[j] - warp_sample<N>(s_q.g[k], win, ws, j, maxv, knife);
+      part += (unsigned)(e * e);
+      knives |= knife;
+    }
+    if (c0 < c1) flush();
+    __syncthreads();
+    // block_sum's order where a safe candidate's SSE passes 2^24: a
+    // thread a row (block_row), folded below
+    const unsigned big = __ballot_sync(
+        ~0u, lane < kc && s_acc[par][lane] >= (1u << 24) &&
+                 !s_kf[par][lane]);
+    if (big) {
+      for (int t = tid; t < kc * N; t += nt) {
+        const int k = t / N, r = t - k * N;
+        if (!(big >> k & 1)) continue;
+        int knife = 0;   // the sums above flagged it
+        s_rows[k][r] = block_row(N, r, [&](int j) {
+          const float d =
+              (float)(O[j] - warp_sample<N>(s_q.g[k], win, ws, j, maxv,
+                                            knife));
+          return __fmul_rn(d, d);
+        });
+      }
+      __syncthreads();
+    }
+    // warp 0: the costs on kc lanes, the least (cost, index) by shuffles,
+    // the update, then the next iteration's candidates
+    if (warp == 0) {
+      float cost = __int_as_float(0x7f800000);
+      int ki = 32;
+      if (lane < kc) {
+        const unsigned acc = s_acc[par][lane];
+        const float sse = (big >> lane & 1) ? fold_rows(N, s_rows[lane])
+                                            : (float)acc;
+        cost = s_kf[par][lane] ? kUnsafe
+                               : fmaf(s_q.bits[lane], a.lam, sse);
+        ki = lane;
+      }
+      warp_argmin(cost, ki);
+      const int *cg = s_q.cg[ki];
+      const bool upd = it < 0 || cost < s_best;
+      int gtc[6];
+      for (int j = 0; j < 6; ++j) gtc[j] = upd ? cg[j] : s_gtc[j];
+      __syncwarp();
+      if (lane == 0 && upd) {
+        s_best = cost;
+        for (int j = 0; j < 6; ++j) s_gtc[j] = gtc[j];
+      }
+      if (it >= 0) step = step > 1 ? step / 2 : 1;
+      if (it + 1 < 6 && lane < kCands) {
+        gt_cand<N>(s_q, gtc, it + 1, step, lane);
+        s_acc[par ^ 1][lane] = 0;
+        s_kf[par ^ 1][lane] = 0;
+      }
+    }
+    __syncthreads();
+    mark(kGtIter0 + 1 + it);
+  }
+  // the best set's prediction, warped once more
+  int c4[8];
+  gt4(s_gtc, c4);
+  const WarpGeom g = warp_geom(N, c4, 0);
+  int knife = 0;
+  for (int i = tid; i < nn; i += nt)
+    a.s_pred[o * nn + i] = warp_sample<N>(g, win, ws, i, maxv, knife);
   for (int k = tid; k < 6; k += nt) a.s_gtc[6 * o + k] = s_gtc[k];
   if (tid == 0)
     a.s_cost[o] =
@@ -188,6 +267,21 @@ __device__ void gt_search_block(const GtSearch &a, int b, int an,
                 : __fadd_rn(fmaf(__fadd_rn(s_rate, kInterBits), a.lam, s_best),
                             a.lam);
   __syncthreads();
+}
+
+// The search entry's work on (block b, anchor an), n = 8, 16 or 32: the
+// outputs into row 2b + an of a's per-(block, anchor) arrays. sm holds
+// gt_search_words(n). Ends with a barrier.
+template <class MarkFn = NoMark>
+__device__ void gt_search_block(const GtSearch &a, int b, int an,
+                                int32_t *sm, const MarkFn &mark = MarkFn()) {
+  __shared__ GtShared sh;
+  if (a.n == 8)
+    gt_search_n<8>(a, b, an, sm, sh, mark);
+  else if (a.n == 16)
+    gt_search_n<16>(a, b, an, sm, sh, mark);
+  else
+    gt_search_n<32>(a, b, an, sm, sh, mark);
 }
 
 struct GtDecide {

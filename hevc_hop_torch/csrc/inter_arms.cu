@@ -11,30 +11,41 @@
 // The device code is in inter_arms.cuh (inter_arms_block, motion_cell),
 // which kernel C14 (ss_scan.cu) runs too.
 //
-// Arms entry, one CTA per block. Thread 0 gathers the nine merge candidates
-// and six AMVP predictors (ss_common.cuh). Each merge candidate that is
-// available and causal is predicted by the exact quarter-pel MC (interp.cuh
-// mc_block, the CTA's threads) and costs SSE + its folded merge rate; the
-// least wins, the first among equals. The full-pel result of kernel C9 is
-// refined by half and then quarter pel: eight neighbours per stage, each
-// costing fmaf(6 + its least MVD bits, lambda, SSE), kept when strictly
-// better. The tournament then compares intra (SSE of kernel C2's
-// prediction + lambda * 8), merge and SS, writes the chosen prediction over
-// the intra one in place, and the inter flag, the MV, the mode that picks
-// kernel C3's scan (0 for inter: the diagonal scan) and the three costs.
+// Arms entry, one CTA per block, its three chains in turn (kernel C14 runs
+// them side by side on three CTAs of a CU's cluster, the tournament after).
+// A chain runs a candidate per warp: the warp stages the candidate's
+// window (the merge: a window of its own; a refinement stage: one (n+9)^2
+// window the eight neighbours share, staged once by the CTA), predicts it
+// by the exact quarter-pel MC (inter_arms.cuh mc_warp: interp.cuh
+// mc_block's arithmetic, a lane a column, the first stage's rows sliding
+// down in registers) and sums its SSE by shuffles; the choice among a
+// stage's candidates is a warp argmin on (cost, index), the first index
+// among equals, and only the winner's warp writes its samples out. The SS
+// chain refines the full-pel result of kernel C9 by half and then quarter
+// pel: eight neighbours per stage, each costing fmaf(6 + its least MVD
+// bits, lambda, SSE), kept when strictly better. The merge chain: the
+// nine merge candidates (thread 0 gathers them and the six AMVP predictors,
+// ss_common.cuh), each available and causal one costing SSE + its folded
+// merge rate, the least winning, the first among equals; and the SSE of
+// kernel C2's prediction. The tournament then compares intra (that SSE +
+// lambda * 8), merge and SS, writes the chosen prediction over the intra
+// one in place, and the inter flag, the MV, the mode that picks kernel C3's
+// scan (0 for inter: the diagonal scan) and the three costs.
 //
 // PSS form (ref not null; L0 = [previous picture, SS], the SS reference at
 // index 1): a merge candidate that names the temporal reference is
-// predicted from the previous picture and needs no causal test; C9's
-// temporal result is refined over the previous picture with the temporal
-// predictors; the tournament takes the lower of the SS and temporal costs
-// as the inter cost (the SS arm wins only when strictly lower, as in the
-// reference), and writes the four costs and the reference index too.
+// predicted from the previous picture and needs no causal test; the
+// temporal chain refines C9's temporal result over the previous picture
+// with the temporal predictors; the tournament takes the lower of the SS
+// and temporal costs as the inter cost (the SS arm wins only when strictly
+// lower, as in the reference), and writes the four costs and the
+// reference index too.
 //
-// Floats: each SSE is the reference's float32 sum (ss_common.cuh block_sum's
-// order). The terms are exact integers, so when their integer total stays
-// below 2^24 every partial sum is exact and the total is that sum: the CTA
-// adds in integers and thread 0 takes block_sum's order only above 2^24.
+// Floats: each SSE is the reference's float32 sum (ss_common.cuh
+// block_sum's order). The terms are exact integers, so when their integer
+// total stays below 2^24 every partial sum is exact and the total is that
+// sum: the warp adds in integers and takes block_sum's order only above
+// 2^24 (a lane a row, the rows folded by shuffles in fold_rows' order).
 //
 // Motion entry, one thread per 4x4 cell of a launch's blocks: writes each
 // block's MV (zero for intra) and inter flag into mvx4, mvy4 and pi4 (on a
@@ -42,9 +53,10 @@
 // arms entry of every block of the level has read them.
 //
 // Bound: integer operations: 25 MCs (41 in the PSS form) of (n+7) n 8-tap
-// and n^2 8-tap multiply-adds each against n^2 + (n+7)^2 samples. The design keeps the
-// block, the MC scratch and the three running predictions in shared memory;
-// the candidates run one after another, each over the whole CTA.
+// and n^2 8-tap multiply-adds each against n^2 + (n+7)^2 samples. The
+// design keeps the block, nine candidates' predictions and the windows in
+// shared memory (int16 samples); the chains' stages are its serial part:
+// two rounds of the merge, two stages of each refinement.
 #include "inter_arms.cuh"
 
 namespace {
@@ -82,7 +94,9 @@ __global__ void motion_write_kernel(int32_t *mvx4, int32_t *mvy4,
 // costs [B, 3] float32. PSS form: ref the previous picture (int32, the
 // recon's row stride, h rows), mv_t [B, 2] and tpred0 [B, n, n] int32 and
 // tsse0 [B] float32 from kernel C9's temporal search; costs [B, 4] and
-// refsel [B] int32 out. ref null: the ISS form.
+// refsel [B] int32 out. ref null: the ISS form. Scratch: rpred [B, n, n]
+// and rmv [B, 2] int32, and on PSS tpred and tmv alike (the refinement
+// chains' results). n is 8, 16 or 32.
 HH_EXPORT int hh_inter_arms(
     const void *recon, const void *org, int stride, const void *pos,
     const void *zcur, const void *zmaxw, const void *mvx4, const void *mvy4,
@@ -93,7 +107,8 @@ HH_EXPORT int hh_inter_arms(
     float r2, float r3, float r4, float r5, float r6, float r7, float r8,
     void *inter, void *mv, void *smode, void *costs, const void *ref,
     const void *mv_t, const void *tpred0, const void *tsse0, void *refsel,
-    void *stream) {
+    void *rpred, void *tpred, void *rmv, void *tmv, void *stream) {
+  if (n != 8 && n != 16 && n != 32) return (int)cudaErrorInvalidValue;
   Arms a;
   a.recon = Src{static_cast<const int32_t *>(recon), stride, 0, h - 1, w};
   a.ref = Src{static_cast<const int32_t *>(ref), stride, 0, h - 1, w};
@@ -127,14 +142,17 @@ HH_EXPORT int hh_inter_arms(
   a.mv = static_cast<int32_t *>(mv);
   a.smode = static_cast<int32_t *>(smode);
   a.costs = static_cast<float *>(costs);
-  const size_t smem = arms_smem_bytes(n, ref != nullptr);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        (const void *)inter_arms_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  a.rpred = static_cast<int32_t *>(rpred);
+  a.tpred = static_cast<int32_t *>(tpred);
+  a.rmv = static_cast<int32_t *>(rmv);
+  a.tmv = static_cast<int32_t *>(tmv);
+  // raised always: the static shared memory counts against 48 KB too
+  const size_t smem = arms_smem_bytes(n);
+  const cudaError_t e =
+      cudaFuncSetAttribute((const void *)inter_arms_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
   inter_arms_kernel<<<b, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       a, static_cast<const int32_t *>(pos), static_cast<const int32_t *>(zcur));
   return (int)cudaGetLastError();

@@ -63,6 +63,26 @@ __device__ float block_sum(int n, F t) {
   return fold_rows(n, rows);
 }
 
+// The sum of v over the warp's lanes, on every lane
+__device__ __forceinline__ unsigned warp_sum(unsigned v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(~0u, v, o);
+  return v;
+}
+
+// (c, k) <- the least (cost, index) over the warp's lanes, on every lane:
+// the first index among equal costs, as the serial walk `k == 0 || cost <
+// best` keeps it
+__device__ __forceinline__ void warp_argmin(float &c, int &k) {
+  for (int o = 16; o > 0; o >>= 1) {
+    const float c2 = __shfl_xor_sync(~0u, c, o);
+    const int k2 = __shfl_xor_sync(~0u, k, o);
+    if (c2 < c || (c2 == c && k2 < k)) {
+      c = c2;
+      k = k2;
+    }
+  }
+}
+
 // The motion carried across the scan: [hp, wp] int32 planes of 4x4 cells.
 struct Motion {
   const int32_t *mvx4, *mvy4, *pi4, *rf4;

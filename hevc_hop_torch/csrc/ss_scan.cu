@@ -33,12 +33,13 @@
 //   picture the temporal search on CTAs of its own beside the SS one);
 //   after a cluster sync the leader merges the SS parts (and another CTA
 //   the temporal ones) through distributed shared memory; after another,
-//   C10's merge arms, refinement and tournament (inter_arms.cuh) on the
-//   leader beside C12's two anchors on two other CTAs (gt_search.cuh:
-//   anchor 1 reads nothing that anchor 0 writes); after a third, C12's
-//   decision and the chroma prediction of cb and cr from rc and the CU's
-//   own decision on the leader: C11's warp for a GT CU (warp.cuh), C8's MC
-//   for another inter CU (interp.cuh), C2's DM intra otherwise. The
+//   C10's three chains (inter_arms.cuh: the merge arms on the leader, the
+//   SS refinement, and on PSS the temporal one, each on a CTA of its own)
+//   beside C12's two anchors on two other CTAs (gt_search.cuh: anchor 1
+//   reads nothing that anchor 0 writes); after a third, C10's tournament,
+//   C12's decision and the chroma prediction of cb and cr from rc and the
+//   CU's own decision on the leader: C11's warp for a GT CU (warp.cuh),
+//   C8's MC for another inter CU (interp.cuh), C2's DM intra otherwise. The
 //   predictions go to device scratch, the decisions straight into their
 //   packed output slots; what one CTA of the cluster writes for another
 //   crosses in global memory, ordered by the cluster syncs;
@@ -101,14 +102,16 @@
 // on a grid dimension (C9's per-displacement sums run in one thread, its
 // reductions and the merge of its parts keep the first index among
 // equals; C10's and C12's SSEs are integer sums below 2^24 and
-// block_sum's order in thread 0 above; C3's and C7's float sums are in
-// one thread); C12's (block, anchor) pairs run on two CTAs, as C12's own
-// entry runs them.
+// block_sum's order above, their argmins keep the first index among
+// equals; C3's and C7's float sums are in one thread); C12's (block,
+// anchor) pairs run on two CTAs, as C12's own entry runs them, and C10's
+// chains on three where its entry runs them in turn on one.
 //
 // Bound: the chain of groups. A group holds a few tens of CUs on 132 SMs,
 // and one cluster's latency per CU sets the picture's time: the longer of
-// the intra (an RMD) and a part of the search, C10's arms (25 MCs; 41 on a
-// PSS picture) or a GT diamond search of 79 warps, two chroma blocks, then
+// the intra (an RMD) and a part of the search, the longest of C10's
+// chains (two rounds of a candidate per warp) and a GT diamond search (7
+// iterations of up to 13 warps of n^2 samples), two chroma blocks, then
 // C3 with RDOQ in the write phase. The design removes the host from the
 // chain (one launch instead of some 4000 per ISS encode and some 1900 per
 // PSS one) and spreads each CU's read phase over a cluster's SMs.
@@ -130,13 +133,18 @@ static_assert(kThreads == kSearchThreads && kThreads == kArmsThreads,
 // stage-clock phase of chip_smoke.py): thread 0 of each CTA writes
 // %globaltimer (ns, one clock for every SM) when the CTA's threads have
 // left a stage (a barrier first), into clk[(group * ctas + CTA) * kStamps
-// + stage]. A stage a CTA does not run stays 0. The production library has
+// + stage]; at the start it also writes its SM's index + 1 into slot
+// kStampSm. A stage a CTA does not run stays 0. The production library has
 // no stamps.
 enum Stamp {
   kStampStart, kStampIntra, kStampSs, kStampTemporal, kStampCluster1,
   kStampMerge, kStampCluster2, kStampArms, kStampAnchor0, kStampAnchor1,
   kStampCluster3, kStampDecide, kStampChroma, kStampSync1, kStampWrite,
-  kStampSync2, kStamps
+  kStampSync2,
+  // the bodies' own stages (inter_arms.cuh ArmsMark, gt_search.cuh GtMark)
+  kStampArmsMark, kStampGtMark = kStampArmsMark + kArmsMarks,
+  kStampSm = kStampGtMark + kGtMarks,   // the CTA's SM + 1, not a time
+  kStamps
 };
 #ifdef HH_STAGE_CLOCK
 __device__ long long *g_clk;
@@ -146,12 +154,27 @@ __device__ __forceinline__ void stamp(int g, int k) {
   if (threadIdx.x == 0 && g_clk != nullptr && (int)blockIdx.x < g_clk_ctas) {
     long long t;
     asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    g_clk[((long long)g * g_clk_ctas + blockIdx.x) * kStamps + k] = t;
+    long long *row =
+        g_clk + ((long long)g * g_clk_ctas + blockIdx.x) * kStamps;
+    row[k] = t;
+    if (k == kStampStart) {
+      unsigned sm;
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+      row[kStampSm] = sm + 1;
+    }
   }
 }
 #else
 __device__ __forceinline__ void stamp(int, int) {}
 #endif
+
+// A body's stage hook (common.cuh Mark): stamps slot base + k of group g
+struct StampMark {
+  int g, base;
+  __device__ __forceinline__ void operator()(int k) const {
+    stamp(g, base + k);
+  }
+};
 
 // One TU class: C2's tables and C3's class (models/wavefront_scan.py
 // _ClassArgs, as kernel C13 takes them).
@@ -257,15 +280,18 @@ struct ScanK {
 // The roles of a CU's cluster in the read phase: ranks [0, nss) search
 // parts of C9's SS displacements, ranks [nss, kIntraRank) parts of its
 // temporal ones (PSS), kIntraRank runs the intra; rank 0 merges the SS
-// parts and runs C10's arms, C12's decision and the chroma, rank nss
-// merges the temporal parts, kAnchorRank + an runs C12's anchor an.
+// parts, rank nss the temporal ones. Then C10's three chains side by side:
+// rank 0 the merge arms, kSsArmsRank the SS refinement, kTArmsRank the
+// temporal one (PSS), beside C12's anchor an on kAnchorRank + an. Then
+// rank 0 runs C10's tournament, C12's decision and the chroma.
 constexpr int kIntraRank = kClusterCtas - 1, kAnchorRank = 1;
-static_assert(kAnchorRank + 1 < kIntraRank, "two anchor CTAs besides rank 0");
+constexpr int kSsArmsRank = kAnchorRank + 2, kTArmsRank = kSsArmsRank + 1;
+static_assert(kTArmsRank < kIntraRank, "the chains' and anchors' CTAs");
 
 // The read phase of CU item w on its cluster: every decision and
 // prediction into scratch and the packed outputs (see the roles above).
 // Three cluster syncs: after the intra and the search parts, after the
-// merges, after C10's arms and C12's anchors. Data that one CTA of the
+// merges, after C10's chains and C12's anchors. Data that one CTA of the
 // cluster writes and another reads crosses in global memory, ordered by
 // the cluster syncs (release and acquire at cluster scope).
 template <bool kPss>
@@ -315,16 +341,22 @@ __device__ void encode_read(const ScanK &a, const int32_t *w, int g,
   }
   cl.sync();
   stamp(g, kStampCluster2);
-  if (rank == 0) {
-    inter_arms_block(z.arms, row, px, py, zc, sm);
+  const StampMark arms_mark{g, kStampArmsMark};
+  if (rank == 0 || rank == kSsArmsRank || (kPss && rank == kTArmsRank)) {
+    if (rank == 0)
+      arms_merge(z.arms, row, px, py, zc, sm, arms_mark);
+    else
+      arms_refine(z.arms, row, px, py, rank == kTArmsRank, sm, arms_mark);
     stamp(g, kStampArms);
   } else if (z.gt && (rank == kAnchorRank || rank == kAnchorRank + 1)) {
-    gt_search_block(z.gts, row, rank - kAnchorRank, sm);
+    gt_search_block(z.gts, row, rank - kAnchorRank, sm,
+                    StampMark{g, kStampGtMark});
     stamp(g, rank == kAnchorRank ? kStampAnchor0 : kStampAnchor1);
   }
   cl.sync();
   stamp(g, kStampCluster3);
   if (rank != 0) return;
+  arms_tournament(z.arms, row, sm, arms_mark);
   if (z.gt) {
     gt_decide_block(z.gtd, row, sm);
     stamp(g, kStampDecide);
@@ -640,6 +672,12 @@ ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
       r.mv = z.mv;
       r.smode = z.smode;
       r.costs = z.costs;
+      // the refinement chains' results in place of C9's (scratch that
+      // only the chain's own CTA reads before it writes)
+      r.rpred = z.pred0;
+      r.tpred = z.tpred0;
+      r.rmv = z.mv_i;
+      r.tmv = z.mv_t;
       GtSearch &g = o.gts;
       g.recon = in.ry;
       g.org = in.src_y;
@@ -691,7 +729,7 @@ ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
       words = max_of(words, part_words(n, in.radius, o.nss));
       if (pss)
         words = max_of(words, part_words(n, in.radius_t, kIntraRank - o.nss));
-      words = max_of(words, (arms_smem_bytes(n, pss) + 3) / 4);
+      words = max_of(words, (arms_smem_bytes(n) + 3) / 4);
       if (o.gt) {
         words = max_of(words, gt_search_words(n));
         words = max_of(words, gt_decide_words(n));
@@ -725,8 +763,9 @@ int largest_nss(const ScanK &k) {
 // The shape of a launch, as info [kInfo] gives it to the wrapper: grid
 // CTAs, CTAs per SM, dynamic shared bytes, threads, CTAs per CU in the
 // read phase, registers per thread, the intra's rank, the SS search's
-// parts, the two anchors' ranks (-1 where the launch has no such role)
-constexpr int kInfo = 10;
+// parts, the two anchors' ranks, the SS and the temporal refinement
+// chains' ranks (-1 where the launch has no such role)
+constexpr int kInfo = 12;
 
 int fill_info(const void *kernel, int grid, int per_sm, size_t smem,
               int per_cu, int nss, int *info) {
@@ -737,17 +776,20 @@ int fill_info(const void *kernel, int grid, int per_sm, size_t smem,
                         fa.numRegs, per_cu > 1 ? kIntraRank : -1,
                         per_cu > 1 ? nss : -1,
                         per_cu > 1 ? kAnchorRank : -1,
-                        per_cu > 1 ? kAnchorRank + 1 : -1};
+                        per_cu > 1 ? kAnchorRank + 1 : -1,
+                        per_cu > 1 ? kSsArmsRank : -1,
+                        per_cu > 1 ? kTArmsRank : -1};
   for (int i = 0; i < kInfo; ++i) info[i] = v[i];
   return 0;
 }
 
-// Dynamic shared memory above 48 KB, the device's SMs, its cooperative
-// launch; the CTAs of `kernel` per SM
+// The kernel's dynamic shared memory raised to smem (always: its static
+// shared memory counts against the default 48 KB too), the device's SMs,
+// its cooperative launch; the CTAs of `kernel` per SM
 template <class Kernel>
 int prepare(Kernel kernel, size_t smem, int *sms, int *per_sm) {
   cudaError_t e;
-  if (smem > 48 * 1024) {
+  if (smem > 0) {
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);

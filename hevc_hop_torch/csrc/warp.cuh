@@ -54,26 +54,31 @@ __device__ __forceinline__ void gt4(const int *gtc, int *c4) {
 // ([2n, 2n], row stride ws). Sets knife when the reference's float64 may
 // round this sample the other way: a coordinate exactly on a truncation
 // boundary that matters (negative, or at the clamp), or the rounding
-// exactly half way.
+// exactly half way. kN > 0 is n as a compile-time constant (g's n):
+// the divisions by d = 2 (2n - 1) and 2 d^2 are then by constants.
+template <int kN = 0>
 __device__ __forceinline__ int warp_sample(const WarpGeom &g,
                                            const int32_t *win, int ws, int i,
                                            int maxv, int &knife) {
-  const int xg = g.off + i % g.n, yg = g.off + i / g.n, d = g.d;
+  const int n = kN ? kN : g.n, d = kN ? 2 * (2 * kN - 1) : g.d;
+  const int off = kN ? kN / 2 : g.off, nssg = kN ? kN / 2 : g.nssg;
+  const int lim = kN ? kN / 2 + kN - 1 : g.lim;
+  const int xg = off + i % n, yg = off + i / n;
   const int ax = g.axx * xg + g.axy * yg + g.ax0;
   const int ay = g.ayx * xg + g.ayy * yg + g.ay0;
   const int xt = ax / d, yt = ay / d;   // toward zero, as C's (Int)
   const int pn = ax - xt * d, qn = ay - yt * d;
-  const int xu = xt - g.off, yu = yt - g.off;
-  const int xi = clip3(-g.nssg, g.lim - 1, xu);
-  const int yi = clip3(-g.nssg, g.lim - 1, yu);
-  const int32_t *r0 = win + (yi + g.nssg) * ws + xi + g.nssg;
+  const int xu = xt - off, yu = yt - off;
+  const int xi = clip3(-nssg, lim - 1, xu);
+  const int yi = clip3(-nssg, lim - 1, yu);
+  const int32_t *r0 = win + (yi + nssg) * ws + xi + nssg;
   const int32_t *r1 = r0 + ws;
   int num = (d - qn) * ((d - pn) * r0[0] + pn * r0[1]) +
             qn * ((d - pn) * r1[0] + pn * r1[1]);
   num = clip3(0, maxv * d * d, num);
   const int t = 2 * num + d * d, dd2 = 2 * d * d;
-  if ((pn == 0 && (ax < 0 || xu <= -g.nssg || xu >= g.lim)) ||
-      (qn == 0 && (ay < 0 || yu <= -g.nssg || yu >= g.lim)) || t % dd2 == 0)
+  if ((pn == 0 && (ax < 0 || xu <= -nssg || xu >= lim)) ||
+      (qn == 0 && (ay < 0 || yu <= -nssg || yu >= lim)) || t % dd2 == 0)
     knife = 1;
   return t / dd2;
 }

@@ -72,7 +72,8 @@ LAST_LAUNCH = None
 # decode runs one CTA per CU)
 LAUNCH_INFO = ("grid", "ctas_per_sm", "smem_bytes", "threads",
                "ctas_per_cu", "registers", "intra_rank", "ss_parts",
-               "anchor0_rank", "anchor1_rank")
+               "anchor0_rank", "anchor1_rank", "ss_arms_rank",
+               "t_arms_rank")
 
 
 def zmax_win_px(zaddr4: np.ndarray, n: int, ifm: int = IFM) -> np.ndarray:

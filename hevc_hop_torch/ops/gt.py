@@ -21,6 +21,11 @@ on a PSS picture its temporal cost), sets the GT flag and overrides C10's
 choice: inter, MV = anchor * 4, the diagonal scan and the GT prediction,
 in place, and on a PSS picture the reference index: the SS one.
 
+The search kernel's split order (each iteration's candidate sets'
+geometry once, integer SSEs, the first-index argmin of a warp's shuffle
+butterfly, the best set warped once more at the end) is
+:func:`gt_search_split`, in plain torch.
+
 Float forms, copied from the compiled reference (``jax.jit``; ROADMAP.md
 queue 3): a corner set's cost is one fused multiply-add, fma(bits, lambda,
 sse); the ring anchor's total is (cost + its rate) + lambda, rounded after
@@ -208,6 +213,57 @@ def gt_search_plain(recon, org, pos, mv, n, lam, h, bit_depth,
         best_cost = torch.minimum(best_cost, c_new)
         s = max(1, s // 2)
     return gtc, best_pred, best_cost
+
+
+def gt_search_split(recon, org, pos, mv, n, lam, h, bit_depth,
+                    iters: int = ITERS, stats=None):
+    """Kernel C12's search in its split order (csrc/gt_search.cuh
+    ``gt_search_n``), in plain torch: per iteration each candidate set's
+    geometry computed once (its corners, the warp's affine map, its bits),
+    its samples warped and summed as integers, the float32 SSE exact below
+    2^24 and in block_sum's order above (ops/inter_arms.py ``warp_sse``);
+    the costs on 13 lanes and the least (cost, index) by the butterfly
+    (``lane_argmin``), kept when strictly below the best so far (always on
+    the identity set). No candidate's prediction is kept: the best set is
+    warped once more at the end. Same arguments and results as
+    :func:`gt_search_plain`; ``stats`` (a dict, where given) counts the
+    iterations whose least cost was tied (``ties``) and the safe
+    candidates past 2^24 (``past_2_24``)."""
+    from hevc_hop_torch.ops.inter_arms import lane_argmin, warp_sse
+    if stats is not None:
+        for key in ("ties", "past_2_24"):
+            stats.setdefault(key, 0)
+    b = pos.shape[0]
+    dev = recon.device
+    win = gt_window(recon, pos, mv, n, h)
+    moves = torch.as_tensor(MOVES, device=dev)
+    lam32 = f32(lam)
+    ar = torch.arange(b, device=dev)
+    gtc = torch.zeros((b, 3, 2), dtype=torch.int32, device=dev)
+    best = None
+    s = n // 2
+    for it in range(-1, iters):
+        cands = gtc[:, None] if it < 0 else gtc[:, None] + moves[None] * s
+        k = cands.shape[1]
+        winb = win[:, None].expand(b, k, 2 * n, 2 * n).reshape(
+            b * k, 2 * n, 2 * n)
+        preds, safe = warp_blocks_plain(winb, gt4(cands).reshape(b * k, 4, 2),
+                                        n, bit_depth)
+        sse, tot = warp_sse(org[:, None], preds.reshape(b, k, n, n))
+        safe = safe.reshape(b, k)
+        cost = torch.where(safe, quant.fma(gt_bits(cands), lam32, sse),
+                           torch.full_like(sse, UNSAFE))
+        cm, ki = lane_argmin(cost)
+        upd = (torch.ones_like(safe[:, 0]) if it < 0 else cm < best)
+        gtc = torch.where(upd[:, None, None], cands[ar, ki], gtc)
+        best = cm if it < 0 else torch.where(upd, cm, best)
+        if stats is not None:
+            stats["ties"] += int(((cost == cm[:, None]).sum(-1) > 1).sum())
+            stats["past_2_24"] += int(((tot >= 2 ** 24) & safe).sum())
+        if it >= 0:
+            s = max(1, s // 2)
+    pred = warp_blocks_plain(win, gt4(gtc), n, bit_depth)[0]
+    return gtc, pred, best
 
 
 def gt_arm_plain(recon, org, pos, zcur, zmax2n, anchor, gt_rate, gt_ok,

@@ -7,7 +7,10 @@ Counterpart of hevc_hop_tpu/models/ss_scan.py ``_gather_cands``,
 ``scan_encode_pss``'s (GT off; ops/gt.py overrides either with GT).
 
 :func:`inter_arms` is the wrapper of kernel C10 (``csrc/inter_arms.cu``),
-one CTA per block: it gathers the nine merge candidates (five spatial
+one CTA per block running the kernel's three chains in turn (the SS
+refinement, on PSS the temporal one, the merge arms; kernel C14 runs them
+on three CTAs of a CU's cluster), a candidate per warp, then the
+tournament: it gathers the nine merge candidates (five spatial
 neighbours, three micro-image displacements, zero) and the six AMVP
 predictors from the carried 4x4 motion planes; codes each valid, causal
 candidate through the exact quarter-pel MC and keeps the lowest SSE +
@@ -32,6 +35,10 @@ every SSE is summed in XLA:CPU's order (ops/ss_search.py ``block_sum``); the
 merge rate lam * (4 + index bits) is folded to a float32 constant and
 added; the refinement's rate is one fused multiply-add, fma(INTER_BITS +
 bits, lam, sse); the intra cost is SSE + float32(lam * INTRA_BITS).
+
+The kernel's split order (its chains, integer SSEs, the first-index
+argmin of a warp's shuffle butterfly) is :func:`inter_arms_split`, in plain
+torch.
 
 On a CUDA tensor the wrappers launch the kernel; on a CPU tensor they run
 the ``*_plain`` version.
@@ -249,6 +256,193 @@ def motion_write_plain(mvx4, mvy4, pi4, pos, inter, mv, n, rf4=None,
 
 
 # ---------------------------------------------------------------------------
+# Kernel C10's split: its chains, a candidate per warp, in plain torch.
+# ---------------------------------------------------------------------------
+
+def lane_argmin(cost: torch.Tensor):
+    """The kernels' warp argmin (csrc/ss_common.cuh ``warp_argmin``) over
+    cost [..., K], K <= 32: lane k holds (cost[k], k), the other lanes
+    (inf, 32); each of the butterfly's steps (xor partners 16, 8, 4, 2,
+    1) keeps the lower (cost, index), so the first index among equal
+    costs wins. Returns (cost, index) [...]."""
+    k = cost.shape[-1]
+    shape = cost.shape[:-1] + (32,)
+    c = torch.full(shape, float("inf"), dtype=torch.float32,
+                   device=cost.device)
+    i = torch.full(shape, 32, dtype=torch.int64, device=cost.device)
+    c[..., :k] = cost
+    i[..., :k] = torch.arange(k, device=cost.device)
+    lanes = torch.arange(32, device=cost.device)
+    for o in (16, 8, 4, 2, 1):
+        c2, i2 = c[..., lanes ^ o], i[..., lanes ^ o]
+        take = (c2 < c) | ((c2 == c) & (i2 < i))
+        c, i = torch.where(take, c2, c), torch.where(take, i2, i)
+    return c[..., 0], i[..., 0]
+
+
+def warp_sse(org: torch.Tensor, pred: torch.Tensor):
+    """The kernels' float32 SSE of [..., n, n] blocks (csrc/inter_arms.cuh
+    ``warp_sse``): the exact integer total below 2^24; above it block_sum's
+    order, lane r summing row r left to right, the rows folded by halves
+    through shuffles. Returns (float32 SSE [...], int64 totals [...])."""
+    d = org.long() - pred.long()
+    tot = (d * d).sum((-2, -1))
+    out = tot.to(torch.float32)
+    big = tot >= 2 ** 24
+    if bool(big.any()):
+        sq = d[big].to(torch.float32) ** 2
+        rows = sq[..., 0]
+        for c in range(1, sq.shape[-1]):
+            rows = rows + sq[..., c]
+        while rows.shape[-1] > 1:
+            half = rows.shape[-1] // 2
+            rows = rows[..., :half] + rows[..., half:]
+        out[big] = rows[..., 0]
+    return out, tot
+
+
+def _tied(cost, best):
+    """[B] bool: the least cost is held by more than one candidate."""
+    return ((cost == best[:, None]).sum(-1) > 1) & (best < 1e37)
+
+
+def merge_chain_split(recon, org, pos, zcur, zmaxw, cands, cref, cvalid,
+                      ipred, n, w, h, bit_depth, lam, ref=None, ss_idx=0,
+                      stats=None):
+    """The merge chain (csrc/inter_arms.cuh ``arms_merge``): ten tasks, the
+    nine merge candidates and the intra prediction's SSE, task k on the
+    CTA's warp k % 8; each available, causal candidate predicted and
+    costing its SSE (``warp_sse``) + its folded merge rate; the least
+    (cost, index) by ``lane_argmin``. Returns (cost [B], mv [B, 2],
+    reference index [B], prediction [B, n, n], intra cost [B])."""
+    b, k = cands.shape[:2]
+    dev = pos.device
+    posr = pos.repeat_interleave(k, 0)
+    pred = interp.luma_mc(recon, posr, cands.reshape(-1, 2), n, h,
+                          bit_depth).reshape(b, k, n, n)
+    is_ss = cref == ss_idx
+    if ref is not None:
+        p_t = interp.luma_mc(ref, posr, cands.reshape(-1, 2), n, h,
+                             bit_depth).reshape(b, k, n, n)
+        pred = torch.where(is_ss[..., None, None], pred, p_t)
+    mvi = cands >> 2
+    tx = pos[:, None, 0].long() + mvi[..., 0]
+    ty = pos[:, None, 1].long() + mvi[..., 1]
+    inb = (tx >= 0) & (ty >= 0) & (tx + n <= w) & (ty + n <= h)
+    zm = zmaxw[ty.clamp(0, h - n), tx.clamp(0, w - n)]
+    ok = cvalid & torch.where(is_ss, inb & (zm < zcur[:, None]), True)
+    sse, tot = warp_sse(org[:, None], pred)
+    rate = torch.tensor([f32(f32(lam) * (4.0 + min(i + 1, 4)))
+                         for i in range(k)], dtype=torch.float32, device=dev)
+    cost = torch.where(ok, sse + rate[None], torch.full_like(sse, BIG))
+    isse, itot = warp_sse(org, ipred)
+    icost = isse + f32(lam * INTRA_BITS)
+    mcost, mk = lane_argmin(cost)
+    if stats is not None:
+        stats["merge_ties"] += int(_tied(cost, mcost).sum())
+        stats["past_2_24"] += int(((tot >= 2 ** 24) & ok).sum()
+                                  + (itot >= 2 ** 24).sum())
+    ar = torch.arange(b, device=dev)
+    return mcost, cands[ar, mk], cref[ar, mk], pred[ar, mk], icost
+
+
+def refine_chain_split(plane, org, pos, mvq0, pred0, sse0, preds, n, h,
+                       bit_depth, lam, stats=None):
+    """A refinement chain (csrc/inter_arms.cuh ``arms_refine``): half then
+    quarter pel, each stage's eight neighbours on the warps of one CTA from
+    one shared window, each costing fmaf(6 + its least MVD bits, lambda,
+    SSE); the least (cost, index) by ``lane_argmin``, kept when strictly
+    below the best so far; a stage is skipped where C9 found nothing
+    (sse0 >= 1e37). Returns (mvq [B, 2], pred [B, n, n], cost [B])."""
+    b = pos.shape[0]
+    dev = pos.device
+    offs = torch.as_tensor(FRAC_OFFS, device=dev)
+    k = offs.shape[0]
+    lam32 = f32(lam)
+    best = quant.fma(min_rate_bits(mvq0[:, None], preds)[:, 0] + INTER_BITS,
+                     lam32, sse0)
+    best_mv, best_pred = mvq0, pred0
+    live = sse0 < 1e37
+    posr = pos.repeat_interleave(k, 0)
+    ar = torch.arange(b, device=dev)
+    for step in (2, 1):
+        cands = best_mv[:, None] + offs[None] * step
+        pk = interp.luma_mc(plane, posr, cands.reshape(-1, 2), n, h,
+                            bit_depth).reshape(b, k, n, n)
+        sse, tot = warp_sse(org[:, None], pk)
+        cost = quant.fma(min_rate_bits(cands, preds) + INTER_BITS, lam32,
+                         sse)
+        cm, ci = lane_argmin(cost)
+        upd = live & (cm < best)
+        best_mv = torch.where(upd[:, None], cands[ar, ci], best_mv)
+        best_pred = torch.where(upd[:, None, None], pk[ar, ci], best_pred)
+        best = torch.where(live, torch.minimum(best, cm), best)
+        if stats is not None:
+            stats["refine_ties"] += int((_tied(cost, cm) & upd).sum())
+            stats["past_2_24"] += int(((tot >= 2 ** 24)
+                                       & live[:, None]).sum())
+    return best_mv, best_pred, best
+
+
+def inter_arms_split(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav,
+                     mv_i, pred0, sse0, ipred, imode, n, w, h, bit_depth,
+                     lam, mi_size, pss=None, stats=None):
+    """Kernel C10's arithmetic in its split order, in plain torch: the SS
+    (and on PSS the temporal) refinement chain and the merge chain each on
+    its own, as kernel C14 runs them on three CTAs of a CU's cluster, then
+    the tournament over their results. Same arguments and results as
+    :func:`inter_arms`; ``stats`` (a dict, where given) counts the blocks
+    whose least merge cost or winning refinement cost was tied
+    (``merge_ties``, ``refine_ties``) and the candidates whose SSE took the
+    order past 2^24 (``past_2_24``)."""
+    if stats is not None:
+        for key in ("merge_ties", "refine_ties", "past_2_24"):
+            stats.setdefault(key, 0)
+    ar = torch.arange(n, device=pos.device)
+    org = org_plane[pos[:, 1, None, None].long() + ar[None, :, None],
+                    pos[:, 0, None, None].long() + ar[None, None, :]]
+    ss_idx = 0 if pss is None else SS_IDX_PSS
+    cands, cref, cvalid, p_ss, p_t = gather_cands(*motion, pos, nbav, miav,
+                                                  n, mi_size, ss_idx)
+    mvq, sspred, sscost = refine_chain_split(
+        recon, org, pos, mv_i * 4, pred0, sse0, p_ss, n, h, bit_depth, lam,
+        stats)
+    ref = None if pss is None else pss[0]
+    if pss is not None:
+        _, mv_t, tpred0, tsse0 = pss
+        mtq, tpred, tcost = refine_chain_split(
+            ref, org, pos, mv_t * 4, tpred0, tsse0, p_t, n, h, bit_depth,
+            lam, stats)
+    mcost, mmv, mref, mpred, icost = merge_chain_split(
+        recon, org, pos, zcur, zmaxw, cands, cref, cvalid, ipred, n, w, h,
+        bit_depth, lam, ref, ss_idx, stats)
+    # the tournament, on the merge chain's CTA
+    if pss is None:
+        ss_beats_t = torch.ones_like(mcost, dtype=torch.bool)
+        intercost = sscost
+    else:
+        ss_beats_t = sscost < tcost
+        intercost = torch.minimum(sscost, tcost)
+    merge_win = (mcost < intercost) & (mcost < icost)
+    inter = merge_win | (intercost < icost)
+    amv = mvq if pss is None else torch.where(ss_beats_t[:, None], mvq, mtq)
+    apred = (sspred if pss is None else
+             torch.where(ss_beats_t[:, None, None], sspred, tpred))
+    mv = torch.where(merge_win[:, None], mmv, amv)
+    pred = torch.where(merge_win[:, None, None], mpred,
+                       torch.where(inter[:, None, None], apred, ipred))
+    ipred.copy_(pred)
+    smode = torch.where(inter, 0, imode).to(torch.int32)
+    if pss is None:
+        costs = torch.stack([icost, mcost, sscost], -1)
+        return inter.to(torch.int32), mv.to(torch.int32), smode, costs
+    refsel = torch.where(merge_win, mref, torch.where(ss_beats_t, ss_idx, 0))
+    costs = torch.stack([icost, mcost, sscost, tcost], -1)
+    return (inter.to(torch.int32), mv.to(torch.int32), smode, costs,
+            refsel.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
 # Kernel C10.
 # ---------------------------------------------------------------------------
 
@@ -325,6 +519,11 @@ def _inter_arms_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav,
         out = out + (refsel,)
     if b == 0:
         return out
+    # the refinement chains' results, crossing to the tournament
+    rpred = torch.empty((b, n, n), dtype=torch.int32, device=dev)
+    rmv = torch.empty((b, 2), dtype=torch.int32, device=dev)
+    tpred, tmv = ((None, None) if pss is None else
+                  (torch.empty_like(rpred), torch.empty_like(rmv)))
     mvx4, mvy4, pi4, rf4 = motion
     lam32 = f32(lam)
     mrates = [f32(lam32 * (4.0 + min(i + 1, 4))) for i in range(9)]
@@ -332,7 +531,7 @@ def _inter_arms_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav,
     ref, mv_t, tpred0, tsse0 = pss or (None,) * 4
     fn = _cuda.bind("inter_arms", "hh_inter_arms",
                     "ppi" "ppp" "pppp" "ii" "pp" "pppp" "p"
-                    "iiiiii" "ff" "fffffffff" "pppp" "ppppp" "p")
+                    "iiiiii" "ff" "fffffffff" "pppp" "ppppp" "pppp" "p")
     err = fn(recon.data_ptr(), org_plane.data_ptr(), recon.stride(0),
              pos.data_ptr(), zcur.data_ptr(), zmaxw.data_ptr(),
              mvx4.data_ptr(), mvy4.data_ptr(), pi4.data_ptr(),
@@ -344,7 +543,8 @@ def _inter_arms_cuda(recon, org_plane, pos, zcur, zmaxw, motion, nbav, miav,
              lam32, f32(lam * INTRA_BITS), *mrates,
              inter.data_ptr(), mv.data_ptr(), smode.data_ptr(),
              costs.data_ptr(), ptr(ref), ptr(mv_t), ptr(tpred0), ptr(tsse0),
-             ptr(refsel), _cuda.stream(recon))
+             ptr(refsel), rpred.data_ptr(), ptr(tpred), rmv.data_ptr(),
+             ptr(tmv), _cuda.stream(recon))
     _cuda.check("inter_arms", err)
     LAUNCHES += 1
     if pss is not None:

@@ -1,0 +1,274 @@
+"""Kernel C14's device times and stage split on one tree, and kernels C10's
+and C12's entries, on the card.
+
+    python3 tools/ss_clock.py <tree> [out.json]
+
+imports <tree>'s chip_smoke and hevc_hop_torch (a checkout, or one
+unpacked with git archive) and builds its kernels. On chip_smoke's iss,
+iss-uniform, iss-gt and iss-gt-warped 1920x1088 frames and on the last PSS
+picture of pss-gt it times C14's encode with CUDA events (median of 5),
+and iss-gt-warped's encode s through the encoder (median of 3). With
+C14's stage clocks (chip_smoke.stage_split; the library built with
+-DHH_STAGE_CLOCK) it runs each encode once more, counts the elements that
+differ from the production library's, and prints the split: per stage
+the longest CTA of each group summed over the groups, and the arms step
+(the stages between cluster syncs 2 and 3), per group its longest CTA,
+its longest C10 chain and its longest C12 anchor, summed. Then C10's
+arms entry and C12's search and decide entries on the inputs the level
+loop gives them at the fullest level (iss-gt-warped 16x16; pss-gt's
+last PSS picture), timed with CUDA events (median of 21) and held against
+their plain bodies on the card. Prints the card's name and power limit,
+and the results as one JSON object on its last line (also written to
+out.json where given). Run two trees in turns in one call to compare
+them.
+"""
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+
+tree = os.path.abspath(sys.argv[1])
+OUT = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else None
+sys.path.insert(0, tree)
+os.chdir(tree)
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from hevc_hop_torch import _cuda  # noqa: E402
+from hevc_hop_torch.models import ss_scan  # noqa: E402
+from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder  # noqa
+from hevc_hop_torch.ops import gt, inter_arms as ia  # noqa: E402
+
+PATHS = ("iss", "iss-uniform", "iss-gt", "iss-gt-warped")
+ENTRY_REPS = 21
+
+
+def events_ms(fn, reps=5, setup=None):
+    """Median ms of fn() over reps calls, each timed with CUDA events
+    (setup() before each, outside the events); every time."""
+    (setup or (lambda: None))()
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        if setup is not None:
+            setup()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return float(np.median(out)), out
+
+
+def durations(clk):
+    """Per stage of chip_smoke.CLOCK_STAGES, the ns each CTA of each group
+    spent in it ([groups, CTAs], from its previous stamp)."""
+    last = clk[:, :, 0].copy()
+    out = {}
+    for name, k in cs.CLOCK_STAGES:
+        s = clk[:, :, k]
+        out[name] = np.where(s > 0, s - last, 0)
+        last = np.where(s > 0, s, last)
+    return out
+
+
+def arms_step(clk):
+    """The arms step from the stamps: the stages between cluster syncs 2
+    and 3, per group the longest CTA (step), the longest CTA's C10 stages
+    (c10) and C12 anchor stages (c12), us summed over the groups; and C10's
+    stages after cluster sync 3 (the tournament where it runs there)."""
+    d = durations(clk)
+    names = [nm for nm, _ in cs.CLOCK_STAGES]
+    lo, hi = names.index("cluster sync 2"), names.index("cluster sync 3")
+    step = names[lo + 1:hi]
+    tot = lambda sel: sum(d[nm] for nm in sel) if sel else 0 * d[names[0]]
+    us = lambda v: float(v.max(axis=1).sum() / 1e3)
+    c10 = [nm for nm in step if nm.startswith("C10")]
+    c12 = [nm for nm in step if nm.startswith("C12")]
+    after = [nm for nm in names[hi + 1:] if nm.startswith("C10")]
+    return {"step_us": us(tot(step)), "c10_us": us(tot(c10)),
+            "c12_us": us(tot(c12)), "c10_after_sync3_us": us(tot(after)),
+            "stages": step}
+
+
+def placement(clk, per_cu):
+    """Where the launch's CTAs ran (chip_smoke.CLOCK_SM): the SMs used, and
+    per pair of ranks of a cluster the clusters that put both on one SM."""
+    sm = clk[:, :, cs.CLOCK_SM].max(axis=0) - 1
+    ranks = sm.reshape(-1, per_cu)
+    mates = [[int((ranks[:, r] == ranks[:, q]).sum()) if r != q else 0
+              for q in range(per_cu)] for r in range(per_cu)]
+    return {"sms": int(len(set(sm.tolist()))), "ctas": int(len(sm)),
+            "same_sm_rank_pairs": mates}
+
+
+def clone(v):
+    if isinstance(v, torch.Tensor):
+        return v.clone()
+    if isinstance(v, tuple):
+        return tuple(clone(x) for x in v)
+    return v
+
+
+class Recorder:
+    """Within it, ss_scan's calls of C10's arms entry and C12's step keep
+    a copy of the arguments of the call with the most blocks."""
+
+    def __enter__(self):
+        self.saved = (ss_scan.inter_arms, ss_scan.gt_step)
+        self.calls = {}
+
+        def wrap(key, fn):
+            def call(*a, **k):
+                b = a[3].shape[0] if key == "C12" else a[2].shape[0]
+                if b > self.calls.get(key, (0,))[0]:
+                    self.calls[key] = (b, clone(a), clone(k))
+                return fn(*a, **k)
+            return call
+
+        ss_scan.inter_arms = wrap("C10", self.saved[0])
+        ss_scan.gt_step = wrap("C12", self.saved[1])
+        return self
+
+    def __exit__(self, *exc):
+        ss_scan.inter_arms, ss_scan.gt_step = self.saved
+
+
+def mism(a, b):
+    return sum(int((x.to(torch.int64) != y.to(torch.int64)).sum())
+               if x.dtype != torch.float32 else
+               int((x.view(torch.int32) != y.view(torch.int32)).sum())
+               for x, y in zip(a, b))
+
+
+def entries(calls):
+    """C10 and C12 on the recorded arguments: ms, and elements that differ
+    from the plain bodies (outputs and in-place planes, floats bit for
+    bit)."""
+    out = {}
+    b, a, k = calls["C10"]
+    n = a[13]
+
+    def run(fn):
+        x = clone(a)
+        r = fn(*x, **clone(k))
+        return tuple(r) + (x[11],)
+
+    got, want = run(ia.inter_arms), run(ia.inter_arms_plain)
+    arg = {}
+    ms, allms = events_ms(lambda: ia.inter_arms(*arg["a"], **arg["k"]),
+                          reps=ENTRY_REPS,
+                          setup=lambda: arg.update(a=clone(a), k=clone(k)))
+    out["C10"] = {"blocks": b, "n": n, "ms": ms, "all": allms,
+                  "mismatches": mism(got, want)}
+    b, a, k = calls["C12"]
+
+    def run12(fn):
+        x = clone(a)
+        r = fn(*x, **clone(k))
+        return tuple(r) + tuple(t for t in x[11:15] + x[22:]
+                                if t is not None)
+
+    got, want = run12(gt.gt_step), run12(gt.gt_step_plain)
+    ms, allms = events_ms(lambda: gt.gt_step(*arg["a"], **arg["k"]),
+                          reps=ENTRY_REPS,
+                          setup=lambda: arg.update(a=clone(a), k=clone(k)))
+    out["C12"] = {"blocks": b, "n": a[15], "ms": ms, "all": allms,
+                  "mismatches": mism(got, want),
+                  "gt_won": int(got[0].sum())}
+    return out
+
+
+def clocked(so, fn, groups):
+    set_clock = so.hh_ss_scan_clock
+    set_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    ctas = torch.cuda.get_device_properties(0).multi_processor_count * 8
+    buf = torch.zeros((groups, ctas, cs.CLOCK_STAMPS), dtype=torch.int64,
+                      device="cuda")
+    with cs._ClockLibrary(so):
+        torch.cuda.synchronize()
+        _cuda.check("ss_scan", set_clock(buf.data_ptr(), ctas))
+        got = fn()
+        torch.cuda.synchronize()
+        _cuda.check("ss_scan", set_clock(None, 0))
+        launch = ss_scan.LAST_LAUNCH
+    grid = launch["grid"] if isinstance(launch, dict) else launch[0]
+    return got, buf[:, :grid].cpu().numpy(), launch
+
+
+def split(so, fn, want, groups):
+    got, clk, launch = clocked(so, fn, groups)
+    rec = {"clock_build_mismatches": mism(got[:4], want[:4]),
+           "clock_launch": launch, **cs.stage_split(clk), **arms_step(clk)}
+    if hasattr(cs, "CLOCK_SM"):
+        rec["placement"] = placement(clk, launch["ctas_per_cu"])
+    return rec
+
+
+def main():
+    t0 = time.perf_counter()
+    _cuda.build_all()
+    so = _cuda.variant("ss_scan", "clock", cs.CLOCK_FLAGS)
+    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    res = {"card": smi, "tree": tree}
+    for name in PATHS:
+        extra, _, _, content = cs.ISS_PATHS[name]
+        frame, _ = cs.path_frame(content)
+        enc = HoloEncoder(HoloConfig(width=cs.W, height=cs.H, **extra))
+        enc.encode_frame(*frame)
+        args, work = cs._ss_scan_inputs(enc, frame)
+        fn = lambda: ss_scan.scan_encode_iss(*args, work=work)
+        want = fn()
+        ms, allms = events_ms(fn)
+        rec = {"encode_ms": ms, "encode_all": allms,
+               "launch": ss_scan.LAST_LAUNCH,
+               "groups": len(work.host_groups)}
+        if name == "iss-gt-warped":
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                enc.encode_frame(*frame)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+            rec["encode_s"] = float(np.median(secs))
+            rec["encode_s_all"] = secs
+            with Recorder() as r:
+                ss_scan.scan_encode_iss_loop(*args)
+            rec["entries"] = entries(r.calls)
+        rec.update(split(so, fn, want, len(work.host_groups)))
+        print(name, json.dumps(rec), flush=True)
+        res[name] = rec
+    extra = cs.ISS_PATHS["pss-gt"][0]
+    enc = HoloEncoder(HoloConfig(width=cs.W, height=cs.H, **extra))
+    (args, work), _ = cs._pss_calls(enc, cs.pss_frames(cs.W, cs.H,
+                                                       cs.PSS_FRAMES))[-1]
+    fn = lambda: ss_scan.scan_encode_pss(*args, work=work)
+    want = fn()
+    ms, allms = events_ms(fn)
+    rec = {"encode_ms": ms, "encode_all": allms,
+           "launch": ss_scan.LAST_LAUNCH, "groups": len(work.host_groups)}
+    with Recorder() as r:
+        ss_scan.scan_encode_pss_loop(*args)
+    rec["entries"] = entries(r.calls)
+    rec.update(split(so, fn, want, len(work.host_groups)))
+    print("pss-gt", json.dumps(rec), flush=True)
+    res["pss-gt"] = rec
+    if OUT is not None:
+        with open(OUT, "w") as f:
+            json.dump(res, f)
+    print(json.dumps(res), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -2034,6 +2034,10 @@ def _time_specs(specs, checks, launches):
                          k: v[counter] for k, v in launches.items()}}
         if "loop_ms" in sp:
             fused["level_loop_ms"] = sp["loop_ms"]
+        if "float_ops" in sp:
+            fb_ms, fby = bound(sp["nbytes"], sp["float_ops"])
+            fused["float_form_bound_ms"] = fb_ms
+            fused["float_form_bound_by"] = fby
         if "wide" in sp:
             wd = sp["wide"]
             wb_ms, wby = bound(sp["nbytes"] * wd["times"],
@@ -3968,6 +3972,40 @@ def phase_iss_kernels(checks, ctxs):
                 f"C9 pre-pass temporal n={n} blocks {i}+")
     log(f"C9 pre-pass entry with the temporal arm, every block of the "
         f"pss-gt path's second picture: {json.dumps(tally)}")
+    # the integer sums: bit-equal to the plain body wherever every 8-bit
+    # sum stays below 2^24 (n = 8 and 16)
+    for k in ("not_bit_equal_n8", "not_bit_equal_n16",
+              "temporal_not_bit_equal_n8", "temporal_not_bit_equal_n16"):
+        require(tally[k] == 0, f"C9 pre-pass: {k} = {tally[k]}")
+    # inputs that take the float arm (sums past 2^24): a 10-bit copy of the
+    # lenslet luma (and of the pss-gt pictures, with the temporal arm) and
+    # a bright copy of the pss-gt pictures at 32x32, on a 512x256 corner
+    y0 = ctxs["pss-gt"]["frames"][0][0]
+    y1 = ctxs["pss-gt"]["frames"][1][0]
+    bright = lambda a: np.clip(a // 4 + 190, 0, 255)
+    lens = lenslet_frame(W, H, mi=16)[0]
+    floats = {"10bit": (lens * 4 + 1, None, 10, (8, 16, 32)),
+              "10bit_temporal": (y1 * 4 + 1, y0 * 4 + 2, 10, (8, 16, 32)),
+              "bright_temporal": (bright(y1), bright(y0), 8, (32,))}
+    for name, (yy, rr, bd, sizes) in floats.items():
+        yt = torch.as_tensor(np.ascontiguousarray(yy, np.int32), device=dev)
+        rt = (None if rr is None else torch.as_tensor(
+            np.ascontiguousarray(rr, np.int32), device=dev))
+        for n in sizes:
+            ys, xs = np.mgrid[0:256:n, 0:512:n]
+            ys, xs = ys.ravel(), xs.ravel()
+            t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                          device=dev)
+            args = (yt, t(np.stack([xs, ys], -1)),
+                    t(zplane4[ys >> 2, xs >> 2]), t(zmax_win_px(zplane4, n)),
+                    n, QP, bd, 32, W, H, 16, lam) + (
+                        () if rt is None else (rt, 16))
+            got = ss_partition.ss_rd_costs(*args)
+            want = ss_partition.ss_rd_costs_plain(*args)
+            tally[f"{name}_not_bit_equal_n{n}"] = c9.add_close(
+                got, want, COST_RTOL, f"C9 pre-pass {name} n={n}")
+            tally[f"{name}_causal_n{n}"] = int((want < 1e37).sum())
+    log(f"C9 pre-pass entry on inputs past 2^24: {json.dumps(tally)}")
     log_host("pre-pass entries held")
     held = {}
     for name in ISS_PATHS:
@@ -4014,6 +4052,14 @@ def search_ops(pos, zcur, zmaxw, n, radius):
     zm = zmaxw[ty.clamp(0, H - n), tx.clamp(0, W - n)]
     causal = int((inb & (zm < zcur[:, None, None])).sum())
     return causal * (4 * n * n + 80), causal
+
+
+def prepass_bytes(nb, *planes):
+    """Bytes of C9's pre-pass entry over nb blocks, the least its function
+    needs: each sample of the planes it reads (the original luma, zmaxw
+    and on a PSS picture the previous luma) once, whatever the blocks'
+    windows share, and each block's position, z address and cost."""
+    return sum(p.numel() * p.element_size() for p in planes) + nb * 16
 
 
 def scan_search_ops(counts, n, radius, bits=8):
@@ -4298,6 +4344,7 @@ def phase_iss_timing(ctxs, checks, launches):
     pzm = torch.as_tensor(zmax_win_px(zplane4, 16), device=dev)
     yl = oy[:H]
     pops, pcausal = search_ops(ppos, pz, pzm, 16, 32)
+    pcounts = _causal_counts(ppos, pz, pzm, 16, 32)
     nb = ppos.shape[0]
     rargs = (yl, ppos, pz, pzm, 16, QP, 8, 32, W, H, 16, lam)
     spec(name="C9 ss_search (pre-pass, 16x16)", counter="C9 prepass",
@@ -4309,8 +4356,13 @@ def phase_iss_timing(ctxs, checks, launches):
          fn=lambda: ss_partition.ss_rd_costs(*rargs),
          plain=lambda: ss_partition.ss_rd_costs_plain(*rargs),
          rtol=COST_RTOL,
-         nbytes=nb * (80 * 80 + 256) * 4 + nb * 4,
-         ops=(nb * 16 * 1024, pops + nb * 256 * 4))
+         nbytes=prepass_bytes(nb, yl, pzm),
+         # as the K13 row counts its search (the correlation int8 on the
+         # tensor cores), plus the transform round trip; the count of the
+         # float-order form (every sum in float32) beside it
+         ops=add_ops(scan_search_ops(pcounts, 16, 32),
+                     (nb * 16 * 1024, nb * 256 * 4)),
+         float_ops=(nb * 16 * 1024, pops + nb * 256 * 4))
     # C10 on the same level's blocks, after a real search
     mv_i, _, pred0, sse0 = ss.ss_search(*sargs)
     ipred = ss.block_at(oy, pos, n).clone()
@@ -4673,6 +4725,8 @@ def phase_pss_timing(ctxs, checks, launches):
     pzm = torch.as_tensor(zmax_win_px(zplane4, n), device=dev)
     nb = ppos.shape[0]
     pops, _ = search_ops(ppos, pz, pzm, n, 32)
+    pcounts = _causal_counts(ppos, pz, pzm, n, 32)
+    ptcounts = _in_picture_counts(ppos, n, 16)
     pt_ = ppos[:, 1, None, None].long() + dt[None, :, None]
     px_ = ppos[:, 0, None, None].long() + dt[None, None, :]
     pin = int(((pt_ >= 0) & (px_ >= 0) & (pt_ + n <= H)
@@ -4687,8 +4741,12 @@ def phase_pss_timing(ctxs, checks, launches):
          fn=lambda: ss_partition.ss_rd_costs(*rargs),
          plain=lambda: ss_partition.ss_rd_costs_plain(*rargs),
          rtol=COST_RTOL,
-         nbytes=nb * ((n + 64) ** 2 + (n + 32) ** 2 + n * n) * 4 + nb * 4,
-         ops=(nb * n * 4 * n * n, pops + pin * (4 * n * n + 80)))
+         nbytes=prepass_bytes(nb, oy[:H], pzm, ref[:H]),
+         # both arms as the K13 row counts its searches, plus the round trip
+         ops=add_ops(scan_search_ops(pcounts, n, 32),
+                     scan_search_ops(ptcounts, n, 16),
+                     (nb * n * 4 * n * n, nb * n * n * 4)),
+         float_ops=(nb * n * 4 * n * n, pops + pin * (4 * n * n + 80)))
     # C10's PSS form on the same level's blocks, after a real search
     (mv_i, _, pred0, sse0, *ring), (mv_t, _, tpred0, tsse0) = \
         ss.pss_search(*sargs)
@@ -4785,12 +4843,14 @@ def _mesh_fixture():
 
 
 def _hold_mesh_launches(enc, frames, checks, every=8):
-    """One more encode_frames of the mesh encoder with its C2 and C3
-    launches held against the plain bodies on the same inputs, at the
-    fullest level and every ``every``-th level (luma RMD, C3's encode in
-    its RDOQ arm, chroma with the luma mode, C3's chroma encode); the
-    encode goes on with the kernels' outputs. Returns (held launches per
-    form, the streams, and the fullest level's luma C2 and C3 arguments)."""
+    """The mesh's level loop (C13's plain version for the mesh: C2 and C3
+    launches over the stacked slabs, the halo refresh after every level)
+    on the card, with its C2 and C3 launches held against the plain
+    bodies on the same inputs, at the fullest level and every
+    ``every``-th level (luma RMD, C3's encode in its RDOQ arm, chroma with
+    the luma mode, C3's chroma encode); the loop goes on with the kernels'
+    outputs. Returns (held launches per form, the loop's scan_encode
+    results, and the fullest level's luma C2 and C3 arguments)."""
     import torch
     from hevc_hop_torch.models import wavefront_scan as ws
     from hevc_hop_torch.ops import intra, tq
@@ -4846,13 +4906,14 @@ def _hold_mesh_launches(enc, frames, checks, every=8):
         held[what] = held.get(what, 0) + 1
         return got
 
+    args, kws, refresh = _mesh_scan_args(enc, frames)
     ws.intra_blocks, ws.tq_encode = c2_held, c3_held
     try:
-        streams = enc.encode_frames(frames)
+        loop = ws.scan_encode_loop(*args, **kws, after_level=refresh)
         torch.cuda.synchronize()
     finally:
         ws.intra_blocks, ws.tq_encode = orig
-    return held, streams, box
+    return held, loop, box
 
 
 def _scan_blocks(plans):
@@ -4962,13 +5023,18 @@ def phase_mesh(checks):
     streams = enc.encode_frames(frames)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    coded = {k: getattr(m, attr) for k, m, attr in counters}
     cost, mode = pmesh.analysis_step_sharded(aframes, amesh, ANALYSIS_N)
     torch.cuda.synchronize()
     launches = {k: getattr(m, attr) for k, m, attr in counters}
     log(f"mesh path launches: {launches}")
-    needed = ("C1", "C2", "C3 encode (RDOQ)", "C4", "C2 analysis")
+    needed = ("C1", "C13 encode", "C4", "C2 analysis")
     require(all(launches[k] > 0 for k in needed),
             f"a kernel was not launched on the mesh path: {launches}")
+    # K19: the two frames' wavefront is one launch of C13's banded form
+    require(coded["C13 encode"] == 1 and all(
+        coded[k] == 0 for k in LOOP_KERNELS),
+        f"mesh encode_frames: not one C13 launch alone: {coded}")
     require(tuple(cost.shape) == (2, H // ANALYSIS_N, W // ANALYSIS_N)
             and int(mode.min()) >= 0 and int(mode.max()) <= 34,
             "analysis output")
@@ -5003,14 +5069,18 @@ def phase_mesh(checks):
     s17 = shard_encode.MeshIntraEncoder(cfg, m17).encode_frames(frames[:1])
     require(s17[0] == streams[0], "the (1, 17) mesh's stream differs")
     log("mesh: the (1, 17) mesh writes frame 0's stream")
-    # the held encode
-    held, again, box = _hold_mesh_launches(enc, frames, checks)
-    require(again == streams, "the held mesh encode's streams differ")
+    # the level loop, its launches held
+    held, loop, box = _hold_mesh_launches(enc, frames, checks)
     require(all(held.get(k, 0) > 0 for k in (
         "C2 luma RMD", "C2 chroma", "C3 encode (RDOQ) luma",
         "C3 encode (RDOQ) chroma")) and "c2" in box and "c3" in box,
             f"mesh launch forms never held: {held}")
     log(f"mesh: held launches {held}")
+    # C13's banded form against the level loop on the card (its C2 and C3
+    # launches, the halo refresh after every level), and the plain loop
+    banded = _mesh_scan(enc, frames, checks, loop)
+    log(f"mesh: C13's banded form equals the level loop: "
+        f"{json.dumps(banded)}")
     # the analysis at every block size, kernel against plain body
     halo = pmesh.band_halos(aframes, H // 2, 8)
     a_held = {}
@@ -5043,7 +5113,9 @@ def phase_mesh(checks):
            "content": [f"synth_class_b({W}, {H}, seed={s})"
                        for s in MESH_SEEDS],
            "wavefront_levels": nsteps,
-           "launches_per_level": launches["C2"] / nsteps,
+           "c13_launches_per_encode": coded["C13 encode"],
+           "c13_banded": banded,
+           "c13_bound_ms": scan_bound(plans, cfg.rdoq)[0],
            "bytes": [len(s) for s in streams], "y_psnr_db": psnr,
            "first_encode_s": first_s, "timed_turns": MESH_TIMED_TURNS,
            "mesh_encode_s_per_frame": float(np.median(mesh_s)),
@@ -5060,7 +5132,69 @@ def phase_mesh(checks):
            "phase_s": time.perf_counter() - t_start}
     log(f"mesh path: {json.dumps(out)}")
     return out, dict(enc=enc, single=single, frames=frames, box=box,
-                     aframes=aframes, amesh=amesh, halo=halo)
+                     aframes=aframes, amesh=amesh, halo=halo, banded=banded)
+
+
+def _mesh_scan_args(enc, frames):
+    """(args, kwargs) of scan_encode for the mesh's stacked slabs, and the
+    level loop's halo refresh."""
+    from hevc_hop_torch.common import rom
+    lay, plans, _, nsteps, _ = enc._build()
+    cfg = enc.cfg
+    org_y, org_c = enc.slabs(frames, lay)
+    args = (org_y, org_c, plans, nsteps, cfg.qp,
+            rom.chroma_qp_from_luma(cfg.qp), cfg.bit_depth,
+            cfg.strong_intra_smoothing, cfg.sbh, None)
+    kws = dict(use_rdoq=cfg.rdoq, init_type=2)
+    return args, kws, enc._halo_refresh(lay)
+
+
+def _mesh_scan(enc, frames, checks, want):
+    """C13's banded form on the mesh's two frames against its plain
+    version, the level loop with the halo refresh after every level, on
+    the card's kernels (C2, C3: ``want``, _hold_mesh_launches's run) and
+    on the plain bodies: recon, levels, modes and cbfs bit for bit. Times:
+    the banded launch (CUDA events), the loop of kernels and the plain
+    loop (once each, host clock)."""
+    import torch
+    from hevc_hop_torch.models import wavefront_scan as ws
+    args, kws, refresh = _mesh_scan_args(enc, frames)
+    lay, plans = enc._build()[:2]
+    work, halo = enc._banded_work(lay, plans)
+    got = ws.scan_encode(*args, **kws, work=work, halo=halo)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ws.scan_encode_loop(*args, **kws, after_level=refresh)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = ws.scan_encode_loop(*args, **kws, after_level=refresh,
+                                plain=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    for ref, what in ((want, "level loop"), (plain, "plain loop")):
+        for g, w_, nm in zip(got[:4], ref[:4], ("recon y", "recon c",
+                                                "levels y", "levels c")):
+            checks["C13"].add(g, w_, f"C13 banded {nm} against the {what}")
+        for log2 in ref[4]:
+            for g, w_, nm in zip(got[4][log2], ref[4][log2],
+                                 ("modes", "cbf y", "cbf c")):
+                checks["C13"].add(g, w_, f"C13 banded {nm} {1 << log2} "
+                                  f"against the {what}")
+    ev = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        ws.scan_encode(*args, **kws, work=work, halo=halo)
+        b.record()
+        torch.cuda.synchronize()
+        ev.append(a.elapsed_time(b))
+    return {"items": len(work.host_items),
+            "levels": len(work.host_off) - 1, "widest": work.widest,
+            "halo_writes": int((halo >= 0).sum()),
+            "launch": list(ws.LAST_LAUNCH), "banded_ms": float(
+                np.median(ev)), "loop_s": loop_s, "plain_loop_s": plain_s}
 
 
 def phase_mesh_profile(ctx):
@@ -5084,15 +5218,36 @@ def phase_mesh_profile(ctx):
 
 
 def phase_mesh_timing(ctx, checks, launches):
-    """Rows of the mesh path's kernels: C2's RMD and C3's encode (RDOQ arm)
-    at the fullest stacked level of the (2, 2) mesh (every frame and band
-    of the level in one launch), and C2's analysis entry on the two
+    """Rows of the mesh path's kernels: C13's banded form on the two
+    frames (the path's one launch; plain: the plain level loop); C2's RMD
+    and C3's encode (RDOQ arm), whose device code runs in it, at the
+    fullest stacked level of the (2, 2) mesh's level loop (every frame and
+    band of the level in one launch), and C2's analysis entry on the two
     frames at n = 16."""
     import torch
+    from hevc_hop_torch.models import wavefront_scan as ws
     from hevc_hop_torch.ops import intra, tq
     from hevc_hop_torch.parallel import mesh as pmesh
     specs = []
-    plane, pos, avail, modes, n, c_idx, bd, strong, org = ctx["box"]["c2"]
+    enc, bd = ctx["enc"], ctx["banded"]
+    margs, mkws, _ = _mesh_scan_args(enc, ctx["frames"])
+    lay, mplans = enc._build()[:2]
+    work, halo_t = enc._banded_work(lay, mplans)
+    nbm, opsm = scan_work(mplans, enc.cfg.rdoq)
+    specs.append(dict(
+        name="C13 scan (encode, mesh banded form)", counter="C13 encode",
+        path="mesh", kernel="scan_encode_kernel",
+        shape=f"2 frames x 2 bands of {W}x{H} stacked, {bd['items']} "
+              f"blocks in {bd['levels']} levels, one launch, in-loop RMD, "
+              f"RDOQ, {bd['halo_writes']} halo rows written by their "
+              "blocks",
+        source="hevc_hop_torch/csrc/scan.cu",
+        replaces="hevc_hop_tpu/parallel/shard_encode.py:106",
+        fn=lambda: ws.scan_encode(*margs, **mkws, work=work, halo=halo_t),
+        plain=None, held=True, plain_ms=bd["plain_loop_s"] * 1e3,
+        loop_ms=bd["loop_s"] * 1e3, nbytes=nbm, ops=opsm))
+    in_c13 = dict(launched_in="C13 encode", frame_kernel="scan_encode_kernel")
+    plane, pos, avail, modes, n, c_idx, bdep, strong, org = ctx["box"]["c2"]
     c = pos.shape[0]
     specs.append(dict(
         name="C2 intra (RMD, mesh)", counter="C2", path="mesh",
@@ -5100,12 +5255,12 @@ def phase_mesh_timing(ctx, checks, launches):
         shape=f"{c} luma blocks of {n}x{n} of 2 frames x 2 bands, RMD",
         source="hevc_hop_torch/csrc/intra.cu",
         replaces="hevc_hop_tpu/parallel/shard_encode.py:106",
-        fn=lambda: intra.intra_blocks(plane, pos, avail, modes, n, 0, bd,
+        fn=lambda: intra.intra_blocks(plane, pos, avail, modes, n, 0, bdep,
                                       strong, org=org),
         plain=lambda: intra.intra_blocks_plain(plane, pos, avail, modes, n,
-                                               0, bd, strong, org=org),
+                                               0, bdep, strong, org=org),
         nbytes=c * (4 * n * n * 2 + 4 * (4 * n + 1) + 4 * n + 1 + 16),
-        ops=c * rmd_ops(n)))
+        ops=c * rmd_ops(n), **in_c13))
     a = ctx["box"]["c3"]
     bufs = {k: (torch.zeros(a[0].shape, dtype=torch.int32,
                             device=a[0].device),
@@ -5124,7 +5279,7 @@ def phase_mesh_timing(ctx, checks, launches):
         plain=lambda: (tq.tq_encode_plain(*a, *bufs["p"]), *bufs["p"]),
         nbytes=c3n * (a[4] * a[4] * (4 + 4 + 4 + 2) + 16),
         ops=(c3n * (tq_encode_ops(a[4]) - 7 * a[4] * a[4] + ri),
-             c3n * rf)))
+             c3n * rf), **in_c13))
     fr, halo = ctx["aframes"], ctx["halo"]
     nb = fr.shape[0] * (H // ANALYSIS_N) * (W // ANALYSIS_N)
     specs.append(dict(

@@ -55,3 +55,37 @@ enum Mark { kMarkChain, kMarkPredict, kMarkQuant, kMarkSbh, kMarkRecon,
 struct NoMark {
   __device__ __forceinline__ void operator()(int) const {}
 };
+
+// Stage clocks, only in the libraries built with -DHH_STAGE_CLOCK (C13's
+// scan.cu, C14's ss_scan.cu, C9's pre-pass in ss_search.cu): the
+// %globaltimer's nanoseconds (one clock for every SM), the CTA's SM, and
+// a CTA's row of stage slots, to which thread 0 adds the nanoseconds since
+// its last mark (a barrier first). A null row is off.
+#ifdef HH_STAGE_CLOCK
+__device__ __forceinline__ long long clock_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ unsigned clock_sm() {
+  unsigned sm;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+  return sm;
+}
+struct StageClock {
+  long long *row = nullptr;
+  mutable long long last = 0;
+  __device__ void begin(long long *r) {
+    row = threadIdx.x == 0 ? r : nullptr;
+    if (row != nullptr) last = clock_ns();
+  }
+  __device__ void add(int k) const {
+    __syncthreads();
+    if (row != nullptr) {
+      const long long t = clock_ns();
+      row[k] += t - last;
+      last = t;
+    }
+  }
+};
+#endif

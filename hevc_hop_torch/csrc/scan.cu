@@ -5,7 +5,10 @@
 // jax.lax.scan over the levels, :217) and scan_decode (:322), which the
 // port ran as a Python loop launching kernels C2 and C3 once per level and
 // TU size (models/wavefront_scan.py scan_encode_loop, which stays the
-// plain version and the mesh's loop).
+// plain version and the process mesh's loop), and, in its banded form
+// (see scan_encode_kernel), hevc_hop_tpu/parallel/shard_encode.py
+// banded_encode_fn (:106, one shard_map over one lax.scan with a ppermute
+// of the halo rows after every level) on a virtual mesh.
 //
 // The work list (models/wavefront_scan.py work_list) holds each non-empty
 // level's items, packed: (log2, luma row of the block in its size's plan,
@@ -95,40 +98,21 @@ constexpr int kClockCluster = 3 * kMarks, kClockWait = kClockCluster + 1,
 #ifdef HH_STAGE_CLOCK
 __device__ long long *g_clk;
 __device__ int g_clk_ctas;
-__device__ __forceinline__ long long now_ns() {
-  long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-struct Clock {
-  mutable long long last = 0;
-  int level = 0, plane = 0;
-  __device__ long long *slot(int k) const {
-    return g_clk + ((long long)level * g_clk_ctas + blockIdx.x) * kClock + k;
-  }
-  __device__ bool on() const {
-    return threadIdx.x == 0 && g_clk != nullptr &&
-           (int)blockIdx.x < g_clk_ctas;
-  }
-  __device__ void add(int k) const {
-    __syncthreads();
-    if (on()) {
-      const long long t = now_ns();
-      *slot(k) += t - last;
-      last = t;
-    }
-  }
+struct Clock : StageClock {
+  int plane = 0;
   __device__ void operator()(int k) const { add(plane * kMarks + k); }
   __device__ void cluster() const { add(kClockCluster); }
   __device__ void start(int s) {
-    level = s;
-    if (on()) *slot(kClockStart) = last = now_ns();
+    const bool on = g_clk != nullptr && (int)blockIdx.x < g_clk_ctas;
+    begin(on ? g_clk + ((long long)s * g_clk_ctas + blockIdx.x) * kClock
+             : nullptr);
+    if (row != nullptr) row[kClockStart] = last;
   }
   __device__ void synced() const {
-    if (on()) {
-      const long long t = now_ns();
-      *slot(kClockWait) += t - last;
-      *slot(kClockEnd) = t;
+    if (row != nullptr) {
+      const long long t = clock_ns();
+      row[kClockWait] += t - last;
+      row[kClockEnd] = t;
     }
   }
 };
@@ -163,6 +147,7 @@ struct SizeArgs {
 struct ScanArgs {
   const int32_t *items;      // [N, 5]
   const int32_t *level_off;  // [levels + 1]
+  const int32_t *halo;       // [N, 3] or null: see scan_encode_kernel
   int levels;
   IntraPlane y, c;           // recon planes with the originals or residuals
   int16_t *coef_y, *coef_c;  // level planes (encode)
@@ -174,6 +159,25 @@ struct ScanArgs {
 
 __device__ __forceinline__ int chroma_log2(int log2) {
   return log2 == 2 ? 2 : log2 - 1;
+}
+
+// The banded form's halo write (see scan_encode_kernel): where a.halo
+// names a row for plane `plane` (0 luma, 1 cb, 2 cr) of item w, the
+// block's bottom row of recon is copied there, by every thread of the CTA
+// after tq_encode_block's closing barrier.
+__device__ void write_halo(const ScanArgs &a, const int32_t *w, int plane) {
+  if (a.halo == nullptr) return;
+  const int row = a.halo[3 * ((w - a.items) / 5) + plane];
+  if (row < 0) return;
+  const int log2 = w[0];
+  const SizeArgs &z = a.size[log2 - 2];
+  const IntraPlane &p = plane == 0 ? a.y : a.c;
+  const int *at = plane == 0 ? z.pos + 2 * w[1] : z.cpos + 2 * w[2 + plane];
+  const int n = 1 << (plane == 0 ? log2 : chroma_log2(log2));
+  const long long src = (long long)(at[1] + n - 1) * p.stride + at[0];
+  const long long dst = (long long)row * p.stride + at[0];
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    p.plane[dst + i] = p.plane[src + i];
 }
 
 // The chroma block r (a row of cpos) of the item whose chroma row is crow,
@@ -217,12 +221,14 @@ __device__ void encode_task(const ScanArgs &a, const int32_t *w, int plane,
       z.best[row] = mode;
       z.cbf_y[row] = cbf;
     }
+    write_halo(a, w, 0);
     return;
   }
   if (crow < 0) return;
   const int cmode = z.modes_c != nullptr ? z.modes_c[crow] : z.modes_y[row];
   encode_chroma<kRdoq>(a, z, log2, crow, w[2 + plane], cmode, pred, work,
                        clk);
+  write_halo(a, w, plane);
 }
 
 // The RMD item w on its cluster (see the header): the split RMD, the
@@ -282,13 +288,25 @@ __device__ void encode_rmd_item(const ScanArgs &a, const int32_t *w,
       z.best[row] = best;
       z.cbf_y[row] = cbf;
     }
+    write_halo(a, w, 0);
   } else if (crow >= 0 && rank <= 2) {
     clk.plane = rank;
     encode_chroma<kRdoq>(a, z, log2, crow, w[2 + rank], best, pred, work,
                          clk);
+    write_halo(a, w, rank);
   }
 }
 
+// The banded form (the mesh encoder's virtual mesh, K19): the planes hold
+// every (frame, band) cell's slab stacked, and a.halo [N, 3] gives, per
+// item and plane (luma, cb, cr), the row of the next band's slab that
+// holds its halo where the block's bottom row is its band's last, or -1.
+// The CTA that writes that block's recon copies its bottom row there
+// (write_halo), so after every level the halo equals what the level
+// loop's copy of the whole row gives: rows change only where blocks write.
+// A block of the next band reads the halo only at a later level, after
+// the grid sync; samples of it that a block of the same level writes are
+// unavailable to it by the availability masks, whatever they hold.
 template <bool kRdoq>
 __global__ void __launch_bounds__(kThreads) scan_encode_kernel(ScanArgs a) {
   extern __shared__ int32_t sm[];
@@ -449,10 +467,11 @@ HH_EXPORT int hh_scan_clock(void *buf, int ctas) {
 }
 #endif
 
-// Encode entry: every level of one frame. args: the ScanArgs, mirrored by
-// ctypes in models/wavefront_scan.py; y and c hold the recon planes (zero
-// on entry) and the originals; rdoq selects the RDOQ arm; widest: the
-// most items of any level; info [5] receives the launch's shape.
+// Encode entry: every level of one frame (or of a mesh's stacked slabs,
+// with args.halo). args: the ScanArgs, mirrored by ctypes in
+// models/wavefront_scan.py; y and c hold the recon planes (zero on entry)
+// and the originals; rdoq selects the RDOQ arm; widest: the most items of
+// any level; info [5] receives the launch's shape.
 HH_EXPORT int hh_scan_encode(const void *args, int rdoq, int widest,
                              void *stream, int *info) {
   const ScanArgs *a = static_cast<const ScanArgs *>(args);

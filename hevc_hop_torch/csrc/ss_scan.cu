@@ -152,16 +152,10 @@ __device__ int g_clk_ctas;
 __device__ __forceinline__ void stamp(int g, int k) {
   __syncthreads();
   if (threadIdx.x == 0 && g_clk != nullptr && (int)blockIdx.x < g_clk_ctas) {
-    long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
     long long *row =
         g_clk + ((long long)g * g_clk_ctas + blockIdx.x) * kStamps;
-    row[k] = t;
-    if (k == kStampStart) {
-      unsigned sm;
-      asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
-      row[kStampSm] = sm + 1;
-    }
+    row[k] = clock_ns();
+    if (k == kStampStart) row[kStampSm] = clock_sm() + 1;
   }
 }
 #else

@@ -2,8 +2,8 @@
 // and by kernel C14 (ss_scan.cu): the search of one part of a block's
 // displacements by one CTA of a cluster (search_part), the merge of the
 // parts by one CTA (merge_parts), the scan entry's work on one block
-// (search_entry_cluster), and the whole search of one block over one CTA
-// in the float forms alone (search_block, the pre-pass entry's). See
+// (search_entry_cluster), and the reference's ordered float sums
+// (ordered_sums), which the pre-pass entry (ss_search.cu) takes too. See
 // ss_search.cu for what they compute and the float forms they keep.
 //
 // The searched plane is read with L2-coherent loads (__ldcg): a persistent
@@ -66,8 +66,8 @@ __device__ __forceinline__ bool take_least(float &c, int &i, float c2,
 // The reference's float32 corr and ref^2 of one displacement: w0 the
 // window at (dy, dx) (row stride W), o the block's original; F10's
 // sequential sums with seq, F8's blocked ones otherwise (see ss_search.cu).
-template <typename T>
-__device__ void ordered_sums(const T *w0, int W, const T *o, int n, int seq,
+template <typename T, typename U>
+__device__ void ordered_sums(const T *w0, int W, const U *o, int n, int seq,
                              float &corr, float &ref2) {
   corr = 0.0f;
   ref2 = 0.0f;
@@ -75,7 +75,7 @@ __device__ void ordered_sums(const T *w0, int W, const T *o, int n, int seq,
   // so each fmaf is the rounded add)
   for (int ky = 0; seq && ky < n; ++ky) {
     const T *wr = w0 + ky * W;
-    const T *orow = o + ky * n;
+    const U *orow = o + ky * n;
     // n is a multiple of 8: the loads of eight products go out together
 #pragma unroll 8
     for (int kx = 0; kx < n; ++kx) {
@@ -89,7 +89,7 @@ __device__ void ordered_sums(const T *w0, int W, const T *o, int n, int seq,
     float c0 = 0.0f, c1 = 0.0f, q0 = 0.0f, q1 = 0.0f;
     for (int ky = y0; ky < y0 + rows_per_block; ++ky) {
       const T *wr = w0 + ky * W;
-      const T *orow = o + ky * n;
+      const U *orow = o + ky * n;
 #pragma unroll 4
       for (int kx = 0; kx < n; kx += 2) {
         const float w0f = (float)wr[kx], w1f = (float)wr[kx + 1];
@@ -390,66 +390,6 @@ __device__ Best merge_parts(const Search &s, int first, int count,
     }
     best_s = finish_best(s, p, preds, np);
   }
-  __syncthreads();
-  return best_s;
-}
-
-// Shared-memory words of search_block (the pre-pass's): the block
-// original, the reduction, the window, as float
-__host__ __device__ __forceinline__ int search_words(int n, int radius) {
-  const int W = n + 2 * radius;
-  return n * n + 5 * kSearchThreads + W * W;
-}
-
-// The masked full search of the block at (px, py) over one CTA in the
-// float forms alone (the pre-pass entry's). sm holds search_words(n, r)
-// words: of [nn] float, reduction [5 * nt], window [W * W] float. Returns
-// the winner to every thread.
-__device__ Best search_block(const Search &s, int px, int py, int zcur,
-                             const int *preds, int np, float *sm) {
-  const int n = s.n, r = s.radius, nn = n * n, W = n + 2 * r, D = 2 * r + 1;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  float *of = sm;
-  float *red = of + nn;
-  float *win = red + 5 * kSearchThreads;
-  __shared__ float org2_s;
-  __shared__ Part part_s;
-  __shared__ Best best_s;
-  for (int i = tid; i < W * W; i += nt) {
-    const int y = clip3(0, s.h - 1, py - r + i / W);
-    const int x = clip3(0, s.w - 1, px - r + i % W);
-    win[i] = (float)__ldcg(s.src + (long long)y * s.stride + x);
-  }
-  for (int i = tid; i < nn; i += nt)
-    of[i] = (float)s.org[(long long)(py + i / n) * s.stride + px + i % n];
-  __syncthreads();
-  {
-    // the jitted search's order (F11, a thread a lane), or with seq
-    // block_sum's (a thread a row)
-    const auto sq = [&](int i) { return __fmul_rn(of[i], of[i]); };
-    const bool rows = s.seq || n % 8 != 0;
-    if (tid < (rows ? n : 8))
-      red[tid] = rows ? block_row(n, tid, sq) : block_lane(n, tid, sq);
-    __syncthreads();
-    if (tid == 0) org2_s = rows ? fold_rows(n, red) : fold_lanes(red);
-  }
-  __syncthreads();
-  const float org2 = org2_s;
-  float bc = kBig, bs = 0.0f, bc2 = kBig;
-  int bi = D * D, bi2 = D * D;
-  for (int d = tid; d < D * D; d += nt) {
-    const int dy = d / D, dx = d % D;
-    if (!search_valid(s, px, py, dx, dy, zcur)) {
-      if (bi == D * D) bi = d;   // a masked first entry, as argmin sees it
-      continue;
-    }
-    float corr, ref2;
-    ordered_sums(win + dy * W + dx, W, of, n, s.seq, corr, ref2);
-    const float sse = __fsub_rn(__fadd_rn(org2, ref2), __fmul_rn(2.0f, corr));
-    fold_cost(s, px, py, zcur, preds, np, d, sse, bc, bi, bs, bc2, bi2);
-  }
-  reduce_part(bc, bi, bs, bc2, bi2, red, part_s);
-  if (tid == 0) best_s = finish_best(s, part_s, preds, np);
   __syncthreads();
   return best_s;
 }

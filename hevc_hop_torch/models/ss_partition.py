@@ -20,7 +20,7 @@ import torch
 
 from hevc_hop_torch import _cuda
 from hevc_hop_torch.models import partition, ss_scan, wavefront
-from hevc_hop_torch.ops import quant, ss_search
+from hevc_hop_torch.ops import quant, ss_search, transform
 
 PREPASS_LAUNCHES = 0
 # launches of the pre-pass entry with the temporal arm (PSS)
@@ -121,6 +121,91 @@ def _ss_rd_cuda(org_plane, pos, zcur, zmaxw, n, qp, bit_depth, radius, w, h,
     if ref is not None:
         TEMPORAL_PREPASS_LAUNCHES += 1
     return cost
+
+
+# ---------------------------------------------------------------------------
+# An emulation of kernel C9's pre-pass arithmetic, for the tests: the
+# search's integer sums (the correlation as the tensor cores form it) and
+# the 2^24 rule, and the tail's sums.
+# ---------------------------------------------------------------------------
+
+def tail_cost_split(resi: torch.Tensor, n: int, qp: int, bit_depth: int,
+                    log2=torch.log2) -> torch.Tensor:
+    """float32 cost of each residual block resi [B, n, n] as the pre-pass
+    entry's tail forms it: the dead-zone transform round trip, the SSE as
+    an exact integer below 2^24 and else the raster walk of the float
+    squares, the level bits over the nonzero levels only, in raster order
+    from 0.0, then (the rate's overhead, lambda) as
+    models/partition.py ``_tq_cost``. ``log2`` gives the rate terms'
+    log2 (the reference's, F1, in the tests)."""
+    log2n = n.bit_length() - 1
+    coef = transform.fwd_transform(resi, bit_depth, False)
+    lev = quant.quant(coef, qp, log2n, bit_depth, True)
+    rq = transform.inv_transform(quant.dequant(lev, qp, log2n, bit_depth),
+                                 bit_depth, False)
+    err = (resi - rq).flatten(1)
+    se = (err.long() ** 2).sum(1)
+    ef = err.to(torch.float32)
+    dist = torch.where(se < ss_search.EXACT, se.to(torch.float32),
+                       quant.seq_sum(ef * ef))
+    a = torch.abs(lev).to(torch.float32).flatten(1)
+    zero = torch.zeros((), dtype=torch.float32, device=resi.device)
+    terms = torch.where(a > 0, 3.0 + 2.0 * log2(a + 1.0), zero)
+    # the nonzero terms first, in raster order (a stable sort), then zeros
+    order = torch.sort((terms == 0).to(torch.int8), dim=1, stable=True)[1]
+    packed = terms.gather(1, order)
+    bits = torch.zeros(resi.shape[0], dtype=torch.float32,
+                       device=resi.device)
+    for k in range(packed.shape[1]):
+        bits = bits + packed[:, k]
+    ten = torch.full((), 10.0, dtype=torch.float32, device=resi.device)
+    bits = bits + torch.where((lev != 0).flatten(1).any(1), ten, 1.0)
+    lam = partition._f32(partition.full_lambda(qp))
+    return (dist.double() + lam * bits.double()).float()
+
+
+def ss_rd_costs_split(org_plane, pos, zcur, zmaxw, n, qp, bit_depth, radius,
+                      w, h, mi_size, lam, ref=None, radius_t=0,
+                      log2=torch.log2):
+    """:func:`ss_rd_costs` as kernel C9's pre-pass entry forms it: each
+    arm's search by ops/ss_search.py ``search_split_plain`` in one part,
+    corr on the tensor cores (8 bit) or as integer products, ref^2 from
+    box sums, an entry past 2^24 in F8's order; the cheaper arm; then
+    :func:`tail_cost_split` plus the winner's rate. Returns (cost [B], the
+    regions the searches reached, summed over the arms, and each arm's
+    search results (mv, cost, pred, sse), the SS arm's first)."""
+    b = pos.shape[0]
+    preds = static_preds(n, mi_size, b, org_plane.device)
+    mask = ss_search._ss_masks(pos, zcur, zmaxw, None, n, radius, w, h)[0]
+    found, regions = ss_search.search_split_plain(
+        org_plane, org_plane, pos, mask, preds, n, radius, h, lam, False, 1,
+        tensor_cores=True)
+    arms = [found]
+    _, cost, pred, sse = found
+    best = cost
+    if ref is not None:
+        zero = torch.zeros((b, 1, 2), dtype=torch.int32,
+                           device=org_plane.device)
+        tmask = ss_search._targets(pos, n, radius_t, w, h)[2]
+        tfound, treg = ss_search.search_split_plain(
+            ref, org_plane, pos, tmask, zero, n, radius_t, h, lam, False, 1,
+            tensor_cores=True)
+        arms.append(tfound)
+        _, tcost, tpred, tsse = tfound
+        regions = {k: regions[k] + treg[k] for k in regions}
+        use_t = tcost < cost
+        pred = torch.where(use_t[:, None, None], tpred, pred)
+        cost = torch.where(use_t, tcost, cost)
+        sse = torch.where(use_t, tsse, sse)
+        best = torch.minimum(best, tcost)
+    ok = best < 1e37
+    out = torch.full_like(cost, ss_search.BIG)
+    if ok.any():
+        resi = (ss_search.block_at(org_plane, pos[ok], n).to(torch.int32)
+                - pred[ok])
+        out[ok] = tail_cost_split(resi, n, qp, bit_depth, log2) + (
+            cost[ok] - sse[ok])
+    return out, regions, arms
 
 
 @functools.lru_cache(maxsize=16)

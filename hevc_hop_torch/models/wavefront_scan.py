@@ -14,8 +14,11 @@ level loop (:func:`scan_encode_loop`, :func:`scan_decode_loop`), which
 launches, per level and block size, C2 then C3 for luma and C2 then C3 for
 the stacked cb/cr plane (encode), or C2 with its add-residual epilogue for
 each plane (decode); on the CPU it runs the kernels' plain versions. The
-mesh encoder runs the loop on the card too, with its halo refresh after
-every level (``after_level``).
+mesh encoder (parallel/shard_encode.py) runs C13 in its banded form on a
+virtual mesh on the card: every cell's slab stacked into one plane, and a
+halo table that has each block whose bottom row is its band's last write
+that row into the next band's halo as well. The process mesh runs the loop
+with its halo exchange after every level (``after_level``).
 
 :func:`pack_schedule` keeps only the real slots of each level, packed in
 level order, so no launch ever sees a dummy slot: the reference's dummies
@@ -325,17 +328,30 @@ def schedule(depth8: np.ndarray, tu4: np.ndarray, w: int, h: int,
 def scan_encode(org_y, org_c, plans: dict, nsteps: int, qp: int, qp_c: int,
                 bit_depth: int, strong: bool, sbh: bool, modes=None,
                 use_rdoq: bool = False, init_type: int = 2,
-                after_level=None, work: WorkList | None = None):
+                after_level=None, work: WorkList | None = None,
+                halo: torch.Tensor | None = None):
     """Intra encode of every block of a frame: on CUDA tensors one launch
     of kernel C13 over ``work`` (the schedule's :class:`WorkList`, built
     here when not given); with ``after_level``, or on CPU tensors, the
-    level loop :func:`scan_encode_loop`, C13's plain version. Arguments and
+    level loop :func:`scan_encode_loop`, C13's plain version. ``halo``
+    [N, 3] int32 (C13 only, with ``work``): per item of ``work`` and plane
+    (luma, cb, cr) the row of its plane that also receives the block's
+    bottom recon row, or -1 (the mesh's banded form,
+    parallel/shard_encode.py ``halo_table``). Other arguments and the
     results are :func:`scan_encode_loop`'s."""
     if org_y.is_cuda and after_level is None:
+        if halo is not None and (work is None or tuple(halo.shape) != (
+                len(work.host_items), 3)):
+            raise ValueError("scan_encode: halo must be [N, 3] beside the "
+                             "work list it indexes")
         return _scan_encode_c13(
             org_y, org_c, plans,
             work if work is not None else work_list(plans, org_y.device),
-            qp, qp_c, bit_depth, strong, sbh, modes, use_rdoq, init_type)
+            qp, qp_c, bit_depth, strong, sbh, modes, use_rdoq, init_type,
+            halo)
+    if halo is not None:
+        raise ValueError("scan_encode: the halo table is C13's; the level "
+                         "loop refreshes the halo with after_level")
     return scan_encode_loop(org_y, org_c, plans, nsteps, qp, qp_c, bit_depth,
                             strong, sbh, modes, use_rdoq, init_type,
                             after_level)
@@ -509,7 +525,8 @@ class _SizeArgs(ctypes.Structure):
 
 
 class _ScanArgs(ctypes.Structure):
-    _fields_ = [("items", _P), ("level_off", _P), ("levels", _I),
+    _fields_ = [("items", _P), ("level_off", _P), ("halo", _P),
+                ("levels", _I),
                 ("y", _IntraPlane), ("c", _IntraPlane), ("coef_y", _P),
                 ("coef_c", _P), ("coef_y_stride", _I),
                 ("coef_c_stride", _I), ("bit_depth", _I), ("strong", _I),
@@ -602,10 +619,12 @@ def _launch(entry, sig, a, *extra, like):
 
 
 def _scan_encode_c13(org_y, org_c, plans, work, qp, qp_c, bit_depth, strong,
-                     sbh, modes, use_rdoq, init_type):
+                     sbh, modes, use_rdoq, init_type, halo=None):
     global SCAN_ENCODE_LAUNCHES
     _check(org_y, torch.int32, "org_y")
     _check(org_c, torch.int32, "org_c")
+    if halo is not None:
+        _check(halo, torch.int32, "halo")
     dev = org_y.device
     ry = torch.zeros_like(org_y)
     rc = torch.zeros_like(org_c)
@@ -627,6 +646,7 @@ def _scan_encode_c13(org_y, org_c, plans, work, qp, qp_c, bit_depth, strong,
     a = _scan_args(work, plans, _plane(ry, org=org_y),
                    _plane(rc, org=org_c), bit_depth, strong, classes)
     a.coef_y, a.coef_c = coef_y.data_ptr(), coef_c.data_ptr()
+    a.halo = _ptr(halo)
     a.coef_y_stride, a.coef_c_stride = coef_y.stride(0), coef_c.stride(0)
     a.rmd = int(modes is None)
     for log2, p in plans.items():

@@ -332,13 +332,48 @@ def int_sums(win: torch.Tensor, org: torch.Tensor, n: int, d: int):
     return corr, ref2
 
 
+def corr_tensor_cores(win: torch.Tensor, org: torch.Tensor, n: int,
+                      d: int) -> torch.Tensor:
+    """int64 corr [B, d, d] of the windows win [B, n+d-1, n+d-1] against
+    the blocks org [B, n, n] (samples below 256) as kernel C9's pre-pass
+    forms it on the tensor cores (csrc/ss_search.cu ``RdGeom``): a product
+    A . B per block whose rows are (dy, 8 xi) and whose columns are eight
+    shifts j, K the kernel's rows taken as ``span`` bytes each (16 at
+    n = 8, 32 at 16, 64 at 32): A[(dy, xi), (ky, k)] = win[dy + ky][8 xi
+    + k] (zero past the window's width), B[(ky, k), j] = org[ky][k - j]
+    (zero outside the row), so that the product's (dy, xi, j) is
+    corr[dy][8 xi + j]."""
+    b = win.shape[0]
+    span = {8: 16, 16: 32, 32: 64}[n]
+    xs = -(-d // 8)
+    wdt = n + d - 1
+    wp = max(8 * (xs - 1) + span, wdt)
+    w8 = torch.zeros((b, wdt, wp), dtype=torch.int64, device=win.device)
+    w8[:, :, :wdt] = win.long()
+    g = torch.arange(n * span, device=win.device)
+    ky, kk = g // span, g % span
+    dy = torch.arange(d, device=win.device)
+    xi = torch.arange(xs, device=win.device)
+    a = w8[:, dy[:, None, None] + ky[None, None, :],
+           8 * xi[None, :, None] + kk[None, None, :]]
+    col = kk[:, None] - torch.arange(8, device=win.device)[None, :]
+    bm = torch.where((col >= 0) & (col < n),
+                     org.long()[:, ky[:, None], col.clamp(0, n - 1)],
+                     torch.zeros((), dtype=torch.int64, device=win.device))
+    prod = torch.einsum("bdxk,bkj->bdxj", a, bm)
+    return prod.reshape(b, d, 8 * xs)[:, :, :d]
+
+
 def search_split_plain(plane, org_plane, pos, mask, preds, n, radius, h,
-                       lam, seq, parts, mask2=None):
+                       lam, seq, parts, mask2=None, tensor_cores=False):
     """Kernel C9's scan-entry arithmetic on the CPU: the masked full search
     of :func:`_full_search` with its sums formed as the kernel forms them
     (:func:`int_sums`; an entry whose corr and ref^2 are below 2^24 takes
     them as float32, another the reference's ordered float sums, F8's or
-    with ``seq`` F10's), and its (2r+1)^2 displacements split into
+    with ``seq`` F10's; with ``tensor_cores`` corr as the pre-pass forms
+    it, :func:`corr_tensor_cores`, where every sample of the block's
+    window and original is below 256), and its (2r+1)^2 displacements
+    split into
     ``parts`` contiguous row-major parts, each part's least cost (first
     index among equals; a masked entry counts as 3e38) merged in part
     order. With mask2 [B, D, D] (the GT windows' causality) also the
@@ -355,6 +390,11 @@ def search_split_plain(plane, org_plane, pos, mask, preds, n, radius, h,
     win = _search_window(plane, pos, n, radius, h)
     org = block_at(org_plane, pos, n)
     corr, ref2 = int_sums(win, org, n, d)
+    if tensor_cores:
+        narrow = ((win.flatten(1).amax(1) < 256)
+                  & (org.flatten(1).amax(1) < 256))
+        if narrow.any():
+            corr[narrow] = corr_tensor_cores(win[narrow], org[narrow], n, d)
     exact = (corr < EXACT) & (ref2 < EXACT)
     fc, fr = corr.float(), ref2.float()
     rows = (~exact).flatten(1).any(1)

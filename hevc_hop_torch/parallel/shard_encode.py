@@ -20,11 +20,17 @@ Every cell holds a slab of its band: luma row 0 the halo, rows 1..hb the
 band, rows hb+1..hb+33 scratch (intra's bottom-left reads stay inside the
 slab; the availability masks make them unavailable), and the chroma slab
 cb and cr stacked with cr at ``hcoff = hb/2 + 2 + 16``. In a virtual mesh
-every cell's slab is stacked into one plane, so each (level, size, plane)
-is one launch of kernels C2 and C3 over every frame and band, and the halo
-refresh is one indexed copy on the device. In a process mesh each rank
-holds its own slab and sends its band's last rows to the band below with
-``torch.distributed`` point-to-point operations after every level.
+every cell's slab is stacked into one plane. On the card the whole encode
+is then one launch of kernel C13 in its banded form
+(models/wavefront_scan.py ``scan_encode`` with :func:`halo_table`): the
+block whose bottom row is its band's last row also writes that row into
+the next band's halo, so no copy runs between levels. Its plain version is
+the level loop: per (level, size, plane) one launch of kernels C2 and C3
+over every frame and band, then the halo refresh, one indexed copy (on
+CPU tensors). In a process mesh each rank holds its
+own slab, runs the level loop and sends its band's last rows to the band
+below with ``torch.distributed`` point-to-point operations after every
+level.
 
 After the loop each cell packs its band's recon, levels and dense mode and
 cbf maps into one int32 row; the frame's band-0 cell gathers them, deblocks
@@ -196,6 +202,41 @@ def pack_banded(sizes, data, lay: Layout, device) -> tuple:
     return plans, maps
 
 
+def halo_table(work, plans: dict, lay: Layout, nbands: int) -> np.ndarray:
+    """[N, 3] int32: per item of ``work`` (models/wavefront_scan.py
+    ``work_list`` of :func:`pack_banded`'s plans for the cells of ``lay``)
+    and plane (luma, cb, cr), the row of the stacked plane that holds the
+    next band's halo where the block's bottom row is its band's last (luma
+    row hb of the slab, chroma rows hcb and hcoff + hcb of the cslab), else
+    -1: the next band's row 0 (luma, cb) or hcoff (cr). The last band of a
+    frame has none, and no row crosses into another frame."""
+    items = work.host_items
+    out = np.full((len(items), 3), -1, np.int32)
+    at = {c: i for i, c in enumerate(lay.cells)}
+    nxt = np.array([at.get((f, r + 1), -1) if r + 1 < nbands else -1
+                    for f, r in lay.cells], np.int64)
+    for log2, p in plans.items():
+        sel = np.nonzero(items[:, 0] == log2)[0]
+        if not len(sel):
+            continue
+        y = p.vpos[items[sel, 1], 1].astype(np.int64)
+        cell = y // lay.slab
+        dst = nxt[cell]
+        out[sel, 0] = np.where(
+            (y - cell * lay.slab + p.n - 1 == lay.hb) & (dst >= 0),
+            dst * lay.slab, -1)
+        nc = 4 if log2 == 2 else p.n // 2
+        cy = p.cpos.cpu().numpy()[:, 1].astype(np.int64)
+        for k, base in ((1, 0), (2, lay.hcoff)):
+            r = items[sel, 2 + k]
+            has = r >= 0
+            yl = np.where(has, cy[np.maximum(r, 0)], 0) - cell * lay.cslab
+            out[sel, k] = np.where(
+                has & (yl + nc - 1 == base + lay.hcb) & (dst >= 0),
+                dst * lay.cslab + base, -1)
+    return out
+
+
 class MeshIntraEncoder:
     """Frame x row-band mesh encoder producing the SAME streams as the
     single-device IntraEncoder in its uniform-CU, in-loop-RMD
@@ -230,6 +271,7 @@ class MeshIntraEncoder:
         self.mesh = mesh
         self.single = IntraEncoder(cfg, mesh.device)   # headers
         self._built = None
+        self._banded = None
         self.last_recons = []
         self.last_halo_rows = {}
 
@@ -250,6 +292,15 @@ class MeshIntraEncoder:
         plans, maps = pack_banded(sizes, data, lay, self.mesh.device)
         self._built = (lay, plans, maps, nsteps, depth8)
         return self._built
+
+    def _banded_work(self, lay: Layout, plans: dict) -> tuple:
+        """(work list, halo table on the device) of C13's banded form."""
+        if self._banded is None:
+            dev = self.mesh.device
+            work = wavefront_scan.work_list(plans, dev)
+            halo = halo_table(work, plans, lay, self.nbands)
+            self._banded = (work, torch.as_tensor(halo, device=dev))
+        return self._banded
 
     def _halo_refresh(self, lay: Layout):
         """The per-level refresh: band r's rows hb (luma), hcb and hcoff +
@@ -299,6 +350,23 @@ class MeshIntraEncoder:
                 rc[lay.hcoff] = recv[w + w // 2:]
                 counted[(f, r)] += 1
         return exchange
+
+    def slabs(self, frames: list, lay: Layout) -> tuple:
+        """(org_y, org_c) int32 on the mesh's device: the cells' luma
+        slabs and stacked chroma slabs of ``lay``, one over another (halo
+        and scratch rows zero)."""
+        hb, hcb, w = lay.hb, lay.hcb, lay.w
+        org_y = np.zeros((len(lay.cells), lay.slab, w), np.int32)
+        org_c = np.zeros((len(lay.cells), lay.cslab, w // 2), np.int32)
+        for i, (f, r) in enumerate(lay.cells):
+            y, cb, cr = frames[f]
+            org_y[i, 1:hb + 1] = y[r * hb:(r + 1) * hb]
+            org_c[i, 1:hcb + 1] = cb[r * hcb:(r + 1) * hcb]
+            org_c[i, lay.hcoff + 1:lay.hcoff + hcb + 1] = cr[
+                r * hcb:(r + 1) * hcb]
+        up = lambda a: torch.as_tensor(a.reshape(-1, a.shape[-1])).to(
+            self.mesh.device)
+        return up(org_y), up(org_c)
 
     def _payload(self, lay, plans, maps, ry, rc, coef_y, coef_c, outs):
         """[C, L] int32: per cell its band's recon (y, cb, cr), levels (y,
@@ -394,6 +462,8 @@ class MeshIntraEncoder:
         """frames: list of (y, cb, cr) numpy, one per frame of the mesh.
         Returns the AnnexB streams (bit-identical to IntraEncoder in the
         same uniform-CU configuration), on every rank of a process mesh.
+        A virtual mesh on the card codes the frames in one launch of C13's
+        banded form.
         ``last_recons`` holds each frame's (y, cb, cr) recon on the device
         where this process coded it (None for the frames of other ranks);
         ``last_halo_rows`` the halo rows each cell of this process
@@ -403,24 +473,19 @@ class MeshIntraEncoder:
             raise ValueError(f"{len(frames)} frames for a mesh of "
                              f"{self.nframes}")
         lay, plans, maps, nsteps, depth8 = self._build()
-        hb, hcb, w = lay.hb, lay.hcb, lay.w
-        org_y = np.zeros((len(lay.cells), lay.slab, w), np.int32)
-        org_c = np.zeros((len(lay.cells), lay.cslab, w // 2), np.int32)
-        for i, (f, r) in enumerate(lay.cells):
-            y, cb, cr = frames[f]
-            org_y[i, 1:hb + 1] = y[r * hb:(r + 1) * hb]
-            org_c[i, 1:hcb + 1] = cb[r * hcb:(r + 1) * hcb]
-            org_c[i, lay.hcoff + 1:lay.hcoff + hcb + 1] = cr[
-                r * hcb:(r + 1) * hcb]
+        org_y, org_c = self.slabs(frames, lay)
         dev = self.mesh.device
-        up = lambda a: torch.as_tensor(a.reshape(-1, a.shape[-1])).to(dev)
         self.last_halo_rows = {c: 0 for c in lay.cells}
         qp_c = rom.chroma_qp_from_luma(cfg.qp)
+        if self.mesh.virtual and dev.type == "cuda":
+            work, halo = self._banded_work(lay, plans)
+            how = dict(work=work, halo=halo)
+        else:
+            how = dict(after_level=self._halo_refresh(lay))
         ry, rc, coef_y, coef_c, outs = wavefront_scan.scan_encode(
-            up(org_y), up(org_c), plans, nsteps, cfg.qp, qp_c,
+            org_y, org_c, plans, nsteps, cfg.qp, qp_c,
             cfg.bit_depth, cfg.strong_intra_smoothing, cfg.sbh, None,
-            use_rdoq=cfg.rdoq, init_type=int(SliceType.I),
-            after_level=self._halo_refresh(lay))
+            use_rdoq=cfg.rdoq, init_type=int(SliceType.I), **how)
         if self.mesh.virtual:
             for f, r in lay.cells:
                 self.last_halo_rows[(f, r)] = nsteps if r else 0

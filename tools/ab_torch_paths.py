@@ -2,7 +2,7 @@
 """Compare the end-to-end times of two trees of hevc_hop_torch on one card.
 
     python3 tools/ab_torch_paths.py PARENT_TREE CHANGED_TREE \
-        [uniform|quadtree|production]
+        [uniform|quadtree|production|mesh]
 
 Each tree is a checkout of the repository (the parent unpacked with
 ``git archive`` beside the working tree). The host sets most of a frame's
@@ -18,6 +18,18 @@ the tree's chip_smoke.py has them). The last line holds, per tree, the
 median over its four processes. ``uniform`` is cu_log2=4 with RDOQ off (a
 path both trees of any pair have); ``quadtree`` is the RD pre-pass with SAO
 and RDOQ off; ``production`` is bench.py's configuration (SAO and RDOQ on).
+
+``mesh`` is chip_smoke's mesh-intra-1080p cell (``MESH_CONFIG`` on a
+virtual ``MESH_SHAPE`` mesh over ``synth_class_b`` seeds ``MESH_SEEDS``):
+each process checks the mesh's streams against the single-device
+encoder's, then times 10 ``encode_frames`` calls (``encode_s``, per
+frame) beside the single-device encoder on the same frames in the same
+turns (``single_s``), times one more call's stages on the host, each
+between two synchronizes (``host_ms``: ``scan_encode``, which is the
+level loop on a tree that still runs it and C13 on one that does not,
+the payload, the gather, each frame's stream), and traces one more call
+under torch.profiler after a warm-up trace (``busy_ms``, ``idle_share``
+and every device record's ms and count by name).
 """
 from __future__ import annotations
 
@@ -35,6 +47,96 @@ PATHS = {"uniform": dict(cu_log2=4, rdoq=False),
 TIMED = 10
 
 
+def profile(fn):
+    """Wall ms, busy ms, idle share and {record name: [ms, count]} of fn()
+    on the card, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as prof_
+    torch.cuda.synchronize()
+    with prof_(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    per, busy = {}, 0.0
+    for e in prof.key_averages():
+        if "CUDA" not in str(getattr(e, "device_type", "CUDA")):
+            continue
+        dt = getattr(e, "self_device_time_total", None)
+        if dt is None:
+            dt = getattr(e, "self_cuda_time_total", 0.0)
+        if dt:
+            busy += dt / 1e3
+            per[e.key[:90]] = [dt / 1e3, e.count]
+    return {"wall_ms": wall, "busy_ms": busy,
+            "idle_share": 1 - busy / wall if busy else None,
+            "records": dict(sorted(per.items(), key=lambda kv: -kv[1][0]))}
+
+
+def mesh_process() -> dict:
+    """The mesh cell's times on this process's tree (see the header)."""
+    import torch
+    import chip_smoke as cs
+    from hevc_hop_torch.models import wavefront_scan as ws
+    from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+    from hevc_hop_torch.parallel import shard_encode
+    cfg = EncoderConfig(width=cs.W, height=cs.H, **cs.MESH_CONFIG)
+    frames = [cs.synth_class_b(cs.W, cs.H, seed=s) for s in cs.MESH_SEEDS]
+    enc = shard_encode.MeshIntraEncoder(cfg, shard_encode.make_mesh(
+        cs.MESH_SHAPE[0] * cs.MESH_SHAPE[1], band_par=cs.MESH_SHAPE[1]))
+    single = IntraEncoder(cfg)
+    want = enc.encode_frames(frames)
+    if [single.encode_frame(*f) for f in frames] != want:
+        raise SystemExit("the mesh's streams differ from the single-device "
+                         "encoder's")
+    mesh_s, single_s = [], []
+    for _ in range(TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = enc.encode_frames(frames)
+        torch.cuda.synchronize()
+        mesh_s.append((time.perf_counter() - t0) / len(frames))
+        if out != want:
+            raise SystemExit("a later mesh encode differs")
+        t0 = time.perf_counter()
+        for f in frames:
+            single.encode_frame(*f)
+        torch.cuda.synchronize()
+        single_s.append((time.perf_counter() - t0) / len(frames))
+    host = {}
+
+    def timed(name, fn):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            host[name] = host.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+            return out
+        return call
+
+    saved = ws.scan_encode
+    ws.scan_encode = timed("scan_encode", saved)
+    stages = ("_payload", "_gather", "_frame_stream")
+    for k in stages:
+        setattr(enc, k, timed(k, getattr(enc, k)))
+    try:
+        timed("total", enc.encode_frames)(frames)
+    finally:
+        ws.scan_encode = saved
+        for k in stages:
+            delattr(enc, k)
+    profile(lambda: enc.encode_frames(frames))
+    prof = profile(lambda: enc.encode_frames(frames))
+    return {"encode_s": float(np.median(mesh_s)),
+            "single_s": float(np.median(single_s)),
+            "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+            "host_ms": host, "c13_launch": ws.LAST_LAUNCH,
+            "encode_all": mesh_s, "single_all": single_s,
+            "records": prof["records"]}
+
+
 def one_process(tree: str, path: str) -> None:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -47,6 +149,11 @@ def one_process(tree: str, path: str) -> None:
     from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
     _cuda.build_all()
     native.get_lib()
+    if path == "mesh":
+        print(json.dumps({"tree": tree, "path": path,
+                          "card": torch.cuda.get_device_name(0),
+                          **mesh_process()}), flush=True)
+        return
     frame = chip_smoke.synth_class_b(1920, 1088, seed=0)
     enc = IntraEncoder(EncoderConfig(width=1920, height=1088, qp=32,
                                      **PATHS[path]))
@@ -108,9 +215,9 @@ def main() -> int:
         print(line, flush=True)
         runs[tree].append(json.loads(line))
     med = lambda rs, k: float(np.median([r[k] for r in rs]))
-    print(json.dumps({name: {k: med(runs[tree], k)
-                             for k in ("encode_s", "decode_s", "entropy_s",
-                                       "scan_s")}
+    keys = (("encode_s", "single_s", "busy_ms") if path == "mesh" else
+            ("encode_s", "decode_s", "entropy_s", "scan_s"))
+    print(json.dumps({name: {k: med(runs[tree], k) for k in keys}
                       for name, tree in (("parent", parent),
                                          ("change", change))}))
     return 0

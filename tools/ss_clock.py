@@ -1,7 +1,9 @@
-"""Kernel C14's device times and stage split on one tree, and kernels C10's
-and C12's entries, on the card.
+"""Kernel C14's device times and stage split on one tree, kernels C10's
+and C12's entries, and kernel C9's pre-pass entry, on the card.
 
-    python3 tools/ss_clock.py <tree> [out.json]
+    python3 tools/ss_clock.py <tree> [out.json] [c14] [prepass]
+
+(both parts where none is named)
 
 imports <tree>'s chip_smoke and hevc_hop_torch (a checkout, or one
 unpacked with git archive) and builds its kernels. On chip_smoke's iss,
@@ -17,10 +19,26 @@ its longest C10 chain and its longest C12 anchor, summed. Then C10's
 arms entry and C12's search and decide entries on the inputs the level
 loop gives them at the fullest level (iss-gt-warped 16x16; pss-gt's
 last PSS picture), timed with CUDA events (median of 21) and held against
-their plain bodies on the card. Prints the card's name and power limit,
-and the results as one JSON object on its last line (also written to
-out.json where given). Run two trees in turns in one call to compare
-them.
+their plain bodies on the card.
+
+``prepass``: C9's pre-pass entry at the three sizes (8, 16, 32) on two
+pictures at 1920x1088, QP 32, radius 32, MI 16: ``iss``, chip_smoke's
+``lenslet_frame`` luma with the SS arm alone, and ``pss``, the second
+picture of chip_smoke's ``pss_frames`` with the temporal arm (radius 16)
+over the first picture's recon as the pss-gt configuration codes it. Per
+(picture, size): the launch's CUDA-event ms (median of 7), the costs not
+bit-equal to the plain body's on the card, a grouped ``conv2d`` of the
+same blocks' correlations alone (float32, windows cut out beforehand;
+``conv_ms``) and, where the tree's ``csrc/ss_search.cu`` has the
+pre-pass's stage clocks (``hh_ss_rd_clock`` in the -DHH_STAGE_CLOCK
+build), one clocked launch: per stage (staging, org^2, the SS search, the
+temporal search, the transform round trip, the tail) the CTAs' summed
+nanoseconds and that share of the launch's ms; the clocked costs must
+equal the production build's.
+
+Prints the card's name and power limit, and the results as one JSON
+object on its last line (also written to out.json where given). Run two
+trees in turns in one call to compare them.
 """
 import ctypes
 import json
@@ -30,7 +48,10 @@ import sys
 import time
 
 tree = os.path.abspath(sys.argv[1])
-OUT = os.path.abspath(sys.argv[2]) if len(sys.argv) > 2 else None
+OUT = next((os.path.abspath(a) for a in sys.argv[2:] if a.endswith(".json")),
+           None)
+PARTS = [a for a in sys.argv[2:] if a in ("c14", "prepass")] or ["c14",
+                                                                 "prepass"]
 sys.path.insert(0, tree)
 os.chdir(tree)
 import numpy as np  # noqa: E402
@@ -38,12 +59,18 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from hevc_hop_torch import _cuda  # noqa: E402
-from hevc_hop_torch.models import ss_scan  # noqa: E402
+from hevc_hop_torch.models import partition, ss_partition  # noqa: E402
+from hevc_hop_torch.models import ss_scan, wavefront  # noqa: E402
 from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder  # noqa
 from hevc_hop_torch.ops import gt, inter_arms as ia  # noqa: E402
 
 PATHS = ("iss", "iss-uniform", "iss-gt", "iss-gt-warped")
 ENTRY_REPS = 21
+# the pre-pass's stage-clock slots (ss_search.cu RdStage): the stages, then
+# the CTA's whole time and its SM + 1
+RD_STAGES = ("staging", "org2", "ss_search", "temporal_search", "transform",
+             "tail")
+RD_SLOTS = 8
 
 
 def events_ms(fn, reps=5, setup=None):
@@ -211,16 +238,98 @@ def split(so, fn, want, groups):
     return rec
 
 
-def main():
-    t0 = time.perf_counter()
-    _cuda.build_all()
+def conv_ms(plane, y, pos, n, radius):
+    """Device ms of a grouped conv2d of every block's window of plane
+    against its n x n original of y (float32), the windows cut out
+    beforehand."""
+    ar = torch.arange(n + 2 * radius, device=y.device)
+    ry = (pos[:, 1, None].long() - radius + ar).clamp(0, cs.H - 1)
+    rx = (pos[:, 0, None].long() - radius + ar).clamp(0, cs.W - 1)
+    win = plane[ry[:, :, None], rx[:, None, :]].float()[None]
+    ak = torch.arange(n, device=y.device)
+    org = y[pos[:, 1, None, None].long() + ak[:, None],
+            pos[:, 0, None, None].long() + ak[None]].float()[:, None]
+    return events_ms(lambda: torch.nn.functional.conv2d(
+        win, org, groups=pos.shape[0]), reps=7)[0]
+
+
+def rd_split(so, args, want, ms, blocks):
+    """One launch of the pre-pass's clock build: the stages' summed CTA
+    ns, each stage's share of the launch's ms, and where the CTAs ran."""
+    clock = so.hh_ss_rd_clock
+    clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    ctas = blocks * (2 if len(args) > 12 else 1)
+    buf = torch.zeros((ctas, RD_SLOTS), dtype=torch.int64, device="cuda")
+    with cs._ClockLibrary(so, "ss_search"):
+        torch.cuda.synchronize()
+        _cuda.check("ss_search", clock(buf.data_ptr(), ctas))
+        got = ss_partition.ss_rd_costs(*args)
+        torch.cuda.synchronize()
+        _cuda.check("ss_search", clock(None, 0))
+    sums = buf[:, :len(RD_STAGES)].sum(0).double().cpu().numpy()
+    whole = float(sums.sum())
+    ran = buf[:, 7] > 0
+    return {"clock_build_equal": bool(torch.equal(got, want)),
+            "split": {k: {"cta_ns": float(v), "share": float(v / whole),
+                          "ms": float(ms * v / whole)}
+                      for k, v in zip(RD_STAGES, sums)},
+            "ctas": int(ran.sum()),
+            "cta_us_mean": float(buf[ran, 6].double().mean().item() / 1e3),
+            "sms": int(torch.unique(buf[ran, 7]).numel())}
+
+
+def prepass():
+    """The pre-pass part (see the header): {picture: {n: row}}."""
+    so = _cuda.variant("ss_search", "clock", cs.CLOCK_FLAGS)
+    has_clock = hasattr(so, "hh_ss_rd_clock")
+    dev = torch.device("cuda")
+    frames = cs.pss_frames(cs.W, cs.H, 2)
+    enc = HoloEncoder(HoloConfig(width=cs.W, height=cs.H,
+                                 **cs.ISS_PATHS["pss-gt"][0]))
+    enc.encode_frame(*frames[0])
+    ref = torch.as_tensor(np.ascontiguousarray(enc.recon_yuv[0], np.int32),
+                          device=dev)
+    pics = {"iss": (torch.as_tensor(cs.lenslet_frame(cs.W, cs.H, mi=16)[0],
+                                    device=dev), None),
+            "pss": (torch.as_tensor(frames[1][0], device=dev), ref)}
+    lam = partition.full_lambda(cs.QP)
+    zplane4 = wavefront.zaddr4_plane(cs.W, cs.H, 5)
+    t = lambda a: torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                  device=dev)
+    res = {"clock": has_clock}
+    for name, (y, r) in pics.items():
+        rec = {}
+        for n in (8, 16, 32):
+            ys, xs = np.mgrid[0:cs.H:n, 0:cs.W:n]
+            ys, xs = ys.ravel(), xs.ravel()
+            pos = t(np.stack([xs, ys], -1))
+            args = (y, pos, t(zplane4[ys >> 2, xs >> 2]),
+                    t(ss_scan.zmax_win_px(zplane4, n)), n, cs.QP, 8, 32,
+                    cs.W, cs.H, 16, lam) + ((r, 16) if r is not None else ())
+            want = ss_partition.ss_rd_costs(*args)
+            ms, every = events_ms(lambda: ss_partition.ss_rd_costs(*args),
+                                  reps=7)
+            plain = ss_partition.ss_rd_costs_plain(*args)
+            row = {"blocks": len(xs), "ms": ms, "all": every,
+                   "not_bit_equal": int((want != plain).sum()),
+                   "max_rel_err": float(((want.double() - plain.double())
+                                         .abs() / plain.double().abs())
+                                        .max()),
+                   "conv_ms": conv_ms(y, y, pos, n, 32)}
+            if r is not None:
+                row["conv_ms"] += conv_ms(r, y, pos, n, 16)
+            if has_clock:
+                row.update(rd_split(so, args, want, ms, len(xs)))
+            rec[n] = row
+            print(name, n, json.dumps(row), flush=True)
+        rec["picture_ms"] = sum(rec[n]["ms"] for n in (8, 16, 32))
+        res[name] = rec
+    return res
+
+
+def c14(res):
+    """The C14 part (see the header), into res by path."""
     so = _cuda.variant("ss_scan", "clock", cs.CLOCK_FLAGS)
-    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(smi, flush=True)
-    res = {"card": smi, "tree": tree}
     for name in PATHS:
         extra, _, _, content = cs.ISS_PATHS[name]
         frame, _ = cs.path_frame(content)
@@ -264,6 +373,21 @@ def main():
     rec.update(split(so, fn, want, len(work.host_groups)))
     print("pss-gt", json.dumps(rec), flush=True)
     res["pss-gt"] = rec
+
+
+def main():
+    t0 = time.perf_counter()
+    _cuda.build_all()
+    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    print(smi, flush=True)
+    res = {"card": smi, "tree": tree}
+    if "prepass" in PARTS:
+        res["prepass"] = prepass()
+    if "c14" in PARTS:
+        c14(res)
     if OUT is not None:
         with open(OUT, "w") as f:
             json.dump(res, f)

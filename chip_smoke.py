@@ -440,10 +440,103 @@ def phase_kernels(checks):
             got = hashes.plane_checksums(planes, bd)
             want = [hashes._checksum_plain(p, bd) for p in planes]
             c1.add(got, want, f"C1 {w}x{h} bd={bd}")
+    # C3's decode entry over a whole synthetic picture: every TU size, all
+    # three planes, all-zero TUs and levels at the int16 extremes
+    for bd, dst in ((8, True), (10, False)):
+        planes, classes = synth_residual_picture(rng, W, H, bd, dst, dev)
+        kern = [(c, torch.full_like(o, 777), qp, d)
+                for c, o, qp, d in planes]
+        tq.tq_decode_picture(kern, classes, bd)
+        tq.tq_decode_picture_plain(planes, classes, bd)
+        for (_, k, _, _), (_, p, _, _), nm in zip(kern, planes,
+                                                  ("y", "cb", "cr")):
+            c3.add(k, p, f"C3 decode, a synthetic {W}x{H} picture, "
+                   f"{bd} bit, {nm}")
     torch.cuda.synchronize()
     log("kernels: " + ", ".join(
         f"{k} {checks[k].cases} cases {checks[k].mism} mismatches"
         for k in ("C1", "C2", "C3", "C4")))
+
+
+def synth_residual_picture(rng, w, h, bit_depth, dst, dev):
+    """A picture's levels for C3's decode entry: each 32x32 area of the
+    luma split at random into TUs of 4x4 to 32x32 (the chroma one size
+    down, an NxN CU's chroma one 4x4 TU), each TU all zero, a
+    low-frequency corner, sparse noise or a mix of the int16 extremes.
+    Returns (planes of tq_decode_picture with zeroed outputs, classes)."""
+    import torch
+    from hevc_hop_torch.common import rom
+    tus = []
+
+    def split(x, y, lg):
+        if lg > 2 and rng.random() < (0.3 if lg == 5 else 0.5):
+            s = 1 << (lg - 1)
+            for dy in (0, s):
+                for dx in (0, s):
+                    split(x + dx, y + dy, lg - 1)
+        else:
+            tus.append((x, y, lg))
+    for y in range(0, h, 32):
+        for x in range(0, w, 32):
+            split(x, y, 5)
+    ctus = [(x // 2, y // 2, lg - 1) for x, y, lg in tus if lg > 2]
+    ctus += sorted({(x // 8 * 4, y // 8 * 4, 2) for x, y, lg in tus
+                    if lg == 2})
+
+    def levels(ph, pw, ts):
+        lev = np.zeros((ph, pw), np.int16)
+        for x, y, lg in ts:
+            n = 1 << lg
+            kind = rng.integers(0, 4)
+            if kind == 1:
+                k = rng.integers(1, n + 1)
+                lev[y:y + k, x:x + k] = rng.integers(-40, 41, (k, k))
+            elif kind == 2:
+                lev[y:y + n, x:x + n] = rng.choice([-32768, 32767, 0, 1],
+                                                   (n, n))
+            elif kind == 3:
+                lev[y:y + n, x:x + n] = rng.integers(-300, 301, (n, n)) * (
+                    rng.random((n, n)) < 0.2)
+        return torch.as_tensor(lev).to(dev)
+    qp = int(rng.integers(0, 52))
+    qpc = int(rom.chroma_qp_from_luma(qp))
+    zeros = lambda ph, pw: torch.zeros((ph, pw), dtype=torch.int32,
+                                       device=dev)
+    planes = [(levels(h, w, tus), zeros(h, w), qp, dst)] + [
+        (levels(h // 2, w // 2, ctus), zeros(h // 2, w // 2), qpc, False)
+        for _ in range(2)]
+    by = lambda ts, lg: torch.as_tensor(
+        np.array([(x, y) for x, y, g in ts if g == lg], np.int32).reshape(
+            -1, 2), device=dev)
+    classes = [(0, lg, by(tus, lg)) for lg in (2, 3, 4, 5)] + [
+        (c, lg, by(ctus, lg)) for c in (1, 2) for lg in (2, 3, 4)]
+    return planes, classes
+
+
+@contextlib.contextmanager
+def holding_residual(check, what):
+    """While it is entered, every picture's one-launch residual (C3's
+    decode entry, as the decoder launches it on the parsed level planes)
+    is held against tq_decode_picture_plain on the same planes and
+    classes. Yields the list of pictures held."""
+    import torch
+    from hevc_hop_torch.models import decoder as dmod
+    from hevc_hop_torch.ops import tq
+    real, held = dmod.tq_decode_picture, []
+
+    def hold(planes, classes, bit_depth):
+        real(planes, classes, bit_depth)
+        plain = [(c, torch.zeros_like(o), qp, d) for c, o, qp, d in planes]
+        tq.tq_decode_picture_plain(plain, classes, bit_depth)
+        for (_, o, _, _), (_, p, _, _), nm in zip(planes, plain,
+                                                  ("y", "cb", "cr")):
+            check.add(o, p, f"C3 decode, {what}, picture {len(held)}, {nm}")
+        held.append(len(classes))
+    dmod.tq_decode_picture = hold
+    try:
+        yield held
+    finally:
+        dmod.tq_decode_picture = real
 
 
 def rdoq_coefs(rng, b, n):
@@ -813,7 +906,7 @@ def _roundtrip(enc, frame, what):
     return stream, t1 - t0, t2 - t1
 
 
-def phase_main_path(name):
+def phase_main_path(name, checks):
     import torch
     from hevc_hop_torch.models import wavefront_scan
     from hevc_hop_torch.models.decoder import Decoder
@@ -824,13 +917,17 @@ def phase_main_path(name):
     counters = _counters()
     for _, m, attr in counters:
         setattr(m, attr, 0)
-    stream, e_s, d_s = _roundtrip(enc, frame, name)
+    with holding_residual(checks["C3"], f"the {name} path") as held:
+        stream, e_s, d_s = _roundtrip(enc, frame, name)
     launches = {k: getattr(m, attr) for k, m, attr in counters}
     log(f"{name} path launches: {launches}")
     require(all(launches[k] > 0 for k in needed),
             f"a kernel was not launched on the {name} path: {launches}")
     require(launches["C13 encode"] == 1 and launches["C13 decode"] == 1,
             f"the {name} frame did not launch C13 once each way: {launches}")
+    require(launches["C3 decode"] == 1 and len(held) == 1,
+            f"the {name} frame's residual was not one C3 decode launch, "
+            f"held: {launches}, {held}")
     require(all(launches[k] == 0 for k in LOOP_KERNELS),
             f"the {name} path launched the level loop's kernels: "
             f"{launches}")
@@ -1714,6 +1811,39 @@ PRODUCTION_FORMS = {(f.replace("C3 encode", "C3 encode (RDOQ)"), n)
                     for f, n in QUADTREE_FORMS}
 
 
+def residual_picture_case(sc, maps):
+    """The inputs of C3's decode entry over an 8-bit I frame at QP, as the
+    decoder builds them from its parsed maps and the schedule sc: (planes
+    of tq_decode_picture for "kernel" and "plain", each with outputs of
+    its own, those outputs, classes, TUs, operations). The operations are
+    what these levels need: each TU's dequantiser, and the inverse
+    transform of each TU that holds a level."""
+    import torch
+    from hevc_hop_torch.common import rom
+    dev = torch.device("cuda")
+    cp = torch.as_tensor(maps.coef).to(dev)
+    ny, nc = maps.coef_y.size, maps.coef_cb.size
+    qpc = rom.chroma_qp_from_luma(QP)
+    host = (maps.coef_y, maps.coef_cb, maps.coef_cr)
+    lev = [cp[:ny].view(H, W), cp[ny:ny + nc].view(H // 2, W // 2),
+           cp[ny + nc:].view(H // 2, W // 2)]
+    luma_pos, chroma_pos = sc.tu_pos
+    classes = [(0, lg, p) for lg, p in luma_pos.items()] + [
+        (c, lg, p) for c in (1, 2) for lg, p in chroma_pos.items()]
+    outs = {k: [torch.zeros(tuple(lv.shape), dtype=torch.int32, device=dev)
+                for lv in lev] for k in ("kernel", "plain")}
+    planes = {k: [(lv, o, q, i == 0) for i, (lv, o, q) in enumerate(
+        zip(lev, outs[k], (QP, qpc, qpc)))] for k in outs}
+    ops = tus = 0
+    for pi, lg, pos in classes:
+        n = 1 << lg
+        coded = sum(bool(host[pi][y:y + n, x:x + n].any())
+                    for x, y in pos.cpu().numpy())
+        ops += pos.shape[0] * 5 * n * n + coded * transform_ops(n, True)
+        tus += pos.shape[0]
+    return planes, outs, classes, tus, ops
+
+
 def phase_timing(ctxs, ps, checks, launches, scan_rows):
     """First every launch form of both main paths is held against its
     plain version at the path's own shapes. Then each kernel, at the
@@ -1855,6 +1985,21 @@ def phase_timing(ctxs, ps, checks, launches, scan_rows):
                                         bufs["plain"][2]),
              nb * (n * n * (2 + 4) + 8), nb * tq_decode_ops(n))
 
+    def picture_row(path, sc, maps):
+        """C3's decode entry as the decoder launches it: every TU of the
+        frame's three planes in one launch, on its own parsed levels."""
+        planes, outs, classes, tus, ops = residual_picture_case(sc, maps)
+        spec("C3 tq (decode, a picture)", "C3 decode", path,
+             "tq_decode_kernel",
+             f"the {path} frame's {tus} TUs of three planes in "
+             f"{len(classes)} classes, one launch",
+             "hevc_hop_torch/csrc/tq.cu", "hevc_hop_tpu/models/decoder.py:45",
+             lambda: (tq.tq_decode_picture(planes["kernel"], classes, 8),
+                      *outs["kernel"])[1:],
+             lambda: (tq.tq_decode_picture_plain(planes["plain"], classes,
+                                                 8), *outs["plain"])[1:],
+             3 * H * W // 2 * (2 + 4) + 8 * tus, ops)
+
     scan_level("uniform", sched.plans[4], None, plane)
     # the uniform frame's levels, for the decode entry: every 16x16 block
     # of the original predicted by the (deblocked) recon
@@ -1882,6 +2027,7 @@ def phase_timing(ctxs, ps, checks, launches, scan_rows):
                               pst["recon"])[0], use_rdoq=True)
     decode_all("quadtree", qsched.tu_pos[0][5], 32,
                torch.as_tensor(qmaps.coef_y).to(dev))
+    picture_row("quadtree", qsched, qmaps)
 
     # C13, whole frames: the production frame each way, the uniform one's
     # encode (its in-loop RMD)
@@ -2373,10 +2519,11 @@ def phase_warp(checks):
         f"golden cases; {unsafe} unsafe blocks in the sweep)")
 
 
-def phase_iss_path(name):
+def phase_iss_path(name, checks):
     """An ISS main path on the card: the launch counts of one encode and
-    its decode (set to 0 just before, read just after), then the timed
-    frames."""
+    its decode (set to 0 just before, read just after; the picture's
+    residual one C3 launch, held against its plain version), then the
+    timed frames."""
     import torch
     from hevc_hop_torch.models.decoder import Decoder
     from hevc_hop_torch.models.ss_encoder import HoloConfig, HoloEncoder
@@ -2386,7 +2533,8 @@ def phase_iss_path(name):
     counters = _counters()
     for _, m, attr in counters:
         setattr(m, attr, 0)
-    stream, e_s, d_s = _roundtrip(enc, frame, name)
+    with holding_residual(checks["C3"], f"the {name} path") as held:
+        stream, e_s, d_s = _roundtrip(enc, frame, name)
     launches = {k: getattr(m, attr) for k, m, attr in counters}
     log(f"{name} path launches: {launches}")
     require(all(launches[k] > 0 for k in needed),
@@ -2394,6 +2542,9 @@ def phase_iss_path(name):
     require(launches["C14 encode"] == 1 and launches["C14 decode"] == 1,
             f"the {name} picture did not launch C14 once each way: "
             f"{launches}")
+    require(launches["C3 decode"] == 1 and len(held) == 1,
+            f"the {name} picture's residual was not one C3 decode launch, "
+            f"held: {launches}, {held}")
     require(all(launches[k] == 0 for k in ISS_LOOP_KERNELS),
             f"the {name} picture launched the level loop's kernels: "
             f"{launches}")
@@ -2451,10 +2602,11 @@ def _temporal_share(maps):
     return float(((maps.pred4 == 0) & (maps.ref4 == 0)).mean())
 
 
-def phase_pss_path(name):
+def phase_pss_path(name, checks):
     """The PSS main path on the card: the launch counts of one
     encode_sequence of the PSS_FRAMES pictures and its decode (set to 0
-    just before, read just after); every picture hash_ok and equal to the
+    just before, read just after; each picture's residual one C3 launch,
+    held against its plain version); every picture hash_ok and equal to the
     encoder's recon history; temporal prediction chosen; the ISS picture
     one C14 launch each way, each PSS picture one launch of C14's PSS form
     each way, and no launch of the level loop's kernels. Then the sequence
@@ -2477,13 +2629,17 @@ def phase_pss_path(name):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     dec = Decoder()
-    pics = dec.decode_stream(stream)
-    torch.cuda.synchronize()
+    with holding_residual(checks["C3"], f"the {name} path") as held:
+        pics = dec.decode_stream(stream)
+        torch.cuda.synchronize()
     t2 = time.perf_counter()
     launches = {k: getattr(m, attr) for k, m, attr in counters}
     log(f"{name} path launches: {launches}")
     require(all(launches[k] > 0 for k in needed),
             f"a kernel was not launched on the {name} path: {launches}")
+    require(launches["C3 decode"] == PSS_FRAMES and len(held) == PSS_FRAMES,
+            f"{name}: the pictures' residuals were not one C3 decode launch "
+            f"each, held: {launches}, {held}")
     require(dec.hash_ok == [True] * PSS_FRAMES and dec.concealed == [],
             f"{name}: hash_ok {dec.hash_ok}, concealed {dec.concealed}")
     require(len(pics) == len(enc.recon_history) == PSS_FRAMES,
@@ -5081,16 +5237,24 @@ def phase_mesh(checks):
     banded = _mesh_scan(enc, frames, checks, loop)
     log(f"mesh: C13's banded form equals the level loop: "
         f"{json.dumps(banded)}")
-    # the analysis at every block size, kernel against plain body
+    # the analysis at every block size, kernel against plain body; at 10
+    # bit (the frames times 4 plus seeded noise below 4) at 16 and 32
     halo = pmesh.band_halos(aframes, H // 2, 8)
+    noise = np.random.default_rng(7).integers(0, 4, tuple(aframes.shape))
+    a10 = (aframes * 4 + torch.as_tensor(noise, dtype=torch.int32).to(
+        aframes.device)).contiguous()
     a_held = {}
-    for n in (4, 8, 16, 32):
-        got = pmesh.analysis_blocks(aframes, halo, H // 2, n)
-        want = pmesh.analysis_blocks_plain(aframes, halo, H // 2, n)
-        for g, w_, part in zip(got, want, ("cost", "mode")):
-            checks["C2"].add(g, w_, f"C2 analysis {n}x{n} {part}")
-        a_held[n] = int(got[0].numel())
-    log(f"mesh: C2's analysis entry held at n = 4-32 ({a_held} blocks)")
+    for bd, f_, ns in ((8, aframes, (4, 8, 16, 32)), (10, a10, (16, 32))):
+        h_ = pmesh.band_halos(f_, H // 2, bd)
+        for n in ns:
+            got = pmesh.analysis_blocks(f_, h_, H // 2, n, bd)
+            want = pmesh.analysis_blocks_plain(f_, h_, H // 2, n, bd)
+            for g, w_, part in zip(got, want, ("cost", "mode")):
+                checks["C2"].add(g, w_, f"C2 analysis {n}x{n} {bd} bit "
+                                 f"{part}")
+            a_held[f"{n}x{n} {bd} bit"] = int(got[0].numel())
+    log(f"mesh: C2's analysis entry held at n = 4-32, and at 16 and 32 "
+        f"at 10 bit ({a_held} blocks)")
     # timed turns: the mesh's two frames, then the single device's
     mesh_s, single_s, probes = [], [], []
     for _ in range(MESH_TIMED_TURNS):
@@ -5434,13 +5598,13 @@ def main() -> int:
     log_host("kernels held")
     paths, ctxs = {}, {}
     for name in PATHS:
-        paths[name], ctxs[name] = phase_main_path(name)
+        paths[name], ctxs[name] = phase_main_path(name, checks)
         log_host(f"{name} path timed")
     scan_program, scan_rows = phase_scan_program(ctxs, checks)
     log_host("scan program held")
     for name, (*_, content) in ISS_PATHS.items():
         run = phase_pss_path if content == "panned" else phase_iss_path
-        paths[name], ctxs[name] = run(name)
+        paths[name], ctxs[name] = run(name, checks)
         log_host(f"{name} path timed")
     ss_scan_program, ss_rows = phase_ss_scan_program(ctxs, checks)
     log_host("ss scan program held")

@@ -14,8 +14,9 @@
 // dequant, inverse transform with both 16-bit clamps, and the clipped
 // recon. The recon and the int16 levels are written straight into
 // their planes at the block's position, and the block's cbf into cbf[b].
-// Decode entry, one CTA per block: dequant and inverse transform of the
-// levels at the block's position into the residual plane.
+// Decode entry (tq_decode_kernel), one launch per picture: dequant and
+// inverse transform of every TU of the three planes into their residual
+// planes (see the note above the kernel).
 //
 // Exactness: all transform arithmetic is int32 multiply-add on the CUDA
 // cores. The first inverse stage reaches about 9.4e7 > 2^24, so fp32 or
@@ -59,28 +60,247 @@ __global__ void tq_encode_kernel(EncArgs a) { tq_encode_one<false>(a); }
 
 __global__ void tq_encode_rdoq_kernel(EncArgs a) { tq_encode_one<true>(a); }
 
-__global__ void tq_decode_kernel(const int16_t *coefp, int coef_stride,
-                                 const int32_t *pos, const int32_t *mat,
-                                 int n, int bit_depth, int dqs, int dqsh,
-                                 int32_t *out, int out_stride) {
-  extern __shared__ int32_t sm[];
-  const int nn = n * n;
-  int32_t *M = sm, *D = M + nn, *E = D + nn;
-  const int b = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int px = pos[2 * b], py = pos[2 * b + 1];
-  for (int i = tid; i < nn; i += nt) {
-    M[i] = mat[i];
-    D[i] = dequant1(
-        coefp[(long long)(py + i / n) * coef_stride + px + i % n], dqs,
-        dqsh);
+// The decode entry: a picture's residual as one launch. The work list is
+// every TU of the three planes in classes of one plane and one size, the
+// largest size first (32x32 TUs hold a warp longest), within a size luma,
+// cb, cr; class c's TUs read their positions from cls[c].pos. A warp takes
+// 32 / N TUs of one class, a group of N lanes each, so that every lane is
+// busy at every size: it loads the group's int16 levels as 8-byte vectors
+// (a plane's rows need only be a multiple of four samples), one warp vote (the last nonzero row and column, by
+// __reduce_max_sync) finds the rows and columns that hold a level, and a
+// warp whose TUs are all zero writes zeros and is done. Otherwise each
+// group dequantizes into its tile in shared memory (row stride N + 1, no
+// bank conflicts either way), lane l transforms column l (stage one,
+// summing only the rows up to the last nonzero one, then the first
+// clamp), and after a __syncwarp lane l transforms row l (stage two,
+// summing only the columns up to the last nonzero one) and writes it as
+// 16-byte vectors. Both stages are HM's partial butterflies
+// (partialButterflyInverseN: the odd rows' dot products, the even rows
+// recursively, out[k] = E[k] + O[k], out[N-1-k] = E[k] - O[k]) on the
+// matrix in __constant__ memory, int32 throughout: the same integer sums
+// as the matrix products, so the result is bit for bit the reference's;
+// the 4x4 DST is its direct product. No barrier spans the CTA.
+//
+// Bound: bytes. A TU moves 2 N^2 bytes of levels in and 4 N^2 of residual
+// out for 2 N butterflies, under the card's bytes-per-operation line, and
+// at QP 32 most TUs are zero and skip the transform.
+
+// the 32-point DCT's first 16 columns; row j * 32 / N is the N-point
+// matrix's row j, and a butterfly reads only its first N / 2 columns
+__constant__ int kDct[32][16] = {
+    {64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64},
+    {90, 90, 88, 85, 82, 78, 73, 67, 61, 54, 46, 38, 31, 22, 13, 4},
+    {90, 87, 80, 70, 57, 43, 25, 9, -9, -25, -43, -57, -70, -80, -87, -90},
+    {90, 82, 67, 46, 22, -4, -31, -54, -73, -85, -90, -88, -78, -61, -38, -13},
+    {89, 75, 50, 18, -18, -50, -75, -89, -89, -75, -50, -18, 18, 50, 75, 89},
+    {88, 67, 31, -13, -54, -82, -90, -78, -46, -4, 38, 73, 90, 85, 61, 22},
+    {87, 57, 9, -43, -80, -90, -70, -25, 25, 70, 90, 80, 43, -9, -57, -87},
+    {85, 46, -13, -67, -90, -73, -22, 38, 82, 88, 54, -4, -61, -90, -78, -31},
+    {83, 36, -36, -83, -83, -36, 36, 83, 83, 36, -36, -83, -83, -36, 36, 83},
+    {82, 22, -54, -90, -61, 13, 78, 85, 31, -46, -90, -67, 4, 73, 88, 38},
+    {80, 9, -70, -87, -25, 57, 90, 43, -43, -90, -57, 25, 87, 70, -9, -80},
+    {78, -4, -82, -73, 13, 85, 67, -22, -88, -61, 31, 90, 54, -38, -90, -46},
+    {75, -18, -89, -50, 50, 89, 18, -75, -75, 18, 89, 50, -50, -89, -18, 75},
+    {73, -31, -90, -22, 78, 67, -38, -90, -13, 82, 61, -46, -88, -4, 85, 54},
+    {70, -43, -87, 9, 90, 25, -80, -57, 57, 80, -25, -90, -9, 87, 43, -70},
+    {67, -54, -78, 38, 85, -22, -90, 4, 90, 13, -88, -31, 82, 46, -73, -61},
+    {64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64},
+    {61, -73, -46, 82, 31, -88, -13, 90, -4, -90, 22, 85, -38, -78, 54, 67},
+    {57, -80, -25, 90, -9, -87, 43, 70, -70, -43, 87, 9, -90, 25, 80, -57},
+    {54, -85, -4, 88, -46, -61, 82, 13, -90, 38, 67, -78, -22, 90, -31, -73},
+    {50, -89, 18, 75, -75, -18, 89, -50, -50, 89, -18, -75, 75, 18, -89, 50},
+    {46, -90, 38, 54, -90, 31, 61, -88, 22, 67, -85, 13, 73, -82, 4, 78},
+    {43, -90, 57, 25, -87, 70, 9, -80, 80, -9, -70, 87, -25, -57, 90, -43},
+    {38, -88, 73, -4, -67, 90, -46, -31, 85, -78, 13, 61, -90, 54, 22, -82},
+    {36, -83, 83, -36, -36, 83, -83, 36, 36, -83, 83, -36, -36, 83, -83, 36},
+    {31, -78, 90, -61, 4, 54, -88, 82, -38, -22, 73, -90, 67, -13, -46, 85},
+    {25, -70, 90, -80, 43, 9, -57, 87, -87, 57, -9, -43, 80, -90, 70, -25},
+    {22, -61, 85, -90, 73, -38, -4, 46, -78, 90, -82, 54, -13, -31, 67, -88},
+    {18, -50, 75, -89, 89, -75, 50, -18, -18, 50, -75, 89, -89, 75, -50, 18},
+    {13, -38, 61, -78, 88, -90, 85, -73, 54, -31, 4, 22, -46, 67, -82, 90},
+    {9, -25, 43, -57, 70, -80, 87, -90, 90, -87, 80, -70, 57, -43, 25, -9},
+    {4, -13, 22, -31, 38, -46, 54, -61, 67, -73, 78, -82, 85, -88, 90, -90},
+};
+__constant__ int kDst4[4][4] = {{29, 55, 74, 84},
+                                {74, 74, 0, -74},
+                                {84, -29, -74, 55},
+                                {55, -84, 74, -29}};
+
+// out[k] = sum_j T[j][k] in[j] over the N-point DCT T by the even/odd
+// decomposition; in[j] is zero for j >= lim, and those rows are skipped
+template <int N>
+__device__ __forceinline__ void inv_butterfly(const int (&in)[N],
+                                              int (&out)[N], int lim) {
+  if constexpr (N == 4) {
+    const int e0 = 64 * in[0] + 64 * in[2], e1 = 64 * in[0] - 64 * in[2];
+    const int o0 = 83 * in[1] + 36 * in[3], o1 = 36 * in[1] - 83 * in[3];
+    out[0] = e0 + o0;
+    out[1] = e1 + o1;
+    out[2] = e1 - o1;
+    out[3] = e0 - o0;
+  } else {
+    constexpr int H = N / 2;
+    int ev[H], e[H], o[H];
+#pragma unroll
+    for (int j = 0; j < H; ++j) {
+      ev[j] = in[2 * j];
+      o[j] = 0;
+    }
+    inv_butterfly<H>(ev, e, (lim + 1) >> 1);
+#pragma unroll
+    for (int j = 1; j < N; j += 2) {
+      if (j >= lim) break;
+#pragma unroll
+      for (int k = 0; k < H; ++k) o[k] += kDct[j * (32 / N)][k] * in[j];
+    }
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      out[k] = e[k] + o[k];
+      out[N - 1 - k] = e[k] - o[k];
+    }
   }
-  __syncthreads();
-  stage_rows(M, D, E, n, 1, 7, 1);
-  __syncthreads();
-  stage_cols(M, E, D, n, 1, 20 - bit_depth, 1);
-  __syncthreads();
-  for (int i = tid; i < nn; i += nt)
-    out[(long long)(py + i / n) * out_stride + px + i % n] = D[i];
+}
+
+template <int N>
+__device__ __forceinline__ void inv_1d(const int (&in)[N], int (&out)[N],
+                                       int lim, bool dst) {
+  if constexpr (N == 4) {
+    if (dst) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        out[k] = kDst4[0][k] * in[0] + kDst4[1][k] * in[1] +
+                 kDst4[2][k] * in[2] + kDst4[3][k] * in[3];
+      return;
+    }
+  }
+  inv_butterfly<N>(in, out, lim);
+}
+
+// a plane of the picture: its int16 levels, its residual, the dequantizer's
+// scale and whether its 4x4 TUs take the DST
+struct ResPlane {
+  const int16_t *lev;
+  int lev_stride;
+  int32_t *out;
+  int out_stride;
+  int dqs, dst;
+};
+// a class of TUs: one plane, one size; pos [count, 2] (x, y); unit0 the
+// first warp of the class
+struct ResClass {
+  const int32_t *pos;
+  int count, plane, log2, unit0;
+};
+constexpr int kResClasses = 12;
+constexpr int kResWarps = 4;
+struct ResArgs {
+  ResPlane pl[3];
+  ResClass cls[kResClasses];
+  int ncls, units, bit_depth;
+};
+
+// warp `unit` of class c: 32 / N TUs of N x N, a group of N lanes each
+template <int N>
+__device__ void res_unit(const ResPlane &p, const ResClass &c,
+                         int bit_depth, int unit, int32_t *tile) {
+  constexpr int G = 32 / N, S = N + 1, VR = N / 4;  // 8-byte vectors a row
+  const int lane = threadIdx.x & 31, g = lane / N, l = lane % N;
+  const int tu = (unit - c.unit0) * G + g;
+  const bool live = tu < c.count;
+  int px = 0, py = 0;
+  if (live) {
+    px = c.pos[2 * tu];
+    py = c.pos[2 * tu + 1];
+  }
+  // the levels: four int16 a vector, the group's vectors l, l + N, ...
+  int16_t q[VR][4];
+  int rlast = -1, clast = -1;
+#pragma unroll
+  for (int i = 0; i < VR; ++i) {
+    const int v = l + i * N, row = v / VR, c0 = (v % VR) * 4;
+    const int2 w = live ? *reinterpret_cast<const int2 *>(
+                              p.lev + (long long)(py + row) * p.lev_stride +
+                              px + c0)
+                        : make_int2(0, 0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int word = e < 2 ? w.x : w.y;
+      q[i][e] = (int16_t)(e & 1 ? word >> 16 : word & 0xffff);
+      if (q[i][e] != 0) {
+        rlast = row;
+        clast = max(clast, c0 + e);
+      }
+    }
+  }
+  const int R = __reduce_max_sync(0xffffffffu, rlast) + 1;
+  const int C = __reduce_max_sync(0xffffffffu, clast) + 1;
+  if (R == 0) {
+    // every TU of the warp is zero: so is its residual
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) {
+      const int v = l + i * N, row = v / (N / 4), c0 = (v % (N / 4)) * 4;
+      if (live)
+        *reinterpret_cast<int4 *>(p.out + (long long)(py + row) *
+                                              p.out_stride + px + c0) =
+            make_int4(0, 0, 0, 0);
+    }
+    return;
+  }
+  int32_t *t = tile + g * N * S;
+  const int dqsh = bit_depth + c.log2 - 5;
+#pragma unroll
+  for (int i = 0; i < VR; ++i) {
+    const int v = l + i * N, row = v / VR, c0 = (v % VR) * 4;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      t[row * S + c0 + e] = dequant1(q[i][e], p.dqs, dqsh);
+  }
+  __syncwarp();
+  const bool dst = N == 4 && p.dst;
+  int in[N], out[N];
+  // stage one: column l, the rows below R are zero
+#pragma unroll
+  for (int j = 0; j < N; ++j) in[j] = j < R ? t[j * S + l] : 0;
+  inv_1d<N>(in, out, R, dst);
+#pragma unroll
+  for (int k = 0; k < N; ++k) t[k * S + l] = clip16(rshift_round(out[k], 7));
+  __syncwarp();
+  // stage two: row l, the columns right of C are zero
+#pragma unroll
+  for (int j = 0; j < N; ++j) in[j] = j < C ? t[l * S + j] : 0;
+  inv_1d<N>(in, out, C, dst);
+  const int sh = 20 - bit_depth;
+  if (live) {
+    int32_t *dst_row = p.out + (long long)(py + l) * p.out_stride + px;
+#pragma unroll
+    for (int k = 0; k < N; k += 4)
+      *reinterpret_cast<int4 *>(dst_row + k) =
+          make_int4(clip16(rshift_round(out[k], sh)),
+                    clip16(rshift_round(out[k + 1], sh)),
+                    clip16(rshift_round(out[k + 2], sh)),
+                    clip16(rshift_round(out[k + 3], sh)));
+  }
+}
+
+__global__ void __launch_bounds__(32 * kResWarps)
+    tq_decode_kernel(const ResArgs a) {
+  __shared__ int32_t tiles[kResWarps][32 * 33];
+  const int w = threadIdx.x >> 5;
+  const int unit = blockIdx.x * kResWarps + w;
+  if (unit >= a.units) return;
+  // the warp's class and plane, read with constant indices only
+  ResClass c = a.cls[0];
+#pragma unroll
+  for (int k = 1; k < kResClasses; ++k)
+    if (k < a.ncls && a.cls[k].unit0 <= unit) c = a.cls[k];
+  const ResPlane p = c.plane == 0 ? a.pl[0] : (c.plane == 1 ? a.pl[1]
+                                                             : a.pl[2]);
+  switch (c.log2) {
+    case 5: res_unit<32>(p, c, a.bit_depth, unit, tiles[w]); break;
+    case 4: res_unit<16>(p, c, a.bit_depth, unit, tiles[w]); break;
+    case 3: res_unit<8>(p, c, a.bit_depth, unit, tiles[w]); break;
+    default: res_unit<4>(p, c, a.bit_depth, unit, tiles[w]); break;
+  }
 }
 
 int threads_for(int n) {
@@ -146,16 +366,13 @@ HH_EXPORT int hh_tq_encode(const void *org, int org_stride, const void *pred,
   return (int)cudaGetLastError();
 }
 
-// Decode entry: levels of coefp (int16) at pos [B, 2] -> residual out.
-HH_EXPORT int hh_tq_decode(const void *coefp, int coef_stride,
-                           const void *pos, const void *mat, int nblocks,
-                           int n, int bit_depth, int dqs, int dqsh, void *out,
-                           int out_stride, void *stream) {
-  const size_t smem = sizeof(int32_t) * 3 * n * n;
-  tq_decode_kernel<<<nblocks, threads_for(n), smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t *>(coefp), coef_stride,
-      static_cast<const int32_t *>(pos), static_cast<const int32_t *>(mat), n,
-      bit_depth, dqs, dqsh, static_cast<int32_t *>(out), out_stride);
+// Decode entry: every TU of args' classes (a ResArgs) in one launch.
+HH_EXPORT int hh_tq_decode(const void *args, void *stream) {
+  const ResArgs a = *static_cast<const ResArgs *>(args);
+  if (a.ncls < 1 || a.ncls > kResClasses || a.units < 1)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((a.units + kResWarps - 1) / kResWarps);
+  tq_decode_kernel<<<blocks, 32 * kResWarps, 0,
+                     static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

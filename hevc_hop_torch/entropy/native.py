@@ -161,9 +161,13 @@ class SliceMaps:
         self.cbf4_y = np.zeros((u4h, u4w), np.uint8)
         self.cbf8_cb = np.zeros((u8h, u8w), np.uint8)
         self.cbf8_cr = np.zeros((u8h, u8w), np.uint8)
-        self.coef_y = np.zeros((pic_h, pic_w), np.int16)
-        self.coef_cb = np.zeros((pic_h // 2, pic_w // 2), np.int16)
-        self.coef_cr = np.zeros((pic_h // 2, pic_w // 2), np.int16)
+        # the three level planes are views of one buffer, which the
+        # decoder copies to the card at once
+        ny, nc = pic_h * pic_w, pic_h * pic_w // 4
+        self.coef = np.zeros(ny + 2 * nc, np.int16)
+        self.coef_y = self.coef[:ny].reshape(pic_h, pic_w)
+        self.coef_cb = self.coef[ny:ny + nc].reshape(pic_h // 2, pic_w // 2)
+        self.coef_cr = self.coef[ny + nc:].reshape(pic_h // 2, pic_w // 2)
         # inter / self-similarity maps (ISS/PSS slices)
         self.slice_type = 2
         self.mi_size = 0

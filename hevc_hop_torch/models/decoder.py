@@ -1,8 +1,9 @@
 """HEVC decoder for I, ISS and PSS slices, on the card.
 
 Counterpart of hevc_hop_tpu/models/decoder.py. Native C++ parses the slice
-into dense maps; the residuals are dequantized and inverse-transformed by
-kernel C3's decode entry (one launch per TU size and plane). I slices:
+into dense maps; the residuals of every TU of the three planes are
+dequantized and inverse-transformed by one launch of kernel C3's decode
+entry, after one copy of the stacked level planes. I slices:
 prediction plus residual runs as one launch of kernel C13's decode entry
 (models/wavefront_scan.py). ISS slices: the MV-aware wavefront as one
 launch of kernel C14's decode entry (models/ss_scan.py). PSS slices: the
@@ -39,7 +40,7 @@ from hevc_hop_torch.entropy import ctx_layout, native
 from hevc_hop_torch.io import yuv as yuvio
 from hevc_hop_torch.models import ss_scan, wavefront, wavefront_scan
 from hevc_hop_torch.ops import deblock, hashes, sao
-from hevc_hop_torch.ops.tq import tq_decode
+from hevc_hop_torch.ops.tq import tq_decode_picture
 
 
 # packed ISS decode schedules, keyed by device, geometry, leaves and the
@@ -52,16 +53,24 @@ def _not_ported(what: str):
         f"{what} is not ported to hevc_hop_torch yet: see ROADMAP.md")
 
 
-def _dense_residual(coef_plane: np.ndarray, pos_by_size: dict, qp: int,
-                    bit_depth: int, dst4: bool, out: torch.Tensor) -> None:
-    """Dequant + inverse transform of every TU of a parsed level plane into
-    ``out`` [H, W] int32 (the reference's _residual_uniform /
-    _residual_mixed), one C3 launch per TU size. pos_by_size maps each
-    log2 to the [B, 2] positions of its TUs; dst4 picks the DST at 4x4."""
-    cp = torch.as_tensor(coef_plane).to(out.device)
-    for log2, pos in sorted(pos_by_size.items()):
-        tq_decode(cp, pos, 1 << log2, qp, bit_depth, dst4 and log2 == 2,
-                  out)
+def _dense_residual(maps, luma_pos: dict, chroma_pos: dict, qp: int,
+                    bit_depth: int, dst4: bool, outs: tuple) -> None:
+    """Dequant + inverse transform of every TU of the parsed level planes
+    into ``outs`` (luma, cb, cr [H, W] int32 views; the reference's
+    _residual_uniform / _residual_mixed): the stacked planes go to the
+    card in one copy and kernel C3's decode entry takes all three planes
+    in one launch. luma_pos and chroma_pos map each log2 to the [B, 2]
+    positions of its TUs; dst4 picks the DST at 4x4 luma."""
+    cp = torch.as_tensor(maps.coef).to(outs[0].device)
+    ny, nc = maps.coef_y.size, maps.coef_cb.size
+    qp_c = rom.chroma_qp_from_luma(qp)
+    planes = [(cp[:ny].view(maps.coef_y.shape), outs[0], qp, dst4),
+              (cp[ny:ny + nc].view(maps.coef_cb.shape), outs[1], qp_c,
+               False),
+              (cp[ny + nc:].view(maps.coef_cr.shape), outs[2], qp_c, False)]
+    classes = [(0, lg, p) for lg, p in luma_pos.items()] + [
+        (c, lg, p) for c in (1, 2) for lg, p in chroma_pos.items()]
+    tq_decode_picture(planes, classes, bit_depth)
 
 
 class Decoder:
@@ -209,7 +218,6 @@ class Decoder:
             luma_pos, chroma_pos = sched.tu_pos
             sched.work    # C13's work list, built once per schedule
         t0 = self._stage("schedule_s", t0)
-        qp_c = rom.chroma_qp_from_luma(qp)
         pad = 1 << sps.ctb_log2
         hcp = h // 2 + pad
         dev = self.device
@@ -217,12 +225,10 @@ class Decoder:
         resi_c = torch.zeros((2 * hcp, w // 2), dtype=torch.int32,
                              device=dev)
         # the DST is intra 4x4 luma's, on I and ISS slices
-        _dense_residual(maps.coef_y, luma_pos, qp, bd,
-                        sh.slice_type != SliceType.PSS, resi_y[:h])
-        _dense_residual(maps.coef_cb, chroma_pos, qp_c, bd, False,
-                        resi_c[:h // 2])
-        _dense_residual(maps.coef_cr, chroma_pos, qp_c, bd, False,
-                        resi_c[hcp:hcp + h // 2])
+        _dense_residual(maps, luma_pos, chroma_pos, qp, bd,
+                        sh.slice_type != SliceType.PSS,
+                        (resi_y[:h], resi_c[:h // 2],
+                         resi_c[hcp:hcp + h // 2]))
         self._stage("residual_s", t0)
         if sched is None:
             self._recon_ss(maps, leaves, qp, resi_y, resi_c, hcp)

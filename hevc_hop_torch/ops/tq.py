@@ -6,9 +6,11 @@ forward DCT/DST -> quant (the dead-zone quantizer, or RDOQ, ops/rdoq.py)
 writes the recon and the int16 levels straight into their planes at each
 block's position (the reference runs
 these as separate XLA ops in ``_enc_plane_ys`` and scatters the levels
-after its scan). :func:`tq_decode` is the decoder's dequant plus inverse
-transform into a dense residual plane (the reference's
-``_residual_uniform`` / ``_residual_mixed``).
+after its scan). :func:`tq_decode_picture` is the decoder's dequant plus
+inverse transform of every TU of a picture's three planes into their dense
+residual planes (the reference's ``_residual_uniform`` /
+``_residual_mixed``) as one launch; :func:`tq_decode` is the same for one
+class of TUs (one plane, one size).
 
 On a CUDA tensor each launches kernel C3 (``csrc/tq.cu``); on a CPU tensor
 it runs the ``*_plain`` version, composed of ops/transform.py and
@@ -102,10 +104,47 @@ def tq_decode_plain(coefp, pos, n, qp, bit_depth, use_dst, out):
 def tq_decode(coefp, pos, n, qp, bit_depth, use_dst, out):
     """Kernel C3, decode entry: dequant + inverse transform of the blocks
     at pos [B, 2] of the int16 level plane coefp into the int32 residual
-    plane out (both [H, W])."""
+    plane out (both [H, W]); on the card, :func:`tq_decode_picture` with
+    one plane and one class."""
     if not coefp.is_cuda:
         return tq_decode_plain(coefp, pos, n, qp, bit_depth, use_dst, out)
-    return _tq_decode_cuda(coefp, pos, n, qp, bit_depth, use_dst, out)
+    tq_decode_picture([(coefp, out, qp, use_dst)],
+                      [(0, n.bit_length() - 1, pos)], bit_depth)
+    return out
+
+
+def residual_classes(classes) -> tuple:
+    """The decode entry's work list: the non-empty classes (plane, log2,
+    pos [B, 2]) in the kernel's order, the largest size first and within a
+    size by plane, each with its first warp, (plane, log2, pos, unit0);
+    and the number of warps. A warp takes 32 / n TUs of one class, a group
+    of n lanes each."""
+    out, unit = [], 0
+    for plane, log2, pos in sorted((c for c in classes if c[2].shape[0]),
+                                   key=lambda c: (-c[1], c[0])):
+        out.append((plane, log2, pos, unit))
+        per = 32 >> log2
+        unit += (pos.shape[0] + per - 1) // per
+    return out, unit
+
+
+def tq_decode_picture_plain(planes, classes, bit_depth):
+    for plane, log2, pos, _ in residual_classes(classes)[0]:
+        coefp, out, qp, dst = planes[plane]
+        tq_decode_plain(coefp, pos, 1 << log2, qp, bit_depth,
+                        dst and log2 == 2, out)
+
+
+def tq_decode_picture(planes, classes, bit_depth):
+    """Kernel C3, decode entry, over a whole picture: dequant + inverse
+    transform of every TU of up to three planes in one launch. planes[i] =
+    (coefp [H, W] int16 levels, out [H, W] int32 residual, qp, dst: the
+    DST at 4x4); classes = (plane index, log2, pos [B, 2] int32 (x, y)).
+    On a CUDA tensor it launches the kernel; on a CPU tensor it runs
+    :func:`tq_decode_picture_plain`."""
+    if not planes[0][0].is_cuda:
+        return tq_decode_picture_plain(planes, classes, bit_depth)
+    return _tq_decode_picture_cuda(planes, classes, bit_depth)
 
 
 # ---------------------------------------------------------------------------
@@ -174,21 +213,66 @@ def _tq_encode_cuda(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
     return cbf
 
 
-def _tq_decode_cuda(coefp, pos, n, qp, bit_depth, use_dst, out):
+class _ResPlane(ctypes.Structure):
+    _fields_ = [("lev", ctypes.c_void_p), ("lev_stride", ctypes.c_int),
+                ("out", ctypes.c_void_p), ("out_stride", ctypes.c_int),
+                ("dqs", ctypes.c_int), ("dst", ctypes.c_int)]
+
+
+class _ResClass(ctypes.Structure):
+    _fields_ = [("pos", ctypes.c_void_p), ("count", ctypes.c_int),
+                ("plane", ctypes.c_int), ("log2", ctypes.c_int),
+                ("unit0", ctypes.c_int)]
+
+
+# csrc/tq.cu ResArgs
+_RES_CLASSES = 12
+
+
+class _ResArgs(ctypes.Structure):
+    _fields_ = [("pl", _ResPlane * 3), ("cls", _ResClass * _RES_CLASSES),
+                ("ncls", ctypes.c_int), ("units", ctypes.c_int),
+                ("bit_depth", ctypes.c_int)]
+
+
+def _aligned(t, name, size):
+    """The kernel reads the levels as 8-byte vectors and writes the
+    residual as 16-byte ones, along each row."""
+    if t.data_ptr() % size or (t.stride(0) * t.element_size()) % size:
+        raise ValueError(f"tq_decode: {name} must start on {size} bytes "
+                         f"and have rows a multiple of {size} bytes")
+
+
+def _tq_decode_picture_cuda(planes, classes, bit_depth):
     global DECODE_LAUNCHES
-    _check(coefp, torch.int16, "coefp", True)
-    _check(out, torch.int32, "out", True)
-    _check(pos, torch.int32, "pos")
-    b = pos.shape[0]
-    if b == 0:
-        return out
-    log2 = n.bit_length() - 1
-    mat, _ = _tables(coefp.device, n, use_dst)
-    dqs, dqsh = quant.dequant_params(qp, log2, bit_depth)
-    fn = _cuda.bind("tq", "hh_tq_decode", "pippiiiiipip")
-    err = fn(coefp.data_ptr(), coefp.stride(0), pos.data_ptr(),
-             mat.data_ptr(), b, n, bit_depth, dqs, dqsh, out.data_ptr(),
-             out.stride(0), _cuda.stream(out))
+    if not 1 <= len(planes) <= 3:
+        raise ValueError("tq_decode_picture: one to three planes")
+    a = _ResArgs()
+    for i, (coefp, out, qp, dst) in enumerate(planes):
+        _check(coefp, torch.int16, "coefp", True)
+        _check(out, torch.int32, "out", True)
+        _aligned(coefp, "coefp", 8)
+        _aligned(out, "out", 16)
+        # the dequantizer's scale; its shift depends on the TU size, and
+        # the kernel forms it
+        a.pl[i] = _ResPlane(coefp.data_ptr(), coefp.stride(0),
+                            out.data_ptr(), out.stride(0),
+                            quant.dequant_params(qp, 2, bit_depth)[0],
+                            int(dst))
+    work, a.units = residual_classes(classes)
+    if not work:
+        return
+    if len(work) > _RES_CLASSES:
+        raise ValueError("tq_decode_picture: more than 12 classes")
+    for i, (plane, log2, pos, unit0) in enumerate(work):
+        _check(pos, torch.int32, "pos")
+        if not 0 <= plane < len(planes) or not 2 <= log2 <= 5:
+            raise ValueError("tq_decode_picture: a class's plane or size")
+        a.cls[i] = _ResClass(pos.data_ptr(), pos.shape[0], plane, log2,
+                             unit0)
+    a.ncls = len(work)
+    a.bit_depth = bit_depth
+    fn = _cuda.bind("tq", "hh_tq_decode", "pp")
+    err = fn(ctypes.addressof(a), _cuda.stream(planes[0][0]))
     _cuda.check("tq", err)
     DECODE_LAUNCHES += 1
-    return out

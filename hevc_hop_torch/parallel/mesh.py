@@ -209,16 +209,12 @@ def _analysis_cuda(frames, halo, band_h, n, bit_depth):
     mode = torch.empty_like(cost)
     if cost.numel() == 0:
         return cost, mode
-    tab = device_tables(frames.device)
-    k = f"intra{n}"
-    fn = _cuda.bind("intra", "hh_intra_analysis", "pp" "iiiiii" "pppppp"
-                    "pp" "p")
+    ext_idx = device_tables(frames.device)[f"intra{n}_ext_idx"]
+    fn = _cuda.bind("intra", "hh_intra_analysis", "pp" "iiiiii" "p" "pp"
+                    "p")
     err = fn(frames.data_ptr(), halo.data_ptr(), nf, h, w, band_h, n,
-             bit_depth, tab[k + "_ext_idx"].data_ptr(),
-             tab[k + "_pred_idx"].data_ptr(), tab[k + "_fact"].data_ptr(),
-             tab[k + "_is_hor"].data_ptr(), tab[k + "_filt"].data_ptr(),
-             tab["hadamard4" if n == 4 else "hadamard8"].data_ptr(),
-             cost.data_ptr(), mode.data_ptr(), _cuda.stream(frames))
+             bit_depth, ext_idx.data_ptr(), cost.data_ptr(),
+             mode.data_ptr(), _cuda.stream(frames))
     _cuda.check("intra", err)
     LAUNCHES += 1
     return cost, mode

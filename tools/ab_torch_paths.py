@@ -2,7 +2,7 @@
 """Compare the end-to-end times of two trees of hevc_hop_torch on one card.
 
     python3 tools/ab_torch_paths.py PARENT_TREE CHANGED_TREE \
-        [uniform|quadtree|production|mesh]
+        [uniform|quadtree|production|mesh|analysis]
 
 Each tree is a checkout of the repository (the parent unpacked with
 ``git archive`` beside the working tree). The host sets most of a frame's
@@ -12,9 +12,12 @@ Every process builds its tree's kernels if they are stale, encodes and
 decodes one 1920x1088 frame to warm up, then times 10 encodes and 10
 decodes of it, each ending in a synchronize, and prints one JSON line with
 the medians (with the encoder's ``scan_s`` and ``entropy_s`` and, where the
-tree's decoder keeps stage times, the decoder's ``scan_s``), beside the
-medians of chip_smoke.host_probes() (two fixed pieces of host work, where
-the tree's chip_smoke.py has them). The last line holds, per tree, the
+tree's decoder keeps stage times, the decoder's ``scan_s`` and
+``residual_s``), beside the medians of chip_smoke.host_probes() (two fixed
+pieces of host work, where the tree's chip_smoke.py has them), and one
+more decode traced under torch.profiler after a warm-up trace: the device
+ms and the records of kernel C3's decode entry (``tq_decode_kernel``) in
+it. The last line holds, per tree, the
 median over its four processes. ``uniform`` is cu_log2=4 with RDOQ off (a
 path both trees of any pair have); ``quadtree`` is the RD pre-pass with SAO
 and RDOQ off; ``production`` is bench.py's configuration (SAO and RDOQ on).
@@ -30,6 +33,13 @@ level loop on a tree that still runs it and C13 on one that does not,
 the payload, the gather, each frame's stream), and traces one more call
 under torch.profiler after a warm-up trace (``busy_ms``, ``idle_share``
 and every device record's ms and count by name).
+
+``analysis`` times the mesh cell's sharded mode analysis (C2's analysis
+entry): ``analysis_step_sharded`` at n = 16 on ``synth_class_b`` seeds
+``MESH_SEEDS`` on a virtual (2, 2) mesh, held against its plain version
+once, then CUDA events around runs of 10 calls, the median of 7 runs
+(``step_ms``); the same for ``analysis_blocks`` alone (``kernel_ms``).
+Each process builds only csrc/intra.cu.
 """
 from __future__ import annotations
 
@@ -137,6 +147,28 @@ def mesh_process() -> dict:
             "records": prof["records"]}
 
 
+def analysis_process() -> dict:
+    """The analysis cell's times on this process's tree (see the header)."""
+    import torch
+    import chip_smoke as cs
+    from hevc_hop_torch.parallel import mesh as pmesh
+    frames = torch.as_tensor(np.stack(
+        [cs.synth_class_b(cs.W, cs.H, seed=s)[0] for s in cs.MESH_SEEDS])
+        ).to("cuda")
+    amesh = pmesh.make_mesh(4, row_par=2)
+    n, band_h = 16, cs.H // 2
+    halo = pmesh.band_halos(frames, band_h, 8)
+    got = pmesh.analysis_step_sharded(frames, amesh, n)
+    want = pmesh.analysis_blocks_plain(frames, halo, band_h, n)
+    if any(not torch.equal(g, w) for g, w in zip(got, want)):
+        raise SystemExit("the analysis differs from its plain version")
+    return {"step_ms": cs.time_ms(
+                lambda: pmesh.analysis_step_sharded(frames, amesh, n)),
+            "kernel_ms": cs.time_ms(
+                lambda: pmesh.analysis_blocks(frames, halo, band_h, n)),
+            "blocks": int(got[0].numel())}
+
+
 def one_process(tree: str, path: str) -> None:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -147,6 +179,12 @@ def one_process(tree: str, path: str) -> None:
     from hevc_hop_torch.entropy import native
     from hevc_hop_torch.models.decoder import Decoder
     from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+    if path == "analysis":
+        _cuda.lib("intra")
+        print(json.dumps({"tree": tree, "path": path,
+                          "card": torch.cuda.get_device_name(0),
+                          **analysis_process()}), flush=True)
+        return
     _cuda.build_all()
     native.get_lib()
     if path == "mesh":
@@ -160,7 +198,8 @@ def one_process(tree: str, path: str) -> None:
     stream = enc.encode_frame(*frame)
     Decoder().decode_stream(stream)
     torch.cuda.synchronize()
-    enc_s, dec_s, ent_s, scan_s, dscan_s, probes = [], [], [], [], [], []
+    enc_s, dec_s, ent_s, scan_s, dscan_s, resi_s, probes = ([] for _ in
+                                                           range(7))
     for _ in range(TIMED):
         if hasattr(chip_smoke, "host_probes"):
             probes.append(chip_smoke.host_probes())
@@ -177,16 +216,24 @@ def one_process(tree: str, path: str) -> None:
         torch.cuda.synchronize()
         dec_s.append(time.perf_counter() - t0)
         dscan_s.append(getattr(dec, "last_stats", {}).get("scan_s"))
+        resi_s.append(getattr(dec, "last_stats", {}).get("residual_s"))
         if dec.hash_ok != [True]:
             raise SystemExit("the decoded picture's hash does not verify")
+    profile(lambda: Decoder().decode_stream(stream))
+    c3 = [v for k, v in profile(lambda: Decoder().decode_stream(stream))[
+        "records"].items() if "tq_decode_kernel" in k]
+    med = lambda xs: (float(np.median(xs)) if xs and None not in xs
+                      else None)
     print(json.dumps({"tree": tree, "path": path,
                       "card": torch.cuda.get_device_name(0),
                       "encode_s": float(np.median(enc_s)),
                       "decode_s": float(np.median(dec_s)),
                       "entropy_s": float(np.median(ent_s)),
                       "scan_s": float(np.median(scan_s)),
-                      "decode_scan_s": (float(np.median(dscan_s))
-                                        if None not in dscan_s else None),
+                      "decode_scan_s": med(dscan_s),
+                      "residual_s": med(resi_s),
+                      "c3_decode_device_ms": sum(v[0] for v in c3),
+                      "c3_decode_records": sum(v[1] for v in c3),
                       "python_probe_ms": float(np.median(
                           [p[0] for p in probes])) if probes else None,
                       "launch_probe_ms": float(np.median(
@@ -215,8 +262,10 @@ def main() -> int:
         print(line, flush=True)
         runs[tree].append(json.loads(line))
     med = lambda rs, k: float(np.median([r[k] for r in rs]))
-    keys = (("encode_s", "single_s", "busy_ms") if path == "mesh" else
-            ("encode_s", "decode_s", "entropy_s", "scan_s"))
+    keys = {"mesh": ("encode_s", "single_s", "busy_ms"),
+            "analysis": ("step_ms", "kernel_ms")}.get(
+        path, ("encode_s", "decode_s", "residual_s", "c3_decode_device_ms",
+               "entropy_s", "scan_s"))
     print(json.dumps({name: {k: med(runs[tree], k) for k in keys}
                       for name, tree in (("parent", parent),
                                          ("change", change))}))

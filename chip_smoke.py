@@ -18,7 +18,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    and apply) at the main path's shapes, a 1920x1088 luma plane and its
    chroma, 8 and 10 bit: integers equal, float32 costs within COST_RTOL,
    and a decision that differs only where the two costs behind it agree
-   within COST_RTOL (each count printed). Kernel C8 (motion compensation)
+   within COST_RTOL (each count printed). Kernels C4 and C6 in their
+   one-launch-a-picture forms (phase_loopfilter): C4 on views of taller
+   buffers as the encoders pass them, 1920x1088 and 416x240 (partial
+   tiles), 8 and 10 bit, the intra maps and random inter maps, QP 10
+   (chroma tc 0), 22 and 37 with offsets, inputs untouched; C6's
+   statistics over the three planes at ctb_log2 4-6 with flat CTUs whose
+   samples all fall in one band at the largest differences, and its apply
+   with random maps of every type (bands wrapping past 31) and partial
+   CTUs, against the plain versions and the one-plane forms: 0
+   mismatching elements. Kernel C8 (motion compensation)
    at every luma size 4-32 and chroma size 2-16, every phase, 8 and 10
    bit, windows clamped at every edge, in its three forms. Kernel C11 (the
    GT warp) on every golden case of tests/golden/hm_golden.json and a
@@ -318,7 +327,8 @@ def phase_build():
     ex.shutdown(wait=False)
     for name, kernel in (("scan", "C13"), ("ss_scan", "C14"),
                          ("partition", "C5"), ("inter_arms", "C10"),
-                         ("gt_search", "C12")):
+                         ("gt_search", "C12"), ("deblock", "C4"),
+                         ("sao", "C6")):
         log(f"ptxas, csrc/{name}.cu (kernel {kernel}):\n"
             + _cuda.BUILD_LOGS.get(name, "(built before this run)").strip())
 
@@ -740,7 +750,8 @@ def phase_partition_sao(checks):
                        f"C6 apply {nm} maps ctb_log2={ctb} bd={bd}")
             maps.append(rdo)
         if bd == 8:
-            ctx = dict(y=y, kern=kern, planes=planes, maps=maps)
+            ctx = dict(y=y, kern=kern, planes=planes, maps=maps,
+                       type3=type3, off=off, band=band)
     # 10-bit noise at QP 51: at 16x16 and 32x32 a block's SSE passes 2^24,
     # where C5 sums it in the compiled reference's order (the 32x32 rows'
     # order differs between the arms) instead of as an exact integer; every
@@ -775,6 +786,128 @@ def phase_partition_sao(checks):
         f"{k} {checks[k].cases} cases {checks[k].mism} mismatches"
         for k in ("C5", "C6")))
     return ctx
+
+
+def _encoder_views(rng, w, h, bit_depth, dev):
+    """(y, cb, cr) int32 on the card as the encoders hand them to C4 and
+    C6: rows of a luma buffer with padding rows below, and two row ranges
+    of one stacked chroma buffer. Blocky content (_blocky)."""
+    import torch
+    hc, pad = h // 2, 32
+    scale = 1 << (bit_depth - 8)
+    by = torch.zeros((h + pad, w), dtype=torch.int32, device=dev)
+    bc = torch.zeros((2 * hc + 2 * pad, w // 2), dtype=torch.int32,
+                     device=dev)
+    t = lambda a: torch.as_tensor(a * scale, dtype=torch.int32, device=dev)
+    by[:h] = t(_blocky(rng, h, w))
+    bc[:hc] = t(_blocky(rng, hc, w // 2))
+    bc[hc + pad:2 * hc + pad] = t(_blocky(rng, hc, w // 2))
+    return by[:h], bc[:hc], bc[hc + pad:2 * hc + pad]
+
+
+def _random_inter_maps(rng, w, h, dev):
+    import torch
+    u = (h // 4, w // 4)
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+    return dict(pred4=t(rng.random(u) < 0.3, torch.uint8),
+                cbf4=t(rng.random(u) < 0.3, torch.uint8),
+                ref4=t(rng.random(u) < 0.1, torch.uint8),
+                mv4x=t(rng.integers(-6, 7, u), torch.int16),
+                mv4y=t(rng.integers(-6, 7, u), torch.int16))
+
+
+def phase_loopfilter(checks):
+    """Kernels C4 and C6 as the main paths launch them, one launch a
+    picture each: C4 on the encoders' views (1920x1088 and 416x240, whose
+    last tiles are partial), 8 and 10 bit, intra and random inter maps, QP
+    10, 22 and 37 with offsets; C6's statistics over the three planes at
+    ctb_log2 4-6 (416x240 holds 16x16 CTUs only), flat CTUs in one band at
+    the largest differences, the one-copy fetch; C6's apply with random
+    maps of every type, bands wrapping past 31, partial CTUs, the packed
+    upload; each against its plain version, the one-plane forms against
+    the three-plane ones."""
+    import torch
+    from hevc_hop_torch.ops import deblock, sao
+    dev = torch.device("cuda")
+    c4, c6 = checks["C4"], checks["C6"]
+    rng = np.random.default_rng(17)
+    for (w, h) in ((W, H), (416, 240)):
+        for bd in (8, 10):
+            planes = _encoder_views(rng, w, h, bd, dev)
+            bases = [p._base if p._base is not None else p for p in planes]
+            keep = [b.clone() for b in bases]
+            tu4 = torch.as_tensor(rng.integers(2, 6, (h // 4, w // 4)),
+                                  dtype=torch.uint8, device=dev)
+            for arm, maps in (("intra", {}),
+                              ("inter", _random_inter_maps(rng, w, h, dev))):
+                for qp, off in ((10, (0, 0)), (22, (0, 0)), (37, (2, -1))):
+                    what = f"C4 {w}x{h} {bd} bit {arm} qp={qp}"
+                    got = deblock.deblock_frame(*planes, tu4, qp, qp - 2, bd,
+                                                *off, **maps)
+                    want = deblock.deblock_frame_plain(*planes, tu4, qp,
+                                                       qp - 2, bd, *off,
+                                                       **maps)
+                    dense = deblock.deblock_frame(
+                        *(p.contiguous() for p in planes), tu4, qp, qp - 2,
+                        bd, *off, **maps)
+                    for g, w_, d, nm in zip(got, want, dense,
+                                            ("y", "cb", "cr")):
+                        c4.add(g, w_, f"{what} {nm}")
+                        c4.add(g, d, f"{what} {nm}, views against copies")
+            for b, k in zip(bases, keep):
+                c4.add(b, k, f"C4 {w}x{h} {bd} bit: the inputs untouched")
+    for (w, h), lgs in (((W, H), (4, 5, 6)), ((416, 240), (4, 5, 6))):
+        for lg in lgs:
+            for bd in (8, 10):
+                maxv = (1 << bd) - 1
+                org = _encoder_views(rng, w, h, bd, dev)
+                pre = tuple((o + torch.as_tensor(
+                    rng.integers(-6, 7, tuple(o.shape)) << (bd - 8),
+                    dtype=torch.int32, device=dev)).clamp(0, maxv)
+                    for o in org)
+                for i, (o, p) in enumerate(zip(org, pre)):
+                    # a flat CTU in one band, org at both extremes; a flat
+                    # CTU at the top band, org 0
+                    c = (1 << lg) >> (i > 0)
+                    p[:c, c:2 * c] = maxv // 3
+                    o[:c, c:2 * c] = torch.as_tensor(
+                        rng.choice([0, maxv], (c, c)), dtype=torch.int32,
+                        device=dev)
+                    p[c:2 * c, :c] = maxv
+                    o[c:2 * c, :c] = 0
+                what = f"C6 {w}x{h} ctb_log2={lg} {bd} bit"
+                c = 1 << lg
+                if h % c == 0 and w % c == 0:
+                    st = sao.stats_dispatch(org, pre, lg, bd)
+                    want = sao.sao_stats_frame_plain(org, pre, lg, bd)
+                    c6.add(st.packed, want, f"{what} stats")
+                    host = sao.fetch_stats(st)
+                    for i in range(3):
+                        one = sao.sao_stats_plane(org[i], pre[i],
+                                                  lg - (i > 0), bd)
+                        for g, f, w_ in zip(one, host[i], st[i]):
+                            c6.add(g, w_, f"{what} stats, one plane {i}")
+                            c6.add(torch.as_tensor(f), w_.cpu(),
+                                   f"{what} stats, fetched plane {i}")
+                nn = (-(-h // c), -(-w // c))
+                type3 = rng.integers(0, 6, nn + (3,)).astype(np.uint8)
+                off = rng.integers(-7, 8, nn + (3, 4)).astype(np.int16)
+                band = rng.integers(0, 32, nn + (3,)).astype(np.uint8)
+                got = sao.apply_sao_frame(*pre, type3, off, band, lg, bd)
+                params = torch.as_tensor(np.concatenate(
+                    [type3[..., None], band[..., None], off], -1),
+                    dtype=torch.int32, device=dev)
+                want = sao.apply_sao_frame_plain(pre, params, lg, bd)
+                for i in range(3):
+                    c6.add(got[i], want[i], f"{what} apply plane {i}")
+                    one = sao.apply_sao_plane(
+                        pre[i], params[:, :, i, 0], params[:, :, i, 2:],
+                        params[:, :, i, 1], lg - (i > 0), bd)
+                    c6.add(one, want[i], f"{what} apply, one plane {i}")
+    torch.cuda.synchronize()
+    log("loop filters, one launch a picture: " + ", ".join(
+        f"{k} {checks[k].cases} cases {checks[k].mism} mismatches"
+        for k in ("C4", "C6")))
 
 
 def _counters():
@@ -829,6 +962,18 @@ def _counters():
             ("C14 decode", ss_scan, "SCAN_ISS_DECODE_LAUNCHES"),
             ("C14 PSS encode", ss_scan, "SCAN_PSS_ENCODE_LAUNCHES"),
             ("C14 PSS decode", ss_scan, "SCAN_PSS_DECODE_LAUNCHES")]
+
+
+def require_loopfilter_launches(launches, pictures, cfg, what):
+    """One C4 launch a picture each way (encode and decode), one C6
+    statistics launch a picture's SAO encode, one C6 apply launch a
+    picture each way."""
+    want = {"C4": 2 * pictures * bool(cfg.deblocking),
+            "C6 stats": pictures * bool(cfg.sao),
+            "C6 apply": 2 * pictures * bool(cfg.sao)}
+    got = {k: launches[k] for k in want}
+    require(got == want, f"{what}: the loop filters' launches {got}, not "
+            f"{want}")
 
 
 PATHS = {
@@ -931,6 +1076,7 @@ def phase_main_path(name, checks):
     require(all(launches[k] == 0 for k in LOOP_KERNELS),
             f"the {name} path launched the level loop's kernels: "
             f"{launches}")
+    require_loopfilter_launches(launches, 1, enc.cfg, f"the {name} path")
     y = frame[0]
     mse = np.mean((enc.recon_yuv[0].astype(np.float64) - y) ** 2)
     psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-9))
@@ -2059,8 +2205,10 @@ def phase_timing(ctxs, ps, checks, launches, scan_rows):
              loop_ms=r["secs"][f"{side}_loop_s"] * 1e3)
 
     npx = H * W * 3 // 2
+    # one read and one write of the three planes, one read of tu4
     spec("C4 deblock", "C4", "uniform", "deblock_kernel",
-         f"{W}x{H} frame, both passes", "hevc_hop_torch/csrc/deblock.cu",
+         f"{W}x{H} picture, three planes, one launch",
+         "hevc_hop_torch/csrc/deblock.cu",
          "hevc_hop_tpu/ops/deblock.py:166",
          lambda: deblock.deblock_frame(ry, rcb, rcr, tu4, QP, 31),
          lambda: deblock.deblock_frame_plain(ry, rcb, rcr, tu4, QP, 31),
@@ -2073,7 +2221,12 @@ def phase_timing(ctxs, ps, checks, launches, scan_rows):
          4 * npx + 12, 10 * npx)
     # C5 and C6 on the whole frame (inputs of phase_partition_sao, 8 bit)
     yq, kern = ps["y"], ps["kern"]
-    (oy, py_, _, _), (tm, om, bm) = ps["planes"][0], ps["maps"][0]
+    orgs = tuple(o for o, _, _, _ in ps["planes"])
+    pres = tuple(p for _, p, _, _ in ps["planes"])
+    type3, off, band = ps["type3"], ps["off"], ps["band"]
+    params = torch.as_tensor(np.concatenate(
+        [type3[..., None], band[..., None], off], -1), dtype=torch.int32,
+        device=dev)
     nb4 = (H // 4) * (W // 4)
     rqt = _decide_args(kern, "rqt")
     grids = sum(t.numel() for t in rqt)
@@ -2093,18 +2246,22 @@ def phase_timing(ctxs, ps, checks, launches, scan_rows):
          lambda: partition._decide(*rqt, QP),
          lambda: partition.decide_plain(*rqt, QP),
          4 * grids + 4 * (2 * (H // 8) * (W // 8) + nb4), 400 * ctus)
+    # the statistics read org and pre once and write 3 x 96 counters a
+    # CTU position; the apply reads pre and the packed parameters once and
+    # writes the three planes
     spec("C6 sao (stats)", "C6 stats", "quadtree", "sao_stats_kernel",
-         f"{W}x{H} luma plane, 32x32 CTUs", "hevc_hop_torch/csrc/sao.cu",
-         "hevc_hop_tpu/ops/sao.py:100",
-         lambda: sao.sao_stats_plane(oy, py_, 5, 8),
-         lambda: sao.sao_stats_plane_plain(oy, py_, 5, 8),
-         2 * 4 * H * W + 96 * 4 * ctus, 60 * H * W)
+         f"{W}x{H} picture, three planes, 32x32 CTUs, one launch",
+         "hevc_hop_torch/csrc/sao.cu", "hevc_hop_tpu/ops/sao.py:100",
+         lambda: sao.stats_dispatch(orgs, pres, 5, 8).packed,
+         lambda: sao.sao_stats_frame_plain(orgs, pres, 5, 8),
+         2 * 4 * npx + 3 * 96 * 4 * ctus, 60 * npx)
     spec("C6 sao (apply)", "C6 apply", "quadtree", "sao_apply_kernel",
-         f"{W}x{H} luma plane, 32x32 CTUs", "hevc_hop_torch/csrc/sao.cu",
+         f"{W}x{H} picture, three planes, 32x32 CTUs, the RDO's maps, "
+         "one launch", "hevc_hop_torch/csrc/sao.cu",
          "hevc_hop_tpu/ops/sao.py:58",
-         lambda: sao.apply_sao_plane(py_, tm, om, bm, 5, 8),
-         lambda: sao.apply_sao_plane_plain(py_, tm, om, bm, 5, 8),
-         2 * 4 * H * W + 6 * 4 * ctus, 20 * H * W)
+         lambda: sao.apply_sao_frame(*pres, type3, off, band, 5, 8),
+         lambda: sao.apply_sao_frame_plain(pres, params, 5, 8),
+         2 * 4 * npx + 3 * 6 * 4 * ctus, 20 * npx)
     return _time_specs(specs, checks, launches)
 
 
@@ -2548,6 +2705,7 @@ def phase_iss_path(name, checks):
     require(all(launches[k] == 0 for k in ISS_LOOP_KERNELS),
             f"the {name} picture launched the level loop's kernels: "
             f"{launches}")
+    require_loopfilter_launches(launches, 1, enc.cfg, f"the {name} path")
     maps = enc.last_maps
     inter_share = float((maps.pred4 == 0).mean())
     require(inter_share > 0, f"{name}: no SS or merge CU")
@@ -2666,6 +2824,8 @@ def phase_pss_path(name, checks):
     require(all(launches[k] == 0 for k in ISS_LOOP_KERNELS),
             f"{name}: the sequence launched the level loop's kernels: "
             f"{launches}")
+    require_loopfilter_launches(launches, PSS_FRAMES, enc.cfg,
+                                f"the {name} path")
     for turn in range(turns):
         for _, m, attr in counters:
             setattr(m, attr, 0)
@@ -4599,7 +4759,8 @@ def phase_iss_timing(ctxs, checks, launches):
     npx = H * W * 3 // 2
     spec(name="C4 deblock (inter arm)", counter="C4", path="iss",
          kernel="deblock_kernel",
-         shape=f"{W}x{H} frame, both passes, the iss frame's inter maps",
+         shape=f"{W}x{H} picture, three planes, one launch, the iss "
+               "frame's inter maps",
          source="hevc_hop_torch/csrc/deblock.cu",
          replaces="hevc_hop_tpu/ops/deblock.py:138",
          fn=lambda: deblock.deblock_frame(ry2, rcb, rcr, tu4, QP, 31,
@@ -5191,6 +5352,8 @@ def phase_mesh(checks):
     require(coded["C13 encode"] == 1 and all(
         coded[k] == 0 for k in LOOP_KERNELS),
         f"mesh encode_frames: not one C13 launch alone: {coded}")
+    require(coded["C4"] == len(frames),
+            f"mesh encode_frames: not one C4 launch a frame: {coded}")
     require(tuple(cost.shape) == (2, H // ANALYSIS_N, W // ANALYSIS_N)
             and int(mode.min()) >= 0 and int(mode.max()) <= 34,
             "analysis output")
@@ -5595,6 +5758,7 @@ def main() -> int:
     c9_split = phase_c9_split(checks)
     arms_exact = phase_arms_exact(checks)
     ps = phase_partition_sao(checks)
+    phase_loopfilter(checks)
     log_host("kernels held")
     paths, ctxs = {}, {}
     for name in PATHS:

@@ -312,8 +312,7 @@ class IntraEncoder:
                 for k, o in st["outs"].items()}
         sao_np = None
         if st["sao_stats"] is not None:
-            sao_np = tuple(tuple(a.cpu().numpy() for a in s_)
-                           for s_ in st["sao_stats"])
+            sao_np = sao.fetch_stats(st["sao_stats"])
         stats["fetch_s"] = time.perf_counter() - t1
 
         t1 = time.perf_counter()

@@ -337,7 +337,7 @@ class HoloEncoder:
             st = sao.stats_dispatch(
                 (org_y[:h], org_c[:hc], org_c[hc_off:hc_off + hc]),
                 (ry, rcb, rcr), cfg.ctb_log2, cfg.bit_depth)
-            st = tuple(tuple(a.cpu().numpy() for a in s_) for s_ in st)
+            st = sao.fetch_stats(st)
             ry, rcb, rcr = sao.choose_apply(
                 st, (ry, rcb, rcr), maps, cfg.ctb_log2,
                 partition.full_lambda(qp), cfg.bit_depth)

@@ -9,10 +9,12 @@ luma levels or the references or MVs differ (by a full pel or more), else
 0; luma's tc depends on the BS, and chroma filters BS 2 edges only.
 
 :func:`deblock_frame` launches kernel C4 (``csrc/deblock.cu``) on CUDA
-tensors: one launch filters all vertical edges of the three planes, a
-second all horizontal edges of the vertically filtered planes. On CPU
-tensors it runs :func:`deblock_frame_plain`, whose passes are dense tensor
-code that runs on any device.
+tensors: one launch a picture, a CTA per 32x32 luma tile and its two 16x16
+chroma tiles, which reads the input planes where they lie (row strides)
+and writes new ones. :func:`deblock_tiles_plain` is a plain walk of that
+decomposition. On CPU tensors :func:`deblock_frame` runs
+:func:`deblock_frame_plain`, whose two picture-wide passes are dense
+tensor code that runs on any device.
 """
 from __future__ import annotations
 
@@ -205,6 +207,97 @@ def deblock_frame_plain(y, cb, cr, tu4, qp: int, qp_c: int,
     return y, cb, cr
 
 
+# a staged sample that kernel C4 does not stage (outside its halo or the
+# picture): were it read by a filtered edge, the walk would differ
+_UNSTAGED = 1 << 20
+
+
+def _walk_tile(plane, y0, x0, th, tw, seg, bs_v, bs_h, edges):
+    """One tile of :func:`deblock_tiles_plain` on one plane: [th, tw]
+    samples at (y0, x0), deblocking segments of ``seg`` lines (4 luma, 2
+    chroma). Returns the tile's own filtered samples."""
+    hh, ww = plane.shape
+    dev = plane.device
+    # staged on the picture's 8-grid, 8 samples beyond the tile; what the
+    # kernel stages is the tile and a halo of 4
+    ry0, rx0 = y0 // 8 * 8 - 8, x0 // 8 * 8 - 8
+    ry1, rx1 = -(-(y0 + th) // 8) * 8 + 8, -(-(x0 + tw) // 8) * 8 + 8
+    st = torch.full((ry1 - ry0, rx1 - rx0), _UNSTAGED, dtype=plane.dtype,
+                    device=dev)
+    a0, a1 = max(y0 - 4, 0), min(y0 + th + 4, hh)
+    b0, b1 = max(x0 - 4, 0), min(x0 + tw + 4, ww)
+    st[a0 - ry0:a1 - ry0, b0 - rx0:b1 - rx0] = plane[a0:a1, b0:b1]
+    ar = lambda n: torch.arange(n, device=dev)
+
+    def on(bs, lines0, n_lines, lo, hi, pos0, n_pos, p_lo, p_hi, size):
+        """[n_lines, n_pos] BS of the staged segments starting at lines0 +
+        seg * i across the edges at pos0 + 8 (j + 1), 0 where the kernel
+        filters no such segment or edge."""
+        ln = lines0 + seg * ar(n_lines)
+        pos = pos0 + 8 * (ar(n_pos) + 1)
+        ok_l = (ln >= lo) & (ln < hi) & (ln >= 0)
+        ok_p = (pos >= p_lo) & (pos <= p_hi) & (pos > 0) & (pos + 8 <= size)
+        scale = 4 // seg          # chroma edge Xc is luma edge 2 Xc
+        li = (ln // seg).clamp(0, bs.shape[0] - 1)
+        pi = (pos * scale // 8 - 1).clamp(0, bs.shape[1] - 1)
+        got = bs[li[:, None], pi[None, :]]
+        return torch.where(ok_l[:, None] & ok_p[None, :], got, 0)
+
+    rows, cols = ry1 - ry0, rx1 - rx0
+    # 1. vertical edges at the tile's columns x0 .. x0 + tw, every staged
+    # row: the tile's and one segment above and below it
+    bv = on(bs_v, ry0, rows // seg, y0 - seg, min(y0 + th + seg, hh), rx0,
+            cols // 8 - 1, x0, x0 + tw, ww)
+    st = edges(st, bv)
+    # 2. horizontal edges at its rows y0 .. y0 + th, its own columns
+    bh = on(bs_h, rx0, cols // seg, x0, min(x0 + tw, ww), ry0,
+            rows // 8 - 1, y0, y0 + th, hh)
+    st = edges(st.T, bh).T
+    return st[y0 - ry0:min(y0 + th, hh) - ry0,
+              x0 - rx0:min(x0 + tw, ww) - rx0]
+
+
+def deblock_tiles_plain(y, cb, cr, tu4, qp: int, qp_c: int,
+                        bit_depth: int = 8, beta_off: int = 0,
+                        tc_off: int = 0, pred4=None, cbf4=None, ref4=None,
+                        mv4x=None, mv4y=None, tile=(32, 32)):
+    """A plain walk of kernel C4's decomposition; equals
+    :func:`deblock_frame_plain`. Per tile of ``tile`` = (th, tw) luma
+    samples (multiples of 8) and its chroma tiles (th/2, tw/2): stage the
+    tile with a halo of 4 samples, filter the vertical edges at the tile's
+    columns 0, 8, .., tw on every staged row that a deblocking segment
+    beside the tile covers (4 luma rows, 2 chroma rows), then the
+    horizontal edges at its rows 0, 8, .., th on its own columns, and keep
+    its own samples. Each edge's BS is the picture's (edge_bs_v)."""
+    h, w = y.shape
+    th, tw = tile
+    beta, tc, tc_c = thresholds(qp, qp_c, bit_depth, beta_off, tc_off)
+    tc1 = tc_bs1(qp, bit_depth, tc_off)
+    tu4 = torch.as_tensor(tu4).to(y.device).to(torch.int64)
+    inter = _inter_maps(y, pred4, cbf4, ref4, mv4x, mv4y)
+    bs_v = edge_bs_v(tu4, w, inter)
+    bs_h = edge_bs_v(tu4.T, h, None if inter is None
+                     else tuple(m.T for m in inter))
+
+    def luma(st, bs):
+        tcs = torch.where(bs == 2, tc, torch.where(bs == 1, tc1, 0))
+        return _luma_edges(st, bs > 0, beta, tcs.to(torch.int32), bit_depth)
+
+    def chroma(st, bs):
+        return _chroma_edges(st, bs == 2, tc_c, bit_depth)
+
+    outs = [torch.empty_like(p) for p in (y, cb, cr)]
+    for ty0 in range(0, h, th):
+        for tx0 in range(0, w, tw):
+            outs[0][ty0:ty0 + th, tx0:tx0 + tw] = _walk_tile(
+                y, ty0, tx0, th, tw, 4, bs_v, bs_h, luma)
+            for p, o in ((cb, outs[1]), (cr, outs[2])):
+                o[ty0 // 2:(ty0 + th) // 2, tx0 // 2:(tx0 + tw) // 2] = \
+                    _walk_tile(p, ty0 // 2, tx0 // 2, th // 2, tw // 2, 2,
+                               bs_v, bs_h, chroma)
+    return tuple(outs)
+
+
 def deblock_frame(y, cb, cr, tu4, qp: int, qp_c: int, bit_depth: int = 8,
                   beta_off: int = 0, tc_off: int = 0, pred4=None, cbf4=None,
                   ref4=None, mv4x=None, mv4y=None):
@@ -225,7 +318,7 @@ def deblock_frame(y, cb, cr, tu4, qp: int, qp_c: int, bit_depth: int = 8,
 def _deblock_cuda(y, cb, cr, tu4, qp, qp_c, bit_depth, beta_off, tc_off,
                   inter):
     global LAUNCHES
-    planes = [p.contiguous().clone() for p in (y, cb, cr)]
+    planes = (y, cb, cr)
     tu = tu4.to(device=y.device, dtype=torch.uint8).contiguous()
     if inter is not None:
         u8 = lambda m: m.to(torch.uint8).contiguous()
@@ -235,8 +328,10 @@ def _deblock_cuda(y, cb, cr, tu4, qp, qp_c, bit_depth, beta_off, tc_off,
         if any(tuple(m.shape) != tuple(tu.shape) for m in inter):
             raise ValueError("deblock_frame: the inter maps are [H/4, W/4]")
     for p in planes:
-        if not (p.is_cuda and p.dtype == torch.int32):
-            raise ValueError("deblock_frame: int32 CUDA planes")
+        if not (p.is_cuda and p.dtype == torch.int32 and p.dim() == 2
+                and p.stride(1) == 1):
+            raise ValueError("deblock_frame: int32 CUDA planes with dense "
+                             "rows")
     h, w = y.shape
     if h % 8 or w % 8 or tuple(cb.shape) != (h // 2, w // 2) \
             or tuple(cr.shape) != (h // 2, w // 2) \
@@ -246,13 +341,14 @@ def _deblock_cuda(y, cb, cr, tu4, qp, qp_c, bit_depth, beta_off, tc_off,
     beta, tc, tc_c = thresholds(qp, qp_c, bit_depth, beta_off, tc_off)
     tc1 = tc_bs1(qp, bit_depth, tc_off)
     ptr = [None] * 5 if inter is None else [m.data_ptr() for m in inter]
-    fn = _cuda.bind("deblock", "hh_deblock", "pppp" "ppppp" "ii" "iiiiii"
-                    "p")
-    py, pcb, pcr = planes
-    for vertical in (1, 0):
-        err = fn(py.data_ptr(), pcb.data_ptr(), pcr.data_ptr(),
-                 tu.data_ptr(), *ptr, h, w, vertical, beta, tc, tc1, tc_c,
-                 bit_depth, _cuda.stream(py))
-        _cuda.check("deblock", err)
-        LAUNCHES += 1
-    return py, pcb, pcr
+    outs = [torch.empty(tuple(p.shape), dtype=torch.int32, device=y.device)
+            for p in planes]
+    fn = _cuda.bind("deblock", "hh_deblock", "pipipi" "ppp" "pppppp"
+                    "ii" "iiiii" "p")
+    err = fn(y.data_ptr(), y.stride(0), cb.data_ptr(), cb.stride(0),
+             cr.data_ptr(), cr.stride(0), *(o.data_ptr() for o in outs),
+             tu.data_ptr(), *ptr, h, w, beta, tc, tc1, tc_c, bit_depth,
+             _cuda.stream(y))
+    _cuda.check("deblock", err)
+    LAUNCHES += 1
+    return tuple(outs)

@@ -1,12 +1,17 @@
 """Sample adaptive offset: per-CTU statistics, host RDO, apply; kernel C6.
 
-Counterpart of hevc_hop_tpu/ops/sao.py. :func:`sao_stats_plane` (the
-encoder's per-CTU EO/BO counts and difference sums) and
-:func:`apply_sao_plane` (the per-sample offset apply, normative) are the two
-entries of kernel C6 (``csrc/sao.cu``). On a CUDA tensor each launches its
-kernel; on a CPU tensor it runs its ``*_plain`` version, which runs on any
-device. All device arithmetic is int32 and exact: the statistics are integer
-sums, which do not depend on the order of summation.
+Counterpart of hevc_hop_tpu/ops/sao.py. The statistics (the encoder's
+per-CTU EO/BO counts and difference sums) and the apply (the per-sample
+offset, normative) are the two entries of kernel C6 (``csrc/sao.cu``). Each
+takes a picture's three planes in one launch, a CTA per CTU position:
+:func:`stats_dispatch` writes one [ncty, nctx, 3, 96] buffer, which
+:func:`fetch_stats` copies to the host at once, and :func:`apply_sao_frame`
+uploads the decided parameters as one packed tensor. :func:`sao_stats_plane`
+and :func:`apply_sao_plane` are the one-plane forms of the same launches.
+On a CUDA tensor each launches its kernel; on a CPU tensor it runs its
+``*_plain`` version, which runs on any device. All device arithmetic is
+int32 and exact: the statistics are integer sums, which do not depend on
+the order of summation.
 
 The per-CTU rate-distortion decision (:func:`choose_sao_params` and its
 helpers) is the reference's float64 numpy code, copied: it runs on the host
@@ -17,6 +22,8 @@ slice's): a sample whose neighbour lies outside the picture has category 0.
 Chroma planes run at ``ctb_log2 - 1``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -128,6 +135,42 @@ def sao_stats_plane_plain(org, pre, ctb_log2: int, bit_depth: int = 8):
 # Kernel C6.
 # ---------------------------------------------------------------------------
 
+def _pack_stats(stats) -> torch.Tensor:
+    """One plane's (eo_cnt, eo_sum, bo_cnt, bo_sum) as [ncty, nctx, 96]."""
+    eo_cnt, eo_sum, bo_cnt, bo_sum = stats
+    ncty, nctx = bo_cnt.shape[:2]
+    return torch.cat([eo_cnt.reshape(ncty, nctx, 16),
+                      eo_sum.reshape(ncty, nctx, 16), bo_cnt, bo_sum], -1)
+
+
+def _unpack_stats(packed):
+    """(eo_cnt [ncty, nctx, 4, 4], eo_sum, bo_cnt [ncty, nctx, 32], bo_sum)
+    of one plane's [ncty, nctx, 96] counters (views of a torch tensor)."""
+    ncty, nctx = packed.shape[:2]
+    return (packed[..., 0:16].reshape(ncty, nctx, 4, 4),
+            packed[..., 16:32].reshape(ncty, nctx, 4, 4),
+            packed[..., 32:64], packed[..., 64:96])
+
+
+def sao_stats_frame_plain(org_yuv, rec_yuv, ctb_log2: int,
+                          bit_depth: int = 8) -> torch.Tensor:
+    """Plain version of :func:`stats_dispatch`'s launch: the per-plane
+    plain bodies, packed as [ncty, nctx, 3, 96]."""
+    return torch.stack([
+        _pack_stats(sao_stats_plane_plain(o, r, ctb_log2 - (i > 0),
+                                          bit_depth))
+        for i, (o, r) in enumerate(zip(org_yuv, rec_yuv))], 2)
+
+
+def apply_sao_frame_plain(planes, params, ctb_log2: int, bit_depth: int = 8):
+    """Plain version of :func:`apply_sao_frame`'s launch: the per-plane
+    plain body on each plane's slice of the packed parameters [ncty, nctx,
+    3, 6]."""
+    return tuple(apply_sao_plane_plain(
+        p, params[:, :, i, 0], params[:, :, i, 2:6], params[:, :, i, 1],
+        ctb_log2 - (i > 0), bit_depth) for i, p in enumerate(planes))
+
+
 def _check_plane(t, name):
     if not (t.is_cuda and t.dtype == torch.int32 and t.dim() == 2
             and t.stride(1) == 1):
@@ -135,38 +178,81 @@ def _check_plane(t, name):
                          "with dense rows")
 
 
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*[t.data_ptr() for t in ts])
+
+
+def _ints(vs):
+    return (ctypes.c_int * len(vs))(*vs)
+
+
+def _stats_launch(orgs, pres, ctb_log2: int, bit_depth: int):
+    """One launch of the statistics entry over the planes (luma at
+    ctb_log2, chroma at ctb_log2 - 1): [ncty, nctx, planes, 96] int32."""
+    global STATS_LAUNCHES
+    for t in (*orgs, *pres):
+        _check_plane(t, "org/pre")
+    if bit_depth > 10:
+        raise ValueError("sao: the statistics entry packs sums of at most "
+                         "10-bit samples")
+    h, w = pres[0].shape
+    c = 1 << ctb_log2
+    ncty, nctx = h // c, w // c
+    out = torch.empty((ncty, nctx, len(pres), 96), dtype=torch.int32,
+                      device=pres[0].device)
+    fn = _cuda.bind("sao", "hh_sao_stats", "ippppppiiiipp")
+    err = fn(len(pres), _ptrs(orgs), _ints([t.stride(0) for t in orgs]),
+             _ptrs(pres), _ints([t.stride(0) for t in pres]),
+             _ints([t.shape[0] for t in pres]),
+             _ints([t.shape[1] for t in pres]), ncty, nctx, ctb_log2,
+             bit_depth, out.data_ptr(), _cuda.stream(pres[0]))
+    _cuda.check("sao", err)
+    STATS_LAUNCHES += 1
+    return out
+
+
+def _apply_launch(pres, params, ctb_log2: int, bit_depth: int):
+    """One launch of the apply entry over the planes: new planes."""
+    global APPLY_LAUNCHES
+    for t in pres:
+        _check_plane(t, "pre")
+    if not (params.is_cuda and params.dtype == torch.int32
+            and params.is_contiguous()):
+        raise ValueError("sao: the packed parameters must be a contiguous "
+                         "CUDA int32 tensor")
+    outs = [torch.empty(tuple(t.shape), dtype=torch.int32, device=t.device)
+            for t in pres]
+    ncty, nctx = params.shape[:2]
+    fn = _cuda.bind("sao", "hh_sao_apply", "ipppppp" "iiii" "p")
+    err = fn(len(pres), _ptrs(pres), _ints([t.stride(0) for t in pres]),
+             _ptrs(outs), _ints([t.shape[0] for t in pres]),
+             _ints([t.shape[1] for t in pres]), params.data_ptr(), ncty,
+             nctx, ctb_log2, bit_depth, _cuda.stream(pres[0]))
+    _cuda.check("sao", err)
+    APPLY_LAUNCHES += 1
+    return tuple(outs)
+
+
 def sao_stats_plane(org, pre, ctb_log2: int, bit_depth: int = 8):
-    """Per-CTU SAO statistics of one plane; kernel C6, stats entry.
+    """Per-CTU SAO statistics of one plane; kernel C6, stats entry, on one
+    plane.
 
     org/pre: [H, W] int32, H and W multiples of the CTU size. Returns
     (eo_cnt [ncty, nctx, 4, 4], eo_sum, bo_cnt [ncty, nctx, 32], bo_sum)
     int32, with EO categories 1..4 at index 0..3.
     """
-    global STATS_LAUNCHES
     c = 1 << ctb_log2
     if pre.shape != org.shape or pre.shape[0] % c or pre.shape[1] % c:
         raise ValueError("sao_stats_plane: planes of one CTU-aligned shape")
     if not pre.is_cuda:
         return sao_stats_plane_plain(org, pre, ctb_log2, bit_depth)
-    _check_plane(org, "org")
-    _check_plane(pre, "pre")
-    h, w = pre.shape
-    ncty, nctx = h // c, w // c
-    out = torch.empty((ncty, nctx, 96), dtype=torch.int32, device=pre.device)
-    fn = _cuda.bind("sao", "hh_sao_stats", "pipi" "iiii" "pp")
-    err = fn(org.data_ptr(), org.stride(0), pre.data_ptr(), pre.stride(0),
-             h, w, ctb_log2, bit_depth, out.data_ptr(), _cuda.stream(pre))
-    _cuda.check("sao", err)
-    STATS_LAUNCHES += 1
-    # one CTU's 96 counters: EO counts, EO sums, BO counts, BO sums
-    return (out[..., 0:16].reshape(ncty, nctx, 4, 4),
-            out[..., 16:32].reshape(ncty, nctx, 4, 4),
-            out[..., 32:64], out[..., 64:96])
+    return _unpack_stats(_stats_launch((org,), (pre,), ctb_log2,
+                                       bit_depth)[:, :, 0])
 
 
 def apply_sao_plane(pre, type_map, offs, band, ctb_log2: int,
                     bit_depth: int = 8):
-    """Apply SAO to one plane; kernel C6, apply entry.
+    """Apply SAO to one plane; kernel C6, apply entry, on one plane.
 
     pre: [H, W] int32 deblocked samples (classification source AND input);
     type_map [ncty, nctx] int32 (0 off, 1 BO, 2+cls EO); offs
@@ -174,7 +260,6 @@ def apply_sao_plane(pre, type_map, offs, band, ctb_log2: int,
     int32 plane: classification reads the neighbours' pre-SAO values, so
     the pass cannot run in place.
     """
-    global APPLY_LAUNCHES
     h, w = pre.shape
     c = 1 << ctb_log2
     ncty, nctx = -(-h // c), -(-w // c)
@@ -186,19 +271,9 @@ def apply_sao_plane(pre, type_map, offs, band, ctb_log2: int,
     if not pre.is_cuda:
         return apply_sao_plane_plain(pre, type_map, offs, band, ctb_log2,
                                      bit_depth)
-    _check_plane(pre, "pre")
-    for t, name in ((type_map, "type_map"), (offs, "offs"), (band, "band")):
-        if not (t.is_cuda and t.dtype == torch.int32 and t.is_contiguous()):
-            raise ValueError(f"sao: {name} must be a contiguous CUDA int32 "
-                             "tensor")
-    out = torch.empty((h, w), dtype=torch.int32, device=pre.device)
-    fn = _cuda.bind("sao", "hh_sao_apply", "pi" "ppp" "iiiii" "pp")
-    err = fn(pre.data_ptr(), pre.stride(0), type_map.data_ptr(),
-             offs.data_ptr(), band.data_ptr(), h, w, nctx, ctb_log2,
-             bit_depth, out.data_ptr(), _cuda.stream(pre))
-    _cuda.check("sao", err)
-    APPLY_LAUNCHES += 1
-    return out
+    params = torch.cat([type_map[..., None], band[..., None], offs],
+                       -1).to(torch.int32)[:, :, None].contiguous()
+    return _apply_launch((pre,), params, ctb_log2, bit_depth)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -344,13 +419,42 @@ def choose_sao_params(stats_y, stats_cb, stats_cr, lam: float):
     return merge, type3, off, band
 
 
+class SaoStats(tuple):
+    """The per-CTU statistics of a picture's three planes: per plane
+    (eo_cnt, eo_sum, bo_cnt, bo_sum), views of one [ncty, nctx, 3, 96]
+    int32 buffer, ``packed``, which :func:`fetch_stats` copies at once."""
+    packed: torch.Tensor
+
+
 def stats_dispatch(org_yuv, rec_yuv, ctb_log2: int, bit_depth: int = 8):
-    """The per-CTU statistics of the three planes (device tensors; on the
-    card three launches, not yet waited for)."""
-    (oy, ocb, ocr), (ry, rcb, rcr) = org_yuv, rec_yuv
-    return (sao_stats_plane(oy, ry, ctb_log2, bit_depth),
-            sao_stats_plane(ocb, rcb, ctb_log2 - 1, bit_depth),
-            sao_stats_plane(ocr, rcr, ctb_log2 - 1, bit_depth))
+    """The per-CTU statistics of a picture's three planes (luma at
+    ctb_log2, chroma at ctb_log2 - 1), as a :class:`SaoStats`: device
+    tensors, on the card one launch of kernel C6's stats entry, a CTA per
+    CTU position, not yet waited for."""
+    c = 1 << ctb_log2
+    h, w = rec_yuv[0].shape
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    if h % c or w % c or any(
+            tuple(o.shape) != s or tuple(r.shape) != s
+            for o, r, s in zip(org_yuv, rec_yuv, shapes)):
+        raise ValueError("stats_dispatch: 4:2:0 planes of one CTU-aligned "
+                         "shape")
+    if rec_yuv[0].is_cuda:
+        packed = _stats_launch(tuple(org_yuv), tuple(rec_yuv), ctb_log2,
+                               bit_depth)
+    else:
+        packed = sao_stats_frame_plain(org_yuv, rec_yuv, ctb_log2,
+                                       bit_depth)
+    out = SaoStats(_unpack_stats(packed[:, :, i]) for i in range(3))
+    out.packed = packed
+    return out
+
+
+def fetch_stats(stats: SaoStats):
+    """The statistics on the host as numpy arrays, in one copy."""
+    host = stats.packed.cpu()
+    return tuple(tuple(a.numpy() for a in _unpack_stats(host[:, :, i]))
+                 for i in range(3))
 
 
 def choose_apply(stats_np, rec_yuv, maps, ctb_log2: int, lam: float,
@@ -373,20 +477,29 @@ def rdo_and_apply(org_yuv, rec_yuv, maps, ctb_log2: int, lam: float,
     org_yuv/rec_yuv: (y, cb, cr) int32 tensors on one device, CTU-aligned.
     Returns the post-SAO (ry, rcb, rcr) tensors.
     """
-    stats = stats_dispatch(org_yuv, rec_yuv, ctb_log2, bit_depth)
-    stats_np = tuple(tuple(a.cpu().numpy() for a in s) for s in stats)
+    stats_np = fetch_stats(stats_dispatch(org_yuv, rec_yuv, ctb_log2,
+                                          bit_depth))
     return choose_apply(stats_np, rec_yuv, maps, ctb_log2, lam, bit_depth)
 
 
 def apply_sao_frame(ry, rcb, rcr, type3, off, band, ctb_log2: int,
                     bit_depth: int = 8):
     """Apply resolved per-CTU SAO params (numpy [ncty, nctx, 3(, 4)]) to
-    all three planes."""
-    outs = []
-    for ci, plane in enumerate((ry, rcb, rcr)):
-        t, o, b = (torch.as_tensor(
-            np.ascontiguousarray(a[:, :, ci]).astype(np.int32),
-            device=plane.device) for a in (type3, off, band))
-        outs.append(apply_sao_plane(plane, t, o, b,
-                                    ctb_log2 - (ci > 0), bit_depth))
-    return tuple(outs)
+    all three planes: packed into one [ncty, nctx, 3, 6] int32 array
+    (type, band, four offsets), uploaded in one copy; on the card one
+    launch of kernel C6's apply entry, a CTA per CTU position. Returns new
+    planes."""
+    c = 1 << ctb_log2
+    h, w = ry.shape
+    if tuple(type3.shape) != (-(-h // c), -(-w // c), 3):
+        raise ValueError("apply_sao_frame: per-CTU parameters do not match "
+                         "the picture")
+    params = np.empty(tuple(type3.shape) + (6,), np.int32)
+    params[..., 0] = type3
+    params[..., 1] = band
+    params[..., 2:] = off
+    params = torch.as_tensor(params).to(ry.device)
+    if not ry.is_cuda:
+        return apply_sao_frame_plain((ry, rcb, rcr), params, ctb_log2,
+                                     bit_depth)
+    return _apply_launch((ry, rcb, rcr), params, ctb_log2, bit_depth)

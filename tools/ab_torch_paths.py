@@ -2,7 +2,7 @@
 """Compare the end-to-end times of two trees of hevc_hop_torch on one card.
 
     python3 tools/ab_torch_paths.py PARENT_TREE CHANGED_TREE \
-        [uniform|quadtree|production|mesh|analysis]
+        [uniform|quadtree|production|mesh|analysis|loopfilter]
 
 Each tree is a checkout of the repository (the parent unpacked with
 ``git archive`` beside the working tree). The host sets most of a frame's
@@ -40,6 +40,19 @@ entry): ``analysis_step_sharded`` at n = 16 on ``synth_class_b`` seeds
 once, then CUDA events around runs of 10 calls, the median of 7 runs
 (``step_ms``); the same for ``analysis_blocks`` alone (``kernel_ms``).
 Each process builds only csrc/intra.cu.
+
+``loopfilter`` times the loop filters' public calls on the production
+frame's own inputs, caught from one encode: ``deblock_frame`` on the
+encoder's views of its recon with its tu4 map, and again with a seeded set
+of inter maps; ``stats_dispatch`` on the encoder's originals and deblocked
+planes; ``apply_sao_frame`` with the RDO's maps. For each call, the device
+ms from a profiler trace of 10 calls after a warm-up trace, counting every
+record (copies and uploads too: ``device_ms``, ``records`` a call, and
+each record's ms by name), and the host ms of a call that ends in a
+synchronize (median of 20). Beside them, the production mode's medians of
+10 encodes and decodes: ``encode_s``, ``decode_s``, the encoder's
+``loopfilter_s``, ``fetch_s`` and ``sao_s`` and the decoder's
+``loopfilter_s``.
 """
 from __future__ import annotations
 
@@ -169,6 +182,98 @@ def analysis_process() -> dict:
             "blocks": int(got[0].numel())}
 
 
+def loopfilter_process() -> dict:
+    """The loopfilter mode's times on this process's tree (see the
+    header)."""
+    import torch
+    import chip_smoke as cs
+    from hevc_hop_torch.models import encoder as emod
+    from hevc_hop_torch.models.decoder import Decoder
+    from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+    from hevc_hop_torch.ops import sao
+    frame = cs.synth_class_b(1920, 1088, seed=0)
+    enc = IntraEncoder(EncoderConfig(width=1920, height=1088, qp=32,
+                                     **PATHS["production"]))
+    caught = {}
+
+    def catch(mod, name):
+        fn = getattr(mod, name)
+
+        def call(*a, **k):
+            caught[name] = (a, k)
+            return fn(*a, **k)
+        setattr(mod, name, call)
+        return fn
+
+    saved = [(emod.deblock, "deblock_frame"), (emod.sao, "stats_dispatch"),
+             (sao, "apply_sao_frame")]
+    saved = [(m, n, catch(m, n)) for m, n in saved]
+    try:
+        stream = enc.encode_frame(*frame)
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    torch.cuda.synchronize()
+    (da, dk), (sa, sk), (aa, ak) = (caught[n] for n in (
+        "deblock_frame", "stats_dispatch", "apply_sao_frame"))
+    dev = da[0].device
+    rng = np.random.default_rng(17)
+    u = (1088 // 4, 1920 // 4)
+    t = lambda a, dt: torch.as_tensor(a, dtype=dt, device=dev)
+    inter = dict(pred4=t(rng.random(u) < 0.3, torch.uint8),
+                 cbf4=t(rng.random(u) < 0.3, torch.uint8),
+                 ref4=t(rng.random(u) < 0.1, torch.uint8),
+                 mv4x=t(rng.integers(-6, 7, u), torch.int16),
+                 mv4y=t(rng.integers(-6, 7, u), torch.int16))
+    calls = {
+        "deblock_intra": lambda: emod.deblock.deblock_frame(*da, **dk),
+        "deblock_inter": lambda: emod.deblock.deblock_frame(*da, **dk,
+                                                            **inter),
+        "stats_dispatch": lambda: sao.stats_dispatch(*sa, **sk),
+        "apply_sao_frame": lambda: sao.apply_sao_frame(*aa, **ak)}
+    out = {}
+    for name, fn in calls.items():
+        host = []
+        for _ in range(22):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        profile(lambda: [fn() for _ in range(10)])
+        prof = profile(lambda: [fn() for _ in range(10)])
+        out[name] = {"device_ms": prof["busy_ms"] / 10,
+                     "records": sum(c for _, c in prof["records"].values())
+                     / 10,
+                     "host_ms": float(np.median(host[2:])),
+                     "by_record": {k: [v[0] / 10, v[1] / 10]
+                                   for k, v in prof["records"].items()}}
+    Decoder().decode_stream(stream)
+    keys = ("encode_s", "decode_s", "enc_loopfilter_s", "fetch_s", "sao_s",
+            "dec_loopfilter_s")
+    vals = {k: [] for k in keys}
+    for _ in range(TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode_frame(*frame)
+        torch.cuda.synchronize()
+        vals["encode_s"].append(time.perf_counter() - t0)
+        for k in ("fetch_s", "sao_s"):
+            vals[k].append(enc.last_stats[k])
+        vals["enc_loopfilter_s"].append(enc.last_stats["loopfilter_s"])
+        t0 = time.perf_counter()
+        dec = Decoder()
+        dec.decode_stream(stream)
+        torch.cuda.synchronize()
+        vals["decode_s"].append(time.perf_counter() - t0)
+        vals["dec_loopfilter_s"].append(dec.last_stats["loopfilter_s"])
+        if dec.hash_ok != [True]:
+            raise SystemExit("the decoded picture's hash does not verify")
+    out.update({k: float(np.median(v)) for k, v in vals.items()})
+    out["all"] = vals
+    return out
+
+
 def one_process(tree: str, path: str) -> None:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -187,10 +292,11 @@ def one_process(tree: str, path: str) -> None:
         return
     _cuda.build_all()
     native.get_lib()
-    if path == "mesh":
+    if path in ("mesh", "loopfilter"):
+        run = mesh_process if path == "mesh" else loopfilter_process
         print(json.dumps({"tree": tree, "path": path,
                           "card": torch.cuda.get_device_name(0),
-                          **mesh_process()}), flush=True)
+                          **run()}), flush=True)
         return
     frame = chip_smoke.synth_class_b(1920, 1088, seed=0)
     enc = IntraEncoder(EncoderConfig(width=1920, height=1088, qp=32,
@@ -261,9 +367,22 @@ def main() -> int:
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs[tree].append(json.loads(line))
+    calls = ("deblock_intra", "deblock_inter", "stats_dispatch",
+             "apply_sao_frame")
+    if path == "loopfilter":
+        # each call's device ms, records and host ms as keys of their own
+        for rs in runs.values():
+            for r in rs:
+                for c in calls:
+                    for k in ("device_ms", "records", "host_ms"):
+                        r[f"{c}.{k}"] = r[c][k]
     med = lambda rs, k: float(np.median([r[k] for r in rs]))
     keys = {"mesh": ("encode_s", "single_s", "busy_ms"),
-            "analysis": ("step_ms", "kernel_ms")}.get(
+            "analysis": ("step_ms", "kernel_ms"),
+            "loopfilter": tuple(f"{c}.{k}" for c in calls for k in (
+                "device_ms", "records", "host_ms")) + (
+                "encode_s", "decode_s", "enc_loopfilter_s", "fetch_s",
+                "sao_s", "dec_loopfilter_s")}.get(
         path, ("encode_s", "decode_s", "residual_s", "c3_decode_device_ms",
                "entropy_s", "scan_s"))
     print(json.dumps({name: {k: med(runs[tree], k) for k in keys}

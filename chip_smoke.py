@@ -910,6 +910,200 @@ def phase_loopfilter(checks):
         for k in ("C4", "C6")))
 
 
+def _tie_costs(rng, by, bx, costs, nxn=True, rqt=True):
+    """Decision inputs of a by x bx CTU grid for the arm (nxn, rqt), built
+    from a few values, each comparison of the arm's decision made an exact
+    float32 tie (when one exists) and then won, kept or lost by 64 at
+    random; ``costs`` is _decide_costs(qp). Returns the six cost grids,
+    the four mode grids and the count of exact ties per comparison."""
+    mc, sc, nc, cc = (np.float32(c) for c in costs)
+    f32 = np.float32
+    vals = np.array([96, 160, 224, 352], np.float32)
+
+    def pick(h, w, scale=1):
+        return rng.choice(vals, (h, w)).astype(np.float32) * f32(scale)
+
+    def s4(a):
+        return ((a[0::2, 0::2] + a[0::2, 1::2]) + a[1::2, 0::2]) \
+            + a[1::2, 1::2]
+
+    def near(target, add):
+        x = (target - add).astype(np.float32)
+        for _ in range(4):
+            s = (x + add).astype(np.float32)
+            x = np.where(s < target, np.nextafter(x, f32(np.inf)),
+                         np.where(s > target,
+                                  np.nextafter(x, f32(-np.inf)), x))
+        return (x + f32(64) * rng.integers(-1, 2, x.shape)).astype(
+            np.float32)
+
+    def up2(a):
+        return np.repeat(np.repeat(a, 2, 0), 2, 1)
+
+    # the sub-TU costs at the scale of the costs they are held against; a
+    # CU held against its split gets sub-TU costs 8 times as high, so that
+    # the TU split does not take it; without the TU-split arm every CU is
+    # held against its split
+    rd4 = pick(8 * by, 8 * bx)
+    to_split16 = (rng.random((2 * by, 2 * bx)) < 0.5) | (not rqt)
+    to_split32 = (rng.random((by, bx)) < 0.5) | (not rqt)
+    f16 = pick(4 * by, 4 * bx, 4) * np.where(up2(to_split16), f32(8), 1)
+    f32_ = pick(2 * by, 2 * bx, 16) * np.where(up2(to_split32), f32(8), 1)
+    nxn8 = s4(rd4) + nc
+    rd8 = near(nxn8, mc) if nxn else pick(4 * by, 4 * bx, 4)
+    best8 = np.minimum(rd8 + mc, nxn8) if nxn else rd8 + mc
+    cut16, split16 = s4(f16) + cc, s4(best8) + sc
+    rd16 = np.where(to_split16, near(split16, mc), near(cut16, mc))
+    cu16 = np.minimum(rd16 + mc, cut16) if rqt else rd16 + mc
+    lvl16 = np.where(cu16 <= split16, cu16, split16)
+    cut32, split32 = s4(f32_) + cc, s4(lvl16) + sc
+    rd32 = np.where(to_split32, near(split32, mc), near(cut32, mc))
+    cu32 = np.minimum(rd32 + mc, cut32) if rqt else rd32 + mc
+    ties = {"nxn8 == cu8": int((rd8 + mc == nxn8).sum()) if nxn else 0,
+            "cut16 == cu16": int((rd16 + mc == cut16).sum()) if rqt else 0,
+            "cu16 == split16": int((cu16 == split16).sum()),
+            "cut32 == cu32": int((rd32 + mc == cut32).sum()) if rqt else 0,
+            "cu32 == split32": int((cu32 == split32).sum())}
+    modes = [rng.integers(0, 35, (k * by, k * bx)).astype(np.int32)
+             for k in (8, 4, 2, 1)]
+    return (rd4, rd8, rd16, rd32, f16, f32_), modes, ties
+
+
+def _strided(rng, h, w, lo, hi, dev, offset):
+    """An int32 [h, w] view of a wider, taller buffer on the card, its
+    samples in [lo, hi): from row 1, column 3 with ``offset`` (base and
+    row stride not multiples of 16 bytes: C1's scalar arm), else from the
+    origin of rows padded to a multiple of 4 samples plus 4."""
+    import torch
+    if offset:
+        buf = torch.as_tensor(rng.integers(lo, hi, (h + 2, w + 5)),
+                              dtype=torch.int32, device=dev)
+        return buf[1:1 + h, 3:3 + w]
+    buf = torch.as_tensor(rng.integers(lo, hi, (h, (w + 3) // 4 * 4 + 4)),
+                          dtype=torch.int32, device=dev)
+    return buf[:, :w]
+
+
+def phase_checksum_decide(checks):
+    """Kernel C1 and C5's decide entry on the inputs that reach their
+    scalar arms, odd shapes and ties. C1: strided views of wider buffers
+    with an unaligned base (the scalar arm) and aligned ones, odd widths,
+    1920x1088 and 416x240 planes, 8 and 10 bit; a 10-bit 4096x2176
+    picture; a 4096x2176 picture of 16-bit samples (the arm above 8 bit)
+    whose luma sum passes 2^32 (a 10-bit picture of that size cannot: its
+    sum stays under 3.5e9); two launches back to back on one stream with
+    different grids, and one on a second stream, each with its ticket
+    counter back at 0 after it; against _checksum_plain, and the largest
+    also against checksum_digests_np. C5 decide: costs with exact ties
+    (_tie_costs) at 1920x1088 and on a 13x7 CTU grid, every arm, against
+    decide_plain. 0 mismatches."""
+    import torch
+    from hevc_hop_torch.models import partition
+    from hevc_hop_torch.ops import hashes
+    dev = torch.device("cuda")
+    c1, c5 = checks["C1"], checks["C5"]
+    rng = np.random.default_rng(23)
+    cases = []
+    for (w, h) in ((W, H), (416, 240), (66, 34), (1922, 1090)):
+        for bd in (8, 10):
+            for offset in (True, False):
+                planes = [_strided(rng, hh, ww, 0, 1 << bd, dev, offset)
+                          for hh, ww in ((h, w), (h // 2, (w + 1) // 2),
+                                         ((h + 1) // 2, w // 2))]
+                cases.append((f"{w}x{h} {bd} bit, views "
+                              + ("from an unaligned base" if offset
+                                 else "of padded rows"), planes, bd))
+    cases.append(("one plane 33x17 (odd width)", [_strided(
+        rng, 17, 33, 0, 256, dev, False)], 8))
+    cases.append(("two planes 1920x1088 and 7x9, unaligned", [
+        _strided(rng, H, W, 0, 1024, dev, True),
+        _strided(rng, 7, 9, 0, 1024, dev, True)], 10))
+    for what, planes, bd in cases:
+        got = hashes.plane_checksums(planes, bd)
+        want = [hashes._checksum_plain(p, bd) for p in planes]
+        c1.add(got, want, f"C1 {what}")
+    # 4096x2176: a 10-bit picture, and one whose samples' low and high
+    # bytes are both the position mask's complement (each sample adds
+    # 510 before the wrap: 4.5e9 on the luma)
+    big_w, big_h = 4096, 2176
+    pic10 = [torch.as_tensor(rng.integers(0, 1024, (hh, ww)),
+                             dtype=torch.int32, device=dev)
+             for hh, ww in ((big_h, big_w), (big_h // 2, big_w // 2),
+                            (big_h // 2, big_w // 2))]
+    top, raw = [], 0
+    for hh, ww in ((big_h, big_w), (big_h // 2, big_w // 2),
+                   (big_h // 2, big_w // 2)):
+        x = torch.arange(ww, device=dev)[None, :]
+        y = torch.arange(hh, device=dev)[:, None]
+        xm = ((x & 255) ^ (y & 255) ^ (x >> 8) ^ (y >> 8)) & 255
+        v = (255 - xm) * 257
+        top.append(v.to(torch.int32))
+        # the luma's sum in int64, without the wrap
+        raw = raw or int((((v & 255) ^ xm) + ((v >> 8) ^ xm)).sum())
+    require(raw > 1 << 32, f"C1: the 16-bit luma's sum {raw} stays under "
+            "2^32")
+    for what, planes, bd in (("4096x2176 10 bit", pic10, 10),
+                             ("4096x2176 16-bit samples, luma sum "
+                              f"{raw} past 2^32", top, 16)):
+        got = hashes.checksum_digests(*planes, bit_depth=bd)
+        want = [hashes._digest(hashes._checksum_plain(p, bd))
+                for p in planes]
+        host = hashes.checksum_digests_np(*(p.cpu().numpy() for p in planes),
+                                          bit_depth=bd)
+        c1.add([list(d) for d in got], [list(d) for d in want],
+               f"C1 {what}")
+        c1.add([list(d) for d in got], [list(d) for d in host],
+               f"C1 {what}, against checksum_digests_np")
+    # back to back on one stream, then on a second stream: a ticket counter
+    # left off 0 by a launch would make the next one's sums wrong
+    outs = [torch.empty(3, dtype=torch.int32, pin_memory=True)
+            for _ in range(3)]
+    runs = ((pic10, 10), (cases[0][1], 8), (top[:1], 16))
+    hashes.checksum_launch(*runs[0], outs[0])
+    hashes.checksum_launch(*runs[1], outs[1])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        hashes.checksum_launch(*runs[2], outs[2])
+    torch.cuda.synchronize()
+    for i, ((planes, bd), out) in enumerate(zip(runs, outs)):
+        got = [v & 0xFFFFFFFF for v in out.tolist()[:len(planes)]]
+        want = [hashes._checksum_plain(p, bd) for p in planes]
+        c1.add(got, want, f"C1 launch {i} of three back to back")
+    for (_, st), ws in hashes._WORKSPACE.items():
+        require(int(ws[-1]) == 0, f"C1: stream {st}'s ticket counter is "
+                f"{int(ws[-1])} after its launches")
+    ctas = hashes._resident_ctas(dev)[0]
+    grids = [hashes.band_plan(tuple(tuple(p.shape) for p in pl), ctas)[2]
+             for pl, _ in runs]
+    log(f"C1: {ctas} CTAs resident; the back-to-back launches' grids "
+        f"{grids}")
+    for (by, bx) in ((H // 32, W // 32), (7, 13)):
+        for qp in (22, 32):
+            for arm in ("plain", "nxn", "rqt"):
+                nxn, rqt = arm != "plain", arm == "rqt"
+                costs, modes, ties = _tie_costs(
+                    rng, by, bx, partition._decide_costs(qp), nxn, rqt)
+                tc = [torch.as_tensor(c, device=dev) for c in costs]
+                tm = [torch.as_tensor(m, device=dev) for m in modes]
+                args = (tc[0] if nxn else None, *tc[1:4],
+                        tc[4] if rqt else None, tc[5] if rqt else None,
+                        tm[0] if nxn else None, *tm[1:])
+                got = partition._decide(*args, qp)
+                want = partition.decide_plain(*args, qp)
+                for g, w_, nm in zip(got, want,
+                                     ("depth8", "mode4", "tulog8")):
+                    c5.add(g, w_, f"C5 decide {arm} {nm}, {bx}x{by} CTUs, "
+                           f"QP {qp}, exact ties")
+                hist = torch.bincount(got[0].flatten(), minlength=4)
+                log(f"C5 decide {arm} {bx}x{by} CTUs QP {qp}: ties "
+                    f"{json.dumps(ties)}, depth8 histogram {hist.tolist()}")
+    torch.cuda.synchronize()
+    log("C1 and C5's decide entry on their edge cases: " + ", ".join(
+        f"{k} {checks[k].cases} cases {checks[k].mism} mismatches"
+        for k in ("C1", "C5")))
+
+
 def _counters():
     """(name, module, attribute) of every kernel's launch count; the
     kernels of csrc/tq.cu (encode, its RDOQ arm, decode), csrc/partition.cu,
@@ -2218,7 +2412,7 @@ def phase_timing(ctxs, ps, checks, launches, scan_rows):
          "hevc_hop_tpu/ops/hashes.py:18",
          lambda: hashes.plane_checksums([ry, rcb, rcr]),
          lambda: [hashes._checksum_plain(q, 8) for q in (ry, rcb, rcr)],
-         4 * npx + 12, 10 * npx)
+         4 * npx + 12, 10 * npx, every=True, flushed=True)
     # C5 and C6 on the whole frame (inputs of phase_partition_sao, 8 bit)
     yq, kern = ps["y"], ps["kern"]
     orgs = tuple(o for o, _, _, _ in ps["planes"])
@@ -2245,7 +2439,8 @@ def phase_timing(ctxs, ps, checks, launches, scan_rows):
          "hevc_hop_tpu/models/partition.py:247",
          lambda: partition._decide(*rqt, QP),
          lambda: partition.decide_plain(*rqt, QP),
-         4 * grids + 4 * (2 * (H // 8) * (W // 8) + nb4), 400 * ctus)
+         4 * grids + 4 * (2 * (H // 8) * (W // 8) + nb4), 400 * ctus,
+         every=True)
     # the statistics read org and pre once and write 3 x 96 counters a
     # CTU position; the apply reads pre and the packed parameters once and
     # writes the three planes
@@ -2265,24 +2460,47 @@ def phase_timing(ctxs, ps, checks, launches, scan_rows):
     return _time_specs(specs, checks, launches)
 
 
-def _traced_ms(fn, kernel, name):
-    """(device ms per call of fn's launches of ``kernel``, traces taken):
-    a call of small launches is bound by the host, so its host time is
-    mostly Python. A trace now and then lacks some of the launches'
-    records, so one counts only if it holds them all."""
-    inner, ms, traces = 10, None, 0
+def _traced_ms(fn, kernel, name, every=False):
+    """(device ms per call of fn's launches of ``kernel``, traces taken,
+    device records per call, the kernel's own ms per call): a call of
+    small launches is bound by the host, so its host time is mostly
+    Python. With ``every`` the ms count every device record of the call
+    (fills, copies), not only the kernel's. A trace now and then lacks some of the launches' records, so
+    one counts only if it holds them all."""
+    inner, ms, traces, records, own = 10, None, 0, None, None
     while ms is None and traces < 6:
         traces += 1
         prof = _profile(lambda: [fn() for _ in range(inner)])
         count = prof["kernel_calls"][kernel]
         if count and count == count // inner * inner:
-            ms = prof["kernel_ms"][kernel] / inner
+            own = prof["kernel_ms"][kernel] / inner
+            ms = prof["device_busy_ms"] / inner if every else own
+            records = prof["device_records"] / inner
         else:
             log(f"{name}: trace {traces} holds {count} records of "
                 f"{kernel} for {inner} calls; traced again")
     require(ms is not None and ms > 0,
             f"no complete trace of {kernel} in {traces} tries")
-    return ms, traces
+    return ms, traces, records, own
+
+
+def _flushed_ms(fn, kernel, inner=10):
+    """The device ms of fn's launches of ``kernel`` with the 50 MB L2
+    flushed before each call (256 MB written between calls), from a
+    profiler trace after a warm-up one."""
+    import torch
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+
+    def run():
+        for _ in range(inner):
+            flush.fill_(0)
+            fn()
+    _profile(run)
+    prof = _profile(run)
+    require(prof["kernel_calls"][kernel] >= inner,
+            f"the flushed trace holds {prof['kernel_calls'][kernel]} "
+            f"records of {kernel} for {inner} calls")
+    return prof["kernel_ms"][kernel] / prof["kernel_calls"][kernel]
 
 
 def _time_specs(specs, checks, launches):
@@ -2320,7 +2538,8 @@ def _time_specs(specs, checks, launches):
         call_ms = time_ms(fn, reps=3 if slow else 7, inner=3 if slow else 10)
         pms = (sp["plain_ms"] if "plain_ms" in sp else
                time_ms(plain, reps=1 if slow else 5, inner=1))
-        ms, traces = _traced_ms(fn, sp["kernel"], name)
+        ms, traces, records, own = _traced_ms(fn, sp["kernel"], name,
+                                              sp.get("every", False))
         b_ms, by = bound(sp["nbytes"], sp["ops"])
         # on the main paths C7's device code (rdoq_block) runs inside C3's
         # RDOQ arm, or inside C13, and C2's and C3's inside C13 on the
@@ -2337,6 +2556,8 @@ def _time_specs(specs, checks, launches):
                          k: v[counter] for k, v in launches.items()}}
         if "loop_ms" in sp:
             fused["level_loop_ms"] = sp["loop_ms"]
+        if sp.get("flushed"):
+            fused["l2_flushed_ms"] = _flushed_ms(fn, sp["kernel"])
         if "float_ops" in sp:
             fb_ms, fby = bound(sp["nbytes"], sp["float_ops"])
             fused["float_form_bound_ms"] = fb_ms
@@ -2357,8 +2578,10 @@ def _time_specs(specs, checks, launches):
                      "launches_by_path": {k: v[launched]
                                           for k, v in launches.items()},
                      "max_abs_err": check.err, "mismatches": check.mism,
-                     "ms": ms, "kernel_ms": ms, "call_ms": call_ms,
+                     "ms": ms, "kernel_ms": own, "call_ms": call_ms,
                      "profile_traces": traces,
+                     "device_records_per_call": records,
+                     "ms_counts_every_record": sp.get("every", False),
                      "plain_ms": pms, "bound_ms": b_ms, "bound_by": by,
                      "library_ms": (time_ms(sp["library"])
                                     if sp.get("library") else None),
@@ -5663,7 +5886,7 @@ def _profile(fn):
         wall = time.perf_counter() - t0
     per = {k: 0.0 for k in KERNELS}
     calls = {k: 0 for k in KERNELS}
-    busy = 0.0
+    busy, records = 0.0, 0
     for e in prof.key_averages():
         if getattr(e, "device_type", None) is not None and \
                 "CUDA" not in str(e.device_type):
@@ -5672,6 +5895,7 @@ def _profile(fn):
         if dt is None:
             dt = getattr(e, "self_cuda_time_total", 0.0)
         busy += dt
+        records += e.count if dt else 0
         for k in per:
             if _is_kernel(e.key, k):
                 per[k] += dt
@@ -5680,7 +5904,7 @@ def _profile(fn):
             "device_idle_share": (1 - busy / 1e3 / (wall * 1e3)
                                   if busy else None),
             "kernel_ms": {k: v / 1e3 for k, v in per.items()},
-            "kernel_calls": calls}
+            "kernel_calls": calls, "device_records": records}
 
 
 def _profile_holding(fn, kernel, n, what, tries=3):
@@ -5759,6 +5983,7 @@ def main() -> int:
     arms_exact = phase_arms_exact(checks)
     ps = phase_partition_sao(checks)
     phase_loopfilter(checks)
+    phase_checksum_decide(checks)
     log_host("kernels held")
     paths, ctxs = {}, {}
     for name in PATHS:

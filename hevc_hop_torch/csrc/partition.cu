@@ -49,19 +49,24 @@
 // lambda * bits is one fmaf, which is what the reference's compiled
 // program does; log2f, not __log2f.
 //
-// Decide entry, one thread per 32x32 CTU: it walks the CTU's 64 + 16 + 4 + 1
-// costs bottom-up (NxN against 2Nx2N at 8x8; one CU, one CU with four
-// half-size TUs, or four CUs at 16x16 and 32x32) and writes the CTU's cells
-// of depth8, mode4 and tulog8. Sums of four costs are ((a00 + a01) + a10) +
-// a11 and every sum is rounded on its own.
+// Decide entry, one thread per 8x8 cell (16 a CTU, 32 640 on 1920x1088):
+// the CTU's 64 + 16 + 4 + 1 costs bottom-up (NxN against 2Nx2N at 8x8;
+// one CU, one CU with four half-size TUs, or four CUs at 16x16 and 32x32),
+// each level's sums from the level below through shared memory, and the
+// cell's depth8, tulog8 and 2x2 of mode4 written by its thread. Sums of
+// four costs are ((a00 + a01) + a10) + a11 and every sum is rounded on its
+// own. Bound: bytes (each grid read once, each output written once), far
+// under a launch's own time at 1920x1088 (0.7 us of 3 MB), so the design
+// spreads the work over the card (272 CTAs) with coalesced rows and every
+// load in flight at once.
 //
-// Bound: integer operations. A block costs 35 predictions and SATDs plus
-// three transform round trips against n^2 samples read once, far above the
-// card's bytes-per-operation line. Every block of the frame is independent,
-// so one launch per size fills the card (16 320 CTAs of eight blocks at n =
-// 4 on 1920x1088). The design keeps the chain, the block and every
-// intermediate in shared memory; device memory sees each sample once per
-// launch.
+// RD entry bound: integer operations. A block costs 35 predictions and
+// SATDs plus three transform round trips against n^2 samples read once, far
+// above the card's bytes-per-operation line. Every block of the frame is
+// independent, so one launch per size fills the card (16 320 CTAs of eight
+// blocks at n = 4 on 1920x1088). The design keeps the chain, the block and
+// every intermediate in shared memory; device memory sees each sample once
+// per launch.
 #include "intra.cuh"
 #include "tq.cuh"
 
@@ -438,87 +443,125 @@ struct DecideArgs {
   int32_t *depth8, *mode4, *tulog8;
 };
 
-// ((a00 + a01) + a10) + a11 of the 2x2 cell at (y, x) of a grid w wide
-__device__ __forceinline__ float sum4(const float *g, int w, int y, int x) {
-  const float *p = g + (long long)(2 * y) * w + 2 * x;
-  return __fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), p[w]), p[w + 1]);
+// CTUs side by side in a CTA of the decide entry: a warp covers one row of
+// their 8x8 cells, a lane a cell
+constexpr int kDecideCtus = 8;
+constexpr int kDecideThreads = 32 * 4;
+
+// ((s00 + s01) + s10) + s11 of the 2x2 cell at row r, column c of s
+template <int W>
+__device__ __forceinline__ float sum4s(float (*s)[W], int r, int c) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(s[r][c], s[r][c + 1]), s[r + 1][c]),
+                   s[r + 1][c + 1]);
 }
 
-__global__ void partition_decide_kernel(DecideArgs a) {
-  const int ctu = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ctu >= a.by * a.bx) return;
-  const int cy = ctu / a.bx, cx = ctu % a.bx;
+// A thread per 8x8 cell: CTA (blockIdx.x, blockIdx.y) takes the 8 CTUs
+// from column 8 blockIdx.x of CTU row blockIdx.y, warp w their cell row w,
+// lane l cell column l, so every load and store of the cell grids (rd8, m8,
+// rd8f16, depth8, tulog8) is one 128-byte row segment a warp, and the 2x2
+// of rd4, m4 and mode4 under a cell two 8-byte accesses (256 bytes a warp).
+// Every load is issued before the first decision. The 16x16 and 32x32
+// levels add their cells' values from shared memory in sum4s's order; each
+// of a level's threads decides its CU itself.
+__global__ void __launch_bounds__(kDecideThreads)
+    partition_decide_kernel(DecideArgs a) {
+  const int wr = threadIdx.x >> 5, l = threadIdx.x & 31;
+  const int cy = blockIdx.y, cx = blockIdx.x * kDecideCtus + (l >> 2);
+  const bool live = cx < a.bx;
   const int w4 = a.bx * 8, w8 = a.bx * 4, w16 = a.bx * 2;
+  const int gy = cy * 4 + wr, gx = blockIdx.x * 4 * kDecideCtus + l;
+  const long long c8 = (long long)gy * w8 + gx;
+  const long long c16 = (long long)(cy * 2 + (wr >> 1)) * w16 + (gx >> 1);
+  const long long c4 = (long long)(2 * gy) * w4 + 2 * gx;
   const bool nxn = a.rd4 != nullptr, rqt = a.rd8f16 != nullptr;
 
-  float best8[16];
-  bool take_nxn[4][4];
-  for (int j = 0; j < 4; ++j)
-    for (int i = 0; i < 4; ++i) {
-      const int gy = cy * 4 + j, gx = cx * 4 + i;
-      float cu = __fadd_rn(a.rd8[(long long)gy * w8 + gx], a.mode_cost);
-      bool take = false;
-      if (nxn) {
-        const float split = __fadd_rn(sum4(a.rd4, w4, gy, gx), a.nxn_cost);
-        take = split < cu;
-        cu = fminf(cu, split);
-      }
-      take_nxn[j][i] = take;
-      best8[j * 4 + i] = cu;
+  float rd8 = 0.0f, rd16 = 0.0f, rd32 = 0.0f, f16 = 0.0f, f32 = 0.0f;
+  int m8 = 0, m16 = 0, m32 = 0;
+  float2 r4t = make_float2(0.0f, 0.0f), r4b = r4t;
+  int2 m4t = make_int2(0, 0), m4b = m4t;
+  if (live) {
+    rd8 = a.rd8[c8];
+    m8 = a.m8[c8];
+    rd16 = a.rd16[c16];
+    m16 = a.m16[c16];
+    rd32 = a.rd32[(long long)cy * a.bx + cx];
+    m32 = a.m32[(long long)cy * a.bx + cx];
+    if (nxn) {
+      r4t = *reinterpret_cast<const float2 *>(a.rd4 + c4);
+      r4b = *reinterpret_cast<const float2 *>(a.rd4 + c4 + w4);
+      m4t = *reinterpret_cast<const int2 *>(a.m4 + c4);
+      m4b = *reinterpret_cast<const int2 *>(a.m4 + c4 + w4);
     }
-
-  float lvl16[4];
-  bool take16[2][2], take16t[2][2];
-  for (int j = 0; j < 2; ++j)
-    for (int i = 0; i < 2; ++i) {
-      const int gy = cy * 2 + j, gx = cx * 2 + i;
-      float cu = __fadd_rn(a.rd16[(long long)gy * w16 + gx], a.mode_cost);
-      bool tt = false;
-      if (rqt) {
-        const float cut = __fadd_rn(sum4(a.rd8f16, w8, gy, gx), a.cut_cost);
-        tt = cut < cu;
-        cu = fminf(cu, cut);
-      }
-      const float split = __fadd_rn(sum4(best8, 4, j, i), a.split_cost);
-      take16[j][i] = cu <= split;
-      take16t[j][i] = tt;
-      lvl16[j * 2 + i] = take16[j][i] ? cu : split;
+    if (rqt) {
+      f16 = a.rd8f16[c8];
+      f32 = a.rd16f32[c16];
     }
+  }
 
-  float cu32 = __fadd_rn(a.rd32[ctu], a.mode_cost);
+  // 8x8: the CU against NxN (strict <)
+  float cu8 = __fadd_rn(rd8, a.mode_cost);
+  bool take_nxn = false;
+  if (nxn) {
+    const float split = __fadd_rn(
+        __fadd_rn(__fadd_rn(__fadd_rn(r4t.x, r4t.y), r4b.x), r4b.y),
+        a.nxn_cost);
+    take_nxn = split < cu8;
+    cu8 = fminf(cu8, split);
+  }
+  __shared__ float best8[4][32], sub8[4][32], lvl16[2][16], sub16[2][16];
+  best8[wr][l] = cu8;
+  sub8[wr][l] = f16;
+  __syncthreads();
+
+  // 16x16: the CU over its four cells from row wr & 2, column l & ~1; the
+  // TU split strict <, the CU kept against its split at <=
+  float cu16 = __fadd_rn(rd16, a.mode_cost);
+  bool take16t = false;
+  if (rqt) {
+    const float cut = __fadd_rn(sum4s(sub8, wr & 2, l & ~1), a.cut_cost);
+    take16t = cut < cu16;
+    cu16 = fminf(cu16, cut);
+  }
+  const float split16 =
+      __fadd_rn(sum4s(best8, wr & 2, l & ~1), a.split_cost);
+  const bool take16 = cu16 <= split16;
+  if (!(wr & 1) && !(l & 1)) {
+    lvl16[wr >> 1][l >> 1] = take16 ? cu16 : split16;
+    sub16[wr >> 1][l >> 1] = f32;
+  }
+  __syncthreads();
+
+  // 32x32: the CTU over its four 16x16 CUs, columns 2 (l / 4) and the next
+  const int k0 = (l >> 2) * 2;
+  float cu32 = __fadd_rn(rd32, a.mode_cost);
   bool take32t = false;
   if (rqt) {
-    const float cut = __fadd_rn(sum4(a.rd16f32, w16, cy, cx), a.cut_cost);
+    const float cut = __fadd_rn(sum4s(sub16, 0, k0), a.cut_cost);
     take32t = cut < cu32;
     cu32 = fminf(cu32, cut);
   }
-  const bool take32 = cu32 <= __fadd_rn(sum4(lvl16, 2, 0, 0), a.split_cost);
+  const bool take32 = cu32 <= __fadd_rn(sum4s(lvl16, 0, k0), a.split_cost);
+  if (!live) return;
 
-  for (int j = 0; j < 4; ++j)
-    for (int i = 0; i < 4; ++i) {
-      const int gy = cy * 4 + j, gx = cx * 4 + i;
-      int depth, tulog;
-      if (take32) {
-        depth = 0;
-        tulog = take32t ? 4 : 5;
-      } else if (take16[j / 2][i / 2]) {
-        depth = 1;
-        tulog = take16t[j / 2][i / 2] ? 3 : 4;
-      } else {
-        depth = take_nxn[j][i] ? 3 : 2;
-        tulog = take_nxn[j][i] ? 2 : 3;
-      }
-      a.depth8[(long long)gy * w8 + gx] = depth;
-      a.tulog8[(long long)gy * w8 + gx] = tulog;
-      for (int v = 0; v < 2; ++v)
-        for (int u = 0; u < 2; ++u) {
-          const long long o = (long long)(2 * gy + v) * w4 + 2 * gx + u;
-          a.mode4[o] = depth == 0   ? a.m32[ctu]
-                       : depth == 1 ? a.m16[(long long)(gy / 2) * w16 + gx / 2]
-                       : depth == 3 ? a.m4[o]
-                                    : a.m8[(long long)gy * w8 + gx];
-        }
-    }
+  int depth, tulog;
+  if (take32) {
+    depth = 0;
+    tulog = take32t ? 4 : 5;
+  } else if (take16) {
+    depth = 1;
+    tulog = take16t ? 3 : 4;
+  } else {
+    depth = take_nxn ? 3 : 2;
+    tulog = take_nxn ? 2 : 3;
+  }
+  a.depth8[c8] = depth;
+  a.tulog8[c8] = tulog;
+  if (depth != 3) {
+    const int m = depth == 0 ? m32 : (depth == 1 ? m16 : m8);
+    m4t = m4b = make_int2(m, m);
+  }
+  *reinterpret_cast<int2 *>(a.mode4 + c4) = m4t;
+  *reinterpret_cast<int2 *>(a.mode4 + c4 + w4) = m4b;
 }
 
 }  // namespace
@@ -590,8 +633,9 @@ HH_EXPORT int hh_partition_rd(const void *y, int h, int w, int stride,
 // Decide entry. Cost grids float32 and mode grids int32 of a picture of
 // by x bx CTUs of 32x32: rd4/m4 [8by, 8bx] (null: no NxN arm), rd8/m8
 // [4by, 4bx], rd16/m16 [2by, 2bx], rd32/m32 [by, bx], rd8f16 [4by, 4bx] and
-// rd16f32 [2by, 2bx] (both null: no TU-split arm). Out: depth8 and tulog8
-// [4by, 4bx], mode4 [8by, 8bx] int32.
+// rd16f32 [2by, 2bx] (both null: no TU-split arm), each contiguous, rd4
+// and m4 8-byte aligned. Out: depth8 and tulog8 [4by, 4bx], mode4 [8by,
+// 8bx] int32, mode4 8-byte aligned.
 HH_EXPORT int hh_partition_decide(const void *rd4, const void *rd8,
                                   const void *rd16, const void *rd32,
                                   const void *rd8f16, const void *rd16f32,
@@ -621,9 +665,9 @@ HH_EXPORT int hh_partition_decide(const void *rd4, const void *rd8,
   a.depth8 = static_cast<int32_t *>(depth8);
   a.mode4 = static_cast<int32_t *>(mode4);
   a.tulog8 = static_cast<int32_t *>(tulog8);
-  const int threads = 128;
-  const int blocks = (by * bx + threads - 1) / threads;
-  partition_decide_kernel<<<blocks, threads, 0,
+  if (by < 1 || bx < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((bx + kDecideCtus - 1) / kDecideCtus, by);
+  partition_decide_kernel<<<grid, kDecideThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

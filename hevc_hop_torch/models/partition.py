@@ -387,6 +387,9 @@ def _decide_cuda(rd4, rd8, rd16, rd32, rd8f16, rd16f32, m4, m8, m16, m32,
             raise ValueError("decide: contiguous CUDA float32 costs and "
                              "int32 modes")
         ptr.append(None if t is None else t.data_ptr())
+    # the kernel reads a cell's 2x2 of rd4 and m4 with 8-byte loads
+    if rd4 is not None and (ptr[0] % 8 or ptr[6] % 8):
+        raise ValueError("decide: rd4 and m4 8-byte aligned")
     by, bx = rd32.shape
     depth8 = torch.empty((by * 4, bx * 4), dtype=torch.int32, device=dev)
     mode4 = torch.empty((by * 8, bx * 8), dtype=torch.int32, device=dev)

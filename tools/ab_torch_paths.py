@@ -2,7 +2,8 @@
 """Compare the end-to-end times of two trees of hevc_hop_torch on one card.
 
     python3 tools/ab_torch_paths.py PARENT_TREE CHANGED_TREE \
-        [uniform|quadtree|production|mesh|analysis|loopfilter]
+        [uniform|quadtree|production|mesh|analysis|loopfilter|
+         checksum_decide]
 
 Each tree is a checkout of the repository (the parent unpacked with
 ``git archive`` beside the working tree). The host sets most of a frame's
@@ -40,6 +41,23 @@ entry): ``analysis_step_sharded`` at n = 16 on ``synth_class_b`` seeds
 once, then CUDA events around runs of 10 calls, the median of 7 runs
 (``step_ms``); the same for ``analysis_blocks`` alone (``kernel_ms``).
 Each process builds only csrc/intra.cu.
+
+``checksum_decide`` times kernel C1 and C5's decide entry on the
+production frame's own inputs, caught from one encode: the encoder's
+``hashes.plane_checksums`` call (its three recon planes) and its
+``partition._decide`` call (the decision's cost and mode grids, NxN and
+TU-split arms). For each call, as in ``loopfilter``: the device ms of a
+profiler trace of 10 calls counting every record (``device_ms``),
+``records`` a call, each record's ms by name, and the host ms of a call
+that ends in a synchronize (median of 20, and its quartiles); for C1 also
+its kernel's own device ms with the 50 MB L2 flushed before each call
+(``flushed_ms``: 256 MB written between calls); for the decide entry also an empty kernel
+launched on its grid, 8 CTUs of a CTU row a CTA of 128 threads
+(``empty_launch_ms``: the floor of a launch of that shape, built by this
+tool with nvcc into the tree's build directory). Beside them the
+production mode's medians of 10 encodes and decodes: ``encode_s``,
+``decode_s``, the encoder's ``decide_s`` and the decoder's
+``checksum_s``.
 
 ``loopfilter`` times the loop filters' public calls on the production
 frame's own inputs, caught from one encode: ``deblock_frame`` on the
@@ -231,23 +249,7 @@ def loopfilter_process() -> dict:
                                                             **inter),
         "stats_dispatch": lambda: sao.stats_dispatch(*sa, **sk),
         "apply_sao_frame": lambda: sao.apply_sao_frame(*aa, **ak)}
-    out = {}
-    for name, fn in calls.items():
-        host = []
-        for _ in range(22):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            host.append((time.perf_counter() - t0) * 1e3)
-        profile(lambda: [fn() for _ in range(10)])
-        prof = profile(lambda: [fn() for _ in range(10)])
-        out[name] = {"device_ms": prof["busy_ms"] / 10,
-                     "records": sum(c for _, c in prof["records"].values())
-                     / 10,
-                     "host_ms": float(np.median(host[2:])),
-                     "by_record": {k: [v[0] / 10, v[1] / 10]
-                                   for k, v in prof["records"].items()}}
+    out = _timed_calls(calls)
     Decoder().decode_stream(stream)
     keys = ("encode_s", "decode_s", "enc_loopfilter_s", "fetch_s", "sao_s",
             "dec_loopfilter_s")
@@ -274,6 +276,141 @@ def loopfilter_process() -> dict:
     return out
 
 
+def _timed_calls(calls: dict) -> dict:
+    """Each call's device ms and records from a profiler trace of 10 calls
+    after a warm-up trace (every record counted), its records' ms by
+    name, and the host ms of a call that ends in a synchronize (median of
+    20 after 2, and their quartiles)."""
+    import torch
+    out = {}
+    for name, fn in calls.items():
+        host = []
+        for _ in range(22):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        profile(lambda: [fn() for _ in range(10)])
+        prof = profile(lambda: [fn() for _ in range(10)])
+        out[name] = {"device_ms": prof["busy_ms"] / 10,
+                     "records": sum(c for _, c in prof["records"].values())
+                     / 10,
+                     "host_ms": float(np.median(host[2:])),
+                     "host_quartiles": [float(q) for q in np.percentile(
+                         host[2:], (25, 75))],
+                     "by_record": {k: [v[0] / 10, v[1] / 10]
+                                   for k, v in prof["records"].items()}}
+    return out
+
+
+_EMPTY_SRC = r"""
+__global__ void __launch_bounds__(128) empty_kernel() {}
+extern "C" int ab_empty_launch(int gx, int gy, void *stream) {
+  empty_kernel<<<dim3(gx, gy), 128, 0, static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def empty_launch(gx: int, gy: int):
+    """A call that launches an empty kernel of gx x gy CTAs of 128 threads
+    on the current stream, built once with the tree's nvcc flags."""
+    import ctypes
+    import torch
+    from hevc_hop_torch import _cuda
+    os.makedirs(_cuda.BUILD, exist_ok=True)
+    src = os.path.join(_cuda.BUILD, "ab_empty.cu")
+    lib = os.path.join(_cuda.BUILD, "libab_empty.so")
+    with open(src, "w") as f:
+        f.write(_EMPTY_SRC)
+    subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", lib, src],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(lib).ab_empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+    def launch():
+        err = fn(gx, gy, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"empty launch: CUDA error {err}")
+    return launch
+
+
+def checksum_decide_process() -> dict:
+    """The checksum_decide mode's times on this process's tree (see the
+    header)."""
+    import torch
+    import chip_smoke as cs
+    from hevc_hop_torch.models import partition
+    from hevc_hop_torch.models.decoder import Decoder
+    from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+    from hevc_hop_torch.ops import hashes
+    frame = cs.synth_class_b(1920, 1088, seed=0)
+    enc = IntraEncoder(EncoderConfig(width=1920, height=1088, qp=32,
+                                     **PATHS["production"]))
+    caught = {}
+    saved = [(hashes, "plane_checksums"), (partition, "_decide")]
+
+    def catch(mod, name):
+        fn = getattr(mod, name)
+
+        def call(*a, **k):
+            caught.setdefault(name, (a, k))
+            return fn(*a, **k)
+        setattr(mod, name, call)
+        return fn
+
+    saved = [(m, n, catch(m, n)) for m, n in saved]
+    try:
+        stream = enc.encode_frame(*frame)
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+    torch.cuda.synchronize()
+    (ca, ck), (da, dk) = caught["plane_checksums"], caught["_decide"]
+    calls = {"checksum": lambda: hashes.plane_checksums(*ca, **ck),
+             "decide": lambda: partition._decide(*da, **dk)}
+    out = _timed_calls(calls)
+    # C1's kernel alone with the L2 flushed before each call
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+
+    def cold():
+        for _ in range(10):
+            flush.fill_(0)
+            calls["checksum"]()
+    profile(cold)
+    recs = [v for k, v in profile(cold)["records"].items()
+            if "checksum_kernel" in k]
+    out["checksum"]["flushed_ms"] = (sum(v[0] for v in recs)
+                                     / sum(v[1] for v in recs))
+    by, bx = da[3].shape
+    empty = empty_launch((bx + 7) // 8, by)
+    profile(empty)
+    floor = profile(lambda: [empty() for _ in range(10)])
+    out["decide"]["empty_launch_ms"] = floor["busy_ms"] / 10
+    Decoder().decode_stream(stream)
+    keys = ("encode_s", "decode_s", "decide_s", "checksum_s")
+    vals = {k: [] for k in keys}
+    for _ in range(TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc.encode_frame(*frame)
+        torch.cuda.synchronize()
+        vals["encode_s"].append(time.perf_counter() - t0)
+        vals["decide_s"].append(enc.last_stats["decide_s"])
+        t0 = time.perf_counter()
+        dec = Decoder()
+        dec.decode_stream(stream)
+        torch.cuda.synchronize()
+        vals["decode_s"].append(time.perf_counter() - t0)
+        vals["checksum_s"].append(dec.last_stats["checksum_s"])
+        if dec.hash_ok != [True]:
+            raise SystemExit("the decoded picture's hash does not verify")
+    out.update({k: float(np.median(v)) for k, v in vals.items()})
+    out["all"] = vals
+    return out
+
+
 def one_process(tree: str, path: str) -> None:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -292,8 +429,9 @@ def one_process(tree: str, path: str) -> None:
         return
     _cuda.build_all()
     native.get_lib()
-    if path in ("mesh", "loopfilter"):
-        run = mesh_process if path == "mesh" else loopfilter_process
+    if path in ("mesh", "loopfilter", "checksum_decide"):
+        run = {"mesh": mesh_process, "loopfilter": loopfilter_process,
+               "checksum_decide": checksum_decide_process}[path]
         print(json.dumps({"tree": tree, "path": path,
                           "card": torch.cuda.get_device_name(0),
                           **run()}), flush=True)
@@ -367,22 +505,29 @@ def main() -> int:
         line = out.stdout.strip().splitlines()[-1]
         print(line, flush=True)
         runs[tree].append(json.loads(line))
-    calls = ("deblock_intra", "deblock_inter", "stats_dispatch",
-             "apply_sao_frame")
-    if path == "loopfilter":
-        # each call's device ms, records and host ms as keys of their own
-        for rs in runs.values():
-            for r in rs:
-                for c in calls:
-                    for k in ("device_ms", "records", "host_ms"):
-                        r[f"{c}.{k}"] = r[c][k]
+    calls = {"loopfilter": ("deblock_intra", "deblock_inter",
+                            "stats_dispatch", "apply_sao_frame"),
+             "checksum_decide": ("checksum", "decide")}.get(path, ())
+    fields = {c: ("device_ms", "records", "host_ms") for c in calls}
+    if path == "checksum_decide":
+        fields["checksum"] += ("flushed_ms",)
+        fields["decide"] += ("empty_launch_ms",)
+    # each call's device ms, records and host ms as keys of their own
+    for rs in runs.values():
+        for r in rs:
+            for c in calls:
+                for k in fields[c]:
+                    r[f"{c}.{k}"] = r[c][k]
     med = lambda rs, k: float(np.median([r[k] for r in rs]))
     keys = {"mesh": ("encode_s", "single_s", "busy_ms"),
             "analysis": ("step_ms", "kernel_ms"),
-            "loopfilter": tuple(f"{c}.{k}" for c in calls for k in (
-                "device_ms", "records", "host_ms")) + (
+            "loopfilter": tuple(f"{c}.{k}" for c in calls
+                                for k in fields[c]) + (
                 "encode_s", "decode_s", "enc_loopfilter_s", "fetch_s",
-                "sao_s", "dec_loopfilter_s")}.get(
+                "sao_s", "dec_loopfilter_s"),
+            "checksum_decide": tuple(f"{c}.{k}" for c in calls
+                                     for k in fields[c]) + (
+                "encode_s", "decode_s", "decide_s", "checksum_s")}.get(
         path, ("encode_s", "decode_s", "residual_s", "c3_decode_device_ms",
                "entropy_s", "scan_s"))
     print(json.dumps({name: {k: med(runs[tree], k) for k in keys}

@@ -378,6 +378,46 @@ def _blocky(rng, h, w):
     return np.clip(ramp + step + rng.integers(-2, 3, (h, w)), 0, 255)
 
 
+# C3's encode body on more than the path's cases: (QP, bit depth,
+# residuals at +-maxv, RDOQ), each at one plane a size (C3_ENCODE_PLANE:
+# the DST and MDCS scans at 4x4 luma, chroma at 16x16)
+C3_ENCODE_CASES = ((4, 8, False, False), (51, 8, False, False),
+                   (22, 10, False, False), (22, 8, True, False),
+                   (37, 10, True, False), (22, 8, False, True),
+                   (4, 10, True, True))
+C3_ENCODE_PLANE = {4: 0, 8: 0, 16: 1, 32: 0}
+
+
+def _c3_encode_cases(checks, org, pred, pos, modes, n, c_idx):
+    """C3's encode entry against its plain body on C3_ENCODE_CASES: org and
+    pred as given (8 bit), scaled to 10 bit, or set to 0 and maxv where the
+    other is maxv and 0; the RDOQ arm at the level loop's init type and
+    lambda."""
+    import torch
+    from hevc_hop_torch.models.partition import full_lambda
+    from hevc_hop_torch.ops import tq
+    for qp, bd, extreme, use_rdoq in C3_ENCODE_CASES:
+        maxv = (1 << bd) - 1
+        o, p = (org, pred) if bd == 8 else (org * 4 + 3, pred * 4)
+        if extreme:
+            o = torch.where(o > maxv // 2, maxv, 0).to(torch.int32)
+            p = torch.full_like(pred, maxv)
+            p[:, ::2] = 0
+        rq = (2, full_lambda(qp)) if use_rdoq else None
+        outs = []
+        for fn in (tq.tq_encode, tq.tq_encode_plain):
+            rec = torch.zeros_like(o)
+            cp = torch.zeros(o.shape, dtype=torch.int16, device=o.device)
+            cbf = fn(o, p.contiguous(), pos, modes, n, c_idx, qp, bd, True,
+                     rq, rec, cp)
+            outs.append((rec, cp, cbf))
+        for i, what in enumerate(("recon", "levels", "cbf")):
+            (checks["C7"] if rq else checks["C3"]).add(
+                outs[0][i], outs[1][i],
+                f"C3 encode{' (RDOQ)' if rq else ''} {what} n={n} "
+                f"c={c_idx} qp={qp} {bd} bit{' +-maxv' if extreme else ''}")
+
+
 def phase_kernels(checks):
     """Every kernel against its plain version on the card, every TU size."""
     import torch
@@ -428,6 +468,8 @@ def phase_kernels(checks):
             for i, what in enumerate(("recon", "levels", "cbf")):
                 c3.add(outs[0][i], outs[1][i], f"C3 encode {what} n={n} "
                        f"c={c_idx}")
+            if c_idx == C3_ENCODE_PLANE[n]:
+                _c3_encode_cases(checks, org, pred, pos, modes, n, c_idx)
             dst = n == 4 and c_idx == 0
             lev = outs[1][1]
             ok = tq.tq_decode(lev, pos, n, 22, 8, dst,
@@ -3626,9 +3668,13 @@ CLOCK_STAGES = (("intra", 1), ("C9 SS search", 2), ("C9 temporal search", 3),
                 ("C12 anchor 0", 8), ("C12 anchor 1", 9),
                 ("cluster sync 3", 10), ("C10 tournament", 21),
                 ("C12 decide", 11), ("chroma", 12))
-CLOCK_SYNC1, CLOCK_WRITE, CLOCK_SYNC2, CLOCK_STAMPS = 13, 14, 15, 31
+CLOCK_SYNC1, CLOCK_WRITE, CLOCK_SYNC2, CLOCK_STAMPS = 13, 14, 15, 37
+# the write phase's C3 stages (ss_scan.cu TqMark: ns a CTA's write tasks of
+# a group spent in each, slot CLOCK_TQ + common.cuh Mark)
+CLOCK_TQ = 30
+CLOCK_TQ_STAGES = (("forward", 2), ("quant", 3), ("sbh", 4), ("recon", 5))
 # the slot that holds each CTA's SM index + 1
-CLOCK_SM = 30
+CLOCK_SM = 36
 # the search parts' stamps (SS, temporal), the two anchors', and each of
 # C10's chains' (merge, SS refinement, temporal refinement)
 CLOCK_SEARCH, CLOCK_ANCHORS = (2, 3), (8, 9)
@@ -3663,7 +3709,9 @@ def stage_split(clk):
     one); the read phase (the group's first start to its last read end),
     grid sync 1 (from there to the last CTA out of it), the write phase and
     grid sync 2 alike; and the groups' time (first start to last out of
-    sync 2)."""
+    sync 2). The write phase's C3 stages (CLOCK_TQ_STAGES) are split as
+    the read phase's are: per stage the longest any CTA of the group spent
+    in it, summed over the groups."""
     clk = np.asarray(clk, dtype=np.int64)
     start = clk[:, :, 0]
     last = start.copy()
@@ -3681,11 +3729,14 @@ def stage_split(clk):
              "write phase": wr - s1, "grid sync 2": s2 - wr}
     group = s2 - g0
     us = lambda v: float(v.sum() / 1e3)
+    write = {name: us(clk[:, :, CLOCK_TQ + k].max(axis=1))
+             for name, k in CLOCK_TQ_STAGES}
     return {"groups": int(clk.shape[0]), "groups_us": us(group),
             "group_us_median": float(np.median(group) / 1e3),
             "group_us_max": float(group.max() / 1e3),
             "stage_us": {k: us(v) for k, v in stage.items()},
-            "phase_us": {k: us(v) for k, v in phase.items()}}
+            "phase_us": {k: us(v) for k, v in phase.items()},
+            "write_stage_us": write}
 
 
 def phase_stage_clock(ss_rows, checks):
@@ -3737,14 +3788,14 @@ def phase_stage_clock(ss_rows, checks):
 
 # Kernel C13's stage clocks (csrc/scan.cu's Clock, built with
 # -DHH_STAGE_CLOCK into a library of its own): per level and CTA the ns the
-# CTA spent in each stage, slot plane * 5 + stage (C13_MARKS, planes luma,
-# cb, cr), the RMD's merge (C13_CLOCK_MERGE), the wait at the grid sync;
-# then the level's start and the CTA's way out of its sync
-C13_MARKS = ("chain", "predict", "quant", "sbh", "recon")
+# CTA spent in each stage, slot plane * 6 + stage (C13_MARKS, common.cuh
+# Mark; planes luma, cb, cr), the RMD's merge (C13_CLOCK_MERGE), the wait at
+# the grid sync; then the level's start and the CTA's way out of its sync
+C13_MARKS = ("chain", "predict", "fwd", "quant", "sbh", "recon")
 C13_PLANES = ("luma", "cb", "cr")
-C13_CLOCK_MERGE = 15
-C13_CLOCK_WAIT, C13_CLOCK_START, C13_CLOCK_END = 16, 17, 18
-C13_CLOCK = 19
+C13_CLOCK_MERGE = 3 * len(C13_MARKS)
+C13_CLOCK_WAIT, C13_CLOCK_START, C13_CLOCK_END = 19, 20, 21
+C13_CLOCK = 22
 C13_CLOCK_PATHS = ("production", "uniform")
 
 
@@ -3756,7 +3807,8 @@ def scan_stage_split(clk):
     of any CTA of a level) and the CTAs' mean wait; CTAs at work per
     level."""
     clk = np.asarray(clk, dtype=np.int64)
-    stage = {f"{C13_PLANES[j // 5]} {C13_MARKS[j % 5]}":
+    nm = len(C13_MARKS)
+    stage = {f"{C13_PLANES[j // nm]} {C13_MARKS[j % nm]}":
              float(clk[:, :, j].max(axis=1).sum() / 1e3)
              for j in range(C13_CLOCK_MERGE)}
     stage["RMD merge"] = float(clk[:, :, C13_CLOCK_MERGE].max(axis=1).sum()
@@ -3784,8 +3836,9 @@ def require_plane_stamps(clk, work, grid, rmd, what):
     luma as the level has items, as many coded chroma as it has chroma
     blocks, and no CTA coded both. With the RMD, in every level at least
     two CTAs ran a share of the 35 modes. Returns the levels checked."""
-    luma = clk[:, :, 0:5].sum(axis=2) > 0
-    chroma = clk[:, :, 5:15].sum(axis=2) > 0
+    nm = len(C13_MARKS)
+    luma = clk[:, :, 0:nm].sum(axis=2) > 0
+    chroma = clk[:, :, nm:C13_CLOCK_MERGE].sum(axis=2) > 0
     off, items = work.host_off, work.host_items
     checked = 0
     for s in range(len(off) - 1):

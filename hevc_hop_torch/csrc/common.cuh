@@ -47,11 +47,11 @@ __device__ __forceinline__ float fold_lanes(const float *s) {
 
 // Stage hooks of the shared bodies (intra_block, tq_encode_block): each
 // calls mark(k), by every thread of the CTA, where its stage k ends. The
-// stage-clock build of kernel C13 (scan.cu, -DHH_STAGE_CLOCK) passes a
-// functor that stamps a clock there; every other caller passes NoMark,
-// which compiles to nothing.
-enum Mark { kMarkChain, kMarkPredict, kMarkQuant, kMarkSbh, kMarkRecon,
-            kMarks };
+// stage-clock builds of kernels C13 (scan.cu) and C14 (ss_scan.cu, its
+// write phase; -DHH_STAGE_CLOCK) pass a functor that stamps a clock there;
+// every other caller passes NoMark, which compiles to nothing.
+enum Mark { kMarkChain, kMarkPredict, kMarkFwd, kMarkQuant, kMarkSbh,
+            kMarkRecon, kMarks };
 struct NoMark {
   __device__ __forceinline__ void operator()(int) const {}
 };

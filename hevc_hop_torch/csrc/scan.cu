@@ -78,6 +78,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+static_assert(kThreads == kTqThreads, "tq_encode_block's stages are laid "
+              "out for its CTA");
 // CTAs per cluster: the RMD's parts; ranks 1 and 2 code cb and cr
 constexpr int kCluster = 8;
 static_assert(kCluster >= 3 && kCluster <= 32, "a warp merges the parts");
@@ -87,7 +89,8 @@ static_assert(kCluster >= 3 && kCluster <= 32, "a warp merges the parts");
 // level, the %globaltimer nanoseconds (one clock for every SM) that the
 // CTA spent in each stage to clk[(level * ctas + CTA) * kClock + slot]
 // (a barrier first): slot plane * kMarks + k for the bodies' stages
-// (common.cuh Mark: chain, prediction or RMD, quantizer, SBH, recon),
+// (common.cuh Mark: chain, prediction or RMD, forward transform,
+// quantizer, SBH, recon),
 // kClockCluster for the RMD's merge (its cluster sync and the reads of
 // the other CTAs' parts), kClockWait for the wait at the grid sync;
 // kClockStart and kClockEnd hold the level's start and the CTA's way out
@@ -308,7 +311,8 @@ __device__ void encode_rmd_item(const ScanArgs &a, const int32_t *w,
 // the grid sync; samples of it that a block of the same level writes are
 // unavailable to it by the availability masks, whatever they hold.
 template <bool kRdoq>
-__global__ void __launch_bounds__(kThreads) scan_encode_kernel(ScanArgs a) {
+__global__ void __launch_bounds__(kThreads)
+    scan_encode_kernel(const __grid_constant__ ScanArgs a) {
   extern __shared__ int32_t sm[];
   __shared__ int32_t part[2][2];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();

@@ -126,7 +126,8 @@
 namespace {
 
 constexpr int kThreads = 256;
-static_assert(kThreads == kSearchThreads && kThreads == kArmsThreads,
+static_assert(kThreads == kSearchThreads && kThreads == kArmsThreads &&
+                  kThreads == kTqThreads,
               "the bodies' reductions are sized for kThreads");
 
 // Stage clocks, only in the library built with -DHH_STAGE_CLOCK (the
@@ -134,8 +135,11 @@ static_assert(kThreads == kSearchThreads && kThreads == kArmsThreads,
 // %globaltimer (ns, one clock for every SM) when the CTA's threads have
 // left a stage (a barrier first), into clk[(group * ctas + CTA) * kStamps
 // + stage]; at the start it also writes its SM's index + 1 into slot
-// kStampSm. A stage a CTA does not run stays 0. The production library has
-// no stamps.
+// kStampSm. A stage a CTA does not run stays 0. The write phase's C3
+// stages (common.cuh Mark: forward transform, quantizer, SBH, recon) are
+// durations instead: slot kStampTqMark + k sums the ns that the CTA's
+// write tasks of the group spent in stage k (TqMark). The production
+// library has no stamps.
 enum Stamp {
   kStampStart, kStampIntra, kStampSs, kStampTemporal, kStampCluster1,
   kStampMerge, kStampCluster2, kStampArms, kStampAnchor0, kStampAnchor1,
@@ -143,7 +147,8 @@ enum Stamp {
   kStampSync2,
   // the bodies' own stages (inter_arms.cuh ArmsMark, gt_search.cuh GtMark)
   kStampArmsMark, kStampGtMark = kStampArmsMark + kArmsMarks,
-  kStampSm = kStampGtMark + kGtMarks,   // the CTA's SM + 1, not a time
+  kStampTqMark = kStampGtMark + kGtMarks,   // the write phase's C3, ns
+  kStampSm = kStampTqMark + kMarks,   // the CTA's SM + 1, not a time
   kStamps
 };
 #ifdef HH_STAGE_CLOCK
@@ -169,6 +174,31 @@ struct StampMark {
     stamp(g, base + k);
   }
 };
+
+// C3's stage hook in a write task of group g (tq_mark): in the clock
+// build thread 0 adds the ns since the task's previous mark (its
+// construction first) to slot kStampTqMark + k (a barrier first), so that a
+// CTA's write tasks of one group sum; else NoMark, the body C3's entry runs.
+#ifdef HH_STAGE_CLOCK
+struct TqMark {
+  int g;
+  mutable long long last;
+  __device__ explicit TqMark(int g_) : g(g_), last(clock_ns()) {}
+  __device__ void operator()(int k) const {
+    __syncthreads();
+    if (threadIdx.x == 0 && g_clk != nullptr &&
+        (int)blockIdx.x < g_clk_ctas) {
+      const long long t = clock_ns();
+      g_clk[((long long)g * g_clk_ctas + blockIdx.x) * kStamps +
+            kStampTqMark + k] += t - last;
+      last = t;
+    }
+  }
+};
+__device__ __forceinline__ TqMark tq_mark(int g) { return TqMark(g); }
+#else
+__device__ __forceinline__ NoMark tq_mark(int) { return NoMark(); }
+#endif
 
 // One TU class: C2's tables and C3's class (models/wavefront_scan.py
 // _ClassArgs, as kernel C13 takes them).
@@ -390,7 +420,7 @@ __device__ void encode_read(const ScanK &a, const int32_t *w, int g,
 // scratch.
 template <bool kRdoq, bool kPss>
 __device__ void encode_write(const ScanK &a, const int32_t *w, int plane,
-                             int32_t *sm) {
+                             int g, int32_t *sm) {
   const int log2 = w[0], row = w[1];
   const SizeK &z = a.size[log2 - 3];
   const int n = z.n, nn = n * n, m = n / 2, mm = m * m;
@@ -404,7 +434,7 @@ __device__ void encode_write(const ScanK &a, const int32_t *w, int plane,
     for (int i = tid; i < nn; i += nt) pred[i] = __ldcg(ip + i);
     __syncthreads();
     const int cbf = tq_encode_block<kRdoq>(z.ly.tq, a.ty, px, py, smode,
-                                           pred, sm + nn);
+                                           pred, sm + nn, tq_mark(g));
     if (tid == 0) z.cbf_y[row] = cbf;
     const int on = __ldcg(z.inter + row) != 0;
     const int mvx = __ldcg(z.mv + 2 * row), mvy = __ldcg(z.mv + 2 * row + 1);
@@ -419,8 +449,9 @@ __device__ void encode_write(const ScanK &a, const int32_t *w, int plane,
   const int32_t *cp = z.cpred + (long long)r * mm;
   for (int i = tid; i < mm; i += nt) pred[i] = __ldcg(cp + i);
   __syncthreads();
-  const int cbf_c = tq_encode_block<kRdoq>(
-      z.lc.tq, a.tc, z.cpos[2 * r], z.cpos[2 * r + 1], smode, pred, sm + mm);
+  const int cbf_c = tq_encode_block<kRdoq>(z.lc.tq, a.tc, z.cpos[2 * r],
+                                           z.cpos[2 * r + 1], smode, pred,
+                                           sm + mm, tq_mark(g));
   if (tid == 0) (plane == 1 ? z.cbf_cb : z.cbf_cr)[row] = cbf_c;
 }
 
@@ -440,7 +471,7 @@ __device__ __forceinline__ void encode_groups(const ScanK &a, int32_t *sm) {
     stamp(g, kStampSync1);
     for (int t = blockIdx.x; t < 3 * (end - first); t += gridDim.x)
       encode_write<kRdoq, kPss>(a, a.items + 4LL * (first + t / 3), t % 3,
-                                sm);
+                                g, sm);
     stamp(g, kStampWrite);
     if (g + 1 < a.ngroups) grid.sync();
     stamp(g, kStampSync2);

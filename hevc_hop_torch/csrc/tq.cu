@@ -6,14 +6,15 @@
 // scatter of scan_encode), and hevc_hop_tpu/models/decoder.py
 // _residual_uniform and _residual_mixed.
 //
-// Encode entry, one CTA per block, whose work is tq_encode_block (tq.cuh),
-// the body that kernel C13 (scan.cu) runs too: resi = org - pred, forward DCT (DST at
-// 4x4 luma) with HM's shifts, dead-zone quant or, in its RDOQ arm
+// Encode entry, one CTA of kTqThreads threads per block, whose work is
+// tq_encode_block (tq.cuh), the body that kernels C13 (scan.cu) and C14
+// (ss_scan.cu) run too: resi = org - pred, forward DCT (DST at 4x4 luma)
+// with HM's shifts, dead-zone quant or, in its RDOQ arm
 // (tq_encode_rdoq_kernel), kernel C7's rdoq_block (rdoq.cuh) on the
 // coefficients in shared memory, sign-bit hiding with its RD +-1 move,
 // dequant, inverse transform with both 16-bit clamps, and the clipped
-// recon. The recon and the int16 levels are written straight into
-// their planes at the block's position, and the block's cbf into cbf[b].
+// recon. The recon and the int16 levels are written straight into their
+// planes at the block's position, and the block's cbf into cbf[b].
 // Decode entry (tq_decode_kernel), one launch per picture: dequant and
 // inverse transform of every TU of the three planes into their residual
 // planes (see the note above the kernel).
@@ -28,12 +29,15 @@
 // proxy's floor(log2(v)) is the reference's float32 one, one low at
 // v = 8192 and 32768.
 //
-// Bound: integer operations. An N x N block does 4 N^3 multiply-adds for
-// the four transform stages against 2 N^2 samples in and 2 N^2 out (plus
-// int16 levels), which is above the card's bytes-per-operation line for
-// N >= 8. The design keeps the block and every intermediate in shared
-// memory, so device memory sees each input once and each output once; a
-// CTA's threads share the N^2 outputs of each stage.
+// Bound: bytes. HM's partial butterflies take about N^2 / 3 multiply-adds
+// a 1-D transform, so an N x N block's four stages do about 4 N^3 / 3
+// against some 14 N^2 bytes in and out (chip_smoke.py tq_encode_ops):
+// under the card's ten int32 operations a byte at every size. In C13 and
+// C14, which code one block a CTA at each level, the body's latency is
+// what a frame pays. The design keeps every intermediate in shared memory
+// and sets the eight warps of the CTA on every stage, with five barriers a
+// block (four where it has no level): the residual, the two transposes of
+// the 2-D transforms, the SBH pass's cbf vote and the closing one.
 #include "tq.cuh"
 
 namespace {
@@ -56,9 +60,15 @@ __device__ void tq_encode_one(const EncArgs &a) {
   if (threadIdx.x == 0) a.cbf[b] = cbf;
 }
 
-__global__ void tq_encode_kernel(EncArgs a) { tq_encode_one<false>(a); }
+__global__ void __launch_bounds__(kTqThreads)
+    tq_encode_kernel(const __grid_constant__ EncArgs a) {
+  tq_encode_one<false>(a);
+}
 
-__global__ void tq_encode_rdoq_kernel(EncArgs a) { tq_encode_one<true>(a); }
+__global__ void __launch_bounds__(kTqThreads)
+    tq_encode_rdoq_kernel(const __grid_constant__ EncArgs a) {
+  tq_encode_one<true>(a);
+}
 
 // The decode entry: a picture's residual as one launch. The work list is
 // every TU of the three planes in classes of one plane and one size, the
@@ -84,97 +94,6 @@ __global__ void tq_encode_rdoq_kernel(EncArgs a) { tq_encode_one<true>(a); }
 // Bound: bytes. A TU moves 2 N^2 bytes of levels in and 4 N^2 of residual
 // out for 2 N butterflies, under the card's bytes-per-operation line, and
 // at QP 32 most TUs are zero and skip the transform.
-
-// the 32-point DCT's first 16 columns; row j * 32 / N is the N-point
-// matrix's row j, and a butterfly reads only its first N / 2 columns
-__constant__ int kDct[32][16] = {
-    {64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64},
-    {90, 90, 88, 85, 82, 78, 73, 67, 61, 54, 46, 38, 31, 22, 13, 4},
-    {90, 87, 80, 70, 57, 43, 25, 9, -9, -25, -43, -57, -70, -80, -87, -90},
-    {90, 82, 67, 46, 22, -4, -31, -54, -73, -85, -90, -88, -78, -61, -38, -13},
-    {89, 75, 50, 18, -18, -50, -75, -89, -89, -75, -50, -18, 18, 50, 75, 89},
-    {88, 67, 31, -13, -54, -82, -90, -78, -46, -4, 38, 73, 90, 85, 61, 22},
-    {87, 57, 9, -43, -80, -90, -70, -25, 25, 70, 90, 80, 43, -9, -57, -87},
-    {85, 46, -13, -67, -90, -73, -22, 38, 82, 88, 54, -4, -61, -90, -78, -31},
-    {83, 36, -36, -83, -83, -36, 36, 83, 83, 36, -36, -83, -83, -36, 36, 83},
-    {82, 22, -54, -90, -61, 13, 78, 85, 31, -46, -90, -67, 4, 73, 88, 38},
-    {80, 9, -70, -87, -25, 57, 90, 43, -43, -90, -57, 25, 87, 70, -9, -80},
-    {78, -4, -82, -73, 13, 85, 67, -22, -88, -61, 31, 90, 54, -38, -90, -46},
-    {75, -18, -89, -50, 50, 89, 18, -75, -75, 18, 89, 50, -50, -89, -18, 75},
-    {73, -31, -90, -22, 78, 67, -38, -90, -13, 82, 61, -46, -88, -4, 85, 54},
-    {70, -43, -87, 9, 90, 25, -80, -57, 57, 80, -25, -90, -9, 87, 43, -70},
-    {67, -54, -78, 38, 85, -22, -90, 4, 90, 13, -88, -31, 82, 46, -73, -61},
-    {64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64, 64, -64, -64, 64},
-    {61, -73, -46, 82, 31, -88, -13, 90, -4, -90, 22, 85, -38, -78, 54, 67},
-    {57, -80, -25, 90, -9, -87, 43, 70, -70, -43, 87, 9, -90, 25, 80, -57},
-    {54, -85, -4, 88, -46, -61, 82, 13, -90, 38, 67, -78, -22, 90, -31, -73},
-    {50, -89, 18, 75, -75, -18, 89, -50, -50, 89, -18, -75, 75, 18, -89, 50},
-    {46, -90, 38, 54, -90, 31, 61, -88, 22, 67, -85, 13, 73, -82, 4, 78},
-    {43, -90, 57, 25, -87, 70, 9, -80, 80, -9, -70, 87, -25, -57, 90, -43},
-    {38, -88, 73, -4, -67, 90, -46, -31, 85, -78, 13, 61, -90, 54, 22, -82},
-    {36, -83, 83, -36, -36, 83, -83, 36, 36, -83, 83, -36, -36, 83, -83, 36},
-    {31, -78, 90, -61, 4, 54, -88, 82, -38, -22, 73, -90, 67, -13, -46, 85},
-    {25, -70, 90, -80, 43, 9, -57, 87, -87, 57, -9, -43, 80, -90, 70, -25},
-    {22, -61, 85, -90, 73, -38, -4, 46, -78, 90, -82, 54, -13, -31, 67, -88},
-    {18, -50, 75, -89, 89, -75, 50, -18, -18, 50, -75, 89, -89, 75, -50, 18},
-    {13, -38, 61, -78, 88, -90, 85, -73, 54, -31, 4, 22, -46, 67, -82, 90},
-    {9, -25, 43, -57, 70, -80, 87, -90, 90, -87, 80, -70, 57, -43, 25, -9},
-    {4, -13, 22, -31, 38, -46, 54, -61, 67, -73, 78, -82, 85, -88, 90, -90},
-};
-__constant__ int kDst4[4][4] = {{29, 55, 74, 84},
-                                {74, 74, 0, -74},
-                                {84, -29, -74, 55},
-                                {55, -84, 74, -29}};
-
-// out[k] = sum_j T[j][k] in[j] over the N-point DCT T by the even/odd
-// decomposition; in[j] is zero for j >= lim, and those rows are skipped
-template <int N>
-__device__ __forceinline__ void inv_butterfly(const int (&in)[N],
-                                              int (&out)[N], int lim) {
-  if constexpr (N == 4) {
-    const int e0 = 64 * in[0] + 64 * in[2], e1 = 64 * in[0] - 64 * in[2];
-    const int o0 = 83 * in[1] + 36 * in[3], o1 = 36 * in[1] - 83 * in[3];
-    out[0] = e0 + o0;
-    out[1] = e1 + o1;
-    out[2] = e1 - o1;
-    out[3] = e0 - o0;
-  } else {
-    constexpr int H = N / 2;
-    int ev[H], e[H], o[H];
-#pragma unroll
-    for (int j = 0; j < H; ++j) {
-      ev[j] = in[2 * j];
-      o[j] = 0;
-    }
-    inv_butterfly<H>(ev, e, (lim + 1) >> 1);
-#pragma unroll
-    for (int j = 1; j < N; j += 2) {
-      if (j >= lim) break;
-#pragma unroll
-      for (int k = 0; k < H; ++k) o[k] += kDct[j * (32 / N)][k] * in[j];
-    }
-#pragma unroll
-    for (int k = 0; k < H; ++k) {
-      out[k] = e[k] + o[k];
-      out[N - 1 - k] = e[k] - o[k];
-    }
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void inv_1d(const int (&in)[N], int (&out)[N],
-                                       int lim, bool dst) {
-  if constexpr (N == 4) {
-    if (dst) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        out[k] = kDst4[0][k] * in[0] + kDst4[1][k] * in[1] +
-                 kDst4[2][k] * in[2] + kDst4[3][k] * in[3];
-      return;
-    }
-  }
-  inv_butterfly<N>(in, out, lim);
-}
 
 // a plane of the picture: its int16 levels, its residual, the dequantizer's
 // scale and whether its 4x4 TUs take the DST
@@ -303,29 +222,20 @@ __global__ void __launch_bounds__(32 * kResWarps)
   }
 }
 
-int threads_for(int n) {
-  const int nn = n * n;
-  return nn < 32 ? 32 : (nn > 256 ? 256 : nn);
-}
-
 }  // namespace
 
 // Encode entry. org/recon int32 and coefp int16 planes with row strides;
 // pred [B, n, n]; pos [B, 2] (x, y); modes [mper], block b reads
-// modes[b % mper]; mat [n, n] DCT or DST; scan [3, n*n] scan_raster_index.
-// rdoq_args: null for the dead-zone quantizer, else the RDOQ class's
-// tables and scalars (launches tq_encode_rdoq_kernel).
+// modes[b % mper]. rdoq_args: null for the dead-zone quantizer, else the
+// RDOQ class's tables and scalars (launches tq_encode_rdoq_kernel).
 HH_EXPORT int hh_tq_encode(const void *org, int org_stride, const void *pred,
                            const void *pos, const void *modes, int mper,
                            int nblocks, int n, int c_idx, int bit_depth,
                            int maxv, int qs, int qbits, int qoff, int dqs,
-                           int dqsh, int sbh, int rd, float lamc,
-                           const void *mat, const void *scan, void *recon,
+                           int dqsh, int sbh, float lamc, void *recon,
                            int recon_stride, void *coefp, int coef_stride,
                            void *cbf, const void *rdoq_args, void *stream) {
   EncArgs a;
-  a.c.mat = static_cast<const int32_t *>(mat);
-  a.c.scan = static_cast<const int32_t *>(scan);
   a.c.n = n;
   a.c.c_idx = c_idx;
   a.c.bit_depth = bit_depth;
@@ -336,7 +246,6 @@ HH_EXPORT int hh_tq_encode(const void *org, int org_stride, const void *pred,
   a.c.dqs = dqs;
   a.c.dqsh = dqsh;
   a.c.sbh = sbh;
-  a.c.rd = rd;
   a.c.lamc = lamc;
   a.pl.org = static_cast<const int32_t *>(org);
   a.pl.org_stride = org_stride;
@@ -352,7 +261,7 @@ HH_EXPORT int hh_tq_encode(const void *org, int org_stride, const void *pred,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   size_t smem = tq_scratch_bytes(n, rdoq_args != nullptr);
   if (!rdoq_args) {
-    tq_encode_kernel<<<nblocks, threads_for(n), smem, st>>>(a);
+    tq_encode_kernel<<<nblocks, kTqThreads, smem, st>>>(a);
     return (int)cudaGetLastError();
   }
   a.c.r = *static_cast<const RdoqArgs *>(rdoq_args);
@@ -362,7 +271,7 @@ HH_EXPORT int hh_tq_encode(const void *org, int org_stride, const void *pred,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  tq_encode_rdoq_kernel<<<nblocks, threads_for(n), smem, st>>>(a);
+  tq_encode_rdoq_kernel<<<nblocks, kTqThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -502,10 +502,8 @@ class _Tables(ctypes.Structure):
 
 
 class _TqClass(ctypes.Structure):
-    _fields_ = ([("mat", _P), ("scan", _P)]
-                + [(k, _I) for k in ("n", "c_idx", "bit_depth", "maxv", "qs",
-                                     "qbits", "qoff", "dqs", "dqsh", "sbh",
-                                     "rd")]
+    _fields_ = ([(k, _I) for k in ("n", "c_idx", "bit_depth", "maxv", "qs",
+                                    "qbits", "qoff", "dqs", "dqsh", "sbh")]
                 + [("lamc", ctypes.c_float), ("r", _rdoq.RdoqArgs)])
 
 
@@ -565,8 +563,6 @@ def _class_args(dev, c_idx, log2, qp, bit_depth, sbh, rcfg) -> _ClassArgs:
     """C2's tables and C3's class scalars for TU class (c_idx, log2), as
     ops/intra.py and ops/tq.py hand them to C2 and C3 (RDOQ's only where
     ``rcfg`` is given)."""
-    from hevc_hop_torch.convert import device_tables
-    tab = device_tables(dev)
     n = 1 << log2
     qs, qbits, qoff = quant.quant_params(qp, log2, bit_depth)
     dqs, dqsh = quant.dequant_params(qp, log2, bit_depth)
@@ -574,11 +570,9 @@ def _class_args(dev, c_idx, log2, qp, bit_depth, sbh, rcfg) -> _ClassArgs:
     lamc = float(np.float32(lam * (4.0 ** (15 - bit_depth - log2))))
     r = (_rdoq.kernel_args(log2, c_idx, qp, bit_depth, rcfg[0], rcfg[1], dev)
          if rcfg else _rdoq.RdoqArgs())
-    mat = tab["dst4" if n == 4 and c_idx == 0 else f"dct{n}"]
     return _ClassArgs(_intra_tables(dev, n), _TqClass(
-        mat.data_ptr(), tab[f"scan{log2}"].data_ptr(), n, c_idx, bit_depth,
-        (1 << bit_depth) - 1, qs, qbits, qoff, dqs, dqsh, int(sbh), 1, lamc,
-        r))
+        n, c_idx, bit_depth, (1 << bit_depth) - 1, qs, qbits, qoff, dqs, dqsh,
+        int(sbh), lamc, r))
 
 
 def _chroma_log2(log2: int) -> int:

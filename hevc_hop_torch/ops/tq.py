@@ -159,13 +159,6 @@ def _check(t, dtype, name, dense_rows=False):
                          "dense rows")
 
 
-def _tables(dev, n, use_dst):
-    """(transform matrix, all tables) on dev."""
-    from hevc_hop_torch.convert import device_tables
-    tab = device_tables(dev)
-    return tab["dst4" if use_dst else f"dct{n}"], tab
-
-
 def _tq_encode_cuda(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
                     rdoq, recon, coefp):
     global ENCODE_LAUNCHES, ENCODE_RDOQ_LAUNCHES
@@ -182,7 +175,6 @@ def _tq_encode_cuda(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
     if b == 0:
         return cbf
     log2 = n.bit_length() - 1
-    mat, tab = _tables(pred.device, n, n == 4 and c_idx == 0)
     qs, qbits, qoff = quant.quant_params(qp, log2, bit_depth)
     dqs, dqsh = quant.dequant_params(qp, log2, bit_depth)
     tr_shift = 15 - bit_depth - log2
@@ -193,14 +185,13 @@ def _tq_encode_cuda(org, pred, pos, modes, n, c_idx, qp, bit_depth, sbh,
         rargs = _rdoq.kernel_args(log2, c_idx, qp, bit_depth, rdoq[0],
                                   rdoq[1], pred.device)
     fn = _cuda.bind("tq", "hh_tq_encode",
-                    "pi" "p" "pp" "i" "iiiii" "iii" "ii" "iif" "pp"
+                    "pi" "p" "pp" "i" "iiiii" "iii" "ii" "if"
                     "pi" "pi" "p" "p" "p")
     err = fn(org.data_ptr(), org.stride(0), pred.data_ptr(),
              pos.data_ptr(), modes.data_ptr(), modes.shape[0],
              b, n, c_idx, bit_depth, (1 << bit_depth) - 1,
              qs, qbits, qoff, dqs, dqsh,
-             int(sbh), 1, lamc,
-             mat.data_ptr(), tab[f"scan{log2}"].data_ptr(),
+             int(sbh), lamc,
              recon.data_ptr(), recon.stride(0),
              coefp.data_ptr(), coefp.stride(0), cbf.data_ptr(),
              None if rargs is None else ctypes.addressof(rargs),

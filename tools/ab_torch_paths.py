@@ -3,7 +3,7 @@
 
     python3 tools/ab_torch_paths.py PARENT_TREE CHANGED_TREE \
         [uniform|quadtree|production|mesh|analysis|loopfilter|
-         checksum_decide]
+         checksum_decide|tq_encode]
 
 Each tree is a checkout of the repository (the parent unpacked with
 ``git archive`` beside the working tree). The host sets most of a frame's
@@ -58,6 +58,20 @@ tool with nvcc into the tree's build directory). Beside them the
 production mode's medians of 10 encodes and decodes: ``encode_s``,
 ``decode_s``, the encoder's ``decide_s`` and the decoder's
 ``checksum_s``.
+
+``tq_encode`` times kernel C3's encode entry (``tq.tq_encode``), both
+arms, on the production path's own blocks of its noisy frame
+(chip_smoke's ``NOISY`` content, whose partition reaches 4x4): one encode
+of the production path gives its schedule, modes and recon; per TU size 4
+to 32, the fullest
+level of the luma plan, its blocks predicted from that recon with their
+given modes (C2), coded with the dead-zone quantizer (``dz<n>``) and with
+RDOQ at the level loop's luma configuration (``rdoq<n>``), each held once
+against the plain body on the card, then timed as in ``loopfilter``
+(device ms and records of a profiler trace of 10 calls, the host ms of a
+call that ends in a synchronize), with the blocks' count and the kernel's
+own record (``kernel_ms``; a call's other two records are the fills of
+its recon and level planes).
 
 ``loopfilter`` times the loop filters' public calls on the production
 frame's own inputs, caught from one encode: ``deblock_frame`` on the
@@ -411,6 +425,55 @@ def checksum_decide_process() -> dict:
     return out
 
 
+def tq_encode_process() -> dict:
+    """The tq_encode mode's times on this process's tree (see the
+    header)."""
+    import torch
+    import chip_smoke as cs
+    from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+    from hevc_hop_torch.ops import intra, tq
+    frame = cs.synth_class_b(1920, 1088, **cs.NOISY)
+    enc = IntraEncoder(EncoderConfig(width=1920, height=1088, qp=32,
+                                     **PATHS["production"]))
+    st = enc._stage1(*frame)
+    enc._stage2(st)
+    sched = st["sched"]
+    modes = enc._given_modes(sched, st["maps"].mode4.astype(np.int32))
+    plane, _, org, _ = cs._padded_planes(enc, frame, st["recon"])
+    rcfg = cs.rdoq_configs(True)[0]
+    calls, blocks, mism = {}, {}, 0
+    for log2, p in sorted(sched.plans.items()):
+        s = int(np.argmax(p.cnt))
+        o, c = int(p.off[s]), int(p.cnt[s])
+        if c == 0:
+            continue
+        n = 1 << log2
+        pos, best = p.pos[o:o + c], modes[log2][0][o:o + c]
+        pred = intra.intra_blocks(plane, pos, p.avail[o:o + c], best, n,
+                                  0)[0]
+        for arm, rq in (("dz", None), ("rdoq", rcfg)):
+            def call(fn=tq.tq_encode, n=n, pos=pos, best=best, pred=pred,
+                     rq=rq):
+                rec = torch.zeros_like(org)
+                cp = torch.zeros(org.shape, dtype=torch.int16,
+                                 device=org.device)
+                return fn(org, pred, pos, best, n, 0, 32, 8, True, rq, rec,
+                          cp), rec, cp
+            got, want = call(), call(tq.tq_encode_plain)
+            mism += sum(int((a != b).sum()) for a, b in zip(got, want))
+            calls[f"{arm}{n}"] = call
+            blocks[f"{arm}{n}"] = c
+    if mism:
+        raise SystemExit(f"tq_encode: {mism} elements differ from the "
+                         "plain body")
+    out = _timed_calls(calls)
+    for k, v in out.items():
+        v["blocks"] = blocks[k]
+        v["kernel_ms"] = sum(ms for name, (ms, _) in v["by_record"].items()
+                             if "tq_encode" in name)
+    return out
+
+
 def one_process(tree: str, path: str) -> None:
     tree = os.path.abspath(tree)
     sys.path.insert(0, tree)
@@ -429,9 +492,10 @@ def one_process(tree: str, path: str) -> None:
         return
     _cuda.build_all()
     native.get_lib()
-    if path in ("mesh", "loopfilter", "checksum_decide"):
+    if path in ("mesh", "loopfilter", "checksum_decide", "tq_encode"):
         run = {"mesh": mesh_process, "loopfilter": loopfilter_process,
-               "checksum_decide": checksum_decide_process}[path]
+               "checksum_decide": checksum_decide_process,
+               "tq_encode": tq_encode_process}[path]
         print(json.dumps({"tree": tree, "path": path,
                           "card": torch.cuda.get_device_name(0),
                           **run()}), flush=True)
@@ -507,11 +571,18 @@ def main() -> int:
         runs[tree].append(json.loads(line))
     calls = {"loopfilter": ("deblock_intra", "deblock_inter",
                             "stats_dispatch", "apply_sao_frame"),
-             "checksum_decide": ("checksum", "decide")}.get(path, ())
+             "checksum_decide": ("checksum", "decide"),
+             "tq_encode": tuple(f"{a}{n}" for a in ("dz", "rdoq")
+                                for n in (4, 8, 16, 32))}.get(path, ())
+    # a TU size the frame lacks has no call
+    calls = tuple(c for c in calls
+                  if all(c in r for rs in runs.values() for r in rs))
     fields = {c: ("device_ms", "records", "host_ms") for c in calls}
     if path == "checksum_decide":
         fields["checksum"] += ("flushed_ms",)
         fields["decide"] += ("empty_launch_ms",)
+    if path == "tq_encode":
+        fields = {c: f + ("kernel_ms",) for c, f in fields.items()}
     # each call's device ms, records and host ms as keys of their own
     for rs in runs.values():
         for r in rs:
@@ -527,7 +598,9 @@ def main() -> int:
                 "sao_s", "dec_loopfilter_s"),
             "checksum_decide": tuple(f"{c}.{k}" for c in calls
                                      for k in fields[c]) + (
-                "encode_s", "decode_s", "decide_s", "checksum_s")}.get(
+                "encode_s", "decode_s", "decide_s", "checksum_s"),
+            "tq_encode": tuple(f"{c}.{k}" for c in calls
+                               for k in fields[c])}.get(
         path, ("encode_s", "decode_s", "residual_s", "c3_decode_device_ms",
                "entropy_s", "scan_s"))
     print(json.dumps({name: {k: med(runs[tree], k) for k in keys}

@@ -10,7 +10,8 @@ the production decode) with CUDA events, and the host's time per encode
 call; where <tree>'s chip_smoke has C13's stage clocks
 (scan_stage_split) it builds them (-DHH_STAGE_CLOCK), runs the encode
 once more with them (chip_smoke._ClockLibrary), and prints the split
-(chip_smoke.scan_stage_split). Then C5's RD entry per block size and its
+(chip_smoke.scan_stage_split) and, on the given-mode paths, one block's
+latency in C3's body (block_latency). Then C5's RD entry per block size and its
 two forced arms, and C2's analysis entry on the mesh path's two frames.
 Prints the card's name and power limit, and the results as one JSON
 object on its last line (also written to out.json where given). Run two
@@ -66,6 +67,35 @@ def host_us(fn, reps=10):
     return dt / reps * 1e6
 
 
+def block_latency(clk, work, grid):
+    """One block's ns in C3's encode body (the stages from the forward
+    transform to the recon, chip_smoke.C13_MARKS), median over the blocks
+    of each plane kind and size, from C13's clocks clk [levels, CTAs,
+    C13_CLOCK] of a given-mode encode: in a level whose three tasks per
+    item fit the grid, CTA t ran task t (item t % items, plane t //
+    items) alone."""
+    marks = list(cs.C13_MARKS)
+    nm, lo = len(marks), marks.index("fwd")
+    off, items = work.host_off, work.host_items
+    per = {}
+    for s in range(len(off) - 1):
+        lv = items[off[s]:off[s + 1]]
+        cnt = len(lv)
+        if 3 * cnt > grid:
+            continue
+        for t in range(3 * cnt):
+            it, plane = lv[t % cnt], t // cnt
+            if plane and it[2] < 0:
+                continue
+            log2 = int(it[0])
+            n = 1 << (log2 if plane == 0 else max(log2 - 1, 2))
+            ns = int(clk[s, t, plane * nm + lo:plane * nm + nm].sum())
+            per.setdefault(f"{'chroma' if plane else 'luma'} {n}",
+                           []).append(ns)
+    return {k: {"median_ns": float(np.median(v)), "blocks": len(v)}
+            for k, v in sorted(per.items())}
+
+
 def main():
     t0 = time.perf_counter()
     _cuda.build_all()
@@ -119,8 +149,11 @@ def main():
                    for a, b in zip(got[:4], want[:4]))
         rec["clock_build_mismatches"] = mism
         rec["clock_launch"] = ws.LAST_LAUNCH
-        rec["split"] = cs.scan_stage_split(
-            buf[:, :ws.LAST_LAUNCH[0]].cpu().numpy())
+        clk = buf[:, :ws.LAST_LAUNCH[0]].cpu().numpy()
+        rec["split"] = cs.scan_stage_split(clk)
+        if name != "uniform" and "fwd" in cs.C13_MARKS:
+            rec["block_latency"] = block_latency(clk, work,
+                                                 ws.LAST_LAUNCH[0])
         print(name, json.dumps(rec), flush=True)
         res[name] = rec
     # C5 per size on the production frame's luma

@@ -2848,6 +2848,16 @@ def phase_interp(checks):
                 interp.mc_blocks_plain(pp, gpos, gmv, n, chroma, h, bd,
                                        hc_off, resi=resi)
                 c8.add(pk, pp, what + " decode epilogue")
+                # the same into another plane where a mask selects (a PSS
+                # picture's temporal blocks read the previous picture)
+                gonly = t(rng.random(len(g)) < 0.5)
+                dk, dp = plane.clone(), plane.clone()
+                interp.mc_blocks(plane, gpos, gmv, n, chroma, h, bd, hc_off,
+                                 resi=resi, only=gonly, dst=dk)
+                interp.mc_blocks_plain(plane, gpos, gmv, n, chroma, h, bd,
+                                       hc_off, resi=resi, only=gonly, dst=dp)
+                c8.add(dk, dp, what + " masked decode epilogue, another "
+                       "plane")
     torch.cuda.synchronize()
     log(f"C8: {c8.cases} cases {c8.mism} mismatches")
 
@@ -2925,6 +2935,9 @@ def phase_warp(checks):
                                                   out=base.clone(),
                                                   only=only),
                         what + " masked")
+                c11.add(warp.gt_pred_blocks(plane, *args),
+                        gt.gt_pred_blocks_plain(plane, *args),
+                        what + " prediction")
                 # the decode epilogue writes the plane in place: blocks
                 # 2n + 8 apart, anchors within +-2 samples, so that no
                 # window reaches another block

@@ -39,8 +39,9 @@
 // Decide entry, one CTA per block: the cheaper anchor (the first among
 // equals); where its cost beats kernel C10's intra, merge and SS costs and
 // its corners are not all zero, the chroma warp of both planes (cb and cr
-// as they stand before the level's chroma recon: interp.cuh's mc_block at
-// phase 0 or 4, then the half-pel warp) must be safe. Then the GT flag is
+// as they stand before the level's chroma recon: warp.cuh gt_chroma_pair,
+// both planes interpolated at phase 0 or 4 and warped in half pel in one
+// pass) must be safe. Then the GT flag is
 // set and C10's choice overridden in place: the prediction, inter = 1,
 // MV = anchor * 4, the diagonal scan (mode 0). PSS form (refsel not null):
 // the GT cost must also beat C10's temporal cost, and the reference index

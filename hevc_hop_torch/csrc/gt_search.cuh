@@ -3,7 +3,7 @@
 // (gt_search_block) and the GT decision of one block (gt_decide_block).
 // See gt_search.cu for what they compute and the float forms they keep.
 // The recon windows are read with L2-coherent loads (here and in
-// interp.cuh's mc_block): a persistent caller reads recon that CTAs on
+// interp.cuh's stage_load): a persistent caller reads recon that CTAs on
 // other SMs wrote earlier in the same launch.
 #pragma once
 
@@ -296,16 +296,40 @@ struct GtDecide {
   int ss_idx;
 };
 
-// Shared-memory words of gt_decide_block for an n x n block: the chroma
-// window (n+3)^2 and the [n, n] interpolated one (n = 2m)
+// Shared-memory words of gt_decide_block for an n x n block:
+// gt_chroma_pair's at m = n / 2
 __host__ __device__ inline int gt_decide_words(int n) {
-  return n * n + mc_smem_words(n, 1);
+  return n == 8 ? gt_pair_words<4>()
+                : (n == 16 ? gt_pair_words<8>() : gt_pair_words<16>());
 }
 
-// The decide entry's work on block b. sm holds gt_decide_words(n). Ends
-// with a barrier.
-__device__ void gt_decide_block(const GtDecide &a, int b, int32_t *sm) {
-  const int n = a.n, nn = n * n, m = n / 2, tid = threadIdx.x;
+// Whether the chroma warps of block b's cb and cr (M x M, as they stand
+// before the level's chroma recon) have a knife edge, by gt_chroma_pair
+// with the corners c4 at the full-pel anchor (vx, vy); the predictions
+// into ocb and ocr [M, M] where they are given.
+template <int M>
+__device__ __forceinline__ int gt_chroma_knife(const GtDecide &a, int b,
+                                               const int *c4, int vx, int vy,
+                                               int32_t *sm, int32_t *ocb,
+                                               int32_t *ocr) {
+  const int px = a.pos[2 * b] / 2, py = a.pos[2 * b + 1] / 2;
+  Src sb = a.rc, sr = a.rc;
+  sr.row_lo = a.hc_off;
+  sr.row_hi = a.hc_off + a.rc.row_hi;
+  return gt_chroma_pair<M>(gt_chroma_job<M>(sb, px, py, vx, vy),
+                           gt_chroma_job<M>(sr, px, py + a.hc_off, vx, vy),
+                           c4, a.bit_depth, sm, PutIf{ocb, M},
+                           PutIf{ocr, M});
+}
+
+// The decide entry's work on block b. sm holds gt_decide_words(n). The
+// chroma check's warps of cb and cr go to ocb and ocr [n/2, n/2] where
+// they are given (kernel C14: the CU's chroma prediction slots, so that
+// its chroma stage skips a GT CU). Ends with a barrier.
+__device__ void gt_decide_block(const GtDecide &a, int b, int32_t *sm,
+                                int32_t *ocb = nullptr,
+                                int32_t *ocr = nullptr) {
+  const int n = a.n, nn = n * n, tid = threadIdx.x;
   __shared__ int s_ai, s_cand, s_gt[6];
   if (tid == 0) {
     const float c0 = a.s_cost[2 * b], c1 = a.s_cost[2 * b + 1];
@@ -333,20 +357,12 @@ __device__ void gt_decide_block(const GtDecide &a, int b, int32_t *sm) {
     // the chroma warps of cb and cr must be safe (gt_chroma_safe)
     int c4[8];
     gt4(s_gt, c4);
-    const WarpGeom g = warp_geom(m, c4, 1);
-    const int px = a.pos[2 * b] / 2, py = a.pos[2 * b + 1] / 2;
-    int32_t *win = sm;
-    for (int p = 0; p < 2; ++p) {
-      Src s = a.rc;
-      s.row_lo = p ? a.hc_off : 0;
-      s.row_hi = s.row_lo + a.rc.row_hi;
-      mc_block(s, px - m / 2, py + s.row_lo - m / 2, 4 * vx, 4 * vy, n, 1,
-               a.bit_depth, sm + nn, win);
-      int knife = 0;
-      for (int i = tid; i < m * m; i += blockDim.x)
-        warp_sample(g, win, n, i, (1 << a.bit_depth) - 1, knife);
-      safe &= !__syncthreads_or(knife);
-    }
+    const int knife =
+        n == 8 ? gt_chroma_knife<4>(a, b, c4, vx, vy, sm, ocb, ocr)
+               : (n == 16 ? gt_chroma_knife<8>(a, b, c4, vx, vy, sm, ocb, ocr)
+                          : gt_chroma_knife<16>(a, b, c4, vx, vy, sm, ocb,
+                                                ocr));
+    safe = !knife;
   }
   if (safe) {
     const int32_t *gp = a.s_pred + (2 * (long long)b + ai) * nn;

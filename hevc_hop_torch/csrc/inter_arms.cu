@@ -17,7 +17,7 @@
 // window (the merge: a window of its own; a refinement stage: one (n+9)^2
 // window the eight neighbours share, staged once by the CTA), predicts it
 // by the exact quarter-pel MC (inter_arms.cuh mc_warp: interp.cuh
-// mc_block's arithmetic, a lane a column, the first stage's rows sliding
+// mc_filter's arithmetic, a lane a column, the first stage's rows sliding
 // down in registers) and sums its SSE by shuffles; the choice among a
 // stage's candidates is a warp argmin on (cost, index), the first index
 // among equals, and only the winner's warp writes its samples out. The SS

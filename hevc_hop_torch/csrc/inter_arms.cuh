@@ -100,7 +100,7 @@ __device__ float warp_sse(unsigned tot, int n, F t) {
 }
 
 // A warp stages the window of w x w samples at (x0, y0) of s (rows and
-// columns clamped as interp.cuh's mc_block clamps them, L2-coherent loads)
+// columns clamped as interp.cuh's stage_load clamps them, L2-coherent loads)
 // into win, row stride w; with all, the CTA's threads stage it.
 __device__ __forceinline__ void stage_window(const Src &s, int x0, int y0,
                                              int w, int16_t *win, bool all) {
@@ -114,10 +114,11 @@ __device__ __forceinline__ void stage_window(const Src &s, int x0, int y0,
 }
 
 // One candidate's n x n quarter-pel luma prediction (n = 8, 16 or 32) by
-// the lanes of a warp, mc_block's arithmetic: win is the candidate's
-// (n+7)^2 window (row stride ws), (fx, fy) its phase. Lane l takes column
-// l % n of n*n/32 rows, from row (l / n) * n*n/32, and slides the eight
-// first-stage rows its second stage reads down them in registers. The
+// the lanes of a warp, interp.cuh mc_filter's arithmetic: win is the
+// candidate's (n+7)^2 window (row stride ws), (fx, fy) its phase. Lane l
+// takes column l % n of n*n/32 rows, from row (l / n) * n*n/32, and slides
+// the eight first-stage rows its second stage reads down them in
+// registers. The
 // samples into out [n*n]; the integer SSE against O returned on every
 // lane (below 2^32: n^2 (2^10 - 1)^2 at most).
 __device__ unsigned mc_warp(const int16_t *win, int ws, int fx, int fy,

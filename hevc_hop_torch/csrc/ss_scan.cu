@@ -38,8 +38,10 @@
 //   beside C12's two anchors on two other CTAs (gt_search.cuh: anchor 1
 //   reads nothing that anchor 0 writes); after a third, C10's tournament,
 //   C12's decision and the chroma prediction of cb and cr from rc and the
-//   CU's own decision on the leader: C11's warp for a GT CU (warp.cuh),
-//   C8's MC for another inter CU (interp.cuh), C2's DM intra otherwise. The
+//   CU's own decision on the leader (decide_chroma): the decision's chroma
+//   check warps cb and cr in one pass (warp.cuh gt_chroma_pair) and keeps
+//   them as a GT CU's chroma; C8's MC of cb and cr in one pass for another
+//   inter CU (interp.cuh mc_pair), C2's DM intra otherwise. The
 //   predictions go to device scratch, the decisions straight into their
 //   packed output slots; what one CTA of the cluster writes for another
 //   crosses in global memory, ordered by the cluster syncs;
@@ -55,7 +57,10 @@
 //
 // Decode, one phase per group: each CU's prediction plus its dense
 // residual written into the recon, luma, cb and cr: C2's add-residual form
-// for an intra CU, C11's for a GT CU, C8's for another inter CU. The
+// for an intra CU; for an inter CU its three planes in one pass, their
+// windows staged behind one barrier and the planes on disjoint warps:
+// C11's (warp.cuh gt_cu) for a GT CU, C8's (interp.cuh mc_cu) for
+// another. The
 // reference predicts a whole group from the recon before writing any of
 // it; here a CU writes at once. That is the same result because the
 // decoder's schedule (build_schedule_ss with each inter CU's dependency
@@ -66,6 +71,8 @@
 // (tests/test_torch_ss_scan_program.py holds this on every case). The loop
 // ran a GT CU through C8 and then C11; C11 overwrites all of it, so the
 // CU runs C11 alone.
+// Stage clocks in the decode (the clock build): per group a CTA's ns in
+// intra CUs and in inter CUs (DecStamp).
 //
 // Coherence: the recon planes and the motion planes are read after grid
 // syncs with L2-coherent loads (__ldcg) in every body (intra.cuh's chain,
@@ -163,8 +170,26 @@ __device__ __forceinline__ void stamp(int g, int k) {
     if (k == kStampStart) row[kStampSm] = clock_sm() + 1;
   }
 }
+// The decode's stamps in the same buffer: the group's start in slot
+// kStampStart and the CTA's SM in kStampSm as above; the ns that the CTA's
+// intra CUs and its inter CUs (MC and GT) of the group took, summed into
+// kDecIntra and kDecInter (stamp_add); its way out of the grid sync in
+// kDecSync.
+enum DecStamp { kDecIntra = 1, kDecInter = 2, kDecSync = 3 };
+__device__ __forceinline__ long long clock_now() { return clock_ns(); }
+__device__ __forceinline__ void stamp_add(int g, int k, long long &last) {
+  __syncthreads();
+  if (threadIdx.x == 0 && g_clk != nullptr && (int)blockIdx.x < g_clk_ctas) {
+    const long long t = clock_ns();
+    g_clk[((long long)g * g_clk_ctas + blockIdx.x) * kStamps + k] += t - last;
+    last = t;
+  }
+}
 #else
 __device__ __forceinline__ void stamp(int, int) {}
+enum DecStamp { kDecIntra = 1, kDecInter = 2, kDecSync = 3 };
+__device__ __forceinline__ long long clock_now() { return 0; }
+__device__ __forceinline__ void stamp_add(int, int, long long &) {}
 #endif
 
 // A body's stage hook (common.cuh Mark): stamps slot base + k of group g
@@ -312,6 +337,53 @@ constexpr int kIntraRank = kClusterCtas - 1, kAnchorRank = 1;
 constexpr int kSsArmsRank = kAnchorRank + 2, kTArmsRank = kSsArmsRank + 1;
 static_assert(kTArmsRank < kIntraRank, "the chains' and anchors' CTAs");
 
+// The leader's steps of the read phase of CU item w after C10's
+// tournament: C12's decision, whose chroma check warps a GT CU's cb and cr
+// into the CU's chroma slots, then, for another inter CU, C8's MC of cb and
+// cr in one pass from rc (a temporal CU's from the previous picture).
+// Returns whether the CU's chroma is predicted (an intra CU's is not). A
+// call of its own, so that its windows' registers do not add to those of
+// the read phase's other bodies: inlined, the encode kernels spilled more
+// at their 128 registers, and calls for the chroma check and the MC alone
+// let ptxas give them 186 registers, one CTA an SM (PERF.md §6). The
+// chroma positions and slots, which the decision does not write, are read
+// before it.
+template <bool kPss>
+__device__ __noinline__ bool decide_chroma(const ScanK &a, const int32_t *w,
+                                           int g, int32_t *sm) {
+  const int row = w[1];
+  const SizeK &z = a.size[w[0] - 3];
+  const int m = z.n / 2, mm = m * m;
+  int32_t *ocb = z.cpred + (long long)w[2] * mm;
+  int32_t *ocr = z.cpred + (long long)w[3] * mm;
+  const int bx = z.cpos[2 * w[2]], by = z.cpos[2 * w[2] + 1];
+  const int rx = z.cpos[2 * w[3]], ry = z.cpos[2 * w[3] + 1];
+  if (z.gt) {
+    gt_decide_block(z.gtd, row, sm, ocb, ocr);
+    stamp(g, kStampDecide);
+  } else if (threadIdx.x == 0) {
+    z.gtflag[row] = 0;
+    for (int k = 0; k < 6; ++k) z.gtc[6 * row + k] = 0;
+  }
+  __syncthreads();
+  // a GT CU's cb and cr: warped by the decision's chroma check
+  if (z.gtflag[row]) return true;
+  if (!z.inter[row]) return false;
+  // an SS CU reads the recon, a temporal one the previous picture
+  const Src &cs = !kPss || z.refsel[row] == 1 ? a.csrc : a.rcsrc;
+  const int mvx = z.mv[2 * row], mvy = z.mv[2 * row + 1];
+  const McJob jb{picture_rows(cs, 1, a.hc_off, a.hc, by), bx, by, mvx, mvy};
+  const McJob jr{picture_rows(cs, 1, a.hc_off, a.hc, ry), rx, ry, mvx, mvy};
+  if (m == 4)
+    mc_pair<4>(jb, jr, a.bit_depth, sm, PutPred{ocb, m}, PutPred{ocr, m});
+  else if (m == 8)
+    mc_pair<8>(jb, jr, a.bit_depth, sm, PutPred{ocb, m}, PutPred{ocr, m});
+  else
+    mc_pair<16>(jb, jr, a.bit_depth, sm, PutPred{ocb, m}, PutPred{ocr, m});
+  __syncthreads();   // the next CU's bodies reuse sm
+  return true;
+}
+
 // The read phase of CU item w on its cluster: every decision and
 // prediction into scratch and the packed outputs (see the roles above).
 // Three cluster syncs: after the intra and the search parts, after the
@@ -326,7 +398,7 @@ __device__ void encode_read(const ScanK &a, const int32_t *w, int g,
   const int rank = cl.block_rank();
   const int log2 = w[0], row = w[1];
   const SizeK &z = a.size[log2 - 3];
-  const int n = z.n, m = n / 2, mm = m * m, tid = threadIdx.x;
+  const int n = z.n, tid = threadIdx.x;
   const int px = z.pos[2 * row], py = z.pos[2 * row + 1], zc = z.zcur[row];
   const int ss_idx = kPss ? 1 : 0;
   const int nss = z.nss, ntp = kIntraRank - nss;
@@ -381,36 +453,13 @@ __device__ void encode_read(const ScanK &a, const int32_t *w, int g,
   stamp(g, kStampCluster3);
   if (rank != 0) return;
   arms_tournament(z.arms, row, sm, arms_mark);
-  if (z.gt) {
-    gt_decide_block(z.gtd, row, sm);
-    stamp(g, kStampDecide);
-  } else if (tid == 0) {
-    z.gtflag[row] = 0;
-    for (int k = 0; k < 6; ++k) z.gtc[6 * row + k] = 0;
-  }
-  __syncthreads();
-  const int inter = z.inter[row], gtf = z.gtflag[row];
-  const int mvx = z.mv[2 * row], mvy = z.mv[2 * row + 1];
-  const int imode = __ldcg(z.imode + row);   // the intra CTA's
-  // an SS CU (GT ones too) reads the recon, a temporal one the previous
-  // picture
-  const bool from_rc = !kPss || z.refsel[row] == ss_idx;
-  for (int k = 2; k <= 3; ++k) {
-    const int r = w[k];
-    const int cx = z.cpos[2 * r], cy = z.cpos[2 * r + 1];
-    int32_t *out = z.cpred + (long long)r * mm;
-    if (gtf)
-      gt_pred_block(a.csrc, a.hc_off, a.hc, cx, cy, mvx >> 2, mvy >> 2,
-                    z.gtc + 6 * row, m, 1, a.bit_depth, out, nullptr, 0,
-                    nullptr, sm);
-    else if (inter)
-      mc_write_block(from_rc ? a.csrc : a.rcsrc, a.hc_off, a.hc, cx, cy,
-                     mvx, mvy, m, 1, a.bit_depth, out, nullptr, 0, nullptr,
-                     sm);
-    else
-      intra_block(a.c, z.lc.t, cx, cy,
+  if (!decide_chroma<kPss>(a, w, g, sm)) {
+    // an intra CU: C2's DM intra of cb and cr
+    const int m = n / 2, mm = m * m, imode = __ldcg(z.imode + row);
+    for (int k = 2; k <= 3; ++k)
+      intra_block(a.c, z.lc.t, z.cpos[2 * w[k]], z.cpos[2 * w[k] + 1],
                   z.cavail + (long long)row * (4 * m + 1), imode, m, 1,
-                  a.bit_depth, a.strong, sm, out);
+                  a.bit_depth, a.strong, sm, z.cpred + (long long)w[k] * mm);
   }
   stamp(g, kStampChroma);
 }
@@ -492,6 +541,41 @@ __global__ void __launch_bounds__(kThreads)
   encode_groups<kRdoq, true>(*ap, sm);
 }
 
+// An inter CU of the decode with N x N luma: its three planes' prediction
+// plus the residual into the recon in one pass, C11's (gt_cu) for a GT
+// CU, C8's (mc_cu) for another.
+template <int N, bool kPss>
+__device__ __forceinline__ void decode_inter(const ScanK &a, const SizeK &z,
+                                             const int32_t *w, int32_t *sm) {
+  const int row = w[1], px = z.pos[2 * row], py = z.pos[2 * row + 1];
+  const int bx = z.cpos[2 * w[2]], by = z.cpos[2 * w[2] + 1];
+  const int rx = z.cpos[2 * w[3]], ry = z.cpos[2 * w[3] + 1];
+  const int mvx = z.mvs[2 * row], mvy = z.mvs[2 * row + 1];
+  const int maxv = (1 << a.bit_depth) - 1;
+  const PutRecon oy{a.resi_y, a.stride_y, a.ry, a.stride_y, px, py, maxv};
+  const PutRecon ob{a.resi_c, a.stride_c, a.rc, a.stride_c, bx, by, maxv};
+  const PutRecon orr{a.resi_c, a.stride_c, a.rc, a.stride_c, rx, ry, maxv};
+  if (z.gtf != nullptr && z.gtf[row] != 0) {
+    const int vx = mvx >> 2, vy = mvy >> 2;
+    gt_cu<N>(picture_rows(a.ysrc, 0, 0, a.h, py), px, py, vx, vy,
+             gt_chroma_job<N / 2>(picture_rows(a.csrc, 1, a.hc_off, a.hc, by),
+                                  bx, by, vx, vy),
+             gt_chroma_job<N / 2>(picture_rows(a.csrc, 1, a.hc_off, a.hc, ry),
+                                  rx, ry, vx, vy),
+             z.gtv + 6 * row, a.bit_depth, sm, oy, ob, orr);
+    return;
+  }
+  // a temporal CU (PSS) reads the previous picture, written into the recon
+  // (the planes share their row strides)
+  const bool temporal = kPss && z.tflag[row] != 0;
+  const Src &ys = temporal ? a.rysrc : a.ysrc;
+  const Src &cs = temporal ? a.rcsrc : a.csrc;
+  mc_cu<N>(McJob{picture_rows(ys, 0, 0, a.h, py), px, py, mvx, mvy},
+           McJob{picture_rows(cs, 1, a.hc_off, a.hc, by), bx, by, mvx, mvy},
+           McJob{picture_rows(cs, 1, a.hc_off, a.hc, ry), rx, ry, mvx, mvy},
+           a.bit_depth, sm, oy, ob, orr);
+}
+
 // One CU of the decode: its prediction plus the residual into the recon.
 template <bool kPss>
 __device__ void decode_item(const ScanK &a, const int32_t *w, bool intra,
@@ -500,6 +584,7 @@ __device__ void decode_item(const ScanK &a, const int32_t *w, bool intra,
   const SizeK &z = a.size[log2 - 3];
   const int n = z.n, m = n / 2;
   const int px = z.pos[2 * row], py = z.pos[2 * row + 1];
+  __syncthreads();   // the CTA's previous CU is done with sm
   if (intra) {
     intra_block(a.y, z.ly.t, px, py, z.avail + (long long)row * (4 * n + 1),
                 z.modes[row], n, 0, a.bit_depth, a.strong, sm, nullptr);
@@ -507,28 +592,13 @@ __device__ void decode_item(const ScanK &a, const int32_t *w, bool intra,
       intra_block(a.c, z.lc.t, z.cpos[2 * w[k]], z.cpos[2 * w[k] + 1],
                   z.cavail + (long long)row * (4 * m + 1), z.cmodes[row], m,
                   1, a.bit_depth, a.strong, sm, nullptr);
-    return;
+  } else if (n == 8) {
+    decode_inter<8, kPss>(a, z, w, sm);
+  } else if (n == 16) {
+    decode_inter<16, kPss>(a, z, w, sm);
+  } else {
+    decode_inter<32, kPss>(a, z, w, sm);
   }
-  const int mvx = z.mvs[2 * row], mvy = z.mvs[2 * row + 1];
-  if (z.gtf != nullptr && z.gtf[row] != 0) {
-    const int32_t *gtc = z.gtv + 6 * row;
-    gt_pred_block(a.ysrc, 0, a.h, px, py, mvx >> 2, mvy >> 2, gtc, n, 0,
-                  a.bit_depth, nullptr, a.resi_y, a.stride_y, a.ry, sm);
-    for (int k = 2; k <= 3; ++k)
-      gt_pred_block(a.csrc, a.hc_off, a.hc, z.cpos[2 * w[k]],
-                    z.cpos[2 * w[k] + 1], mvx >> 2, mvy >> 2, gtc, m, 1,
-                    a.bit_depth, nullptr, a.resi_c, a.stride_c, a.rc, sm);
-    return;
-  }
-  // a temporal CU (PSS) reads the previous picture, written into the recon
-  // (the planes share their row strides)
-  const bool temporal = kPss && z.tflag[row] != 0;
-  mc_write_block(temporal ? a.rysrc : a.ysrc, 0, a.h, px, py, mvx, mvy, n,
-                 0, a.bit_depth, nullptr, a.resi_y, a.stride_y, a.ry, sm);
-  for (int k = 2; k <= 3; ++k)
-    mc_write_block(temporal ? a.rcsrc : a.csrc, a.hc_off, a.hc,
-                   z.cpos[2 * w[k]], z.cpos[2 * w[k] + 1], mvx, mvy, m, 1,
-                   a.bit_depth, nullptr, a.resi_c, a.stride_c, a.rc, sm);
 }
 
 template <bool kPss>
@@ -537,9 +607,14 @@ __device__ __forceinline__ void decode_groups(const ScanK &a, int32_t *sm) {
   for (int g = 0; g < a.ngroups; ++g) {
     const int first = a.groups[3 * g], end = first + a.groups[3 * g + 1];
     const int intra_end = first + a.groups[3 * g + 2];
-    for (int it = first + blockIdx.x; it < end; it += gridDim.x)
+    stamp(g, kStampStart);
+    long long last = clock_now();
+    for (int it = first + blockIdx.x; it < end; it += gridDim.x) {
       decode_item<kPss>(a, a.items + 4LL * it, it < intra_end, sm);
+      stamp_add(g, it < intra_end ? kDecIntra : kDecInter, last);
+    }
     if (g + 1 < a.ngroups) grid.sync();
+    stamp(g, kDecSync);
   }
 }
 
@@ -556,6 +631,21 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 size_t max_of(size_t a, size_t b) { return a > b ? a : b; }
+
+// Shared-memory words of the one-pass CU bodies for n x n luma (m x m
+// chroma), n 8, 16 or 32
+int mc_pair_words_n(int m) {
+  return m == 4 ? mc_pair_words<4>()
+                : (m == 8 ? mc_pair_words<8>() : mc_pair_words<16>());
+}
+int mc_cu_words_n(int n) {
+  return n == 8 ? mc_cu_words<8>()
+                : (n == 16 ? mc_cu_words<16>() : mc_cu_words<32>());
+}
+int gt_cu_words_n(int n) {
+  return n == 8 ? gt_cu_words<8>()
+                : (n == 16 ? gt_cu_words<16>() : gt_cu_words<32>());
+}
 
 // The SS search's share of a PSS cluster's kIntraRank search CTAs for n x
 // n CUs: the split whose busiest CTA has the fewest displacements that
@@ -758,20 +848,16 @@ ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
       if (o.gt) {
         words = max_of(words, gt_search_words(n));
         words = max_of(words, gt_decide_words(n));
-        words = max_of(words, gt_pred_words(m, 1));
       }
       words = max_of(words, intra_scratch_words(m));
-      words = max_of(words, mc_smem_words(m, 1) + m * m);
+      words = max_of(words, mc_pair_words_n(m));
       words = max_of(words, n * n + (tq_scratch_bytes(n, rdoq) + 3) / 4);
       words = max_of(words, m * m + (tq_scratch_bytes(m, rdoq) + 3) / 4);
     } else {
       words = max_of(words, intra_scratch_words(n));
-      words = max_of(words, mc_smem_words(n, 0) + n * n);
-      words = max_of(words, mc_smem_words(m, 1) + m * m);
-      if (z.gtf != nullptr) {
-        words = max_of(words, gt_pred_words(n, 0));
-        words = max_of(words, gt_pred_words(m, 1));
-      }
+      words = max_of(words, intra_scratch_words(m));
+      words = max_of(words, mc_cu_words_n(n));
+      if (z.gtf != nullptr) words = max_of(words, gt_cu_words_n(n));
     }
   }
   *smem = sizeof(int32_t) * words;

@@ -448,3 +448,72 @@ def _gt_step_cuda(recon, org_plane, rc, pos, zcur, zmax2n, motion, nbav,
     if refsel is not None:
         PSS_DECIDE_LAUNCHES += 1
     return flag, gtc
+
+
+# ---------------------------------------------------------------------------
+# Walks of kernel C11's one-pass bodies (csrc/warp.cuh), in plain torch, for
+# the tests.
+# ---------------------------------------------------------------------------
+
+def gt_chroma_walk(plane, cpos, mv_px, gtc, m, row_lo, row_hi, bit_depth,
+                   nthr):
+    """csrc/warp.cuh's chroma form of one plane's m x m blocks at cpos
+    [B, 2] with the full-pel anchors mv_px [B, 2] and the coded corners
+    gtc [B, 3, 2], as kernel C14's one-pass bodies run it: the (2m+3)^2
+    window staged as int16 (rows [row_lo, row_hi] [B]), interpolated at the
+    phase (mv_px & 1) * 4 by nthr threads (interp.py mc_filter_walk) into
+    [2m, 2m], warped in half-pel units. Returns (pred [B, m, m], knife [B]
+    bool: a sample sits on a knife edge, writes [2m, 2m] of the
+    interpolation)."""
+    mv_px = mv_px.to(torch.int32)
+    win = interp.stage_window16(plane, cpos[:, 0] - m // 2 + (mv_px[:, 0] >> 1)
+                                - 1, cpos[:, 1] - m // 2 + (mv_px[:, 1] >> 1)
+                                - 1, 2 * m + 3, row_lo, row_hi)
+    fwin, writes = interp.mc_filter_walk(win, (mv_px[:, 0] & 1) * 4,
+                                         (mv_px[:, 1] & 1) * 4, 2 * m, True,
+                                         bit_depth, nthr)
+    pred, safe = warp_blocks_plain(fwin, gt4(gtc), m, bit_depth, half=True)
+    return pred, ~safe, writes
+
+
+def gt_chroma_pair_walk(rc, cb_pos, mv_px, gtc, m, hc, hc_off, bit_depth):
+    """Kernel C12's chroma check as kernel C14 runs it (csrc/gt_search.cuh
+    gt_decide_block, warp.cuh gt_chroma_pair): cb at cb_pos [B, 2] (rows
+    [0, hc) of the stacked rc) and cr hc_off rows below (rows [hc_off,
+    hc_off + hc)) warped in one pass, 128 threads a plane. Returns (cb's
+    prediction, cr's, safe [B]): the decision's flag, and the predictions
+    that C14's chroma stage then takes as they are for a GT CU."""
+    b = cb_pos.shape[0]
+    zero = torch.zeros(b, dtype=torch.int64, device=rc.device)
+    cr_pos = cb_pos + torch.tensor([0, hc_off], dtype=cb_pos.dtype,
+                                   device=rc.device)
+    pb, kb, _ = gt_chroma_walk(rc, cb_pos, mv_px, gtc, m, zero, zero + hc - 1,
+                               bit_depth, 128)
+    pr, kr, _ = gt_chroma_walk(rc, cr_pos, mv_px, gtc, m, zero + hc_off,
+                               zero + hc_off + hc - 1, bit_depth, 128)
+    return pb, pr, ~(kb | kr)
+
+
+def gt_cu_walk(src_y, src_c, dst_y, dst_c, resi_y, resi_c, pos, cb_pos,
+               cr_pos, mv_px, gtc, n, h, hc, hc_off, bit_depth):
+    """csrc/warp.cuh gt_cu, kernel C14's decode of GT CUs (n x n luma at
+    pos, n/2 x n/2 cb and cr at cb_pos and cr_pos [B, 2], full-pel anchors
+    mv_px, coded corners gtc [B, 3, 2]) in one pass: the luma's [2n, 2n]
+    window of src_y staged as int16 (rows [0, h)) and warped, cb and cr of
+    the stacked src_c by 64 threads each (gt_chroma_walk), clip(prediction
+    + residual) written into dst_y and dst_c (C14: the recon itself)."""
+    b = pos.shape[0]
+    zero = torch.zeros(b, dtype=torch.int64, device=src_y.device)
+    mv_px = mv_px.to(torch.int32)
+    win = interp.stage_window16(src_y, pos[:, 0] + mv_px[:, 0] - n // 2,
+                                pos[:, 1] + mv_px[:, 1] - n // 2, 2 * n,
+                                zero, zero + h - 1)
+    py = warp_blocks_plain(win, gt4(gtc), n, bit_depth)[0]
+    m = n // 2
+    pb = gt_chroma_walk(src_c, cb_pos, mv_px, gtc, m, zero, zero + hc - 1,
+                        bit_depth, 64)[0]
+    pr = gt_chroma_walk(src_c, cr_pos, mv_px, gtc, m, zero + hc_off,
+                        zero + hc_off + hc - 1, bit_depth, 64)[0]
+    interp.add_residual(dst_y, py, pos, resi_y, bit_depth)
+    interp.add_residual(dst_c, pb, cb_pos, resi_c, bit_depth)
+    interp.add_residual(dst_c, pr, cr_pos, resi_c, bit_depth)

@@ -242,3 +242,132 @@ def _mc_cuda(plane, pos, mv, n, chroma, h_real, bit_depth, hc_off, out,
     else:
         LUMA_LAUNCHES += 1
     return ret
+
+
+# ---------------------------------------------------------------------------
+# Walks of the one-pass bodies (csrc/interp.cuh): how kernel C8's and kernel
+# C14's threads share a block, in plain torch, for the tests.
+# ---------------------------------------------------------------------------
+
+def stage_window16(plane, x0, y0, w, row_lo, row_hi):
+    """csrc/interp.cuh stage_windows: the [B, w, w] windows whose top-left is
+    (x0, y0) [B] in plane, rows clamped to [row_lo, row_hi] [B], columns to
+    the plane, kept as int16 (the samples must fit)."""
+    ar = torch.arange(w, device=plane.device)
+    ry = torch.minimum(torch.maximum(y0.long()[:, None] + ar[None],
+                                     row_lo.long()[:, None]),
+                       row_hi.long()[:, None])
+    rx = (x0.long()[:, None] + ar[None]).clamp(0, plane.shape[1] - 1)
+    win = plane[ry[:, :, None], rx[:, None, :]]
+    if win.numel() and (int(win.min()) < -(1 << 15)
+                        or int(win.max()) >= 1 << 15):
+        raise ValueError("stage_window16: a sample does not fit in int16")
+    return win.to(torch.int16)
+
+
+def mc_filter_walk(win, fx, fy, n, chroma, bit_depth, nthr):
+    """csrc/interp.cuh mc_filter over staged windows win [B, n+t-1,
+    n+t-1] (int16) at the phases fx, fy [B], walked as its nthr threads
+    share each block: thread t takes column t % n of run t // n of rows,
+    the n rows cut into min(n, nthr // n) runs of ceil(n / runs) rows; its
+    first-stage rows slide down the column (the first t - 1 before the
+    run's first row); a block whose phase is 0 on both axes copies its
+    window's sample, one at phase 0 vertically takes its first stage alone
+    (times 64), one at phase 0 horizontally takes 64 times the sample as
+    its first stage. Returns (out [B, n, n] int32, writes [n, n]: the
+    threads that wrote each sample)."""
+    tab = torch.as_tensor(CHROMA_FILTER if chroma else LUMA_FILTER,
+                          device=win.device)
+    t = tab.shape[1]
+    c0 = t // 2 - 1
+    headroom = IF_INTERNAL_PREC - bit_depth
+    shift1 = IF_FILTER_PREC - headroom
+    off1 = -(IF_INTERNAL_OFFS << shift1)
+    shift2 = IF_FILTER_PREC + headroom
+    off2 = (IF_INTERNAL_OFFS << IF_FILTER_PREC) + (1 << (shift2 - 1))
+    maxv = (1 << bit_depth) - 1
+    b = win.shape[0]
+    w = win.to(torch.int32)
+    fx, fy = fx.long(), fy.long()
+    hx, hy = tab[fx], tab[fy]                          # [B, t]
+    copy = ((fx == 0) & (fy == 0))[:, None]
+    one = ((fy == 0) & (fx != 0))[:, None]
+    x0 = (fx == 0)[:, None]
+    if nthr < n:
+        raise ValueError("mc_filter_walk: mc_filter needs nthr >= n")
+    runs = min(nthr // n, n)
+    rows = -(-n // runs)
+    cols = torch.arange(n, device=win.device)
+    out = torch.zeros((b, n, n), dtype=torch.int32, device=win.device)
+    writes = torch.zeros((n, n), dtype=torch.int32)
+
+    def first(r):                                      # [B, n]
+        taps = torch.stack([w[:, r, cols + j] for j in range(t)], -1)
+        acc = (taps * hx[:, None, :]).sum(-1, dtype=torch.int32)
+        acc = torch.where(x0, 64 * w[:, r, cols + c0], acc)
+        return (acc + off1) >> shift1
+
+    for run in range(runs):
+        r0 = run * rows
+        if r0 >= n:
+            break
+        r1 = min(n, r0 + rows)
+        mid = [first(r0 + j) for j in range(t - 1)]
+        for r in range(r0, r1):
+            mid.append(first(r + t - 1))
+            acc = sum(mid[j] * hy[:, j, None] for j in range(t))
+            v = (acc + off2) >> shift2
+            v = torch.where(one, (64 * first(r + c0) + off2) >> shift2, v)
+            v = torch.where(copy, w[:, r + c0, cols + c0], v)
+            out[:, r] = torch.clamp(v, 0, maxv)
+            writes[r] += 1
+            mid.pop(0)
+    return out, writes
+
+
+def mc_job_walk(plane, pos, mv, n, chroma, row_lo, row_hi, bit_depth, nthr):
+    """One plane's n x n blocks at pos [B, 2] with the quarter-pel luma MVs
+    mv [B, 2] as kernel C14's one-pass bodies run them: the window staged
+    as int16 (stage_window16), then both stages by nthr threads
+    (mc_filter_walk). Returns (prediction [B, n, n], writes [n, n])."""
+    t, sh, mask = (4, 3, 7) if chroma else (8, 2, 3)
+    mv = mv.to(torch.int32)
+    win = stage_window16(plane, pos[:, 0] + (mv[:, 0] >> sh) - (t // 2 - 1),
+                         pos[:, 1] + (mv[:, 1] >> sh) - (t // 2 - 1),
+                         n + t - 1, row_lo, row_hi)
+    return mc_filter_walk(win, mv[:, 0] & mask, mv[:, 1] & mask, n, chroma,
+                          bit_depth, nthr)
+
+
+def add_residual(dst, pred, pos, resi, bit_depth):
+    """The recon epilogue: clip(pred + resi) written into dst at each block
+    pos [B, 2] of pred [B, n, n]."""
+    n = pred.shape[-1]
+    ar = torch.arange(n, device=dst.device)
+    rows = (pos[:, 1, None, None].long() + ar[None, :, None]).expand(-1, n, n)
+    cols = (pos[:, 0, None, None].long() + ar[None, None, :]).expand(-1, n, n)
+    dst[rows, cols] = torch.clamp(pred + resi[rows, cols], 0,
+                                  (1 << bit_depth) - 1)
+
+
+def mc_cu_walk(src_y, src_c, dst_y, dst_c, resi_y, resi_c, pos, cb_pos,
+               cr_pos, mv, n, h_real, hc, hc_off, bit_depth):
+    """csrc/interp.cuh mc_cu, kernel C14's decode of inter CUs (n x n luma
+    at pos, n/2 x n/2 cb and cr at cb_pos and cr_pos [B, 2], quarter-pel
+    MVs mv [B, 2]) in one pass: the three windows staged as int16 (luma rows
+    [0, h_real), cb [0, hc), cr [hc_off, hc_off + hc) of the stacked
+    src_c), luma by 192 threads, cb and cr by 32 each, clip(prediction +
+    residual) written into dst_y and dst_c. Returns the writes [n, n],
+    [n/2, n/2], [n/2, n/2] of one CU."""
+    b = pos.shape[0]
+    zero = torch.zeros(b, dtype=torch.int64, device=pos.device)
+    py, wy = mc_job_walk(src_y, pos, mv, n, False, zero, zero + h_real - 1,
+                         bit_depth, 192)
+    pb, wb = mc_job_walk(src_c, cb_pos, mv, n // 2, True, zero, zero + hc - 1,
+                         bit_depth, 32)
+    pr, wr = mc_job_walk(src_c, cr_pos, mv, n // 2, True, zero + hc_off,
+                         zero + hc_off + hc - 1, bit_depth, 32)
+    add_residual(dst_y, py, pos, resi_y, bit_depth)
+    add_residual(dst_c, pb, cb_pos, resi_c, bit_depth)
+    add_residual(dst_c, pr, cr_pos, resi_c, bit_depth)
+    return wy, wb, wr

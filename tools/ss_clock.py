@@ -9,7 +9,11 @@ imports <tree>'s chip_smoke and hevc_hop_torch (a checkout, or one
 unpacked with git archive) and builds its kernels. On chip_smoke's iss,
 iss-uniform, iss-gt and iss-gt-warped 1920x1088 frames and on the last PSS
 picture of pss-gt it times C14's encode with CUDA events (median of 5),
-and iss-gt-warped's encode s through the encoder (median of 3). With
+and iss-gt-warped's encode s through the encoder (median of 3); it times
+C14's decode of each picture (the decoder's own inputs for the encoder's
+stream) with CUDA events too (median of 5) and, where the tree's clock
+build stamps the decode (ss_scan.cu DecStamp), splits one clocked decode
+per group into its intra and inter CUs (decode_split). With
 C14's stage clocks (chip_smoke.stage_split; the library built with
 -DHH_STAGE_CLOCK) it runs each encode once more, counts the elements that
 differ from the production library's, and prints the split: per stage
@@ -122,6 +126,45 @@ def arms_step(clk):
     return {"step_us": us(tot(step)), "c10_us": us(tot(c10)),
             "c12_us": us(tot(c12)), "c10_after_sync3_us": us(tot(after)),
             "stages": step}
+
+
+def decode_split(clk):
+    """C14's decode from its stamps clk [groups, CTAs, CLOCK_STAMPS]
+    (ss_scan.cu DecStamp: slot 0 the group's start, 1 and 2 the ns a CTA
+    spent in its intra and its inter CUs, 3 its way out of the grid sync),
+    us summed over the groups: the groups' time (first start to the last
+    CTA out), the slowest CTA's (the most ns in CUs) intra and inter ns,
+    the longest intra and the longest inter CTA, and the count of groups
+    whose slowest CTA spent more in intra CUs than in inter ones."""
+    clk = np.asarray(clk, dtype=np.int64)
+    intra, inter = clk[:, :, 1], clk[:, :, 2]
+    slow = (intra + inter).argmax(axis=1)
+    gi = np.arange(clk.shape[0])
+    si, se = intra[gi, slow], inter[gi, slow]
+    start = np.where(clk[:, :, 0] > 0, clk[:, :, 0],
+                     np.iinfo(np.int64).max).min(axis=1)
+    end = clk[:, :, 3].max(axis=1)
+    us = lambda v: float(np.asarray(v).sum() / 1e3)
+    return {"groups": int(clk.shape[0]), "groups_us": us(end - start),
+            "slowest_cta_intra_us": us(si), "slowest_cta_inter_us": us(se),
+            "intra_cta_max_us": us(intra.max(axis=1)),
+            "inter_cta_max_us": us(inter.max(axis=1)),
+            "intra_led_groups": int((si > se).sum()),
+            "inter_groups": int((inter.max(axis=1) > 0).sum())}
+
+
+def decode_part(so, fn, groups):
+    """C14's decode of one picture: CUDA-event ms (median of 5) and, where
+    the clock build stamps the decode, one clocked run held against the
+    production library's and split (decode_split)."""
+    want = fn()
+    ms, allms = events_ms(fn)
+    rec = {"decode_ms": ms, "decode_all": allms}
+    got, clk, launch = clocked(so, fn, groups)
+    if clk[:, :, 1:3].any():
+        rec["decode_clock_build_mismatches"] = mism(got, want)
+        rec["decode_split"] = decode_split(clk)
+    return rec
 
 
 def placement(clk, per_cu):
@@ -334,8 +377,9 @@ def c14(res):
         extra, _, _, content = cs.ISS_PATHS[name]
         frame, _ = cs.path_frame(content)
         enc = HoloEncoder(HoloConfig(width=cs.W, height=cs.H, **extra))
-        enc.encode_frame(*frame)
+        stream = enc.encode_frame(*frame)
         args, work = cs._ss_scan_inputs(enc, frame)
+        dargs, dwork = cs._ss_decode_inputs(stream)
         fn = lambda: ss_scan.scan_encode_iss(*args, work=work)
         want = fn()
         ms, allms = events_ms(fn)
@@ -356,12 +400,15 @@ def c14(res):
                 ss_scan.scan_encode_iss_loop(*args)
             rec["entries"] = entries(r.calls)
         rec.update(split(so, fn, want, len(work.host_groups)))
+        rec.update(decode_part(
+            so, lambda: ss_scan.scan_decode_ss(*dargs, work=dwork),
+            len(dwork.host_groups)))
         print(name, json.dumps(rec), flush=True)
         res[name] = rec
     extra = cs.ISS_PATHS["pss-gt"][0]
     enc = HoloEncoder(HoloConfig(width=cs.W, height=cs.H, **extra))
-    (args, work), _ = cs._pss_calls(enc, cs.pss_frames(cs.W, cs.H,
-                                                       cs.PSS_FRAMES))[-1]
+    (args, work), (dargs, dwork) = cs._pss_calls(
+        enc, cs.pss_frames(cs.W, cs.H, cs.PSS_FRAMES))[-1]
     fn = lambda: ss_scan.scan_encode_pss(*args, work=work)
     want = fn()
     ms, allms = events_ms(fn)
@@ -371,6 +418,9 @@ def c14(res):
         ss_scan.scan_encode_pss_loop(*args)
     rec["entries"] = entries(r.calls)
     rec.update(split(so, fn, want, len(work.host_groups)))
+    rec.update(decode_part(
+        so, lambda: ss_scan.scan_decode_pss(*dargs, work=dwork),
+        len(dwork.host_groups)))
     print("pss-gt", json.dumps(rec), flush=True)
     res["pss-gt"] = rec
 
@@ -379,11 +429,16 @@ def main():
     t0 = time.perf_counter()
     _cuda.build_all()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    # ptxas's report of C14's kernels: registers, stack and spills
+    report = [ln.strip() for ln in _cuda.BUILD_LOGS.get("ss_scan",
+                                                        "").splitlines()
+              if "ss_scan" in ln or "Used" in ln or "spill" in ln]
+    print("\n".join(report), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    res = {"card": smi, "tree": tree}
+    res = {"card": smi, "tree": tree, "ptxas_ss_scan": report}
     if "prepass" in PARTS:
         res["prepass"] = prepass()
     if "c14" in PARTS:

@@ -58,6 +58,16 @@ Phases, each of which fails the run (non-zero exit) when it fails:
    - quadtree: the same with RDOQ off, QUADTREE_TIMED_FRAMES timed frames;
    - uniform: uniform 16x16 CUs, in-loop RMD, SAO and RDOQ off,
      UNIFORM_TIMED_FRAMES timed frames;
+   - encode frames: IntraEncoder.encode_frames, the two-stage pipeline
+     (frame i+1's device programs enqueued before frame i's SAO decision
+     and CABAC), on the production configuration over bench.py's four
+     distinct frames (synth_class_b seeds FRAMES_SEEDS), its launch counts
+     set to 0 just before and read just after: C5, C13, C4, C6 and C1
+     once a frame; streams byte for byte those of encode_frame calls, each
+     decoding with hash_ok, recon_yuv the last frame's; no
+     torch.cuda.synchronize inside _stage1; frame i+1's C13 complete (the
+     event behind its launch) when frame i's host SAO decision ends; then
+     FRAMES_TURNS turns of both forms, encode s a frame;
    - scan program: on each of the three paths' frames (and the noisy
      frame of the production path), C13's encode entry held against the
      level loop of C2 and C3 launches and against the level loop of their
@@ -1447,6 +1457,167 @@ def _hold_scan(chk, got, want, what):
         for a, b, nm in zip(got[4][log2], want[4][log2],
                             ("best", "cbf_y", "cbf_c")):
             chk.add(a, b, f"{what}: {nm} {1 << log2}x{1 << log2}")
+
+
+# the pipelined encode's frames: bench.py's four distinct class-B frames
+FRAMES_SEEDS = (0, 1, 2, 3)
+FRAMES_TURNS = 3
+
+
+def phase_encode_frames():
+    """IntraEncoder.encode_frames, the two-stage pipeline, on the
+    production configuration over synth_class_b seeds FRAMES_SEEDS. Every
+    launch count is set to 0 just before one pipelined run and read just
+    after: C5, C13, C4, C6 and C1 launched for every frame, no per-level C2
+    or C3 launch. The run's streams must equal those of encode_frame calls
+    on a fresh encoder byte for byte (each decoded with hash_ok, the last
+    to recon_yuv); torch.cuda.synchronize must never be called inside
+    _stage1; and for every frame i but the last, when its host SAO
+    decision ends, the event that _stage1 recorded behind frame i+1's C13
+    launch (its loop-filter mark) must read complete. Then FRAMES_TURNS
+    turns of both forms, encode s a frame; returns the record."""
+    import torch
+    from hevc_hop_torch.models import wavefront_scan
+    from hevc_hop_torch.models.decoder import Decoder
+    from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+    from hevc_hop_torch.ops import hashes, sao
+    frames = [synth_class_b(W, H, seed=s) for s in FRAMES_SEEDS]
+    cfg = EncoderConfig(width=W, height=H, qp=QP, **PATHS["production"][0])
+    single = IntraEncoder(cfg)
+    want = [single.encode_frame(*f) for f in frames]
+    for i, stream in enumerate(want):
+        dec = Decoder()
+        (pic,) = dec.decode_stream(stream)
+        require(dec.hash_ok == [True], f"encode_frames: frame {i}'s "
+                "encode_frame stream does not decode with hash_ok")
+    enc = IntraEncoder(cfg)
+    staged, stage_stats, seen, in_stage1, syncs = [], [], [], [False], [0]
+    stage1, stage2 = enc._stage1, enc._stage2
+    sync, choose, digests = (torch.cuda.synchronize, sao.choose_sao_params,
+                             hashes.checksum_digests)
+    # per frame: events just before and after its C13 launch, and the
+    # host's clock just after it
+    launch, c13 = wavefront_scan._launch, []
+
+    def spy1(*a, **k):
+        in_stage1[0] = True
+        try:
+            st = stage1(*a, **k)
+        finally:
+            in_stage1[0] = False
+        staged.append(st)
+        return st
+
+    def spy2(st):
+        out = stage2(st)
+        stage_stats.append(dict(enc.last_stats))
+        return out
+
+    def counted(*a, **k):
+        syncs[0] += in_stage1[0]
+        return sync(*a, **k)
+
+    def after_scan(i):
+        """Whether frame i's event behind its C13 launch reads complete
+        (None where there is no frame i)."""
+        if i >= len(staged):
+            return None
+        return dict(staged[i]["clock"].marks)["loopfilter_s"].query()
+
+    def timed_launch(entry, *a, **k):
+        if entry != "hh_scan_encode":
+            return launch(entry, *a, **k)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        launch(entry, *a, **k)
+        e1.record()
+        c13.append((e0, e1, time.perf_counter()))
+
+    def decision(*a, **k):
+        i = len(seen)
+        t0, before = time.perf_counter(), after_scan(i + 1)
+        out = choose(*a, **k)
+        t1 = time.perf_counter()
+        seen.append({"frame": i, "next_c13_done_at_start": before,
+                     "next_c13_done_at_end": after_scan(i + 1),
+                     "decision_ms": (t1 - t0) * 1e3,
+                     "next_c13_launch_to_decision_ms":
+                         (t0 - c13[i + 1][2]) * 1e3 if i + 1 < len(c13)
+                         else None})
+        return out
+
+    def checksum(*a, **k):
+        i = len(seen) - 1
+        nxt = staged[i + 1]["ready"].query() if i + 1 < len(staged) else None
+        seen[i]["next_frame_done_at_checksum"] = nxt
+        return digests(*a, **k)
+
+    counters = _counters()
+    enc._stage1, enc._stage2 = spy1, spy2
+    torch.cuda.synchronize = counted
+    sao.choose_sao_params, hashes.checksum_digests = decision, checksum
+    wavefront_scan._launch = timed_launch
+    try:
+        torch.cuda.synchronize()
+        for _, m, attr in counters:
+            setattr(m, attr, 0)
+        got = enc.encode_frames(frames)
+        launches = {k: getattr(m, attr) for k, m, attr in counters}
+    finally:
+        del enc._stage1, enc._stage2
+        torch.cuda.synchronize = sync
+        sao.choose_sao_params, hashes.checksum_digests = choose, digests
+        wavefront_scan._launch = launch
+    n = len(frames)
+    for r, (e0, e1, _) in zip(seen, c13):
+        r["c13_ms"] = e0.elapsed_time(e1)
+    log(f"encode_frames launches: {launches}")
+    for k in ("C13 encode", "C5 decide", "C4", "C6 stats", "C6 apply",
+              "C1"):
+        require(launches[k] == n, f"encode_frames: {k} launched "
+                f"{launches[k]} times for {n} frames: {launches}")
+    require(launches["C5 rd"] >= n and launches["C13 decode"] == 0
+            and all(launches[k] == 0 for k in LOOP_KERNELS),
+            f"encode_frames: launches {launches}")
+    require(got == want, "encode_frames: the streams differ from "
+            "encode_frame's: " + str([a == b for a, b in zip(got, want)]))
+    for a, b, nm in zip(pic, enc.recon_yuv, ("y", "cb", "cr")):
+        require(np.array_equal(a, b), f"encode_frames: recon_yuv {nm} is "
+                "not the last frame's decoded picture")
+    require(len(staged) == n and syncs[0] == 0,
+            f"encode_frames: {syncs[0]} torch.cuda.synchronize calls inside "
+            f"_stage1 over {len(staged)} frames")
+    log(f"encode_frames overlap: {json.dumps(seen)}")
+    require(len(seen) == n and all(r["next_c13_done_at_end"]
+                                   for r in seen[:-1]),
+            "encode_frames: a frame's SAO decision ended before the next "
+            f"frame's C13 had run: {seen}")
+    # turns of both forms on one encoder, encode s a frame
+    times = {"encode_frames": [], "encode_frame": []}
+    for turn in range(FRAMES_TURNS):
+        order = ("encode_frames", "encode_frame")
+        for form in (order if turn % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = (enc.encode_frames(frames) if form == "encode_frames"
+                   else [enc.encode_frame(*f) for f in frames])
+            torch.cuda.synchronize()
+            times[form].append((time.perf_counter() - t0) / n)
+            require(out == want, f"encode_frames: a {form} turn differs")
+    keys = ("upload_s", "decide_s", "scan_s", "loopfilter_s", "fetch_s",
+            "sao_s", "maps_s", "entropy_s", "checksum_s", "total_s")
+    med = {form: float(np.median(v)) for form, v in times.items()}
+    rec = {"frames": n, "seeds": list(FRAMES_SEEDS), "bytes": [len(s)
+                                                             for s in got],
+           "launches": launches, "stage1_syncs": syncs[0], "overlap": seen,
+           "encode_s_per_frame": med, "turns": times,
+           "pipelined_last_stats": [{k: st[k] for k in keys}
+                                    for st in stage_stats]}
+    log(f"encode_frames: encode s a frame, medians of {FRAMES_TURNS} turns: "
+        f"encode_frames {med['encode_frames']:.4f}, encode_frame "
+        f"{med['encode_frame']:.4f}")
+    log(f"encode_frames record: {json.dumps(rec)}")
+    return rec
 
 
 def phase_scan_program(ctxs, checks):
@@ -6055,6 +6226,8 @@ def main() -> int:
     for name in PATHS:
         paths[name], ctxs[name] = phase_main_path(name, checks)
         log_host(f"{name} path timed")
+    encode_frames = phase_encode_frames()
+    log_host("encode_frames held")
     scan_program, scan_rows = phase_scan_program(ctxs, checks)
     log_host("scan program held")
     for name, (*_, content) in ISS_PATHS.items():
@@ -6126,7 +6299,8 @@ def main() -> int:
                     "ss_scan_plain": ss_plain, "stage_clock": stage_clock,
                     "scan_clock": scan_clock,
                     "c9_split": c9_split, "arms_exact": arms_exact,
-                    "full_fixtures": full_fixtures}))
+                    "full_fixtures": full_fixtures,
+                    "encode_frames": encode_frames}))
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

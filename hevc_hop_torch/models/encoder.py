@@ -16,6 +16,13 @@ Counterpart of hevc_hop_tpu/models/encoder.py. The stages:
   3. deblocking, kernel C4; SAO statistics, host RDO and apply, kernel C6
      (ops/sao.py); the checksum SEI, kernel C1;
   4. dense maps -> native C++ slice-data serializer -> NAL/AnnexB.
+
+Stages 1-3's device work (``_stage1``) is enqueued without a wait past the
+decision's fetch, and ends with the frame's results copied to pinned host
+tensors behind one event; the host work (``_stage2``: the SAO decision,
+stage 4, the checksum) waits on that event alone. ``encode_frames`` runs
+frame i+1's ``_stage1`` before frame i's ``_stage2``, so the card codes
+one frame while the host finishes the other.
 """
 from __future__ import annotations
 
@@ -62,6 +69,35 @@ class EncoderConfig:
     rqt: bool = True
     # entropy_coding_sync_enabled_flag: one CABAC substream per CTU row
     wpp: bool = False
+
+
+class _StageClock:
+    """A frame's stage times. ``mark(name)`` starts stage ``name`` and ends
+    the one before (``None`` starts none). On the card a mark is a CUDA
+    event recorded on the stream, so the clock never waits: read
+    :meth:`seconds` once the stream has passed the last mark. On the CPU,
+    where each stage runs as it is called, a mark reads the host's
+    clock."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.stream = (torch.cuda.current_stream(device)
+                       if device.type == "cuda" else None)
+        self.marks = []
+
+    def mark(self, name) -> None:
+        if self.stream is None:
+            t = time.perf_counter()
+        else:
+            t = torch.cuda.Event(enable_timing=True)
+            t.record(self.stream)
+        self.marks.append((name, t))
+
+    def seconds(self) -> dict:
+        """{stage name: seconds from its mark to the next}."""
+        return {name: (b - a if self.stream is None
+                       else a.elapsed_time(b) / 1e3)
+                for (name, a), (_, b) in zip(self.marks, self.marks[1:])
+                if name is not None}
 
 
 class IntraEncoder:
@@ -204,28 +240,50 @@ class IntraEncoder:
             out[log2] = (up(mode4[py // 4, px // 4]), cm)
         return out
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def encode_frame(self, y: np.ndarray, cb: np.ndarray,
                      cr: np.ndarray) -> bytes:
         """Encode one frame; returns the AnnexB byte stream (with headers).
         The reconstruction stays on the device (recon_yuv fetches it).
-        Per-stage wall-clock seconds land in self.last_stats; on the card
-        each stage ends with a synchronize, so they are device times."""
+        Per-stage seconds land in self.last_stats: the device stages'
+        (upload_s, decide_s, scan_s, loopfilter_s) from CUDA events on the
+        stream, the host stages' (fetch_s, sao_s, maps_s, entropy_s,
+        checksum_s) from the host's clock."""
         return self._stage2(self._stage1(y, cb, cr))
 
     def encode_frames(self, frames: list) -> list:
-        """[(y, cb, cr), ...] -> [stream, ...], one frame after another."""
-        return [self.encode_frame(*f) for f in frames]
+        """[(y, cb, cr), ...] -> [stream, ...], byte for byte those of
+        per-frame encode_frame calls, as a two-stage pipeline: frame i+1's
+        device programs (:meth:`_stage1`) are enqueued before frame i's
+        host work (:meth:`_stage2`: the SAO decision and CABAC), so the
+        card runs the one while the host does the other. Afterwards
+        recon_yuv holds the last frame's reconstruction."""
+        out, pend = [], None
+        for (y, cb, cr) in frames:
+            st = self._stage1(y, cb, cr)
+            if pend is not None:
+                out.append(self._stage2(pend))
+            pend = st
+        if pend is not None:
+            out.append(self._stage2(pend))
+        return out
+
+    def _to_host(self, t: torch.Tensor) -> torch.Tensor:
+        """A copy of t in a host tensor of its own: from the card pinned
+        and enqueued without waiting (read it once the frame's ``ready``
+        event is complete), on the CPU a plain copy."""
+        cuda = self.device.type == "cuda"
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=cuda)
+        return out.copy_(t, non_blocking=cuda)
 
     def _stage1(self, y, cb, cr, decisions=None) -> dict:
-        """Upload, decision, level loop and loop filter. ``decisions`` =
+        """Upload, decision, wavefront, loop filters and SAO statistics,
+        all enqueued, then the frame's results enqueued to pinned host
+        tensors of its own and one event recorded behind them. Nothing
+        here waits for the card but the decision's fetch. ``decisions`` =
         (depth8, mode4, tulog8), as :meth:`_decide` returns them, replaces
         the RD pre-pass."""
-        stats = {}
         t0 = time.perf_counter()
+        clock = _StageClock(self.device)
         cfg = self.cfg
         w, h = cfg.width, cfg.height
         pw, ph = self._pad
@@ -247,16 +305,16 @@ class IntraEncoder:
         qp = cfg.qp
         qp_c = rom.chroma_qp_from_luma(qp)
         up = lambda a: torch.as_tensor(a.astype(np.int32)).to(self.device)
+        clock.mark("upload_s")
         org_y_dev, org_c_dev = up(org_y), up(org_c)
-        self._sync()
-        stats["upload_s"] = time.perf_counter() - t0
 
-        t1 = time.perf_counter()
+        # the decision ends with its fetch, so the stream waits while the
+        # host builds the schedule: decide_s spans both
+        clock.mark("decide_s")
         depth8, mode4, tulog8 = self._decide(org_y_dev[:h], decisions)
         sched = self._schedule(depth8, tulog8)
         modes = None if mode4 is None else self._given_modes(sched, mode4)
-        self._sync()
-        stats["decide_s"] = time.perf_counter() - t1
+        clock.mark(None)
 
         maps = native.SliceMaps(
             w, h, cfg.ctb_log2,
@@ -267,15 +325,13 @@ class IntraEncoder:
         maps.part8[:] = np.where(depth8 == cfg.ctb_log2 - 2, 3, 0)
         maps.tu4[:] = sched.tu4
 
-        t1 = time.perf_counter()
+        clock.mark("scan_s")
         ry, rc, coef_y, coef_c, outs = wavefront_scan.scan_encode(
             org_y_dev, org_c_dev, sched.plans, sched.nsteps, qp, qp_c,
             cfg.bit_depth, cfg.strong_intra_smoothing, cfg.sbh, modes,
             use_rdoq=cfg.rdoq, init_type=int(SliceType.I), work=sched.work)
-        self._sync()
-        stats["scan_s"] = time.perf_counter() - t1
 
-        t1 = time.perf_counter()
+        clock.mark("loopfilter_s")
         ry, rcb, rcr = ry[:h], rc[:hc], rc[hc_off:hc_off + hc]
         if cfg.deblocking:
             ry, rcb, rcr = deblock.deblock_frame(
@@ -288,31 +344,46 @@ class IntraEncoder:
                 (org_y_dev[:h], org_c_dev[:hc],
                  org_c_dev[hc_off:hc_off + hc]), (ry, rcb, rcr),
                 cfg.ctb_log2, cfg.bit_depth)
-        self._sync()
-        stats["loopfilter_s"] = time.perf_counter() - t1
-        stats["_t0"] = t0
-        return dict(maps=maps, sched=sched, stats=stats,
-                    recon=(ry, rcb, rcr), sao_stats=sao_stats,
-                    coef=(coef_y, coef_c), outs=outs,
+        clock.mark(None)
+        # the frame's results leave the card in one set of copies behind
+        # one event, which _stage2 waits on; the device tensors they come
+        # from may be reused by the next frame's programs, which the
+        # stream runs after these copies
+        host = dict(
+            coef=(self._to_host(coef_y[:h]), self._to_host(coef_c)),
+            outs={k: tuple(self._to_host(v) for v in o)
+                  for k, o in outs.items()},
+            sao=(None if sao_stats is None
+                 else self._to_host(sao_stats.packed)))
+        ready = None
+        if self.device.type == "cuda":
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self.device))
+        return dict(maps=maps, sched=sched, recon=(ry, rcb, rcr),
+                    host=host, ready=ready, clock=clock, t0=t0,
                     hc=hc, hc_off=hc_off, qp=qp)
 
     def _stage2(self, st: dict) -> bytes:
+        """Frame ``st``'s results read once its event is complete, the
+        host's SAO decision and the C6 apply, the dense maps, CABAC and
+        the checksum SEI."""
         cfg = self.cfg
-        maps, stats = st["maps"], st["stats"]
+        maps = st["maps"]
         hc, hc_off, qp = st["hc"], st["hc_off"], st["qp"]
-        h = cfg.height
 
         t1 = time.perf_counter()
-        coef_y, coef_c = st["coef"]
-        maps.coef_y[:] = coef_y[:h].cpu().numpy()
-        cc = coef_c.cpu().numpy()
+        if st["ready"] is not None:
+            st["ready"].synchronize()
+        host = st["host"]
+        coef_y, coef_c = host["coef"]
+        maps.coef_y[:] = coef_y.numpy()
+        cc = coef_c.numpy()
         maps.coef_cb[:] = cc[:hc]
         maps.coef_cr[:] = cc[hc_off:hc_off + hc]
-        outs = {k: tuple(v.cpu().numpy() for v in o)
-                for k, o in st["outs"].items()}
-        sao_np = None
-        if st["sao_stats"] is not None:
-            sao_np = sao.fetch_stats(st["sao_stats"])
+        outs = {k: tuple(v.numpy() for v in o)
+                for k, o in host["outs"].items()}
+        sao_np = None if host["sao"] is None else sao.host_stats(host["sao"])
+        stats = st["clock"].seconds()
         stats["fetch_s"] = time.perf_counter() - t1
 
         t1 = time.perf_counter()
@@ -321,7 +392,6 @@ class IntraEncoder:
             recon = sao.choose_apply(sao_np, recon, maps, cfg.ctb_log2,
                                      partition.full_lambda(qp),
                                      cfg.bit_depth)
-            self._sync()
         self._recon_dev = recon
         self._recon_np = None
         stats["sao_s"] = time.perf_counter() - t1
@@ -347,6 +417,7 @@ class IntraEncoder:
         slice_nal = nal.make_nal(NalUnitType.IDR_W_RADL, hw.get_bytes())
         stats["entropy_s"] = time.perf_counter() - t1
         # decoded-picture-hash SEI
+        t1 = time.perf_counter()
         if cfg.hash_type == sei.HASH_CHECKSUM:
             digests = hashes.checksum_digests(*self._recon_dev,
                                               cfg.bit_depth)
@@ -354,13 +425,14 @@ class IntraEncoder:
             digests = hashes.crc_digests(*self.recon_yuv, cfg.bit_depth)
         else:
             digests = sei.plane_md5s(*self.recon_yuv, cfg.bit_depth)
+        stats["checksum_s"] = time.perf_counter() - t1
         sei_nal = nal.make_nal(
             NalUnitType.SUFFIX_SEI_NUT,
             sei.write_sei([sei.SEIMessage(
                 sei.PICTURE_HASH,
                 sei.make_picture_hash_payload(digests, cfg.hash_type))]))
         out = nal.annexb_wrap(self.headers() + [slice_nal, sei_nal])
-        stats["total_s"] = time.perf_counter() - stats.pop("_t0")
+        stats["total_s"] = time.perf_counter() - st["t0"]
         stats["bytes"] = len(out)
         self.last_stats = stats
         return out

@@ -5,7 +5,8 @@ per-CTU EO/BO counts and difference sums) and the apply (the per-sample
 offset, normative) are the two entries of kernel C6 (``csrc/sao.cu``). Each
 takes a picture's three planes in one launch, a CTA per CTU position:
 :func:`stats_dispatch` writes one [ncty, nctx, 3, 96] buffer, which
-:func:`fetch_stats` copies to the host at once, and :func:`apply_sao_frame`
+:func:`fetch_stats` copies to the host at once (or a caller copies without
+waiting and reads with :func:`host_stats`), and :func:`apply_sao_frame`
 uploads the decided parameters as one packed tensor. :func:`sao_stats_plane`
 and :func:`apply_sao_plane` are the one-plane forms of the same launches.
 On a CUDA tensor each launches its kernel; on a CPU tensor it runs its
@@ -452,8 +453,14 @@ def stats_dispatch(org_yuv, rec_yuv, ctb_log2: int, bit_depth: int = 8):
 
 def fetch_stats(stats: SaoStats):
     """The statistics on the host as numpy arrays, in one copy."""
-    host = stats.packed.cpu()
-    return tuple(tuple(a.numpy() for a in _unpack_stats(host[:, :, i]))
+    return host_stats(stats.packed.cpu())
+
+
+def host_stats(packed: torch.Tensor):
+    """Per plane (eo_cnt, eo_sum, bo_cnt, bo_sum) numpy views of ``packed``,
+    a host copy of :class:`SaoStats`' packed buffer (the read step of a
+    fetch whose copy the caller enqueued and waited for)."""
+    return tuple(tuple(a.numpy() for a in _unpack_stats(packed[:, :, i]))
                  for i in range(3))
 
 

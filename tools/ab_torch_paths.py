@@ -3,7 +3,7 @@
 
     python3 tools/ab_torch_paths.py PARENT_TREE CHANGED_TREE \
         [uniform|quadtree|production|mesh|analysis|loopfilter|
-         checksum_decide|tq_encode]
+         checksum_decide|tq_encode|frames]
 
 Each tree is a checkout of the repository (the parent unpacked with
 ``git archive`` beside the working tree). The host sets most of a frame's
@@ -72,6 +72,14 @@ against the plain body on the card, then timed as in ``loopfilter``
 call that ends in a synchronize), with the blocks' count and the kernel's
 own record (``kernel_ms``; a call's other two records are the fills of
 its recon and level planes).
+
+``frames`` times ``IntraEncoder.encode_frames`` on bench.py's four
+distinct class-B frames (``synth_class_b`` seeds 0 to 3, the production
+configuration) beside four ``encode_frame`` calls on them, in turns in one
+process (encode s a frame: ``encode_frames_s``, ``encode_frame_s``), with
+the medians of the encode_frame calls' ``last_stats`` stages (``fetch_s``,
+``sao_s``, ``maps_s``, ``entropy_s`` and the device stages); the streams
+of both forms must agree.
 
 ``loopfilter`` times the loop filters' public calls on the production
 frame's own inputs, caught from one encode: ``deblock_frame`` on the
@@ -290,6 +298,46 @@ def loopfilter_process() -> dict:
     return out
 
 
+FRAMES_STAGES = ("upload_s", "decide_s", "scan_s", "loopfilter_s",
+                 "fetch_s", "sao_s", "maps_s", "entropy_s", "checksum_s")
+
+
+def frames_process() -> dict:
+    """The frames mode's times on this process's tree (see the header)."""
+    import torch
+    import chip_smoke as cs
+    from hevc_hop_torch.models.encoder import EncoderConfig, IntraEncoder
+    frames = [cs.synth_class_b(1920, 1088, seed=s) for s in range(4)]
+    enc = IntraEncoder(EncoderConfig(width=1920, height=1088, qp=32,
+                                     **PATHS["production"]))
+    want = [enc.encode_frame(*f) for f in frames]
+    if enc.encode_frames(frames) != want:
+        raise SystemExit("encode_frames differs from encode_frame")
+    times = {"encode_frames_s": [], "encode_frame_s": []}
+    split = {k: [] for k in FRAMES_STAGES}
+    for turn in range(TIMED):
+        order = ("encode_frames_s", "encode_frame_s")
+        for form in (order if turn % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if form == "encode_frames_s":
+                out = enc.encode_frames(frames)
+            else:
+                out = []
+                for f in frames:
+                    out.append(enc.encode_frame(*f))
+                    for k in split:
+                        split[k].append(enc.last_stats.get(k))
+            torch.cuda.synchronize()
+            times[form].append((time.perf_counter() - t0) / len(frames))
+            if out != want:
+                raise SystemExit(f"a later {form[:-2]} turn differs")
+    med = lambda xs: (float(np.median(xs)) if None not in xs else None)
+    return {**{k: med(v) for k, v in times.items()},
+            **{k: med(v) for k, v in split.items()},
+            "all": times}
+
+
 def _timed_calls(calls: dict) -> dict:
     """Each call's device ms and records from a profiler trace of 10 calls
     after a warm-up trace (every record counted), its records' ms by
@@ -492,10 +540,12 @@ def one_process(tree: str, path: str) -> None:
         return
     _cuda.build_all()
     native.get_lib()
-    if path in ("mesh", "loopfilter", "checksum_decide", "tq_encode"):
+    if path in ("mesh", "loopfilter", "checksum_decide", "tq_encode",
+                "frames"):
         run = {"mesh": mesh_process, "loopfilter": loopfilter_process,
                "checksum_decide": checksum_decide_process,
-               "tq_encode": tq_encode_process}[path]
+               "tq_encode": tq_encode_process,
+               "frames": frames_process}[path]
         print(json.dumps({"tree": tree, "path": path,
                           "card": torch.cuda.get_device_name(0),
                           **run()}), flush=True)
@@ -600,7 +650,10 @@ def main() -> int:
                                      for k in fields[c]) + (
                 "encode_s", "decode_s", "decide_s", "checksum_s"),
             "tq_encode": tuple(f"{c}.{k}" for c in calls
-                               for k in fields[c])}.get(
+                               for k in fields[c]),
+            # checksum_s is absent from a tree whose encoder lacks it
+            "frames": ("encode_frames_s", "encode_frame_s")
+            + FRAMES_STAGES[:-1]}.get(
         path, ("encode_s", "decode_s", "residual_s", "c3_decode_device_ms",
                "entropy_s", "scan_s"))
     print(json.dumps({name: {k: med(runs[tree], k) for k in keys}

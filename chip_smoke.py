@@ -3821,7 +3821,8 @@ def phase_pss_scan_program(ctxs, checks):
     # the mixed sequence at full size
     what = f"mixed {W}x{H}"
     menc = HoloEncoder(HoloConfig(width=W, height=H, **MIXED_CONFIG))
-    mixed, = _hold_pss(chk, _pss_calls(menc, mixed_frames(W, H)), what)
+    with _GtLevels("mixed", pss=True):
+        mixed, = _hold_pss(chk, _pss_calls(menc, mixed_frames(W, H)), what)
     mixed = dict(_pss_record(mixed), frame=f"{W}x{H}", config=MIXED_CONFIG,
                  content=MIXED_CONTENT)
     require(all(mixed[k] > 0 for k in _cu_kinds({})),
@@ -4450,6 +4451,52 @@ def phase_gt_share(ctxs):
     return out
 
 
+# The level with the most GT CUs of a path's level loop, by key: (GT CUs,
+# the arguments of its ss_scan.gt_step call as they stood before the call)
+GT_LEVELS = {}
+
+
+def _clone_args(a):
+    """A copy of a call's arguments: tensors cloned, tuples copied."""
+    import torch
+    if torch.is_tensor(a):
+        return a.clone()
+    if isinstance(a, (tuple, list)):
+        return type(a)(_clone_args(x) for x in a)
+    return a
+
+
+class _GtLevels:
+    """Within it, ss_scan.gt_step keeps in GT_LEVELS[key] the call of its
+    ISS form (or with ``pss`` its PSS form) that set the most GT flags (its
+    in-place arguments as they stood before it)."""
+
+    def __init__(self, key, pss=False):
+        self.key, self.pss = key, pss
+
+    def __enter__(self):
+        from hevc_hop_torch.models import ss_scan
+        self.saved = ss_scan.gt_step
+
+        def call(*a, **k):
+            # (..., lam, mi_size, refsel): refsel None or left out on ISS
+            a = a + (k.get("refsel"),) if len(a) == 22 else a
+            before = _clone_args(a[11:15] + a[22:])
+            out = self.saved(*a)
+            nf = int(out[0].sum())
+            if ((a[22] is not None) == self.pss
+                    and nf > GT_LEVELS.get(self.key, (0,))[0]):
+                GT_LEVELS[self.key] = (nf, _clone_args(a[:11]) + before[:4]
+                                       + a[15:22] + before[4:])
+            return out
+
+        ss_scan.gt_step = call
+
+    def __exit__(self, *exc):
+        from hevc_hop_torch.models import ss_scan
+        ss_scan.gt_step = self.saved
+
+
 def _hold_iss_launches(enc, frames, stream, checks, every=8):
     """The launches of one encode of ``frames`` (one ISS picture, or the
     PSS path's sequence) and its decode, kernel against plain body on the
@@ -4786,9 +4833,10 @@ def phase_iss_kernels(checks, ctxs):
     held = {}
     for name in ISS_PATHS:
         c = ctxs[name]
-        held[name] = _hold_iss_launches(c["enc"], c.get("frames",
-                                                        [c["frame"]]),
-                                        c["stream"], checks)
+        with _GtLevels(name):
+            held[name] = _hold_iss_launches(c["enc"], c.get("frames",
+                                                            [c["frame"]]),
+                                            c["stream"], checks)
         log_host(f"{name} launches held")
     need = {"C9 search", "C10 arms", "C10 motion", "C8 chroma masked",
             "C8 luma decode", "C8 chroma decode", "C4 inter arm", "C9 ring",
@@ -5362,6 +5410,10 @@ def phase_gt_timing(ctxs, checks, launches):
          nbytes=c * 120 + nflag * (2 * n * n * 4 + 2 * (n + 3) ** 2 * 4),
          ops=nflag * 2 * (mc_ops(n, 4) + warp_ops(m)),
          **dict(common, counter="C12 decide"))
+    # the decide entry where GT wins: the level of iss-gt-warped's level
+    # loop with the most GT CUs (phase_iss_kernels), as it stood
+    spec(**_gt_level_row("iss-gt-warped", "C12 decide",
+                         "hevc_hop_tpu/models/ss_scan.py:796"))
     # C11: the encoder's masked chroma and the decoder's luma epilogue on
     # the same level's blocks, the GT blocks of the step above selected
     cpos = G["p"].cpos[2 * G["o"]:2 * G["o"] + 2 * c]
@@ -5589,7 +5641,39 @@ def phase_pss_timing(ctxs, checks, launches):
          fn=lambda: step(gt.gt_step), plain=lambda: step(gt.gt_step_plain),
          nbytes=c * 140 + nflag * (2 * n * n * 4 + 2 * (n + 3) ** 2 * 4),
          ops=nflag * 2 * (mc_ops(n, 4) + warp_ops(n // 2)))
+    # the PSS decide where GT wins: the level of the mixed sequence's PSS
+    # level loop with the most GT CUs (phase_pss_scan_program)
+    spec(**_gt_level_row("mixed", "C12 decide PSS",
+                         "hevc_hop_tpu/models/ss_scan.py:973"))
     return _time_specs(specs, checks, launches)
+
+
+def _gt_level_row(key, counter, replaces):
+    """The kernels line's spec of C12's decide entry on GT_LEVELS[key]: the
+    recorded level's search and decide on copies of its arguments, the
+    bound counted by its GT CUs (each a chroma check of cb and cr and a
+    prediction copied), as the other decide rows count."""
+    from hevc_hop_torch.ops import gt
+    require(key in GT_LEVELS, f"C12 decide: no level of {key} set a GT flag")
+    nflag, a = GT_LEVELS[key]
+    c, n, pss = a[3].shape[0], a[15], a[22] is not None
+
+    def step(fn):
+        x = _clone_args(a)
+        return tuple(fn(*x)) + tuple(x[11:15]) + ((x[22],) if pss else ())
+
+    form = "PSS, " if pss else ""
+    return dict(name=f"C12 gt_decide ({form}{n}x{n}, GT level)",
+                counter=counter, path="pss-gt" if pss else key,
+                kernel="gt_decide_kernel",
+                shape=f"{c} CUs of {n}x{n}, {nflag} GT, the {key} level "
+                      "with the most GT CUs",
+                source="hevc_hop_torch/csrc/gt_search.cu",
+                replaces=replaces, fn=lambda: step(gt.gt_step),
+                plain=lambda: step(gt.gt_step_plain),
+                nbytes=c * (140 if pss else 120)
+                + nflag * (2 * n * n * 4 + 2 * (n + 3) ** 2 * 4),
+                ops=nflag * 2 * (mc_ops(n, 4) + warp_ops(n // 2)))
 
 
 # ---------------------------------------------------------------------------

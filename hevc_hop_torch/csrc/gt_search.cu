@@ -36,16 +36,20 @@
 // (cost + ring rate) + lambda for anchor 0, fma(6 + MVD bits, lambda,
 // cost) + lambda for anchor 1.
 //
-// Decide entry, one CTA per block: the cheaper anchor (the first among
-// equals); where its cost beats kernel C10's intra, merge and SS costs and
-// its corners are not all zero, the chroma warp of both planes (cb and cr
-// as they stand before the level's chroma recon: warp.cuh gt_chroma_pair,
-// both planes interpolated at phase 0 or 4 and warped in half pel in one
-// pass) must be safe. Then the GT flag is
-// set and C10's choice overridden in place: the prediction, inter = 1,
-// MV = anchor * 4, the diagonal scan (mode 0). PSS form (refsel not null):
-// the GT cost must also beat C10's temporal cost, and the reference index
-// of a GT block is the SS one.
+// Decide entry, one CTA per block: every warp loads the block's 23 (PSS:
+// 24) words in one round of L2 loads, a word a lane, and takes them from
+// its lanes by shuffles (gt_search.cuh gt_pick; no shared memory, no
+// barrier): the cheaper anchor (the first among equals); where its cost
+// beats kernel C10's intra, merge and SS costs and its corners are not all
+// zero, the block is a candidate, and only a candidate runs the chroma
+// check (gt_chroma_check): the chroma warp of both
+// planes (cb and cr as they stand before the level's chroma recon:
+// warp.cuh gt_chroma_pair, both planes interpolated at phase 0 or 4 and
+// warped in half pel in one pass) must be safe. Then the GT flag is set
+// and C10's choice overridden in place: the prediction, inter = 1, MV =
+// anchor * 4, the diagonal scan (mode 0); lanes of warp 0 write the
+// words. PSS form (refsel not null): the GT cost must also beat C10's
+// temporal cost, and the reference index of a GT block is the SS one.
 //
 // Floats: each SSE is the reference's float32 sum where that is exact
 // (below 2^24); above it, ss_common.cuh block_sum's order (a thread a row,

@@ -322,64 +322,133 @@ __device__ __forceinline__ int gt_chroma_knife(const GtDecide &a, int b,
                            PutIf{ocr, M});
 }
 
-// The decide entry's work on block b. sm holds gt_decide_words(n). The
-// chroma check's warps of cb and cr go to ocb and ocr [n/2, n/2] where
-// they are given (kernel C14: the CU's chroma prediction slots, so that
-// its chroma stage skips a GT CU). Ends with a barrier.
-__device__ void gt_decide_block(const GtDecide &a, int b, int32_t *sm,
-                                int32_t *ocb = nullptr,
-                                int32_t *ocr = nullptr) {
-  const int n = a.n, nn = n * n, tid = threadIdx.x;
-  __shared__ int s_ai, s_cand, s_gt[6];
-  if (tid == 0) {
-    const float c0 = a.s_cost[2 * b], c1 = a.s_cost[2 * b + 1];
-    const int ai = c1 < c0 ? 1 : 0;
-    const float gcost = ai ? c1 : c0;
-    int nonzero = 0;
-    for (int k = 0; k < 6; ++k) {
-      s_gt[k] = a.s_gtc[12 * b + 6 * ai + k];
-      nonzero |= s_gt[k] != 0;
-      a.gtc[6 * b + k] = s_gt[k];
-    }
-    const bool pss = a.refsel != nullptr;
-    // intra, merge, SS (and temporal on PSS)
-    const float *c = a.costs + (pss ? 4 : 3) * b;
-    s_ai = ai;
-    s_cand = (a.s_ok[2 * b] || a.s_ok[2 * b + 1]) && nonzero &&
-             gcost < c[2] && gcost < c[0] && gcost < c[1] &&
-             (!pss || gcost < c[3]);
+// The words of block b that the decision reads, lane k of a warp word k:
+// the two anchors' costs (float bits), ok flags, full-pel anchors (x, y)
+// and coded corners, then C10's intra, merge, SS and, on PSS, temporal
+// costs (float bits)
+enum GtWord {
+  kWordCost = 0, kWordOk = 2, kWordAmv = 4, kWordGtc = 8, kWordC10 = 20,
+  kDecideWords = 24
+};
+
+// The cheaper anchor of costs c0, c1: the first among equals, as the
+// reference's argmin
+__device__ __forceinline__ int gt_cheaper(float c0, float c1) {
+  return c1 < c0 ? 1 : 0;
+}
+
+__device__ __forceinline__ int gt_decide_word(const GtDecide &a, int b,
+                                              int k, int nc) {
+  if (k < kWordOk) return __float_as_int(__ldcg(a.s_cost + 2 * b + k));
+  if (k < kWordAmv) return __ldcg(a.s_ok + 2 * b + k - kWordOk);
+  if (k < kWordGtc) return __ldcg(a.s_amv + 4 * b + k - kWordAmv);
+  if (k < kWordC10) return __ldcg(a.s_gtc + 12 * b + k - kWordGtc);
+  return k - kWordC10 < nc
+             ? __float_as_int(__ldcg(a.costs + nc * b + k - kWordC10))
+             : 0;
+}
+
+// Block b's anchor and candidate test, in registers
+struct GtPick {
+  int ai, cand;
+  int corner;   // lane k < 6: the chosen anchor's coded corner word k
+};
+
+// The decision's prologue on every warp of the CTA, with no shared memory
+// and no barrier: lanes load the block's words in one round of L2 loads
+// (written by other CTAs of a C14 cluster), take the anchors' costs by
+// shuffles and the cheaper anchor, and test their own words, each vote a
+// ballot: an ok flag set, a corner of the chosen anchor not zero, a C10
+// cost not above the GT cost. GT is a candidate where an anchor is ok, a
+// corner is not zero and no C10 cost is at or below it: the AND of the
+// reference's comparisons (SS, intra, merge, on PSS temporal), which no
+// order changes.
+__device__ __forceinline__ GtPick gt_pick(const GtDecide &a, int b) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int nc = a.refsel != nullptr ? 4 : 3;
+  const int v = lane < kDecideWords ? gt_decide_word(a, b, lane, nc) : 0;
+  const float c0 = __int_as_float(__shfl_sync(kAll, v, kWordCost));
+  const float c1 = __int_as_float(__shfl_sync(kAll, v, kWordCost + 1));
+  const int ai = gt_cheaper(c0, c1);
+  const float g = ai ? c1 : c0;
+  const int lo = kWordGtc + 6 * ai;
+  const bool ok = lane >= kWordOk && lane < kWordAmv && v != 0;
+  const bool nonzero = lane >= lo && lane < lo + 6 && v != 0;
+  const bool beaten = lane >= kWordC10 && lane < kWordC10 + nc &&
+                      !(g < __int_as_float(v));
+  GtPick p;
+  p.ai = ai;
+  p.cand = __ballot_sync(kAll, ok) != 0 && __ballot_sync(kAll, nonzero) != 0 &&
+           __ballot_sync(kAll, beaten) == 0;
+  p.corner = __shfl_sync(kAll, v, lo + lane % 6);
+  return p;
+}
+
+// The chosen anchor ai of block b, full pel
+__device__ __forceinline__ void gt_anchor(const GtDecide &a, int b, int ai,
+                                          int &vx, int &vy) {
+  vx = __ldcg(a.s_amv + 4 * b + 2 * ai);
+  vy = __ldcg(a.s_amv + 4 * b + 2 * ai + 1);
+}
+
+// Whether the chroma warps of GT candidate b at its chosen anchor ai (vx,
+// vy) have a knife edge (gt_chroma_safe's negation), by the CTA; the
+// warps of cb and cr into ocb and ocr [n/2, n/2] where they are given.
+// sm holds gt_decide_words(n) and is free on entry; its last barrier is
+// gt_chroma_pair's CTA-wide OR, after every read of sm. Kernel C14 runs it
+// inside a call of its own (ss_scan.cu decide_tail), so that the windows'
+// registers stay out of the rest of its read phase.
+__device__ __forceinline__ int gt_chroma_check(const GtDecide &a, int b,
+                                               int ai, int vx, int vy,
+                                               int32_t *sm, int32_t *ocb,
+                                               int32_t *ocr) {
+  int gt[6], c4[8];
+  for (int k = 0; k < 6; ++k) gt[k] = __ldcg(a.s_gtc + 12 * b + 6 * ai + k);
+  gt4(gt, c4);
+  return a.n == 8 ? gt_chroma_knife<4>(a, b, c4, vx, vy, sm, ocb, ocr)
+                  : (a.n == 16 ? gt_chroma_knife<8>(a, b, c4, vx, vy, sm,
+                                                    ocb, ocr)
+                               : gt_chroma_knife<16>(a, b, c4, vx, vy, sm,
+                                                     ocb, ocr));
+}
+
+// Block b's decision by the lanes of warp 0: the chosen anchor's corners
+// into gtc (lanes 0-5, corner: gt_pick's), the flag (lane 6) and, where GT
+// is safe and wins, C10's choice overridden: inter (lane 7), the MV =
+// anchor (vx, vy) * 4 (lanes 8, 9), the diagonal scan (lane 10), the SS
+// reference index on PSS (lane 11). Not the prediction.
+__device__ __forceinline__ void gt_decide_put(const GtDecide &a, int b,
+                                              int corner, int safe, int vx,
+                                              int vy) {
+  const int t = threadIdx.x;
+  if (t < 6) a.gtc[6 * b + t] = corner;
+  if (t == 6) a.flag[b] = safe;
+  if (!safe || t < 7 || t > 11) return;
+  if (t == 7) a.inter[b] = 1;
+  if (t == 8) a.mv[2 * b] = 4 * vx;
+  if (t == 9) a.mv[2 * b + 1] = 4 * vy;
+  if (t == 10) a.smode[b] = 0;
+  if (t == 11 && a.refsel != nullptr) a.refsel[b] = a.ss_idx;
+}
+
+// The decide entry's work on block b: the pick on every warp, the chroma
+// check only for a candidate, the outputs, and a winner's prediction
+// copied over pred in place. sm holds gt_decide_words(n). No barrier at
+// the end.
+__device__ void gt_decide_block(const GtDecide &a, int b, int32_t *sm) {
+  const GtPick p = gt_pick(a, b);
+  int safe = 0, vx = 0, vy = 0;
+  if (p.cand) {
+    gt_anchor(a, b, p.ai, vx, vy);
+    safe = !gt_chroma_check(a, b, p.ai, vx, vy, sm, nullptr, nullptr);
   }
-  __syncthreads();
-  const int ai = s_ai;
-  const int vx = a.s_amv[4 * b + 2 * ai], vy = a.s_amv[4 * b + 2 * ai + 1];
-  int safe = s_cand;
-  if (s_cand) {
-    // the chroma warps of cb and cr must be safe (gt_chroma_safe)
-    int c4[8];
-    gt4(s_gt, c4);
-    const int knife =
-        n == 8 ? gt_chroma_knife<4>(a, b, c4, vx, vy, sm, ocb, ocr)
-               : (n == 16 ? gt_chroma_knife<8>(a, b, c4, vx, vy, sm, ocb, ocr)
-                          : gt_chroma_knife<16>(a, b, c4, vx, vy, sm, ocb,
-                                                ocr));
-    safe = !knife;
-  }
-  if (safe) {
-    const int32_t *gp = a.s_pred + (2 * (long long)b + ai) * nn;
-    for (int i = tid; i < nn; i += blockDim.x)
-      a.pred[(long long)b * nn + i] = gp[i];
-  }
-  if (tid == 0) {
-    a.flag[b] = safe;
-    if (safe) {
-      a.inter[b] = 1;
-      a.mv[2 * b] = 4 * vx;
-      a.mv[2 * b + 1] = 4 * vy;
-      a.smode[b] = 0;
-      if (a.refsel != nullptr) a.refsel[b] = a.ss_idx;
-    }
-  }
-  __syncthreads();
+  gt_decide_put(a, b, p.corner, safe, vx, vy);
+  if (!safe) return;
+  const int nn = a.n * a.n;
+  const int32_t *gp = a.s_pred + (2 * (long long)b + p.ai) * nn;
+  for (int i = threadIdx.x; i < nn; i += blockDim.x)
+    a.pred[(long long)b * nn + i] = __ldcg(gp + i);
 }
 
 }  // namespace

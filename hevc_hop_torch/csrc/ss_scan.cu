@@ -38,17 +38,19 @@
 //   beside C12's two anchors on two other CTAs (gt_search.cuh: anchor 1
 //   reads nothing that anchor 0 writes); after a third, C10's tournament,
 //   C12's decision and the chroma prediction of cb and cr from rc and the
-//   CU's own decision on the leader (decide_chroma): the decision's chroma
-//   check warps cb and cr in one pass (warp.cuh gt_chroma_pair) and keeps
-//   them as a GT CU's chroma; C8's MC of cb and cr in one pass for another
-//   inter CU (interp.cuh mc_pair), C2's DM intra otherwise. The
+//   CU's own decision on the leader (leader_tail, decide_chroma): the
+//   decision in registers on every warp, and only for a GT candidate its
+//   chroma check, which warps cb and cr in one pass (warp.cuh
+//   gt_chroma_pair) and keeps them as a GT CU's chroma; C8's MC of cb and
+//   cr in one pass for another inter CU (interp.cuh mc_pair), C2's DM
+//   intra otherwise. The
 //   predictions go to device scratch, the decisions straight into their
 //   packed output slots; what one CTA of the cluster writes for another
 //   crosses in global memory, ordered by the cluster syncs;
 // - write phase, one CTA per CU and plane: C3 (tq.cuh, the RDOQ arm of
-//   C7 where asked) on the luma prediction into ry and coef_y with C10's
-//   motion write into the 4x4 motion planes; C3 on cb, and on cr, into rc
-//   and coef_c.
+//   C7 where asked) on the luma prediction (a GT CU's from C12's slot)
+//   into ry and coef_y with C10's motion write into the 4x4 motion planes;
+//   C3 on cb, and on cr, into rc and coef_c.
 // No read phase writes a plane that a read phase reads (ry, rc and the
 // motion planes are written in write phases only), and a write phase reads
 // only the original and its own CU's scratch, so the items of a phase may
@@ -337,38 +339,37 @@ constexpr int kIntraRank = kClusterCtas - 1, kAnchorRank = 1;
 constexpr int kSsArmsRank = kAnchorRank + 2, kTArmsRank = kSsArmsRank + 1;
 static_assert(kTArmsRank < kIntraRank, "the chains' and anchors' CTAs");
 
-// The leader's steps of the read phase of CU item w after C10's
-// tournament: C12's decision, whose chroma check warps a GT CU's cb and cr
-// into the CU's chroma slots, then, for another inter CU, C8's MC of cb and
-// cr in one pass from rc (a temporal CU's from the previous picture).
-// Returns whether the CU's chroma is predicted (an intra CU's is not). A
-// call of its own, so that its windows' registers do not add to those of
-// the read phase's other bodies: inlined, the encode kernels spilled more
-// at their 128 registers, and calls for the chroma check and the MC alone
-// let ptxas give them 186 registers, one CTA an SM (PERF.md §6). The
-// chroma positions and slots, which the decision does not write, are read
-// before it.
+// The rest of the leader's steps of CU item w after the decision's pick
+// p, a call of its own inside leader_tail (its windows' registers stay out
+// of the tail's: inlined there, the encode kernels spilled up to 68 bytes,
+// PERF.md §6), made only by a GT candidate or an inter CU:
+// for a candidate C12's chroma check, which warps cb and cr in one pass
+// into the CU's chroma slots, and the decision's outputs; then, for an
+// inter CU that GT did not take, C8's MC of cb and cr in one pass from rc
+// (a temporal CU's from the previous picture). Returns whether the CU's
+// chroma is predicted. No barrier at the end: the leader's next write to
+// sm is behind one (the next CU's search part opens with a CTA-wide vote,
+// the write phase with the grid sync).
 template <bool kPss>
-__device__ __noinline__ bool decide_chroma(const ScanK &a, const int32_t *w,
-                                           int g, int32_t *sm) {
+__device__ __noinline__ bool decide_tail(const ScanK &a, const int32_t *w,
+                                         int g, int32_t *sm, GtPick p) {
   const int row = w[1];
   const SizeK &z = a.size[w[0] - 3];
   const int m = z.n / 2, mm = m * m;
   int32_t *ocb = z.cpred + (long long)w[2] * mm;
   int32_t *ocr = z.cpred + (long long)w[3] * mm;
+  if (p.cand) {
+    int vx, vy;
+    gt_anchor(z.gtd, row, p.ai, vx, vy);
+    const int safe = !gt_chroma_check(z.gtd, row, p.ai, vx, vy, sm, ocb, ocr);
+    gt_decide_put(z.gtd, row, p.corner, safe, vx, vy);
+    stamp(g, kStampDecide);
+    // a GT CU's cb and cr: warped by the check
+    if (safe) return true;
+    if (!z.inter[row]) return false;
+  }
   const int bx = z.cpos[2 * w[2]], by = z.cpos[2 * w[2] + 1];
   const int rx = z.cpos[2 * w[3]], ry = z.cpos[2 * w[3] + 1];
-  if (z.gt) {
-    gt_decide_block(z.gtd, row, sm, ocb, ocr);
-    stamp(g, kStampDecide);
-  } else if (threadIdx.x == 0) {
-    z.gtflag[row] = 0;
-    for (int k = 0; k < 6; ++k) z.gtc[6 * row + k] = 0;
-  }
-  __syncthreads();
-  // a GT CU's cb and cr: warped by the decision's chroma check
-  if (z.gtflag[row]) return true;
-  if (!z.inter[row]) return false;
   // an SS CU reads the recon, a temporal one the previous picture
   const Src &cs = !kPss || z.refsel[row] == 1 ? a.csrc : a.rcsrc;
   const int mvx = z.mv[2 * row], mvy = z.mv[2 * row + 1];
@@ -380,8 +381,61 @@ __device__ __noinline__ bool decide_chroma(const ScanK &a, const int32_t *w,
     mc_pair<8>(jb, jr, a.bit_depth, sm, PutPred{ocb, m}, PutPred{ocr, m});
   else
     mc_pair<16>(jb, jr, a.bit_depth, sm, PutPred{ocb, m}, PutPred{ocr, m});
-  __syncthreads();   // the next CU's bodies reuse sm
   return true;
+}
+
+// The leader's steps of the read phase of CU item w after C10's
+// tournament: C12's decision, its pick in registers on every warp
+// (gt_search.cuh gt_pick: no shared memory, no barrier) and, for a CU that
+// is no GT candidate, its outputs; then decide_tail, a call, for a GT
+// candidate or an inter CU. Returns whether the CU's chroma is predicted
+// (an intra CU's is not: unless GT was its candidate, it makes no call).
+// The tournament's outputs (inter, mv, refsel) are read after its closing
+// barrier.
+template <bool kPss>
+__device__ __forceinline__ bool decide_chroma(const ScanK &a,
+                                              const int32_t *w, int g,
+                                              int32_t *sm) {
+  const int row = w[1];
+  const SizeK &z = a.size[w[0] - 3];
+  GtPick p{0, 0, 0};
+  if (z.gt) {
+    p = gt_pick(z.gtd, row);
+    if (!p.cand) {
+      gt_decide_put(z.gtd, row, p.corner, 0, 0, 0);
+      stamp(g, kStampDecide);
+    }
+  } else {
+    if (threadIdx.x < 6) z.gtc[6 * row + threadIdx.x] = 0;
+    if (threadIdx.x == 6) z.gtflag[row] = 0;
+  }
+  return (p.cand || z.inter[row]) && decide_tail<kPss>(a, w, g, sm, p);
+}
+
+// The leader's steps of CU item w after C10's tournament: C12's decision
+// (decide_chroma) and the chroma prediction, C2's DM intra for an intra
+// CU. A call of its own: with these bodies inline in the read phase, the
+// encode kernels spilled 16 to 36 bytes at their 128 registers; as a call,
+// no more than the parent's (PERF.md §6). The tournament stays
+// outside: inside the call it cost about 0.4 us a group. The DM intra
+// stays inside: inline after a call of the decision, as the parent had it
+// (also with that call made only on a size with GT or by an inter CU),
+// the new decision spilled 20 to 40 bytes; as a call of its own, an intra
+// CU's chroma stage took 0.8 us longer on iss-gt (PERF.md §6).
+template <bool kPss>
+__device__ __noinline__ void leader_tail(const ScanK &a, const int32_t *w,
+                                         int g, int32_t *sm) {
+  const int row = w[1];
+  const SizeK &z = a.size[w[0] - 3];
+  if (!decide_chroma<kPss>(a, w, g, sm)) {
+    // an intra CU: C2's DM intra of cb and cr
+    const int m = z.n / 2, mm = m * m, imode = __ldcg(z.imode + row);
+    for (int k = 2; k <= 3; ++k)
+      intra_block(a.c, z.lc.t, z.cpos[2 * w[k]], z.cpos[2 * w[k] + 1],
+                  z.cavail + (long long)row * (4 * m + 1), imode, m, 1,
+                  a.bit_depth, a.strong, sm, z.cpred + (long long)w[k] * mm);
+  }
+  stamp(g, kStampChroma);
 }
 
 // The read phase of CU item w on its cluster: every decision and
@@ -453,20 +507,17 @@ __device__ void encode_read(const ScanK &a, const int32_t *w, int g,
   stamp(g, kStampCluster3);
   if (rank != 0) return;
   arms_tournament(z.arms, row, sm, arms_mark);
-  if (!decide_chroma<kPss>(a, w, g, sm)) {
-    // an intra CU: C2's DM intra of cb and cr
-    const int m = n / 2, mm = m * m, imode = __ldcg(z.imode + row);
-    for (int k = 2; k <= 3; ++k)
-      intra_block(a.c, z.lc.t, z.cpos[2 * w[k]], z.cpos[2 * w[k] + 1],
-                  z.cavail + (long long)row * (4 * m + 1), imode, m, 1,
-                  a.bit_depth, a.strong, sm, z.cpred + (long long)w[k] * mm);
-  }
-  stamp(g, kStampChroma);
+  leader_tail<kPss>(a, w, g, sm);
 }
 
-// The write phase of CU item w, one plane a task: plane 0 C3 on luma and
-// the motion write, plane 1 and 2 C3 on cb and cr, from the read phase's
-// scratch.
+// The write phase of CU item w, one plane a task: plane 0 C3 on luma (a
+// GT CU's prediction read from C12's slot of its chosen anchor, which
+// C12 left in place) and C10's motion write into the 4x4 motion planes (a
+// cell a thread), which no task of the phase reads; plane 1 and 2 C3 on cb
+// and cr; from the read phase's scratch. The motion write stays a cell a
+// thread after C3 on the luma task: on the cr task, or with vector stores,
+// the encode kernels spilled more, and with a cell row a thread the write
+// phase took 1.4-4.2 % longer (PERF.md §6).
 template <bool kRdoq, bool kPss>
 __device__ void encode_write(const ScanK &a, const int32_t *w, int plane,
                              int g, int32_t *sm) {
@@ -480,11 +531,17 @@ __device__ void encode_write(const ScanK &a, const int32_t *w, int plane,
   if (plane == 0) {
     const int px = z.pos[2 * row], py = z.pos[2 * row + 1];
     const int32_t *ip = z.ipred + (long long)row * nn;
+    if (z.gt && __ldcg(z.gtflag + row)) {
+      const float *sc = z.gtd.s_cost + 2 * row;
+      ip = z.gtd.s_pred +
+           (2LL * row + gt_cheaper(__ldcg(sc), __ldcg(sc + 1))) * nn;
+    }
     for (int i = tid; i < nn; i += nt) pred[i] = __ldcg(ip + i);
     __syncthreads();
     const int cbf = tq_encode_block<kRdoq>(z.ly.tq, a.ty, px, py, smode,
                                            pred, sm + nn, tq_mark(g));
     if (tid == 0) z.cbf_y[row] = cbf;
+    // C10's motion write, a cell a thread
     const int on = __ldcg(z.inter + row) != 0;
     const int mvx = __ldcg(z.mv + 2 * row), mvy = __ldcg(z.mv + 2 * row + 1);
     const int ref = kPss ? __ldcg(z.refsel + row) : 0;
@@ -830,7 +887,7 @@ ScanK build(const SsScanIn &in, bool encode, bool rdoq, size_t *smem) {
       d.s_amv = z.s_amv;
       d.s_ok = z.s_ok;
       d.costs = z.costs;
-      d.pred = z.ipred;
+      d.pred = nullptr;   // a GT CU's prediction stays in its slot
       d.inter = z.inter;
       d.mv = z.mv;
       d.smode = z.smode;

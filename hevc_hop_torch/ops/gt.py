@@ -266,15 +266,15 @@ def gt_search_split(recon, org, pos, mv, n, lam, h, bit_depth,
     return gtc, pred, best
 
 
-def gt_arm_plain(recon, org, pos, zcur, zmax2n, anchor, gt_rate, gt_ok,
-                 p_ss, n, lam, w, h, bit_depth):
-    """The multi-anchor GT refinement (the reference's _gt_arm with C9's
-    one ring anchor): anchor [B, 2] full pel, gt_rate [B] float32 and
-    gt_ok [B] bool from C9's ring; p_ss [B, 6, 2] the AMVP predictors.
-    Returns (gcost [B] float32, gtc [B, 3, 2], gpred [B, n, n], amv [B, 2],
-    ok_any [B]). An anchor that is not causal is not searched: where no
-    anchor is, gcost is 3e38 as in the reference and gtc, gpred and amv
-    are those of an unsearched first anchor (zero corners)."""
+def gt_anchors_plain(recon, org, pos, zcur, zmax2n, anchor, gt_rate, gt_ok,
+                     p_ss, n, lam, w, h, bit_depth):
+    """The search entry's outputs per (block, anchor) (the reference's
+    _gt_arm before its argmin, with C9's one ring anchor): anchor [B, 2]
+    full pel, gt_rate [B] float32 and gt_ok [B] bool from C9's ring; p_ss
+    [B, 6, 2] the AMVP predictors. Returns (s_gtc [B, 2, 6], s_pred [B, 2,
+    n, n], s_cost [B, 2] float32 totals, 3e38 where the anchor is not
+    causal, s_amv [B, 2, 2] full pel, s_ok [B, 2] int32). An anchor that
+    is not causal is not searched: its corners and prediction are zero."""
     b = pos.shape[0]
     dev = pos.device
     pr = p_ss[:, 0]
@@ -299,10 +299,25 @@ def gt_arm_plain(recon, org, pos, zcur, zmax2n, anchor, gt_rate, gt_ok,
     g1 = quant.fma(bits_p + INTER_BITS, f32(lam), cost_a[:, 1]) + lam32
     gcost_a = torch.where(ok, torch.stack([g0, g1], 1),
                           torch.full_like(cost_a, BIG))
-    ai = argmin_first(gcost_a)
-    ar = torch.arange(b, device=dev)
-    return (gcost_a[ar, ai], gtc_a[ar, ai], gpred_a[ar, ai], anchors[ar, ai],
-            ok.any(1))
+    return (gtc_a.reshape(b, 2, 6), gpred_a, gcost_a, anchors,
+            ok.to(torch.int32))
+
+
+def gt_arm_plain(recon, org, pos, zcur, zmax2n, anchor, gt_rate, gt_ok,
+                 p_ss, n, lam, w, h, bit_depth):
+    """The multi-anchor GT refinement (the reference's _gt_arm with C9's
+    one ring anchor): :func:`gt_anchors_plain`'s anchors, the least cost
+    kept (the first among equals). Returns (gcost [B] float32, gtc [B, 3,
+    2], gpred [B, n, n], amv [B, 2], ok_any [B]). Where no anchor is
+    causal, gcost is 3e38 as in the reference and gtc, gpred and amv are
+    those of an unsearched first anchor (zero corners)."""
+    s_gtc, s_pred, s_cost, s_amv, s_ok = gt_anchors_plain(
+        recon, org, pos, zcur, zmax2n, anchor, gt_rate, gt_ok, p_ss, n, lam,
+        w, h, bit_depth)
+    ai = argmin_first(s_cost)
+    ar = torch.arange(pos.shape[0], device=pos.device)
+    return (s_cost[ar, ai], s_gtc[ar, ai].reshape(-1, 3, 2), s_pred[ar, ai],
+            s_amv[ar, ai], (s_ok != 0).any(1))
 
 
 def gt_step_plain(recon, org_plane, rc, pos, zcur, zmax2n, motion, nbav, miav,
@@ -448,6 +463,89 @@ def _gt_step_cuda(recon, org_plane, rc, pos, zcur, zmax2n, motion, nbav,
     if refsel is not None:
         PSS_DECIDE_LAUNCHES += 1
     return flag, gtc
+
+
+# ---------------------------------------------------------------------------
+# Walk of kernel C12's decision (csrc/gt_search.cuh gt_pick, gt_chroma_check,
+# gt_decide_put), in plain torch, for the tests.
+# ---------------------------------------------------------------------------
+
+# the decision's words of a block, lane k of a warp word k (gt_search.cuh
+# GtWord): the anchors' costs, ok flags, anchors, corners, C10's costs
+WORD_COST, WORD_OK, WORD_AMV, WORD_GTC, WORD_C10, DECIDE_WORDS = (0, 2, 4, 8,
+                                                                  20, 24)
+
+
+def decide_words(s_cost, s_ok, s_amv, s_gtc, costs) -> torch.Tensor:
+    """[B, 32] int32: lane k's word of each block as gt_pick loads it
+    (floats by their bits, zero past the last word)."""
+    b = s_cost.shape[0]
+    v = torch.zeros((b, 32), dtype=torch.int32, device=s_cost.device)
+    v[:, WORD_COST:WORD_OK] = s_cost.contiguous().view(torch.int32)
+    v[:, WORD_OK:WORD_AMV] = s_ok
+    v[:, WORD_AMV:WORD_GTC] = s_amv.reshape(b, 4)
+    v[:, WORD_GTC:WORD_C10] = s_gtc.reshape(b, 12)
+    nc = costs.shape[1]
+    v[:, WORD_C10:WORD_C10 + nc] = costs.contiguous().view(torch.int32)
+    return v
+
+
+def gt_pick_walk(v: torch.Tensor, pss: bool):
+    """gt_pick on the words v [B, 32]: each block's anchor ai (the anchors'
+    costs shuffled from lanes 0 and 1), candidate test and chosen corners
+    [B, 6], as a warp takes them: each lane tests its own word, each test
+    a ballot (an ok flag set, a corner of the chosen anchor not zero, a
+    C10 cost at or below the GT cost)."""
+    b = v.shape[0]
+    ar = torch.arange(b, device=v.device)
+    lane = torch.arange(32, device=v.device)
+    fl = lambda k: v[:, k].contiguous().view(torch.float32)
+    c0, c1 = fl(WORD_COST), fl(WORD_COST + 1)
+    ai = (c1 < c0).long()
+    g = torch.where(ai == 1, c1, c0)
+    lo = (WORD_GTC + 6 * ai)[:, None]
+    nc = 4 if pss else 3
+    ok = ((lane >= WORD_OK) & (lane < WORD_AMV) & (v != 0)).any(1)
+    nonzero = ((lane >= lo) & (lane < lo + 6) & (v != 0)).any(1)
+    beaten = ((lane >= WORD_C10) & (lane < WORD_C10 + nc)
+              & ~(g[:, None] < v.view(torch.float32))).any(1)
+    corners = v[ar[:, None], lo + torch.arange(6, device=v.device)]
+    return ai, ok & nonzero & ~beaten, corners
+
+
+def gt_decide_walk(rc, pos, s_gtc, s_pred, s_cost, s_amv, s_ok, costs, pred,
+                   inter, mv, smode, n, h, hc_off, bit_depth, refsel=None,
+                   ss_idx=SS_IDX_PSS, slot=False):
+    """Kernel C12's decision as csrc/gt_search.cuh runs it, in plain torch:
+    the pick on each block's words (gt_pick_walk), the chroma check
+    (gt_chroma_pair_walk) on the candidates alone, then the outputs: gtc
+    [B, 6] the chosen corners, flag [B], and where GT is safe and wins
+    C10's choice overridden in place (inter, mv, smode, on PSS refsel,
+    set to ss_idx) and, unless ``slot`` (kernel C14, whose write phase
+    reads a GT CU's prediction from its chosen anchor's slot of s_pred),
+    the prediction copied over pred. refsel None: the ISS form (costs [B,
+    3]); else costs [B, 4]. Returns (flag [B] int32, gtc [B, 6], cand [B]
+    bool: the blocks that ran the chroma check, ai [B]: the chosen slot)."""
+    pss = refsel is not None
+    v = decide_words(s_cost, s_ok, s_amv, s_gtc, costs)
+    ai, cand, gtc = gt_pick_walk(v, pss)
+    # the chosen anchor, loaded by a candidate's check (gt_anchor)
+    amv = s_amv[torch.arange(pos.shape[0], device=pos.device), ai]
+    safe = torch.zeros_like(cand)
+    sel = cand.nonzero()[:, 0]
+    if len(sel):
+        safe[sel] = gt_chroma_pair_walk(rc, pos[sel] // 2, amv[sel],
+                                        gtc[sel].reshape(-1, 3, 2), n // 2,
+                                        h // 2, hc_off, bit_depth)[2]
+    inter[safe] = 1
+    mv[safe] = amv[safe] * 4
+    smode[safe] = 0
+    if pss:
+        refsel[safe] = ss_idx
+    if not slot:
+        ar = torch.arange(pos.shape[0], device=pos.device)
+        pred[safe] = s_pred[ar, ai][safe]
+    return safe.to(torch.int32), gtc, cand, ai
 
 
 # ---------------------------------------------------------------------------

@@ -19,8 +19,14 @@ C14's stage clocks (chip_smoke.stage_split; the library built with
 differ from the production library's, and prints the split: per stage
 the longest CTA of each group summed over the groups, and the arms step
 (the stages between cluster syncs 2 and 3), per group its longest CTA,
-its longest C10 chain and its longest C12 anchor, summed. Then C10's
-arms entry and C12's search and decide entries on the inputs the level
+its longest C10 chain and its longest C12 anchor, summed; and the decide
+and chroma stages by CU kind (kinds): each group's leader CTAs (rank 0
+of a cluster) stamp the last CU their cluster read in the group, a GT
+candidate (its GT cost beats C10's and its corners are not all zero, as
+the scratch that C14's argument block names shows after the launch:
+ScratchTap), another inter CU or an intra one, with the count and share
+of each kind in the picture. Then C10's arms entry and C12's search and
+decide entries on the inputs the level
 loop gives them at the fullest level (iss-gt-warped 16x16; pss-gt's
 last PSS picture), timed with CUDA events (median of 21) and held against
 their plain bodies on the card.
@@ -40,6 +46,9 @@ temporal search, the transform round trip, the tail) the CTAs' summed
 nanoseconds and that share of the launch's ms; the clocked costs must
 equal the production build's.
 
+ptxas's report of C14's four encode kernels (registers, stack, spill
+stores and loads; ptxas_encode) is printed after the build.
+
 Prints the card's name and power limit, and the results as one JSON
 object on its last line (also written to out.json where given). Run two
 trees in turns in one call to compare them.
@@ -47,6 +56,7 @@ trees in turns in one call to compare them.
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -255,6 +265,104 @@ def entries(calls):
     return out
 
 
+class ScratchTap:
+    """Within it, each launch of C14's encode (models/ss_scan.py _launch
+    with hh_ss_scan_encode) keeps a copy of the decision's inputs that the
+    launch's argument block names per size (_SsSizeIn: costs, s_cost,
+    s_ok, s_gtc; the GT words only on a size with GT), read once the
+    launch has run: {log2: {name: tensor}}. ``outs`` gives the sizes and
+    their CU counts (the encode's outputs by log2, inter first)."""
+
+    # name -> (shape after the CU count, typestr); costs' width by PSS
+    WORDS = {"s_cost": ((2,), "<f4"), "s_ok": ((2,), "<i4"),
+             "s_gtc": ((2, 6), "<i4")}
+
+    def __init__(self, outs, pss):
+        self.cus = {lg: int(o[0].shape[0]) for lg, o in outs.items()}
+        self.words = dict(self.WORDS, costs=((4 if pss else 3,), "<f4"))
+
+    def read(self, z, t):
+        out = {}
+        for nm, (shape, typestr) in self.words.items():
+            ptr = getattr(z, nm)
+            if ptr:
+                view = type("View", (), {"__cuda_array_interface__": {
+                    "shape": (t,) + shape, "typestr": typestr,
+                    "data": (ptr, False), "version": 2}})()
+                out[nm] = torch.as_tensor(view, device="cuda").clone()
+        return out
+
+    def __enter__(self):
+        self.orig, self.sizes = ss_scan._launch, None
+
+        def launch(entry, sig, a, *extra, **k):
+            r = self.orig(entry, sig, a, *extra, **k)
+            if entry == "hh_ss_scan_encode":
+                torch.cuda.synchronize()
+                self.sizes = {lg: self.read(a.size[lg - 3], t)
+                              for lg, t in self.cus.items()}
+            return r
+
+        ss_scan._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        ss_scan._launch = self.orig
+
+
+def candidates(s, pss):
+    """GT candidates [T] bool from one size's scratch: the cheaper anchor
+    (the first among equals), a causal one, its corners not all zero, its
+    cost below C10's intra, merge, SS (and temporal) costs."""
+    if "s_cost" not in s:
+        return torch.zeros(s["costs"].shape[0], dtype=torch.bool,
+                           device=s["costs"].device)
+    c0, c1 = s["s_cost"].unbind(1)
+    ai = (c1 < c0).long()
+    ar = torch.arange(c0.shape[0], device=c0.device)
+    g = torch.where(c1 < c0, c1, c0)
+    cand = (s["s_ok"] != 0).any(1) & (s["s_gtc"][ar, ai] != 0).any(1)
+    for k in ((2, 0, 1, 3) if pss else (2, 0, 1)):
+        cand &= g < s["costs"][:, k]
+    return cand
+
+
+def kinds(clk, sizes, outs, work, per_cu, pss):
+    """The decide and chroma stages by CU kind (see the header): per kind
+    the CUs of the picture, their share, the CUs whose leader stamps were
+    read (the last of their cluster in a group), and those CUs' mean and
+    summed decide and chroma us."""
+    d = durations(clk)
+    items = np.asarray(work.host_items)
+    groups = np.asarray(work.host_groups)
+    kind = {}
+    for lg, s in sizes.items():
+        cand = candidates(s, pss).cpu().numpy()
+        inter = outs[lg][0].cpu().numpy() != 0
+        kind[lg] = np.where(cand, 0, np.where(inter, 1, 2))
+    names = ("gt_candidate", "other_inter", "intra")
+    total = np.bincount(np.concatenate(list(kind.values())), minlength=3)
+    rows = {k: [] for k in range(3)}
+    clusters = clk.shape[1] // per_cu
+    for g, (first, cnt, _) in enumerate(groups):
+        for c in range(min(clusters, cnt)):
+            last = first + c + (cnt - 1 - c) // clusters * clusters
+            lg, row = int(items[last, 0]), int(items[last, 1])
+            rows[int(kind[lg][row])].append(
+                (d["C12 decide"][g, c * per_cu], d["chroma"][g, c * per_cu]))
+    out = {}
+    for k, nm in enumerate(names):
+        v = np.asarray(rows[k], dtype=np.float64).reshape(-1, 2) / 1e3
+        out[nm] = {"cus": int(total[k]),
+                   "share": float(total[k] / max(total.sum(), 1)),
+                   "stamped": int(len(v)),
+                   "decide_us_mean": float(v[:, 0].mean()) if len(v) else 0.0,
+                   "chroma_us_mean": float(v[:, 1].mean()) if len(v) else 0.0,
+                   "decide_us_sum": float(v[:, 0].sum()),
+                   "chroma_us_sum": float(v[:, 1].sum())}
+    return out
+
+
 def clocked(so, fn, groups):
     set_clock = so.hh_ss_scan_clock
     set_clock.argtypes = [ctypes.c_void_p, ctypes.c_int]
@@ -272,10 +380,13 @@ def clocked(so, fn, groups):
     return got, buf[:, :grid].cpu().numpy(), launch
 
 
-def split(so, fn, want, groups):
-    got, clk, launch = clocked(so, fn, groups)
+def split(so, fn, want, work, pss=False):
+    with ScratchTap(want[4], pss) as tap:
+        got, clk, launch = clocked(so, fn, len(work.host_groups))
     rec = {"clock_build_mismatches": mism(got[:4], want[:4]),
-           "clock_launch": launch, **cs.stage_split(clk), **arms_step(clk)}
+           "clock_launch": launch, **cs.stage_split(clk), **arms_step(clk),
+           "kinds": kinds(clk, tap.sizes, want[4], work,
+                          launch["ctas_per_cu"], pss)}
     if hasattr(cs, "CLOCK_SM"):
         rec["placement"] = placement(clk, launch["ctas_per_cu"])
     return rec
@@ -399,7 +510,7 @@ def c14(res):
             with Recorder() as r:
                 ss_scan.scan_encode_iss_loop(*args)
             rec["entries"] = entries(r.calls)
-        rec.update(split(so, fn, want, len(work.host_groups)))
+        rec.update(split(so, fn, want, work))
         rec.update(decode_part(
             so, lambda: ss_scan.scan_decode_ss(*dargs, work=dwork),
             len(dwork.host_groups)))
@@ -417,12 +528,33 @@ def c14(res):
     with Recorder() as r:
         ss_scan.scan_encode_pss_loop(*args)
     rec["entries"] = entries(r.calls)
-    rec.update(split(so, fn, want, len(work.host_groups)))
+    rec.update(split(so, fn, want, work, pss=True))
     rec.update(decode_part(
         so, lambda: ss_scan.scan_decode_pss(*dargs, work=dwork),
         len(dwork.host_groups)))
     print("pss-gt", json.dumps(rec), flush=True)
     res["pss-gt"] = rec
+
+
+def ptxas_encode(log):
+    """ptxas's report of C14's four encode kernels from the build log:
+    {kernel: {registers, stack, spill_stores, spill_loads}}."""
+    names = {"ss_scan_encode_kernelILb0": "iss", "ss_scan_encode_kernelILb1":
+             "iss_rdoq", "ss_scan_pss_encode_kernelILb0": "pss",
+             "ss_scan_pss_encode_kernelILb1": "pss_rdoq"}
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln or "Compiling entry" in ln:
+            cur = next((v for k, v in names.items() if k in ln), None)
+        elif cur is not None and "stack frame" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out.setdefault(cur, {}).update(
+                stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif cur is not None and "Used" in ln and "registers" in ln:
+            out.setdefault(cur, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", ln).group(1))
+            cur = None
+    return out
 
 
 def main():
@@ -434,11 +566,14 @@ def main():
                                                         "").splitlines()
               if "ss_scan" in ln or "Used" in ln or "spill" in ln]
     print("\n".join(report), flush=True)
+    ptx = ptxas_encode(_cuda.BUILD_LOGS.get("ss_scan", ""))
+    print("ptxas encode kernels", json.dumps(ptx), flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    res = {"card": smi, "tree": tree, "ptxas_ss_scan": report}
+    res = {"card": smi, "tree": tree, "ptxas_ss_scan": report,
+           "ptxas_encode": ptx}
     if "prepass" in PARTS:
         res["prepass"] = prepass()
     if "c14" in PARTS:
